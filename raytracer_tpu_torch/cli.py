@@ -1,0 +1,153 @@
+"""Command-line renderer (port of raytracer_tpu/cli.py).
+
+Usage:
+  python -m raytracer_tpu_torch.cli <scene_file> [--width W] [--height H]
+      [--spp N] [--out image.png] [--camera X Y Z] [--target X Y Z]
+      [--device cuda|cpu] ...
+
+The parser is the JAX package's, plus --device; --accel takes the port's
+values. Flags of modes the port does not run yet (--restir, --adaptive,
+--denoise, --preview, --preview-scale, --aovs, --spp-batch > 1) exit with
+an error naming their ROADMAP.md port queue item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+from raytracer_tpu_torch.api import ProgressiveRenderer
+from raytracer_tpu_torch.ops.camera import Camera
+from raytracer_tpu_torch.scene.loaders import load_scene
+from raytracer_tpu_torch.utils.config import RenderConfig
+from raytracer_tpu_torch.utils.image import write_image
+from raytracer_tpu_torch.utils.stats import RenderStats
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("scene", help="scene file (.json, .gltf, .glb, .obj)")
+    p.add_argument("--width", type=int, default=1280)
+    p.add_argument("--height", type=int, default=1020)
+    p.add_argument("--spp", type=int, default=64,
+                   help="progressive frames to accumulate")
+    p.add_argument("--out", default="render.png")
+    p.add_argument("--camera", type=float, nargs=3, default=(0.0, 0.0, -3.0),
+                   metavar=("X", "Y", "Z"))
+    p.add_argument("--target", type=float, nargs=3, default=(0.0, 0.0, 0.0),
+                   metavar=("X", "Y", "Z"))
+    p.add_argument("--max-depth", type=int, default=3)
+    p.add_argument("--background", type=float, nargs=3,
+                   default=(0.53, 0.81, 0.92))
+    p.add_argument("--accel", choices=("auto", "cuda", "bvh", "brute"),
+                   default="auto")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (cuda, or cpu for the "
+                        "kernels' plain torch versions)")
+    p.add_argument("--no-transmission", action="store_true")
+    p.add_argument("--light-sampling-only", action="store_true",
+                   help="direct light via NEE only (USE_LIGHT_SAMPLING_ONLY,"
+                        " simple.rchit:10)")
+    p.add_argument("--restir", action="store_true",
+                   help="ReSTIR DI (not ported yet)")
+    p.add_argument("--adaptive", type=float, default=0.0, metavar="TOL",
+                   help="adaptive sampling tolerance (not ported yet; 0 = "
+                        "off)")
+    p.add_argument("--denoise", action="store_true",
+                   help="a-trous denoise of the output (not ported yet)")
+    p.add_argument("--checkpoint", default=None,
+                   help="save/resume accumulation state at this .npz path")
+    p.add_argument("--preview", type=int, default=0, metavar="N",
+                   help="rewrite --out every N frames (not ported yet)")
+    p.add_argument("--aovs", default=None, metavar="PREFIX",
+                   help="write AOV images (not ported yet)")
+    p.add_argument("--preview-scale", type=int, default=1, metavar="K",
+                   help="preview at 1/K resolution (not ported yet)")
+    p.add_argument("--spp-batch", type=int, default=1, metavar="S",
+                   help="samples per launch (only 1 is ported)")
+    p.add_argument("--stats-every", type=int, default=0, metavar="N",
+                   help="print the stats table every N frames")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+_UNPORTED = (
+    # (flag, is set, ROADMAP.md port queue item)
+    ("--restir", lambda a: a.restir, "P10"),
+    ("--adaptive", lambda a: a.adaptive > 0, "P8"),
+    ("--denoise", lambda a: a.denoise, "P7"),
+    ("--preview", lambda a: a.preview > 0, "P7"),
+    ("--preview-scale", lambda a: a.preview_scale > 1, "P7"),
+    ("--aovs", lambda a: a.aovs is not None, "P7"),
+    ("--spp-batch", lambda a: a.spp_batch > 1, "P9"),
+)
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for flag, is_set, item in _UNPORTED:
+        if is_set(args):
+            parser.error(f"{flag} is not ported yet (ROADMAP.md port queue "
+                         f"item {item})")
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(levelname)s %(name)s: %(message)s",
+    )
+    log = logging.getLogger("raytracer_tpu_torch.cli")
+
+    scene = load_scene(args.scene)
+    cfg = RenderConfig(
+        width=args.width,
+        height=args.height,
+        max_depth=args.max_depth,
+        background=tuple(args.background),
+        accel=args.accel,
+        enable_transmission=not args.no_transmission,
+        use_light_sampling_only=args.light_sampling_only,
+    )
+    camera = Camera.create(
+        position=tuple(args.camera),
+        aspect=cfg.width / cfg.height,
+        target=tuple(args.target),
+    )
+    renderer = ProgressiveRenderer(scene, camera, cfg, device=args.device)
+    log.info("rendering on %s, accel=%s", renderer.device,
+             renderer.config.accel)
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        renderer.load_checkpoint(args.checkpoint)
+        log.info("resumed at frame %d", renderer.frame)
+
+    stats = RenderStats()
+    stats.set_scene_counts(scene)
+    start = time.perf_counter()
+    first_launch = True
+    while renderer.frame < args.spp:
+        stats.frame_begin()
+        if not renderer.step():
+            break
+        stats.frame_end()
+        i = renderer.frame - 1  # samples accumulated, 0-based last sample
+        if args.verbose or (i + 1) % 16 == 0 or first_launch:
+            elapsed = time.perf_counter() - start
+            log.info("frame %d/%d (%.2f s)", i + 1, args.spp, elapsed)
+        first_launch = False
+        if args.stats_every and (i + 1) % args.stats_every == 0:
+            print(stats.format_table())
+    elapsed = time.perf_counter() - start
+
+    write_image(args.out, renderer.image())
+    log.info(
+        "wrote %s: %d spp in %.2f s (%.2f spp/s, %d triangles)",
+        args.out, renderer.frame, elapsed,
+        renderer.frame / max(elapsed, 1e-9), scene.num_triangles,
+    )
+    if args.checkpoint:
+        renderer.save_checkpoint(args.checkpoint)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,294 @@
+// Closest-hit and any-hit traversal of the 4-wide collapsed BVH, one
+// thread per ray, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels raytracer_tpu/ops/pallas_subpacket.py:329
+// (_closest_kernel, K1) and :423 (_occlusion_kernel, K2). Those run one
+// traversal per 256-ray sub-packet row with SMEM stacks and leaf queues,
+// because Mosaic has no per-lane gathers; none of that carries over. Here
+// each thread walks its own ray depth-first with a private stack:
+//
+//   - an internal node reads its quad row (4 child boxes, 6 x float4) and
+//     the 4 child metas (one int4), slab-tests the 4 children with
+//     NaN-propagating min/max (absent children are NaN boxes and never
+//     hit), and pushes the hit ones: closest hit in child order except the
+//     nearest, which goes last; any-hit in child order;
+//   - a leaf (meta < 0, block ~meta) tests its leaf_size triangles in
+//     order, 3 x float4 each, with Moller-Trumbore; closest hit keeps a
+//     strictly smaller t, any-hit returns at the first triangle not of the
+//     ray's skip object.
+//
+// The arithmetic is written in the order of the plain torch versions in
+// ops/quad_traverse.py, and the library is built with -fmad=false, so the
+// kernels equal them bit for bit.
+//
+// What bounds it on the card: dependent loads. Each step of a ray's walk
+// is a 128-byte node read or a leaf_size*48-byte leaf read whose address
+// comes from the step before, and the threads of a warp diverge on
+// incoherent rays. The design keeps the walk's state (ray, best hit,
+// stack) in registers and local memory and reads every node and leaf row
+// with vector loads through the read-only cache; making it fast (wider
+// loads, warp-coherent scheduling, ray sorting) is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kCap = 64;          // per-ray stack entries
+constexpr float kTMin = 1e-3f;    // traceRayEXT t_min (simple.rgen:92-104)
+constexpr float kBig = 3.0e38f;   // "no hit" t_near
+constexpr int kTriStride = 12;    // floats per triangle in a leaf row
+
+__device__ __forceinline__ float nan_value() {
+  return __int_as_float(0x7fc00000);
+}
+
+// torch.minimum / torch.maximum semantics: a NaN operand gives NaN.
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (isnan(a) || isnan(b)) ? nan_value() : fminf(a, b);
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (isnan(a) || isnan(b)) ? nan_value() : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float inv_dir(float d) {
+  float a = fabsf(d) < 1e-20f ? (d >= 0.0f ? 1e-20f : -1e-20f) : d;
+  return 1.0f / a;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
+                                        const float* __restrict__ direction,
+                                        int64_t i) {
+  Ray r;
+  r.ox = origin[3 * i + 0];
+  r.oy = origin[3 * i + 1];
+  r.oz = origin[3 * i + 2];
+  r.dx = direction[3 * i + 0];
+  r.dy = direction[3 * i + 1];
+  r.dz = direction[3 * i + 2];
+  r.ix = inv_dir(r.dx);
+  r.iy = inv_dir(r.dy);
+  r.iz = inv_dir(r.dz);
+  return r;
+}
+
+// Slab test of one box (min.xyz, max.xyz) against [kTMin, t_cap].
+__device__ __forceinline__ bool slab(const Ray& r, float mnx, float mny,
+                                     float mnz, float mxx, float mxy,
+                                     float mxz, float t_cap, float* t_near) {
+  float t0x = (mnx - r.ox) * r.ix;
+  float t1x = (mxx - r.ox) * r.ix;
+  float t0y = (mny - r.oy) * r.iy;
+  float t1y = (mxy - r.oy) * r.iy;
+  float t0z = (mnz - r.oz) * r.iz;
+  float t1z = (mxz - r.oz) * r.iz;
+  float tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)),
+                  nmax(nmin(t0z, t1z), kTMin));
+  float tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)),
+                  nmin(nmax(t0z, t1z), t_cap));
+  *t_near = tn;
+  return tn <= tf;
+}
+
+// The 4 child slab tests of quad node `node`.
+__device__ __forceinline__ void test_children(const Ray& r,
+                                              const float4* __restrict__ q,
+                                              float t_cap, bool hit[4],
+                                              float tn[4]) {
+  float b[24];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float4 f = __ldg(q + j);
+    b[4 * j + 0] = f.x;
+    b[4 * j + 1] = f.y;
+    b[4 * j + 2] = f.z;
+    b[4 * j + 3] = f.w;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float* x = b + 6 * c;
+    hit[c] = slab(r, x[0], x[1], x[2], x[3], x[4], x[5], t_cap, &tn[c]);
+  }
+}
+
+// Moller-Trumbore against one leaf triangle; returns whether the hit is
+// valid for (kTMin, t_cap) and sets t, u, v.
+__device__ __forceinline__ bool moller(const Ray& r, float4 a, float4 b,
+                                       float4 c, float t_cap, float* t_out,
+                                       float* u_out, float* v_out) {
+  float v0x = a.x, v0y = a.y, v0z = a.z;
+  float e1x = a.w, e1y = b.x, e1z = b.y;
+  float e2x = b.z, e2y = b.w, e2z = c.x;
+  float px = r.dy * e2z - r.dz * e2y;
+  float py = r.dz * e2x - r.dx * e2z;
+  float pz = r.dx * e2y - r.dy * e2x;
+  float det = e1x * px + e1y * py + e1z * pz;
+  bool ok_det = fabsf(det) > 1e-10f;
+  float inv_det = ok_det ? 1.0f / det : 0.0f;
+  float tx = r.ox - v0x;
+  float ty = r.oy - v0y;
+  float tz = r.oz - v0z;
+  float u = (tx * px + ty * py + tz * pz) * inv_det;
+  float qx = ty * e1z - tz * e1y;
+  float qy = tz * e1x - tx * e1z;
+  float qz = tx * e1y - ty * e1x;
+  float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  *t_out = t;
+  *u_out = u;
+  *v_out = v;
+  return ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kTMin &&
+         t < t_cap;
+}
+
+__global__ void __launch_bounds__(128)
+closest_kernel(const float* __restrict__ origin,
+               const float* __restrict__ direction,
+               const float* __restrict__ t_max, int64_t n, int root,
+               const int4* __restrict__ qmeta,
+               const float4* __restrict__ qnodes,
+               const float4* __restrict__ ptris, int leaf,
+               float* __restrict__ out_t, int* __restrict__ out_tri,
+               float* __restrict__ out_u, float* __restrict__ out_v) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(origin, direction, i);
+  float bt = t_max[i];
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  const int leaf_f4 = leaf * kTriStride / 4;
+
+  int stack[kCap];
+  int sp = 0;
+  if (bt > kTMin) stack[sp++] = root;
+  while (sp > 0) {
+    int meta = stack[--sp];
+    if (meta < 0) {
+      const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
+      for (int k = 0; k < leaf; ++k) {
+        float4 a = __ldg(row + 3 * k);
+        float4 b = __ldg(row + 3 * k + 1);
+        float4 c = __ldg(row + 3 * k + 2);
+        float t, u, v;
+        if (moller(r, a, b, c, bt, &t, &u, &v)) {
+          bt = t;
+          btri = (int)c.y;
+          bu = u;
+          bv = v;
+        }
+      }
+    } else {
+      bool hit[4];
+      float tn[4];
+      test_children(r, qnodes + (int64_t)meta * 8, bt, hit, tn);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) tn[c] = hit[c] ? tn[c] : kBig;
+      int4 m = __ldg(qmeta + meta);
+      int kids[4] = {m.x, m.y, m.z, m.w};
+      // The TPU kernel's 2-bit argmin of the children's t_near.
+      int b0 = tn[1] < tn[0];
+      int b1 = tn[3] < tn[2];
+      bool use_hi = nmin(tn[2], tn[3]) < nmin(tn[0], tn[1]);
+      int near = use_hi ? 2 + b1 : b0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (hit[c] && c != near) stack[sp++] = kids[c];
+      }
+      if (hit[near]) stack[sp++] = kids[near];
+    }
+  }
+  out_t[i] = bt;
+  out_tri[i] = btri;
+  out_u[i] = bu;
+  out_v[i] = bv;
+}
+
+__global__ void __launch_bounds__(128)
+occlusion_kernel(const float* __restrict__ origin,
+                 const float* __restrict__ direction,
+                 const float* __restrict__ t_max,
+                 const int* __restrict__ skip_object, int64_t n, int root,
+                 const int4* __restrict__ qmeta,
+                 const float4* __restrict__ qnodes,
+                 const float4* __restrict__ ptris, int leaf,
+                 bool* __restrict__ out_occ) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(origin, direction, i);
+  float tm = t_max[i];
+  float skip = (float)skip_object[i];
+  const int leaf_f4 = leaf * kTriStride / 4;
+  bool occ = false;
+
+  int stack[kCap];
+  int sp = 0;
+  if (tm > kTMin) stack[sp++] = root;
+  while (sp > 0 && !occ) {
+    int meta = stack[--sp];
+    if (meta < 0) {
+      const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
+      for (int k = 0; k < leaf; ++k) {
+        float4 a = __ldg(row + 3 * k);
+        float4 b = __ldg(row + 3 * k + 1);
+        float4 c = __ldg(row + 3 * k + 2);
+        float t, u, v;
+        if (moller(r, a, b, c, tm, &t, &u, &v) && c.z != skip) {
+          occ = true;
+          break;
+        }
+      }
+    } else {
+      bool hit[4];
+      float tn[4];
+      test_children(r, qnodes + (int64_t)meta * 8, tm, hit, tn);
+      int4 m = __ldg(qmeta + meta);
+      if (hit[0]) stack[sp++] = m.x;
+      if (hit[1]) stack[sp++] = m.y;
+      if (hit[2]) stack[sp++] = m.z;
+      if (hit[3]) stack[sp++] = m.w;
+    }
+  }
+  out_occ[i] = occ;
+}
+
+constexpr int kThreads = 128;
+
+inline unsigned blocks_for(int64_t n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). Each launches on `stream`
+// and returns the launch's cudaError_t; none synchronises or allocates.
+extern "C" int quad_closest(const float* origin, const float* direction,
+                            const float* t_max, int64_t n, int root,
+                            const int* qmeta, const float* qnodes,
+                            const float* ptris, int leaf, float* out_t,
+                            int* out_tri, float* out_u, float* out_v,
+                            void* stream) {
+  closest_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_max, n, root,
+      reinterpret_cast<const int4*>(qmeta),
+      reinterpret_cast<const float4*>(qnodes),
+      reinterpret_cast<const float4*>(ptris), leaf, out_t, out_tri, out_u,
+      out_v);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int quad_occlusion(const float* origin, const float* direction,
+                              const float* t_max, const int* skip_object,
+                              int64_t n, int root, const int* qmeta,
+                              const float* qnodes, const float* ptris,
+                              int leaf, bool* out_occ, void* stream) {
+  occlusion_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_max, skip_object, n, root,
+      reinterpret_cast<const int4*>(qmeta),
+      reinterpret_cast<const float4*>(qnodes),
+      reinterpret_cast<const float4*>(ptris), leaf, out_occ);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,705 @@
+"""The wavefront path-tracing integrator (port of
+raytracer_tpu/integrator/wavefront.py).
+
+One lane per pixel: a structure-of-arrays wavefront with an alive mask, the
+bounce loop a Python loop, every shading branch a masked lockstep update.
+
+  simple.rgen (per-pixel recursion loop)    ->  render_wavefront
+  traceRayEXT                               ->  quad_traverse.intersect_quad
+  simple.rchit (shading + NEE/MIS)          ->  _shade
+  rayQueryEXT shadow rays                   ->  quad_traverse.occlusion_quad
+  simple.rmiss                              ->  the miss branch
+  rgba32f accumulation image                ->  accumulate
+
+Every reference quirk the JAX module reproduces is reproduced here:
+  - Two RNG streams per pixel (simple.rgen:71-79): the rgen-local seed
+    (jitter + Russian roulette) and payload.seed (all shading draws), split
+    after the jitter draws. Masked draws keep each lane's stream in the
+    reference's serial consumption order.
+  - Russian roulette only from depth >= 3, luminance-driven p in [.05,.95]
+    (simple.rgen:55-68): dead code at MAX_DEPTH=3.
+  - A hit surface that fails to produce a BSDF sample adds the background
+    (simple.rchit:701-703 with simple.rgen:106-109).
+  - Emissive-hit MIS uses the PREVIOUS bounce's p_sample_light,
+    didDirectIllumination and brdf pdf (simple.rchit:641-691).
+  - Radiance clamp 5.0 + NaN scrub, then the running mean
+    (simple.rgen:121-136).
+  - Dielectric transmission/refraction with dispersion (an extension beyond
+    the reference); scenes without transmission take the exact reference
+    path.
+
+Not ported in this module yet (ROADMAP.md port queue): the Morton sorts of
+lanes and of shadow rays (pure lane permutations, so the image does not
+depend on them; lane i is pixel i here), deep-bounce compaction (every
+bounce runs full-size, the same image), per-pixel frame vectors (adaptive
+sampling) and spp batching.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.ops import brdf, rng
+from raytracer_tpu_torch.ops.intersect import intersect_brute, occlusion_brute
+from raytracer_tpu_torch.ops.math3d import (
+    cos_theta,
+    cross,
+    dot,
+    dot_k,
+    length,
+    local_to_world,
+    luminance_rec709,
+    make_basis,
+    mis_weight_power,
+    normalize,
+    world_to_local,
+)
+from raytracer_tpu_torch.ops.quad_traverse import (
+    intersect_quad,
+    occlusion_quad,
+)
+from raytracer_tpu_torch.utils.config import RenderConfig
+
+
+class WavefrontState(NamedTuple):
+    """The RayPayload SoA (ray_common.glsl:13-26) + the rgen-local loop
+    state, one lane per pixel."""
+
+    origin: torch.Tensor  # f32[N,3]
+    direction: torch.Tensor  # f32[N,3]
+    color: torch.Tensor  # f32[N,3]
+    throughput: torch.Tensor  # f32[N,3]
+    seed_rgen: torch.Tensor  # u32 as i64[N] rgen-local stream (jitter/RR)
+    seed: torch.Tensor  # u32 as i64[N] payload.seed stream (shading)
+    alive: torch.Tensor  # bool[N]
+    first_bounce: torch.Tensor  # bool[N]
+    is_specular: torch.Tensor  # bool[N]
+    prev_brdf_pdf: torch.Tensor  # f32[N]
+    prev_hit_pos: torch.Tensor  # f32[N,3]
+    p_sample_light: torch.Tensor  # f32[N]
+    did_direct: torch.Tensor  # bool[N]
+    # Spectral channel lock for dispersion (-1 = broadband).
+    channel: torch.Tensor  # i32[N]
+
+
+def _camera_rays(inverse_view, inverse_proj, width, height, jitter,
+                 pixel_idx):
+    """calculateCameraRay (simple.rgen:41-53) for the given pixels.
+
+    jitter: f32[N,2] subpixel offset (including the 0.5 center);
+    pixel_idx: i64[N] raster-order pixel indices."""
+    dev = jitter.device
+    px = (pixel_idx % width).to(torch.float32)
+    py = (pixel_idx // width).to(torch.float32)
+    n = pixel_idx.shape[0]
+    pixel_center = torch.stack([px, py], dim=-1) + jitter
+    in_uv = pixel_center / torch.tensor([width, height], dtype=torch.float32,
+                                        device=dev)
+    d = in_uv * 2.0 - 1.0
+
+    origin = inverse_view[:3, 3].expand(n, 3).contiguous()
+    target_h = (
+        inverse_proj[:3, 0] * d[:, 0:1]
+        + inverse_proj[:3, 1] * d[:, 1:2]
+        + inverse_proj[:3, 2]
+        + inverse_proj[:3, 3]
+    )
+    t = normalize(target_h)
+    # t @ inverse_view[:3, :3].T, written out: the same rounding on every
+    # device.
+    direction = (t[:, 0:1] * inverse_view[:3, 0]
+                 + t[:, 1:2] * inverse_view[:3, 1]
+                 + t[:, 2:3] * inverse_view[:3, 2])
+    return origin, normalize(direction)
+
+
+def _trace(scene, origin, direction, cfg: RenderConfig, active):
+    if cfg.accel == "brute":
+        rec = intersect_brute(
+            origin, direction, scene.tri_v0, scene.tri_e1, scene.tri_e2,
+            cfg.t_min, cfg.t_max,
+        )
+        return rec._replace(hit=rec.hit & active,
+                            tri=torch.where(active, rec.tri, -1))
+    return intersect_quad(origin, direction, scene, cfg.t_min, cfg.t_max,
+                          active_mask=active)
+
+
+def _occluded(scene, origin, direction, t_max, skip_object, cfg, active):
+    if cfg.accel == "brute":
+        occ = occlusion_brute(
+            origin, direction, cfg.t_min, t_max,
+            scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_object,
+            skip_object,
+        )
+        return occ & active
+    return occlusion_quad(origin, direction, cfg.t_min, t_max, scene,
+                          skip_object, active_mask=active) & active
+
+
+def _light_weights(scene, hit_pos, skip_object, cfg: RenderConfig,
+                   w_all=None):
+    """Power/distance² light weights over the first min(L, MAXLIGHTS)
+    lights (simple.rchit:507-534). Returns ([N,Lc] weights with
+    `skip_object` zeroed, [N] total). `w_all` reuses the un-skipped
+    weights of the same hit positions."""
+    l_used = min(scene.num_lights, cfg.max_lights)
+    light_objs = scene.light_object[:l_used]
+    if w_all is None:
+        w_all = _light_weights_base(scene, hit_pos, cfg)
+    w = torch.where(light_objs[None, :] == skip_object[:, None], 0.0, w_all)
+    return w, w.sum(dim=-1)
+
+
+def _light_weights_base(scene, hit_pos, cfg: RenderConfig):
+    """Un-skipped power/dist² weights [N,Lc]."""
+    l_used = min(scene.num_lights, cfg.max_lights)
+    centers = scene.light_center[:l_used]
+    powers = scene.light_power[:l_used]
+    dx = hit_pos[:, 0:1] - centers[None, :, 0]
+    dy = hit_pos[:, 1:2] - centers[None, :, 1]
+    dz = hit_pos[:, 2:3] - centers[None, :, 2]
+    dist_sq = dx * dx + dy * dy + dz * dz
+    return powers[None, :] / torch.clamp_min(dist_sq, 0.001)
+
+
+def _sample_light(scene, sel, hit_pos, seed, active, cfg: RenderConfig):
+    """sampleLight (simple.rchit:239-322): pick a uniform triangle of light
+    `sel` (i32[N]), area-sample it with sqrt-barycentrics, return the sample
+    and its solid-angle pdf. Consumes 3 masked draws."""
+    l_used = min(scene.num_lights, cfg.max_lights)
+    sel_c = torch.clamp(sel, 0, l_used - 1).long()
+    meta = scene.light_meta_packed[sel_c]  # [N,8]
+    first = meta[:, 0].to(torch.int32)
+    num_tris = meta[:, 1].to(torch.int32)
+
+    r_tri, seed = rng.rnd_masked(seed, active)
+    tri_local = torch.minimum(
+        (r_tri * num_tris.to(torch.float32)).to(torch.int32), num_tris - 1)
+    ti = torch.clamp(first + tri_local, 0,
+                     scene.light_tri_packed.shape[0] - 1).long()
+    trow = scene.light_tri_packed[ti]  # [N,16]
+    v0 = trow[:, 0:3]
+    e1 = trow[:, 3:6]
+    e2 = trow[:, 6:9]
+
+    r1, seed = rng.rnd_masked(seed, active)
+    r2, seed = rng.rnd_masked(seed, active)
+    sqrt_r1 = torch.sqrt(r1)
+    bu = 1.0 - sqrt_r1
+    bv = sqrt_r1 * (1.0 - r2)
+    bw = sqrt_r1 * r2
+    pos = bu[:, None] * v0 + bv[:, None] * (v0 + e1) + bw[:, None] * (v0 + e2)
+
+    face_n = cross(e1, e2)
+    normal = normalize(face_n)
+    to_surface = normalize(hit_pos - pos)
+    cos_l = dot(normal, to_surface)
+    normal = torch.where((cos_l < 0.0)[:, None], -normal, normal)
+    cos_l = torch.abs(cos_l)
+
+    to_light = pos - hit_pos
+    dist = torch.clamp_min(length(to_light), 0.01)
+    direction = to_light / dist[:, None]
+    area = 0.5 * length(face_n)
+    cos_theta_l = torch.clamp_min(dot(-direction, normal), 0.0)
+
+    valid = (cos_l > 0.0) & (cos_theta_l > 1e-6) & (num_tris > 0)
+    pdf = (
+        (1.0 / torch.clamp_min(num_tris.to(torch.float32), 1.0))
+        * (1.0 / torch.clamp_min(area, 1e-20))
+        * dist * dist / torch.clamp_min(cos_theta_l, 1e-20)
+    )
+    emission = meta[:, 2:5]
+    light_obj = meta[:, 5].to(torch.int32)
+    return pos, normal, direction, dist, pdf, emission, light_obj, valid, seed
+
+
+class SurfaceHit(NamedTuple):
+    """Interpolated hit surface + material fetch (simple.rchit:590-614)."""
+
+    world_pos: torch.Tensor  # f32[N,3]
+    world_nrm: torch.Tensor  # f32[N,3] face-forward flipped
+    front_facing: torch.Tensor  # bool[N]
+    tri: torch.Tensor  # i64[N] clipped triangle index
+    e1: torch.Tensor  # f32[N,3] (for the emissive-hit area pdf)
+    e2: torch.Tensor  # f32[N,3]
+    obj: torch.Tensor  # i32[N]
+    mat: torch.Tensor  # i32[N]
+    albedo: torch.Tensor  # f32[N,3]
+    roughness: torch.Tensor  # f32[N]
+    metallic: torch.Tensor  # f32[N]
+    emission_color: torch.Tensor  # f32[N,3]
+    emission_power: torch.Tensor  # f32[N]
+    transmission: torch.Tensor  # f32[N]
+    ior: torch.Tensor  # f32[N]
+    dispersion: torch.Tensor  # f32[N]
+    light_index: torch.Tensor  # i32[N] owning object's light (-1 if none)
+    light_num_tris: torch.Tensor  # f32[N] that light's triangle count
+
+
+def fetch_surface(scene, hit, ray_dir, lane) -> SurfaceHit:
+    """Barycentric interpolation of the hit triangle + material lookup:
+    one tri_shade row and one mat_packed row per lane."""
+    t_count = scene.tri_shade.shape[0]
+    ti = torch.clamp(hit.tri, 0, t_count - 1).long()
+    row = scene.tri_shade[ti]  # [N,24]
+    v0 = row[:, 0:3]
+    e1 = row[:, 3:6]
+    e2 = row[:, 6:9]
+    bary_u = hit.u[:, None]
+    bary_v = hit.v[:, None]
+    world_pos = v0 + bary_u * e1 + bary_v * e2
+    bw = 1.0 - bary_u - bary_v
+    n_interp = (
+        bw * row[:, 9:12] + bary_u * row[:, 12:15] + bary_v * row[:, 15:18]
+    )
+    world_nrm = normalize(n_interp)
+    front_facing = dot(world_nrm, -ray_dir) > 0.0
+    world_nrm = torch.where(front_facing[:, None], world_nrm, -world_nrm)
+    obj = torch.where(lane, row[:, 18].to(torch.int32), 0)
+    mat = torch.where(lane, row[:, 19].to(torch.int32), 0)
+    mrow = scene.mat_packed[mat.long()]  # [N,16]
+    return SurfaceHit(
+        world_pos=world_pos,
+        world_nrm=world_nrm,
+        front_facing=front_facing,
+        tri=ti,
+        e1=e1,
+        e2=e2,
+        obj=obj,
+        mat=mat,
+        albedo=mrow[:, 0:3],
+        roughness=mrow[:, 7],
+        metallic=mrow[:, 8],
+        emission_color=mrow[:, 3:6],
+        emission_power=mrow[:, 6],
+        transmission=mrow[:, 9],
+        ior=mrow[:, 10],
+        dispersion=mrow[:, 11],
+        light_index=row[:, 20].to(torch.int32),
+        light_num_tris=row[:, 21],
+    )
+
+
+def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig):
+    """The simple.rchit port. Lanes where `state.alive & hit.hit` shade;
+    every other lane is left as it was.
+
+    Returns (new_state, payload_hit bool[N], shadow_ray_count i64[])."""
+    lane = state.alive & hit.hit
+    n = state.origin.shape[0]
+    dev = state.origin.device
+    no_lanes = torch.zeros(n, dtype=torch.bool, device=dev)
+    zero_count = torch.zeros((), dtype=torch.int64, device=dev)
+
+    surf = fetch_surface(scene, hit, state.direction, lane)
+    world_pos = surf.world_pos
+    world_nrm = surf.world_nrm
+    ray_dir = state.direction
+    albedo = surf.albedo
+    roughness = surf.roughness
+    metallic = surf.metallic
+    emission_color = surf.emission_color
+    emission_power = surf.emission_power
+    is_emissive = emission_power > 0.0
+
+    color = state.color
+    throughput = state.throughput
+    seed = state.seed
+
+    basis = make_basis(world_nrm)
+    wo_local = world_to_local(-ray_dir, basis)
+
+    # --- dielectric lanes (extension; see module docstring) ---
+    if cfg.enable_transmission:
+        dielectric = lane & (surf.transmission > 0.0)
+    else:
+        dielectric = no_lanes
+    surface_lane = lane & ~dielectric
+
+    # --- NEE with MIS (simple.rchit:618-632) ---
+    did_direct = no_lanes
+    p_sample_light = torch.clamp(roughness, 0.1, 0.9)
+    # One power/dist² pass per bounce, shared by the NEE selection and the
+    # emissive-MIS selection pdf.
+    if cfg.use_direct_lighting and scene.num_lights > 0:
+        w_base = _light_weights_base(scene, world_pos, cfg)
+    else:
+        w_base = None
+    mis_nee = cfg.use_mis and not cfg.use_light_sampling_only
+    if cfg.use_direct_lighting and scene.num_lights > 0:
+        if mis_nee:
+            # Stochastic NEE lottery (simple.rchit:621-623).
+            p_draw, seed = rng.rnd_masked(seed, surface_lane)
+            do_nee = surface_lane & (p_draw < p_sample_light)
+        else:
+            # USE_MIS=0 (simple.rchit:628-631): NEE every bounce, weight 1.
+            do_nee = surface_lane
+
+        weights, total_w = _light_weights(scene, world_pos, surf.obj, cfg,
+                                          w_all=w_base)
+        has_weight = total_w > 0.0
+        m_sel = do_nee & has_weight
+        r_sel, seed = rng.rnd_masked(seed, m_sel)
+        r1 = r_sel * total_w
+        at_or_past = torch.cumsum(weights, dim=1) >= r1[:, None]
+        found = at_or_past.any(dim=1)
+        # First column where the CDF reaches r1 (0 when none does).
+        selected = at_or_past.to(torch.int32).argmax(dim=1).to(torch.int32)
+        m_samp = m_sel & found
+
+        l_used = min(scene.num_lights, cfg.max_lights)
+        sel_c = torch.clamp(selected, 0, l_used - 1).long()
+        sel_w = weights.gather(1, sel_c[:, None])[:, 0]
+        light_sel_pdf = sel_w / torch.clamp_min(total_w, 1e-20)
+
+        (l_pos, _l_nrm, l_dir, _l_dist, l_pdf, l_emission, light_obj,
+         l_valid, seed
+         ) = _sample_light(scene, selected, world_pos, seed, m_samp, cfg)
+
+        wi_local = world_to_local(l_dir, basis)
+        consider = m_samp & l_valid & (cos_theta(wi_local) > 1e-4)
+
+        # Shadow ray (isVisibleRQ, simple.rchit:350-385).
+        eps = 0.001
+        to_light_n = normalize(l_pos - world_pos)
+        offset_from = world_pos + world_nrm * (
+            eps * torch.sign(dot_k(world_nrm, to_light_n))
+        )
+        sr = l_pos - offset_from
+        sr_dist = length(sr)
+        sr_dir = sr / torch.clamp_min(sr_dist, 1e-20)[:, None]
+        shadow_lane = consider & (sr_dist > 0.0)
+        occ = _occluded(scene, offset_from, sr_dir, sr_dist * 0.999,
+                        light_obj, cfg, shadow_lane)
+        visible = shadow_lane & ~occ
+
+        brdf_val = brdf.evaluate_full(wo_local, wi_local, albedo, roughness,
+                                      metallic)
+        light_pdf = l_pdf * light_sel_pdf
+        p_spec = brdf.specular_probability(albedo, roughness, metallic)
+        h_local = normalize(wo_local + wi_local)
+        spec_pdf = brdf.microfacet_pdf(wo_local, h_local, roughness)
+        diff_pdf = cos_theta(wi_local) / brdf.M_PI
+        brdf_pdf = p_spec * spec_pdf + (1.0 - p_spec) * diff_pdf
+        if mis_nee:
+            weight = mis_weight_power(light_pdf, brdf_pdf)
+        else:
+            weight = torch.ones_like(light_pdf)  # evaluateLightMIS else
+
+        radiance = (
+            brdf_val * l_emission
+            * (cos_theta(wi_local) * weight
+               / torch.clamp_min(light_pdf, 1e-6))[:, None]
+        )
+        if mis_nee:
+            # Stochastic-NEE unbiasing divide (simple.rchit:625).
+            contrib = throughput * radiance / p_sample_light[:, None]
+        else:
+            contrib = throughput * radiance
+        color = torch.where(visible[:, None], color + contrib, color)
+        did_direct = do_nee
+        shadow_rays = shadow_lane.sum()
+    elif cfg.use_direct_lighting and mis_nee:
+        # No lights: the NEE lottery draw still happens (simple.rchit:622).
+        _, seed = rng.rnd_masked(seed, surface_lane)
+        shadow_rays = zero_count
+    else:
+        shadow_rays = zero_count
+
+    # --- BSDF sampling (simple.rchit:634-639 -> sampleBRDF) ---
+    sample, seed_after_brdf = brdf.sample_brdf(
+        wo_local, albedo, roughness, metallic, seed)
+    # Only surface lanes consume its 3 draws; dielectric lanes draw below.
+    seed_surface = torch.where(surface_lane, seed_after_brdf, seed)
+
+    # --- emissive-hit handling (simple.rchit:641-686) ---
+    if cfg.use_direct_lighting and mis_nee:
+        add_full = surface_lane & is_emissive & (
+            state.first_bounce | state.is_specular)
+        color = torch.where(
+            add_full[:, None],
+            color + throughput * emission_color * emission_power[:, None],
+            color,
+        )
+        if scene.num_lights > 0:
+            light_idx = surf.light_index
+            add_mis = (
+                surface_lane & is_emissive
+                & ~(state.first_bounce | state.is_specular)
+                & ~state.did_direct & (light_idx >= 0)
+            )
+            d = length(world_pos - state.prev_hit_pos)
+            cos_light = torch.clamp_min(dot(world_nrm, -ray_dir), 0.0)
+            tri_area = 0.5 * length(cross(surf.e1, surf.e2))
+            num_tris_l = surf.light_num_tris
+            pdf_geo = (
+                (1.0 / torch.clamp_min(num_tris_l, 1.0))
+                * (1.0 / torch.clamp_min(tri_area, 1e-20))
+                * d * d / torch.clamp_min(cos_light, 1e-20)
+            )
+            # computeLightSelectionPdf uses the un-skipped total
+            # (simple.rchit:536-541).
+            w_all, _ = _light_weights(
+                scene, world_pos,
+                torch.full((n,), -1, dtype=torch.int32, device=dev), cfg,
+                w_all=w_base,
+            )
+            total_all = w_all.sum(dim=-1)
+            l_used = min(scene.num_lights, cfg.max_lights)
+            li_cap = torch.clamp(light_idx, 0, l_used - 1).long()
+            w_this = w_all.gather(1, li_cap[:, None])[:, 0]
+            light_sel = torch.where(
+                total_all > 0.0,
+                w_this / torch.clamp_min(total_all, 1e-20), 0.0)
+            light_pdf_hit = light_sel * pdf_geo
+            mis_w = mis_weight_power(state.prev_brdf_pdf, light_pdf_hit)
+            contrib = (
+                throughput * emission_color
+                * (emission_power * mis_w
+                   / torch.clamp_min(1.0 - state.p_sample_light, 1e-20)
+                   )[:, None]
+            )
+            color = torch.where(add_mis[:, None], color + contrib, color)
+    else:
+        add_full = surface_lane & is_emissive
+        if cfg.use_direct_lighting:  # USE_MIS=0 branch (simple.rchit:679)
+            add_full = add_full & (state.first_bounce | state.is_specular)
+        color = torch.where(
+            add_full[:, None],
+            color + throughput * emission_color * emission_power[:, None],
+            color,
+        )
+
+    # --- bounce update (simple.rchit:693-703) ---
+    sample_ok = (sample.pdf > 0.0) & (cos_theta(sample.direction) > 0.0)
+    new_dir_surface = local_to_world(sample.direction, basis)
+    tp_scale = ((cos_theta(sample.direction) / sample.pdf)[:, None]
+                * sample.value)
+
+    # --- dielectric transmission lanes (extension) ---
+    if cfg.enable_transmission:
+        (diel_dir, diel_tp, diel_ok, new_channel, seed_diel) = (
+            _sample_dielectric(
+                ray_dir, world_nrm, surf.front_facing, albedo, surf.ior,
+                surf.transmission, surf.dispersion, state.channel, seed,
+                dielectric,
+            )
+        )
+        seed = torch.where(dielectric, seed_diel, seed_surface)
+        new_dir = torch.where(dielectric[:, None], diel_dir, new_dir_surface)
+        tp_mult = torch.where(dielectric[:, None], diel_tp, tp_scale)
+        sample_ok = torch.where(dielectric, diel_ok, sample_ok)
+        new_specular = dielectric | sample.is_specular
+        new_pdf = torch.where(dielectric, 1.0, sample.pdf)
+        channel = torch.where(dielectric, new_channel, state.channel)
+    else:
+        seed = seed_surface
+        new_dir = new_dir_surface
+        tp_mult = tp_scale
+        new_specular = sample.is_specular
+        new_pdf = sample.pdf
+        channel = state.channel
+
+    upd = lane & sample_ok
+    throughput = torch.where(upd[:, None], throughput * tp_mult, throughput)
+
+    new_state = WavefrontState(
+        origin=torch.where(upd[:, None], world_pos, state.origin),
+        direction=torch.where(upd[:, None], new_dir, state.direction),
+        color=torch.where(lane[:, None], color, state.color),
+        throughput=throughput,
+        seed_rgen=state.seed_rgen,
+        seed=torch.where(lane, seed, state.seed),
+        alive=state.alive,
+        first_bounce=state.first_bounce & ~lane,
+        is_specular=torch.where(upd, new_specular, state.is_specular),
+        prev_brdf_pdf=torch.where(upd, new_pdf, state.prev_brdf_pdf),
+        prev_hit_pos=torch.where(upd[:, None], world_pos,
+                                 state.prev_hit_pos),
+        p_sample_light=torch.where(lane, p_sample_light,
+                                   state.p_sample_light),
+        did_direct=torch.where(lane, did_direct, state.did_direct),
+        channel=channel,
+    )
+    payload_hit = lane & sample_ok
+    return new_state, payload_hit, shadow_rays
+
+
+def _sample_dielectric(ray_dir, normal, front_facing, albedo, ior,
+                       transmission, dispersion, channel, seed, active):
+    """Smooth dielectric BSDF (reflection/refraction), extension lanes only.
+
+    Consumes 2 masked draws (transmit lottery + Fresnel lottery) plus one
+    masked draw on the first dispersive event (the spectral channel pick).
+    Dispersion (KHR_materials_dispersion, D = 20/Abbe): nF - nC =
+    (ior - 1) * D / 20; R/G/B use ior + {-1/2, 0, +1/2} of that spread. The
+    first dispersive refraction locks the path to one channel (prob 1/3
+    each, throughput x3 in that channel)."""
+    is_dispersive = dispersion > 0.0
+    need_channel = active & is_dispersive & (channel < 0)
+    r_chan, seed = rng.rnd_masked(seed, need_channel)
+    picked = torch.clamp_max((r_chan * 3.0).to(torch.int32), 2)
+    channel = torch.where(need_channel, picked, channel)
+
+    spread = (ior - 1.0) * dispersion / 20.0
+    # R (nC, long wavelength) < G (nd) < B (nF, short wavelength).
+    chan_offset = torch.where(channel == 0, -0.5,
+                              torch.where(channel == 2, 0.5, 0.0))
+    ior_eff = torch.where(is_dispersive & (channel >= 0),
+                          ior + chan_offset * spread, ior)
+
+    r_lottery, seed = rng.rnd_masked(seed, active)
+    r_fresnel, seed = rng.rnd_masked(seed, active)
+
+    ior = ior_eff
+    eta = torch.where(front_facing, 1.0 / ior, ior)
+    cos_i = torch.clamp(dot(-ray_dir, normal), 0.0, 1.0)
+    sin2_t = eta * eta * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+
+    f0 = ((ior - 1.0) / (ior + 1.0)) ** 2
+    fresnel = f0 + (1.0 - f0) * torch.pow(1.0 - cos_i, 5.0)
+    fresnel = torch.where(tir, 1.0, fresnel)
+
+    refl_dir = normalize(ray_dir + 2.0 * cos_i[:, None] * normal)
+    refr_dir = normalize(
+        eta[:, None] * ray_dir + (eta * cos_i - cos_t)[:, None] * normal)
+
+    take_transmit = r_lottery < transmission
+    reflect_lobe = ~take_transmit | (r_fresnel < fresnel)
+    new_dir = torch.where(reflect_lobe[:, None], refl_dir, refr_dir)
+    # Reflection off the dielectric is untinted; transmission is tinted by
+    # albedo (absorption proxy).
+    tp = torch.where(reflect_lobe[:, None], torch.ones_like(albedo), albedo)
+    chan_onehot = (
+        torch.arange(3, device=channel.device)[None, :] == channel[:, None]
+    ).to(torch.float32) * 3.0
+    tp = torch.where(need_channel[:, None], tp * chan_onehot, tp)
+    ok = torch.ones_like(take_transmit)
+    return new_dir, tp, ok, channel, seed
+
+
+def render_wavefront(scene, camera_ubo, frame_number: int, cfg: RenderConfig,
+                     with_stats: bool = False):
+    """One progressive sample of every pixel: radiance f32[N,3] (and, when
+    with_stats=True, a dict of i64[] ray counts on the device: alive rays
+    traced per bounce, shadow rays, their total). The body of
+    simple.rgen:70-125 (everything but accumulation)."""
+    cfg = cfg.resolve_accel()
+    dev = scene.device
+    n = cfg.num_pixels
+    frame = int(frame_number)
+    pixel_idx = torch.arange(n, dtype=torch.int64, device=dev)
+    seed0 = rng.seed_pixels(pixel_idx, frame)
+
+    # Jitter (getSampleOffset, simple.rgen:25-38): centered on frame 0,
+    # else 0.4-amplitude. Two masked draws keep stream alignment.
+    jitter_mask = torch.full((n,), frame > 0, dtype=torch.bool, device=dev)
+    r1, seed_rgen = rng.rnd_masked(seed0, jitter_mask)
+    r2, seed_rgen = rng.rnd_masked(seed_rgen, jitter_mask)
+    jitter = torch.where(
+        jitter_mask[:, None],
+        0.5 + (torch.stack([r1, r2], dim=-1) - 0.5) * 0.4,
+        torch.full((n, 2), 0.5, dtype=torch.float32, device=dev),
+    )
+
+    origin, direction = _camera_rays(
+        camera_ubo["inverse_view"], camera_ubo["inverse_proj"],
+        cfg.width, cfg.height, jitter, pixel_idx,
+    )
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = WavefrontState(
+        origin=origin,
+        direction=direction,
+        color=torch.zeros((n, 3), **f32),
+        throughput=torch.ones((n, 3), **f32),
+        seed_rgen=seed_rgen,
+        seed=seed_rgen,
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        first_bounce=torch.ones((n,), dtype=torch.bool, device=dev),
+        is_specular=torch.zeros((n,), dtype=torch.bool, device=dev),
+        prev_brdf_pdf=torch.ones((n,), **f32),
+        prev_hit_pos=torch.zeros((n, 3), **f32),
+        p_sample_light=torch.zeros((n,), **f32),
+        did_direct=torch.zeros((n,), dtype=torch.bool, device=dev),
+        channel=torch.full((n,), -1, dtype=torch.int32, device=dev),
+    )
+    clear_color = torch.tensor(cfg.background, **f32)
+    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
+    shadow_total = torch.zeros((), dtype=torch.int64, device=dev)
+
+    for depth in range(cfg.max_depth):
+        # Russian roulette (simple.rgen:55-68,88-90).
+        if depth >= cfg.rr_start_depth:
+            rr_lane = state.alive
+            lum = luminance_rec709(state.throughput)
+            p = torch.clamp(lum, 0.05, 0.95)
+            r, seed_rgen = rng.rnd_masked(state.seed_rgen, rr_lane)
+            rr_kill = rr_lane & (r > p)
+            throughput = torch.where(
+                (rr_lane & ~rr_kill)[:, None],
+                state.throughput / p[:, None], state.throughput)
+            state = state._replace(seed_rgen=seed_rgen, throughput=throughput,
+                                   alive=state.alive & ~rr_kill)
+
+        rays_traced = rays_traced + state.alive.sum()
+        hit = _trace(scene, state.origin, state.direction, cfg, state.alive)
+        state, payload_hit, shadow_rays = _shade(scene, state, hit, cfg)
+        shadow_total = shadow_total + shadow_rays
+
+        # Miss branch (simple.rgen:106-109), including the failed-BSDF-
+        # sample quirk (payload.hit=false from rchit).
+        missed = state.alive & ~payload_hit
+        state = state._replace(
+            color=torch.where(missed[:, None],
+                              state.color + state.throughput * clear_color,
+                              state.color),
+            alive=state.alive & payload_hit,
+        )
+
+        # Throughput validity kill (simple.rgen:115-118).
+        tp = state.throughput
+        bad = ((torch.isnan(tp) | torch.isinf(tp)).any(dim=-1)
+               | (tp < 0.001).all(dim=-1))
+        state = state._replace(alive=state.alive & ~bad)
+
+    # Clamp + NaN scrub (simple.rgen:121-125).
+    final = torch.clamp_max(state.color, cfg.radiance_clamp)
+    invalid = (torch.isnan(final) | torch.isinf(final)).any(dim=-1)
+    radiance = torch.where(invalid[:, None], 0.0, final)
+    if with_stats:
+        return radiance, {"rays_traced": rays_traced,
+                          "shadow_rays": shadow_total,
+                          "total_rays": rays_traced + shadow_total}
+    return radiance
+
+
+def accumulate(accum, radiance, frame_number: int):
+    """The progressive running mean (simple.rgen:127-136): frame 0 stores,
+    later frames blend with weight 1/(frame+1), computed in f32."""
+    if frame_number == 0:
+        return radiance.clone()
+    a = float(np.float32(1.0) / (np.float32(frame_number) + np.float32(1.0)))
+    return accum + (radiance - accum) * a
+
+
+def render_frame(scene, camera_ubo, accum, frame_number: int,
+                 cfg: RenderConfig, with_stats: bool = False):
+    """One progressive step: returns the new accumulation f32[N,3] (and
+    render_wavefront's ray counts when with_stats=True)."""
+    if cfg.spp_batch > 1:
+        raise NotImplementedError(
+            "spp_batch > 1 is not ported yet: ROADMAP.md port queue item P9")
+    if with_stats:
+        radiance, stats = render_wavefront(scene, camera_ubo, frame_number,
+                                           cfg, with_stats=True)
+        return accumulate(accum, radiance, frame_number), stats
+    radiance = render_wavefront(scene, camera_ubo, frame_number, cfg)
+    return accumulate(accum, radiance, frame_number)

@@ -1,0 +1,393 @@
+"""Closest-hit and any-hit traversal of the 4-wide collapsed BVH: the
+port's counterpart of raytracer_tpu/ops/pallas_subpacket.py.
+
+`intersect_quad` and `occlusion_quad` compute what the JAX package's
+`intersect_bvh_subpacket` and `occlusion_bvh_subpacket` compute, on the
+same arrays (scene/device_scene.py): for each ray the closest hit (t, tri,
+u, v) with t in (1e-3, t_max), or whether any triangle not of the ray's
+`skip_object` blocks (1e-3, t_max).
+
+On CUDA tensors they launch the hand-written kernels of
+csrc/quad_traverse.cu (built by ops/_build.py); on CPU tensors they run the
+kernels' plain torch versions below. A CUDA tensor never takes the plain
+version: the launch succeeds or the wrapper raises.
+
+The algorithm, shared by kernel and plain version (the TPU kernel's 8-row
+sub-packets, SMEM stacks and leaf queues exist because Mosaic has no
+per-lane gathers, and do not carry over):
+
+  - one depth-first traversal per ray with its own stack of CAP entries
+    holding quad-node ids (>= 0) and leaf blocks (~block < 0); qroot < 0
+    means the root itself is a leaf;
+  - a leaf tests its block's triangles in order k = 0..leaf-1 with
+    Möller–Trumbore (|det| > 1e-10) and, for closest hits, a strictly
+    smaller t;
+  - an internal node slab-tests its 4 children against [1e-3, best t]
+    (t_max for any-hit) with NaN-propagating min/max, so the NaN boxes of
+    absent children never hit. Closest hit pushes the hit children in
+    child order 0..3 except the nearest, which goes last (popped first);
+    the nearest is the TPU kernel's 2-bit argmin. Any-hit pushes in fixed
+    order and stops at the first accepted hit;
+  - a ray whose t_max <= 1e-3 (inactive lanes get exactly that) cannot
+    accept a hit and is not traversed: t stays t_max, tri -1, u = v = 0.
+
+Every float operation is written in the same order in both versions, and
+the kernel is built with -fmad=false, so on the card the kernel equals its
+plain version bit for bit. Against the JAX kernels, which visit leaves in
+another order, only hits at exactly equal t may name another triangle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raytracer_tpu_torch.ops.intersect import HitRecord
+
+CAP = 64  # per-ray stack entries (quad nodes and leaf blocks)
+T_MIN = 1e-3  # the reference's traceRayEXT t_min, fixed in the kernels
+BIG = 3.0e38
+TRI_STRIDE = 12
+
+# Kernel launches, counted where the CUDA wrappers launch (never by the
+# plain versions), so a caller can show that a run went through them.
+closest_launches = 0
+occlusion_launches = 0
+
+
+def reset_launch_counts():
+    global closest_launches, occlusion_launches
+    closest_launches = 0
+    occlusion_launches = 0
+
+
+def _check_scene(scene):
+    if scene.q_stack_need > CAP:
+        raise ValueError(
+            f"quad-BVH stack need {scene.q_stack_need} exceeds the traversal "
+            f"stack (CAP={CAP})")
+
+
+def _check_t_min(t_min):
+    if abs(t_min - T_MIN) > 1e-9:
+        raise ValueError(
+            f"the traversal kernels fix t_min at {T_MIN}, got {t_min}")
+
+
+def _ray_inputs(origin, direction, t_max, active_mask):
+    r = origin.shape[0]
+    t = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
+    t = t.expand(r)
+    if active_mask is not None:
+        t = torch.where(active_mask, t, T_MIN)
+    return (origin.to(torch.float32).contiguous(),
+            direction.to(torch.float32).contiguous(),
+            t.to(torch.float32).contiguous())
+
+
+def intersect_quad(origin, direction, scene, t_min, t_max,
+                   active_mask=None) -> HitRecord:
+    """Closest hit of rays f32[N,3] against `scene` (a DeviceScene);
+    `t_max` scalar or f32[N]; inactive lanes get t_max = 1e-3."""
+    _check_t_min(t_min)
+    _check_scene(scene)
+    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
+    if o.is_cuda:
+        t, tri, u, v = _intersect_quad_cuda(o, d, tm, scene)
+    else:
+        t, tri, u, v = _intersect_quad_plain(
+            o, d, tm, scene.root, scene.qmeta, scene.qnodes, scene.ptris)
+    return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
+
+
+def occlusion_quad(origin, direction, t_min, t_max, scene, skip_object,
+                   active_mask=None):
+    """Any hit in (1e-3, t_max) by a triangle whose object is not the
+    ray's `skip_object` (i32[N]); returns bool[N]."""
+    _check_t_min(t_min)
+    _check_scene(scene)
+    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
+    skip = torch.as_tensor(skip_object, device=o.device).to(
+        torch.int32).expand(o.shape[0]).contiguous()
+    if o.is_cuda:
+        return _occlusion_quad_cuda(o, d, tm, skip, scene)
+    return _occlusion_quad_plain(o, d, tm, skip, scene.root, scene.qmeta,
+                                 scene.qnodes, scene.ptris)
+
+
+# --------------------------------------------------------------------------
+# Plain torch versions: the same per-ray DFS, run in lockstep over all rays.
+# --------------------------------------------------------------------------
+
+def _inv_dir(d):
+    return 1.0 / torch.where(torch.abs(d) < 1e-20,
+                             torch.where(d >= 0, 1e-20, -1e-20), d)
+
+
+def _moller(ox, oy, oz, dx, dy, dz, tri, t_cap):
+    """Möller–Trumbore for one triangle per ray; `tri` is [M,12] (v0, e1,
+    e2, tri_f, obj_f, pad). The operation order is the kernel's."""
+    v0x, v0y, v0z = tri[:, 0], tri[:, 1], tri[:, 2]
+    e1x, e1y, e1z = tri[:, 3], tri[:, 4], tri[:, 5]
+    e2x, e2y, e2z = tri[:, 6], tri[:, 7], tri[:, 8]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok_det = torch.abs(det) > 1e-10
+    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    valid = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t > T_MIN) & (t < t_cap))
+    return t, u, v, valid
+
+
+def _slab4(o, inv, box, t_cap):
+    """Slab tests of 4 child boxes per ray. box [M,24] (4 x min.xyz,
+    max.xyz); returns (hit bool[M,4], t_near f32[M,4])."""
+    box = box.view(-1, 4, 6)
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    ix, iy, iz = inv[:, 0:1], inv[:, 1:2], inv[:, 2:3]
+    t0x = (box[:, :, 0] - ox) * ix
+    t1x = (box[:, :, 3] - ox) * ix
+    t0y = (box[:, :, 1] - oy) * iy
+    t1y = (box[:, :, 4] - oy) * iy
+    t0z = (box[:, :, 2] - oz) * iz
+    t1z = (box[:, :, 5] - oz) * iz
+    t_near = torch.maximum(
+        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+        torch.clamp_min(torch.minimum(t0z, t1z), T_MIN),
+    )
+    t_far = torch.minimum(
+        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+        torch.minimum(torch.maximum(t0z, t1z), t_cap[:, None]),
+    )
+    return t_near <= t_far, t_near
+
+
+def _pop(stack, sp):
+    """Pop one entry for every ray with a non-empty stack: (ray ids, metas);
+    both are empty once every stack is."""
+    live = torch.nonzero(sp > 0).squeeze(1)
+    if live.numel() == 0:
+        return live, live
+    sp[live] -= 1
+    return live, stack[live, sp[live].long()]
+
+
+def _push(stack, sp, rays, meta, mask):
+    """Write-then-advance push of meta[m] for rays[m] where mask[m]: the
+    slot at sp is free, so the unconditional write clobbers nothing."""
+    spr = sp[rays]
+    stack[rays, torch.clamp_max(spr, CAP - 1).long()] = meta
+    sp[rays] = spr + mask.to(sp.dtype)
+
+
+def _init_stack(n, root, t_max):
+    stack = torch.zeros((n, CAP), dtype=torch.int32, device=t_max.device)
+    stack[:, 0] = root
+    sp = (t_max > T_MIN).to(torch.int32)
+    return stack, sp
+
+
+def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
+                          ptris):
+    """Plain torch version of the closest-hit kernel. Returns (t f32[N],
+    tri i32[N], u f32[N], v f32[N])."""
+    n = origin.shape[0]
+    leaf = ptris.shape[1] // TRI_STRIDE
+    inv = _inv_dir(direction)
+    best_t = t_max.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+    metas4 = qmeta.view(-1, 4)
+    stack, sp = _init_stack(n, root, t_max)
+    while True:
+        live, meta = _pop(stack, sp)
+        if live.numel() == 0:
+            break
+        is_leaf = meta < 0
+
+        li = live[is_leaf]
+        if li.numel():
+            rows = ptris[(~meta[is_leaf]).long()]
+            o = origin[li]
+            d = direction[li]
+            ox, oy, oz = o.unbind(1)
+            dx, dy, dz = d.unbind(1)
+            bt, btri = best_t[li], best_tri[li]
+            bu, bv = best_u[li], best_v[li]
+            for k in range(leaf):
+                tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
+                t, u, v, valid = _moller(ox, oy, oz, dx, dy, dz, tri, bt)
+                bt = torch.where(valid, t, bt)
+                btri = torch.where(valid, tri[:, 9].to(torch.int32), btri)
+                bu = torch.where(valid, u, bu)
+                bv = torch.where(valid, v, bv)
+            best_t[li], best_tri[li] = bt, btri
+            best_u[li], best_v[li] = bu, bv
+
+        ii = live[~is_leaf]
+        if ii.numel():
+            node = meta[~is_leaf].long()
+            hit, tn = _slab4(origin[ii], inv[ii], qnodes[node, :24],
+                             best_t[ii])
+            tn = torch.where(hit, tn, BIG)
+            b0 = (tn[:, 1] < tn[:, 0]).to(torch.int64)
+            b1 = (tn[:, 3] < tn[:, 2]).to(torch.int64)
+            use_hi = (torch.minimum(tn[:, 2], tn[:, 3])
+                      < torch.minimum(tn[:, 0], tn[:, 1]))
+            near = torch.where(use_hi, 2 + b1, b0)
+            kids = metas4[node]
+            for c in range(4):
+                _push(stack, sp, ii, kids[:, c], hit[:, c] & (near != c))
+            _push(stack, sp, ii, kids.gather(1, near[:, None])[:, 0],
+                  hit.gather(1, near[:, None])[:, 0])
+    return best_t, best_tri, best_u, best_v
+
+
+def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
+                          qnodes, ptris):
+    """Plain torch version of the any-hit kernel. Returns bool[N]."""
+    n = origin.shape[0]
+    leaf = ptris.shape[1] // TRI_STRIDE
+    inv = _inv_dir(direction)
+    skip_f = skip_object.to(torch.float32)
+    occ = torch.zeros((n,), dtype=torch.bool, device=origin.device)
+    metas4 = qmeta.view(-1, 4)
+    stack, sp = _init_stack(n, root, t_max)
+    while True:
+        live, meta = _pop(stack, sp)
+        if live.numel() == 0:
+            break
+        is_leaf = meta < 0
+
+        li = live[is_leaf]
+        if li.numel():
+            rows = ptris[(~meta[is_leaf]).long()]
+            o = origin[li]
+            d = direction[li]
+            ox, oy, oz = o.unbind(1)
+            dx, dy, dz = d.unbind(1)
+            tm, sk = t_max[li], skip_f[li]
+            found = torch.zeros_like(tm, dtype=torch.bool)
+            for k in range(leaf):
+                tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
+                _, _, _, valid = _moller(ox, oy, oz, dx, dy, dz, tri, tm)
+                found |= valid & (tri[:, 10] != sk)
+            occ[li] |= found
+            sp[li[found]] = 0  # the first accepted hit ends the ray
+
+        ii = live[~is_leaf]
+        if ii.numel():
+            node = meta[~is_leaf].long()
+            hit, _ = _slab4(origin[ii], inv[ii], qnodes[node, :24],
+                            t_max[ii])
+            kids = metas4[node]
+            for c in range(4):
+                _push(stack, sp, ii, kids[:, c], hit[:, c])
+    return occ
+
+
+# --------------------------------------------------------------------------
+# CUDA wrappers (csrc/quad_traverse.cu).
+# --------------------------------------------------------------------------
+
+def _require(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _check_scene_arrays(scene, device):
+    n4 = scene.qnodes.shape[0]
+    _require("qnodes", scene.qnodes, torch.float32, (n4, 32), device)
+    _require("qmeta", scene.qmeta, torch.int32, (4 * n4,), device)
+    nb, width = scene.ptris.shape
+    if width % TRI_STRIDE:
+        raise ValueError(f"ptris width {width} is not a multiple of "
+                         f"{TRI_STRIDE}")
+    _require("ptris", scene.ptris, torch.float32, (nb, width), device)
+
+
+def _check_rays(origin, direction, t_max):
+    dev = origin.device
+    n = origin.shape[0]
+    _require("origin", origin, torch.float32, (n, 3), dev)
+    _require("direction", direction, torch.float32, (n, 3), dev)
+    _require("t_max", t_max, torch.float32, (n,), dev)
+    return n, dev
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _intersect_quad_cuda(origin, direction, t_max, scene):
+    global closest_launches
+    from raytracer_tpu_torch.ops import _build
+
+    n, dev = _check_rays(origin, direction, t_max)
+    _check_scene_arrays(scene, dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, tri, u, v
+    lib = _build.quad_traverse_lib()
+    with torch.cuda.device(dev):
+        rc = lib.quad_closest(
+            _ptr(origin), _ptr(direction), _ptr(t_max), n, scene.root,
+            _ptr(scene.qmeta), _ptr(scene.qnodes), _ptr(scene.ptris),
+            scene.ptris.shape[1] // TRI_STRIDE,
+            _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"quad_closest launch failed: cudaError {rc}")
+    closest_launches += 1
+    return t, tri, u, v
+
+
+def _occlusion_quad_cuda(origin, direction, t_max, skip_object, scene):
+    global occlusion_launches
+    from raytracer_tpu_torch.ops import _build
+
+    n, dev = _check_rays(origin, direction, t_max)
+    _require("skip_object", skip_object, torch.int32, (n,), dev)
+    _check_scene_arrays(scene, dev)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    lib = _build.quad_traverse_lib()
+    with torch.cuda.device(dev):
+        rc = lib.quad_occlusion(
+            _ptr(origin), _ptr(direction), _ptr(t_max), _ptr(skip_object),
+            n, scene.root, _ptr(scene.qmeta), _ptr(scene.qnodes),
+            _ptr(scene.ptris), scene.ptris.shape[1] // TRI_STRIDE,
+            _ptr(occ), _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"quad_occlusion launch failed: cudaError {rc}")
+    occlusion_launches += 1
+    return occ

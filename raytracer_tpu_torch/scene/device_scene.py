@@ -1,0 +1,326 @@
+"""DeviceScene: the baked scene as torch tensors on one device (port of
+raytracer_tpu/scene/device_scene.py, restricted to what the render path
+reads).
+
+The bake is the JAX package's `bake_scene` for a single part with exact
+shapes, array for array:
+
+  - triangles in world space, in BVH leaf order, padded to a multiple of
+    128 with degenerate triangles: tri_v0/e1/e2 f32[T,3], tri_object i32[T]
+    (-1 for padding) for the brute oracle; tri_shade f32[T,24] (v0 e1 e2
+    n0 n1 n2 obj_f mat_f light_index_f light_num_tris_f pad) for shading;
+  - materials: mat_packed f32[M,16] (albedo, emission rgb, emission power,
+    roughness, metallic, transmission, ior, dispersion, pad);
+  - lights from emissive objects: light_object i32[L], light_power f32[L],
+    light_center f32[L,3], light_meta_packed f32[L,8] (first_tri_f,
+    num_tris_f, emission rgb, object_f, power, pad), light_tri_packed
+    f32[LT,16] in the original (pre-BVH) triangle order;
+  - the traversal kernels' arrays (ops/quad_traverse.py): the 4-wide
+    collapsed tree qnodes f32[N4,32] (4 child boxes, then 4 metas as f32;
+    absent children are NaN boxes), qmeta i32[4*N4], qroot i32[1], and the
+    leaf blocks ptris f32[NB, leaf*12] (v0, e1, e2, tri_f, obj_f, pad per
+    triangle), with the DFS stack bound q_stack_need.
+
+Not ported here: multi-part bakes (they exist for the TPU kernel's VMEM
+ceiling), capacity-padded "stable" bakes, refit and material-only updates;
+ROADMAP.md lists each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.accel.bvh import BVH, build_bvh, collapse_bvh4
+from raytracer_tpu_torch.scene.model import Scene
+
+log = logging.getLogger(__name__)
+
+_PAD = 128  # pad triangle count to a multiple of this (as the JAX bake)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceScene:
+    tri_v0: torch.Tensor  # f32[T,3]
+    tri_e1: torch.Tensor  # f32[T,3]
+    tri_e2: torch.Tensor  # f32[T,3]
+    tri_object: torch.Tensor  # i32[T]
+    tri_shade: torch.Tensor  # f32[T,24]
+    mat_packed: torch.Tensor  # f32[M,16]
+    light_object: torch.Tensor  # i32[L]
+    light_power: torch.Tensor  # f32[L]
+    light_center: torch.Tensor  # f32[L,3]
+    light_meta_packed: torch.Tensor  # f32[L,8]
+    light_tri_packed: torch.Tensor  # f32[LT,16]
+    scene_min: torch.Tensor  # f32[3]
+    scene_max: torch.Tensor  # f32[3]
+    qnodes: torch.Tensor  # f32[N4,32]
+    qmeta: torch.Tensor  # i32[4*N4]
+    qroot: torch.Tensor  # i32[1]
+    ptris: torch.Tensor  # f32[NB, leaf*12]
+    num_triangles: int
+    num_lights: int
+    q_stack_need: int
+    # qroot as a host int, so a kernel launch needs no device readback.
+    root: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.qnodes.device
+
+
+# Array fields shared with the JAX SceneOnDevice, by name.
+ARRAY_FIELDS = (
+    "tri_v0", "tri_e1", "tri_e2", "tri_object", "tri_shade", "mat_packed",
+    "light_object", "light_power", "light_center", "light_meta_packed",
+    "light_tri_packed", "scene_min", "scene_max", "qnodes", "qmeta", "qroot",
+    "ptris",
+)
+
+
+def _pad_rows(a: np.ndarray, total: int, fill=0.0) -> np.ndarray:
+    if len(a) == total:
+        return a
+    pad_shape = (total - len(a),) + a.shape[1:]
+    return np.concatenate([a, np.full(pad_shape, fill, a.dtype)])
+
+
+def _pack_tri_shade(v0, e1, e2, n0, n1, n2, obj, mat,
+                    obj_light_index, obj_light_num):
+    t = len(v0)
+    out = np.zeros((t, 24), np.float32)
+    out[:, 0:3] = v0
+    out[:, 3:6] = e1
+    out[:, 6:9] = e2
+    out[:, 9:12] = n0
+    out[:, 12:15] = n1
+    out[:, 15:18] = n2
+    out[:, 18] = obj.astype(np.float32)
+    out[:, 19] = mat.astype(np.float32)
+    # Owning object's light index (-1 if none) and that light's triangle
+    # count, for the emissive-hit MIS path.
+    oc = np.clip(obj, 0, len(obj_light_index) - 1)
+    out[:, 20] = np.where(obj >= 0, obj_light_index[oc], -1).astype(
+        np.float32)
+    out[:, 21] = np.where(obj >= 0, obj_light_num[oc], 0).astype(np.float32)
+    return out
+
+
+def _pack_materials(materials):
+    out = np.zeros((len(materials), 16), np.float32)
+    for i, mt in enumerate(materials):
+        out[i, 0:3] = mt.albedo
+        out[i, 3:6] = mt.emission_color
+        out[i, 6] = mt.emission_power
+        out[i, 7] = mt.roughness
+        out[i, 8] = mt.metallic
+        out[i, 9] = mt.transmission
+        out[i, 10] = mt.ior
+        out[i, 11] = mt.dispersion
+    return out
+
+
+def _pack_leaf_blocks(bvh, v0, e1, e2, tri_object, leaf_size):
+    """ptris f32[NB, leaf*12]: one row per leaf block, leaf_size x (v0, e1,
+    e2, tri_f, obj_f, pad); rows past a leaf's count are degenerate (zero
+    edges never hit) with object -1. Integers are exact small f32."""
+    is_leaf = bvh.nodes_count > 0
+    nb = max(1, int(is_leaf.sum()))
+    assert nb < (1 << 24) and len(v0) < (1 << 24)
+    ptris = np.zeros((nb, leaf_size * 12), np.float32)
+    if is_leaf.any():
+        lf = bvh.nodes_first[is_leaf].astype(np.int64)
+        lc = np.minimum(bvh.nodes_count[is_leaf], leaf_size).astype(np.int64)
+        idx = lf[:, None] + np.arange(leaf_size)
+        valid = np.arange(leaf_size)[None, :] < lc[:, None]
+        idxc = np.clip(idx, 0, len(v0) - 1)
+        vm = valid[..., None]
+        blocks = np.zeros((nb, leaf_size, 12), np.float32)
+        blocks[:, :, 0:3] = np.where(vm, v0[idxc], 0.0)
+        blocks[:, :, 3:6] = np.where(vm, e1[idxc], 0.0)
+        blocks[:, :, 6:9] = np.where(vm, e2[idxc], 0.0)
+        blocks[:, :, 9] = np.where(valid, idxc, 0).astype(np.float32)
+        blocks[:, :, 10] = np.where(valid, tri_object[idxc], -1).astype(
+            np.float32)
+        ptris = blocks.reshape(nb, leaf_size * 12)
+    return ptris
+
+
+def _bake_arrays(scene: Scene, leaf_size: int = 16
+                ) -> Tuple[Dict[str, np.ndarray], BVH]:
+    """The bake on the host: (numpy arrays by DeviceScene field name, with
+    the int fields as ints, and the host BVH)."""
+    if not scene.objects:
+        raise ValueError("cannot bake an empty scene")
+
+    v0s, e1s, e2s, n0s, n1s, n2s, tri_obj = [], [], [], [], [], [], []
+    obj_first_tri = []
+    tri_cursor = 0
+    for oi, obj in enumerate(scene.objects):
+        mesh = scene.meshes[obj.mesh_index]
+        m = obj.transform.model_matrix
+        nmat = obj.transform.normal_matrix
+        wpos = mesh.positions @ m[:3, :3].T + m[:3, 3]
+        wnrm = mesh.normals @ nmat[:3, :3].T  # unnormalized, as the JAX bake
+        tris = mesh.indices.reshape(-1, 3).astype(np.int64)
+        a, b, c = wpos[tris[:, 0]], wpos[tris[:, 1]], wpos[tris[:, 2]]
+        v0s.append(a)
+        e1s.append(b - a)
+        e2s.append(c - a)
+        n0s.append(wnrm[tris[:, 0]])
+        n1s.append(wnrm[tris[:, 1]])
+        n2s.append(wnrm[tris[:, 2]])
+        tri_obj.append(np.full(len(tris), oi, np.int32))
+        obj_first_tri.append(tri_cursor)
+        tri_cursor += len(tris)
+
+    v0 = np.concatenate(v0s).astype(np.float32)
+    e1 = np.concatenate(e1s).astype(np.float32)
+    e2 = np.concatenate(e2s).astype(np.float32)
+    n0 = np.concatenate(n0s).astype(np.float32)
+    n1 = np.concatenate(n1s).astype(np.float32)
+    n2 = np.concatenate(n2s).astype(np.float32)
+    tri_object = np.concatenate(tri_obj)
+    num_tris = len(v0)
+    obj_material = np.asarray(
+        [o.material_index for o in scene.objects], np.int32)
+
+    # --- lights from emissive objects (gpu_scene.odin:603-623) ---
+    light_object, light_first, light_count = [], [], []
+    light_center, light_emission, light_power = [], [], []
+    obj_light_index = np.full(len(scene.objects), -1, np.int32)
+    for oi, obj in enumerate(scene.objects):
+        mat = scene.materials[obj.material_index]
+        if mat.emission_power > 0:
+            obj_light_index[oi] = len(light_object)
+            light_object.append(oi)
+            light_first.append(obj_first_tri[oi])
+            light_count.append(scene.meshes[obj.mesh_index].num_triangles)
+            light_center.append(obj.transform.model_matrix[:3, 3])
+            light_emission.append(
+                np.asarray(mat.emission_color, np.float32)
+                * mat.emission_power)
+            light_power.append(mat.emission_power)
+    num_lights = len(light_object)
+
+    # --- BVH over world triangles, then permute triangle arrays ---
+    bvh = build_bvh(v0, e1, e2, leaf_size=leaf_size)
+    bvh.input_tris = num_tris
+    perm = bvh.tri_order
+    num_refs = len(perm)
+    v0p, e1p, e2p = v0[perm], e1[perm], e2[perm]
+    n0p, n1p, n2p = n0[perm], n1[perm], n2[perm]
+    tri_object_p = tri_object[perm]
+    tri_material_p = obj_material[tri_object_p]
+
+    ptris = _pack_leaf_blocks(bvh, v0p, e1p, e2p, tri_object_p, leaf_size)
+    qnodes, qmeta, qroot, q_stack_need = collapse_bvh4(bvh)
+
+    t_pad = max(_PAD, ((num_refs + _PAD - 1) // _PAD) * _PAD)
+
+    light_emission_arr = np.asarray(light_emission, np.float32).reshape(
+        num_lights, 3)
+    light_meta = np.zeros((num_lights, 8), np.float32)
+    if num_lights:
+        assert max(light_first) < (1 << 24) and max(light_count) < (1 << 24)
+        light_meta[:, 0] = np.asarray(light_first, np.float32)
+        light_meta[:, 1] = np.asarray(light_count, np.float32)
+        light_meta[:, 2:5] = light_emission_arr
+        light_meta[:, 5] = np.asarray(light_object, np.float32)
+        light_meta[:, 6] = np.asarray(light_power, np.float32)
+    obj_light_num = np.zeros(len(scene.objects), np.int32)
+    if num_lights:
+        obj_light_num[np.asarray(light_object, np.int64)] = np.asarray(
+            light_count, np.int32)
+    light_tri_packed = np.zeros((num_tris, 16), np.float32)
+    light_tri_packed[:, 0:3] = v0
+    light_tri_packed[:, 3:6] = e1
+    light_tri_packed[:, 6:9] = e2
+    light_tri_packed[:, 9] = tri_object.astype(np.float32)
+    light_tri_packed[:, 10] = obj_light_index[tri_object].astype(np.float32)
+    light_tri_packed[:, 11] = obj_light_num[tri_object].astype(np.float32)
+    if num_lights:
+        own = obj_light_index[tri_object]
+        light_tri_packed[:, 12:15] = np.where(
+            (own >= 0)[:, None],
+            light_emission_arr[np.clip(own, 0, num_lights - 1)], 0.0)
+
+    tri_object_pad = _pad_rows(tri_object_p, t_pad, fill=-1)
+    arrays = dict(
+        tri_v0=_pad_rows(v0p, t_pad),
+        tri_e1=_pad_rows(e1p, t_pad),
+        tri_e2=_pad_rows(e2p, t_pad),
+        tri_object=tri_object_pad,
+        tri_shade=_pack_tri_shade(
+            _pad_rows(v0p, t_pad), _pad_rows(e1p, t_pad),
+            _pad_rows(e2p, t_pad), _pad_rows(n0p, t_pad),
+            _pad_rows(n1p, t_pad), _pad_rows(n2p, t_pad),
+            tri_object_pad, _pad_rows(tri_material_p, t_pad, fill=0),
+            obj_light_index, obj_light_num,
+        ),
+        mat_packed=_pack_materials(scene.materials),
+        light_object=np.asarray(light_object, np.int32).reshape(num_lights),
+        light_power=np.asarray(light_power, np.float32).reshape(num_lights),
+        light_center=np.asarray(light_center, np.float32).reshape(
+            num_lights, 3),
+        light_meta_packed=light_meta,
+        light_tri_packed=light_tri_packed,
+        scene_min=np.minimum.reduce(
+            [v0.min(0), (v0 + e1).min(0), (v0 + e2).min(0)]
+        ).astype(np.float32),
+        scene_max=np.maximum.reduce(
+            [v0.max(0), (v0 + e1).max(0), (v0 + e2).max(0)]
+        ).astype(np.float32),
+        qnodes=qnodes,
+        qmeta=qmeta,
+        qroot=qroot,
+        ptris=ptris,
+        num_triangles=num_tris,
+        num_lights=num_lights,
+        q_stack_need=int(q_stack_need),
+    )
+    return arrays, bvh
+
+
+def _to_device(arrays, device) -> DeviceScene:
+    dev = torch.device(device)
+    tensors = {k: torch.from_numpy(np.array(arrays[k], copy=True)).to(dev)
+               for k in ARRAY_FIELDS}
+    return DeviceScene(
+        **tensors,
+        num_triangles=int(arrays["num_triangles"]),
+        num_lights=int(arrays["num_lights"]),
+        q_stack_need=int(arrays["q_stack_need"]),
+        root=int(np.asarray(arrays["qroot"]).reshape(-1)[0]),
+    )
+
+
+def bake_scene(scene: Scene, leaf_size: int = 16,
+               device="cuda") -> Tuple[DeviceScene, BVH]:
+    """Flatten + world-transform + BVH-build a host Scene and upload it:
+    (DeviceScene on `device`, host BVH). The arrays equal the JAX
+    `bake_scene(scene, leaf_size, stable_shapes=False)` fields of the same
+    names."""
+    arrays, bvh = _bake_arrays(scene, leaf_size)
+    ds = _to_device(arrays, device)
+    log.info(
+        "bake: %d triangles, %d lights, qnodes %d x 32 f32 (%d bytes), "
+        "ptris %d x %d f32 (%d bytes), stack need %d",
+        ds.num_triangles, ds.num_lights, ds.qnodes.shape[0],
+        ds.qnodes.numel() * 4, ds.ptris.shape[0], ds.ptris.shape[1],
+        ds.ptris.numel() * 4, ds.q_stack_need,
+    )
+    return ds, bvh
+
+
+def from_jax_arrays(d: Dict[str, np.ndarray], device) -> DeviceScene:
+    """Build a DeviceScene from a JAX SceneOnDevice's fields after
+    `np.asarray` (a single-part bake), so both packages trace one tree."""
+    if int(np.asarray(d.get("num_parts", 1))) != 1:
+        raise ValueError("multi-part bakes are not ported "
+                         "(ROADMAP.md port queue item P4)")
+    return _to_device(d, device)
