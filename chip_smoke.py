@@ -6,21 +6,28 @@ GPU: the quickest proof that the port builds and renders on the card.
 Phases (any failure exits non-zero and prints no result line):
   0. Require a CUDA device; print torch/CUDA versions and the card's name
      and power limit (nvidia-smi).
-  1. Build the traversal kernels (csrc/quad_traverse.cu) with nvcc.
+  1. Build the traversal kernels (csrc/quad_traverse.cu, the 4-wide
+     tree's K1/K2, and csrc/binary_traverse.cu, the binary tree's K3/K4;
+     the names of ROADMAP.md's kernel table) with nvcc, one process per
+     source, both started together.
   2. Kernels against their plain torch versions on the card, on the
      300k-triangle atrium and three 1920x1080 ray sets (primary rays,
      incoherent reflected rays, shadow rays with finite t_max and a skipped
-     light object). The plain versions run on every ray (and, timed apart,
-     on a strided subset of >= 65,536 rays); the gate is bit equality
-     (hit, tri, t, u, v; the occlusion mask). Times the kernels (CUDA
-     events, mean of 5 launches) and the plain versions (host clock, one
-     run).
+     light object). The plain versions run on every ray (and, for K1/K2,
+     timed apart on a strided subset of >= 65,536 rays); the gate is bit
+     equality (hit, tri, t, u, v; the occlusion mask). Times the kernels
+     (CUDA events, mean of 5 launches) and the plain versions (host clock,
+     one run). K3 against K1 and K4 against K2 on the same rays: hit
+     flips and triangle differences at most 1e-4 of the rays.
   3. The main path: ProgressiveRenderer on the atrium at 1920x1080, depth 3,
      NEE; 2 warm and 4 timed frames, with ms/frame, rays/frame, Mrays/s
      and peak device memory; a finite, non-black image; both kernels
      launched during the run. Then the atrium at 64x64, 2 frames, on the
      card against the CPU (the plain versions), pixel by pixel.
   4. The CLI renders a JSON scene to a PNG.
+  5. The accel="bvh" path: phase 3 with RenderConfig(accel="bvh"), whose
+     frames must launch K3/K4 and not K1/K2, and whose image must agree
+     with phase 3's; then card against CPU at 64x64, 2 frames.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
@@ -42,6 +49,8 @@ SUBSET_MIN = 65_536
 PIXEL_ATOL = 1e-4  # the slice tolerance: per pixel, except flipped pixels
 MAX_FLIPPED = 0.01
 KERNEL_SOURCE = "raytracer_tpu_torch/csrc/quad_traverse.cu"
+BINARY_SOURCE = "raytracer_tpu_torch/csrc/binary_traverse.cu"
+TREE_AGREEMENT = 1e-4  # K3 vs K1, K4 vs K2: share of rays that may differ
 
 
 def log(msg):
@@ -56,6 +65,17 @@ def nvidia_smi_line():
     if proc.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
+
+
+def plain_timed(fn, *args):
+    """(fn(*args), host ms of that one synchronised run)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def cuda_ms(fn, reps):
@@ -87,16 +107,43 @@ def phase0():
 
 
 def phase1():
+    from concurrent.futures import ThreadPoolExecutor
+
     from raytracer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.quad_traverse_lib()
-    info = _build.build_info["libquad_traverse"]
-    log(f"phase 1: built {KERNEL_SOURCE} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Function" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(_build.quad_traverse_lib),
+                  pool.submit(_build.binary_traverse_lib)]
+        for b in builds:
+            b.result()
+    log(f"phase 1: built both kernel libraries in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for source, stem in ((KERNEL_SOURCE, "libquad_traverse"),
+                         (BINARY_SOURCE, "libbinary_traverse")):
+        info = _build.build_info[stem]
+        log(f"phase 1: {source}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Function" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
+def reset_all_launch_counts():
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    qt.reset_launch_counts()
+    bt.reset_launch_counts()
+
+
+def all_launch_counts():
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    return {"quad_closest": qt.closest_launches,
+            "quad_occlusion": qt.occlusion_launches,
+            "binary_closest": bt.closest_launches,
+            "binary_occlusion": bt.occlusion_launches}
 
 
 def bench_camera_ubo(device, width, height):
@@ -170,13 +217,6 @@ def phase2(ds, device):
     assert sub.numel() >= SUBSET_MIN
     report = {}
 
-    def plain_timed(fn, *args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     scene_args = (ds.root, ds.qmeta, ds.qnodes, ds.ptris)
     for name in ("primary", "incoherent"):
         o, d = sets[name]
@@ -223,28 +263,107 @@ def phase2(ds, device):
     report["occlusion_shadow"] = dict(
         ms=ms, plain_ms=plain_ms,
         max_abs_err=float((got.int() - ref.int()).abs().max()))
+    report.update(phase2_binary(ds, sets))
     return report
 
 
-def phase3(scene_fn, device):
+def phase2_binary(ds, sets):
+    """K3/K4 against their plain versions on the same rays (bit equality),
+    and against K1/K2 (the other tree)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    n = WIDTH * HEIGHT
+    device = ds.device
+    report = {}
+    scene_args = (ds.binary_root, ds.pnodes, ds.ptris)
+    for name in ("primary", "incoherent"):
+        o, d = sets[name]
+        tmax = torch.full((n,), 1e4, device=device)
+        got = bt.intersect_bvh_binary(o, d, ds, 1e-3, tmax)
+        ref, plain_ms = plain_timed(bt._intersect_binary_plain, o, d, tmax,
+                                    1e-3, *scene_args)
+        hit_mism = int(((got.tri >= 0) != (ref[1] >= 0)).sum())
+        tri_mism = int((got.tri != ref[1]).sum())
+        max_dt = float((got.t - ref[0]).abs().max())
+        uv_equal = bool(torch.equal(got.u, ref[2])
+                        and torch.equal(got.v, ref[3]))
+        ms = cuda_ms(lambda: bt.intersect_bvh_binary(o, d, ds, 1e-3, tmax),
+                     5)
+        log(f"phase 2: binary closest {name}: {int(got.hit.sum())} of {n} "
+            f"rays hit; all {n} rays vs plain: hit_mism {hit_mism} "
+            f"tri_mism {tri_mism} max|dt| {max_dt} uv_equal {uv_equal}; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {n} rays")
+        if hit_mism or tri_mism or max_dt != 0.0 or not uv_equal:
+            raise RuntimeError(f"binary closest kernel != plain version "
+                               f"({name})")
+        quad = qt.intersect_quad(o, d, ds, 1e-3, tmax)
+        flips = int((got.hit != quad.hit).sum())
+        both = got.hit & quad.hit
+        tri_diff = int((both & (got.tri != quad.tri)).sum())
+        dt_both = float((got.t - quad.t).abs()[both].max())
+        log(f"phase 2: binary vs quad closest {name}: {flips} hit flips, "
+            f"{tri_diff} triangle differences of {n} rays, max|dt| on "
+            f"common hits {dt_both}")
+        if flips + tri_diff > TREE_AGREEMENT * n:
+            raise RuntimeError(f"K3 and K1 disagree beyond {TREE_AGREEMENT} "
+                               f"of the rays ({name})")
+        report[f"binary_closest_{name}"] = dict(ms=ms, plain_ms=plain_ms,
+                                                max_abs_err=max_dt)
+
+    o, d, tmax, skip, active = sets["shadow"]
+    got = bt.occlusion_bvh_binary(o, d, 1e-3, tmax, ds, skip,
+                                  active_mask=active)
+    tm_eff = torch.where(active, tmax, 1e-3)
+    ref, plain_ms = plain_timed(bt._occlusion_binary_plain, o, d, tm_eff,
+                                skip, 1e-3, *scene_args)
+    mism = int((got != ref).sum())
+    ms = cuda_ms(lambda: bt.occlusion_bvh_binary(o, d, 1e-3, tmax, ds, skip,
+                                                 active_mask=active), 5)
+    quad = qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip, active_mask=active)
+    vs_quad = int((got != quad).sum())
+    log(f"phase 2: binary occlusion shadow: {int(got.sum())} occluded; all "
+        f"{n} rays vs plain: mism {mism}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms on {n} rays; vs quad occlusion: {vs_quad} "
+        f"differ")
+    if mism:
+        raise RuntimeError("binary occlusion kernel != plain version")
+    if vs_quad > TREE_AGREEMENT * n:
+        raise RuntimeError(f"K4 and K2 disagree beyond {TREE_AGREEMENT} of "
+                           "the rays")
+    report["binary_occlusion_shadow"] = dict(
+        ms=ms, plain_ms=plain_ms,
+        max_abs_err=float((got.int() - ref.int()).abs().max()))
+    return report
+
+
+def main_path(scene_fn, device, label, accel):
+    """ProgressiveRenderer with `accel` on the atrium at 1920x1080: 2 warm
+    and 4 timed frames, with every launch count set to 0 just before and
+    read just after; then the atrium at 64x64, 2 frames, on the card
+    against the CPU. Returns (launch counts, the 1080p image)."""
     import numpy as np
     import torch
 
     from raytracer_tpu_torch.api import ProgressiveRenderer
-    from raytracer_tpu_torch.ops import quad_traverse as qt
     from raytracer_tpu_torch.utils.config import RenderConfig
 
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=3)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=3, accel=accel)
     cam, _ = bench_camera_ubo(device, WIDTH, HEIGHT)
     t0 = time.perf_counter()
     r = ProgressiveRenderer(scene_fn(), cam, cfg, device=device)
     torch.cuda.synchronize()
-    log(f"phase 3: bake {time.perf_counter() - t0:.2f} s "
+    log(f"{label}: accel={r.config.accel}, bake "
+        f"{time.perf_counter() - t0:.2f} s "
         f"({r.device_scene.num_triangles} triangles, qnodes "
-        f"{r.device_scene.qnodes.numel() * 4} B, ptris "
-        f"{r.device_scene.ptris.numel() * 4} B)")
+        f"{r.device_scene.qnodes.numel() * 4} B, pnodes "
+        f"{r.device_scene.pnodes.numel() * 4} B, ptris "
+        f"{r.device_scene.ptris.numel() * 4} B, depth "
+        f"{r.device_scene.bvh_max_depth})")
     torch.cuda.reset_peak_memory_stats()
-    qt.reset_launch_counts()
+    reset_all_launch_counts()
     times, rays = [], []
     for f in range(6):
         torch.cuda.synchronize()
@@ -258,34 +377,59 @@ def phase3(scene_fn, device):
         log(f"  frame {f} {'warm' if f < 2 else 'timed'}: {dt * 1e3:.1f} ms, "
             f"{int(r.last_stats['rays_traced'])} traced + "
             f"{int(r.last_stats['shadow_rays'])} shadow rays")
-    launches = {"closest": qt.closest_launches,
-                "occlusion": qt.occlusion_launches}
+    launches = all_launch_counts()
     ms = 1e3 * sum(times) / len(times)
     mrays = sum(rays) / sum(times) / 1e6
     peak = torch.cuda.max_memory_allocated()
     img = r.image()
-    log(f"phase 3: {ms:.1f} ms/frame, {sum(rays) // len(rays)} rays/frame, "
+    log(f"{label}: {ms:.1f} ms/frame, {sum(rays) // len(rays)} rays/frame, "
         f"{mrays:.2f} Mrays/s, peak device memory {peak} B, kernel "
         f"launches {launches}, image mean {float(img.mean()):.5f}")
     if not np.isfinite(img).all() or not img.mean() > 0:
-        raise RuntimeError("main-path image is not finite and non-black")
-    if not (launches["closest"] > 0 and launches["occlusion"] > 0):
-        raise RuntimeError(f"a kernel was not launched: {launches}")
+        raise RuntimeError(f"{label}: image is not finite and non-black")
 
     # Card vs CPU (the plain versions) at 64x64, 2 frames.
     small = {}
     for dev in (device, "cpu"):
         c, _ = bench_camera_ubo(dev, 64, 64)
         small[str(dev)] = ProgressiveRenderer(
-            scene_fn(), c, RenderConfig(width=64, height=64, max_depth=3),
+            scene_fn(), c, RenderConfig(width=64, height=64, max_depth=3,
+                                        accel=accel),
             device=dev).render(2)
     a, b = small[str(device)], small["cpu"]
     flipped = np.abs(a - b).max(axis=-1) > PIXEL_ATOL
-    log(f"phase 3: 64x64 x2 frames card vs CPU: {int(flipped.sum())} "
+    log(f"{label}: 64x64 x2 frames card vs CPU: {int(flipped.sum())} "
         f"flipped pixels of {flipped.size}, max |diff| "
         f"{float(np.abs(a - b).max()):.3g}")
     if flipped.mean() > MAX_FLIPPED:
-        raise RuntimeError("card and CPU renders differ beyond tolerance")
+        raise RuntimeError(f"{label}: card and CPU renders differ beyond "
+                           "tolerance")
+    return launches, img
+
+
+def phase3(scene_fn, device):
+    launches, img = main_path(scene_fn, device, "phase 3", "auto")
+    if not (launches["quad_closest"] > 0 and launches["quad_occlusion"] > 0):
+        raise RuntimeError(f"a kernel was not launched: {launches}")
+    return launches, img
+
+
+def phase5(scene_fn, device, cuda_img):
+    import numpy as np
+
+    launches, img = main_path(scene_fn, device, "phase 5", "bvh")
+    if not (launches["binary_closest"] > 0
+            and launches["binary_occlusion"] > 0):
+        raise RuntimeError(f"a binary kernel was not launched: {launches}")
+    if launches["quad_closest"] or launches["quad_occlusion"]:
+        raise RuntimeError(f"accel='bvh' launched a quad kernel: {launches}")
+    flipped = np.abs(img - cuda_img).max(axis=-1) > PIXEL_ATOL
+    log(f"phase 5: 1080p accel=bvh vs accel=cuda after the same frames: "
+        f"{int(flipped.sum())} flipped pixels of {flipped.size}, max |diff| "
+        f"{float(np.abs(img - cuda_img).max()):.3g}")
+    if flipped.mean() > MAX_FLIPPED:
+        raise RuntimeError("accel='bvh' and accel='cuda' images differ "
+                           "beyond tolerance")
     return launches
 
 
@@ -366,23 +510,38 @@ def main():
         f"{ds.num_triangles} triangles, stack need {ds.q_stack_need}")
     k = phase2(ds, device)
     del ds
-    launches = phase3(lambda: create_benchmark_atrium(TARGET_TRIS), device)
+    atrium = lambda: create_benchmark_atrium(TARGET_TRIS)  # noqa: E731
+    cuda_launches, cuda_img = phase3(atrium, device)
     phase4()
+    bvh_launches = phase5(atrium, device, cuda_img)
 
     kernels = [
         {"name": "quad_closest", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "raytracer_tpu/ops/pallas_subpacket.py:329",
-         "launches": launches["closest"],
+         "launches": cuda_launches["quad_closest"],
          "max_abs_err": max(k["closest_primary"]["max_abs_err"],
                             k["closest_incoherent"]["max_abs_err"]),
          "ms": k["closest_incoherent"]["ms"],
          "plain_ms": k["closest_incoherent"]["plain_ms"]},
         {"name": "quad_occlusion", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "raytracer_tpu/ops/pallas_subpacket.py:423",
-         "launches": launches["occlusion"],
+         "launches": cuda_launches["quad_occlusion"],
          "max_abs_err": k["occlusion_shadow"]["max_abs_err"],
          "ms": k["occlusion_shadow"]["ms"],
          "plain_ms": k["occlusion_shadow"]["plain_ms"]},
+        {"name": "binary_closest", "route": "cuda", "source": BINARY_SOURCE,
+         "replaces": "raytracer_tpu/ops/pallas_traverse.py:167",
+         "launches": bvh_launches["binary_closest"],
+         "max_abs_err": max(k["binary_closest_primary"]["max_abs_err"],
+                            k["binary_closest_incoherent"]["max_abs_err"]),
+         "ms": k["binary_closest_incoherent"]["ms"],
+         "plain_ms": k["binary_closest_incoherent"]["plain_ms"]},
+        {"name": "binary_occlusion", "route": "cuda", "source": BINARY_SOURCE,
+         "replaces": "raytracer_tpu/ops/pallas_traverse.py:227",
+         "launches": bvh_launches["binary_occlusion"],
+         "max_abs_err": k["binary_occlusion_shadow"]["max_abs_err"],
+         "ms": k["binary_occlusion_shadow"]["ms"],
+         "plain_ms": k["binary_occlusion_shadow"]["plain_ms"]},
     ]
     log(f"kernel ms and plain_ms: one launch on {WIDTH * HEIGHT} rays")
     log(f"nvidia-smi: {nvidia_smi_line()}")

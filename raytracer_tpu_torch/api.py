@@ -9,6 +9,10 @@ and resets accumulation; a dirty camera also resets it. `step()` runs one
 progressive sample unless the accumulation limit is reached. Checkpoints
 use the JAX package's .npz format, so one moves between the two packages.
 
+As in the JAX package, accel="cuda" falls back to accel="bvh" (the binary
+tree's kernels), with a logged warning, for a t_min other than 1e-3 and for
+a 4-wide tree whose stack need exceeds the kernels' stack.
+
 Not ported yet, each raising with its ROADMAP.md port queue item: ReSTIR,
 adaptive sampling, spp_batch > 1, denoise/preview/AOVs, multi-device
 meshes, and the refit / material-only fast paths of the journal replay.
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.integrator.wavefront import render_frame
+from raytracer_tpu_torch.ops import binary_traverse
 from raytracer_tpu_torch.ops.camera import Camera
 from raytracer_tpu_torch.ops.quad_traverse import CAP, T_MIN
 from raytracer_tpu_torch.scene.device_scene import bake_scene
@@ -64,10 +69,12 @@ class ProgressiveRenderer:
         _check_ported(self.config)
         if (self.config.accel == "cuda"
                 and abs(self.config.t_min - T_MIN) > 1e-9):
-            raise ValueError(
-                f"t_min={self.config.t_min:g}: accel='cuda' fixes t_min at "
-                f"{T_MIN} (the JAX package falls back to the skip-link walk, "
-                "which is ROADMAP.md port queue item P2)")
+            # The 4-wide kernels fix the reference's traceRayEXT t_min of
+            # 1e-3; another t_min renders on the binary tree's kernels.
+            log.warning(
+                "t_min=%g unsupported by accel='cuda' (kernel assumes "
+                "1e-3); falling back to accel='bvh'", self.config.t_min)
+            self.config = self.config.replace(accel="bvh")
         if self.config.stable_bake:
             log.info("stable_bake has no effect yet (ROADMAP.md port queue "
                      "item P5): bakes are exact-shape, the same image")
@@ -89,13 +96,21 @@ class ProgressiveRenderer:
         self.device_scene, self._host_bvh = bake_scene(
             self.scene, leaf_size=self.config.bvh_leaf_size,
             device=self.device)
-        if (self.config.accel == "cuda"
-                and self.device_scene.q_stack_need > CAP):
+        ds = self.device_scene
+        if self.config.accel == "cuda" and ds.q_stack_need > CAP:
+            # Binned SAH can emit highly skewed trees on adversarial input;
+            # the bake holds the binary tree too, so no second bake.
+            log.warning(
+                "quad-BVH stack need %d exceeds the quad traversal kernel's "
+                "stack (CAP=%d); falling back to accel='bvh'",
+                ds.q_stack_need, CAP)
+            self.config = self.config.replace(accel="bvh")
+        if (self.config.accel == "bvh"
+                and not binary_traverse.stack_fits(ds.bvh_max_depth)):
             raise ValueError(
-                f"quad-BVH stack need {self.device_scene.q_stack_need} "
-                f"exceeds the traversal stack (CAP={CAP}); the JAX package "
-                "falls back to the skip-link walk, which is ROADMAP.md port "
-                "queue item P2")
+                f"BVH depth {ds.bvh_max_depth} exceeds the binary traversal "
+                f"stack (STACK_CAP={binary_traverse.STACK_CAP}); a stackless "
+                "walk for such trees is ROADMAP.md port queue item P2")
 
     def _zeros(self):
         return torch.zeros((self.config.num_pixels, 3), dtype=torch.float32,

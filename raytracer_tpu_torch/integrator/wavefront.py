@@ -6,8 +6,12 @@ bounce loop a Python loop, every shading branch a masked lockstep update.
 
   simple.rgen (per-pixel recursion loop)    ->  render_wavefront
   traceRayEXT                               ->  quad_traverse.intersect_quad
+                                                (accel="bvh": binary_traverse.
+                                                intersect_bvh_binary)
   simple.rchit (shading + NEE/MIS)          ->  _shade
   rayQueryEXT shadow rays                   ->  quad_traverse.occlusion_quad
+                                                (accel="bvh": binary_traverse.
+                                                occlusion_bvh_binary)
   simple.rmiss                              ->  the miss branch
   rgba32f accumulation image                ->  accumulate
 
@@ -43,6 +47,10 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops import brdf, rng
+from raytracer_tpu_torch.ops.binary_traverse import (
+    intersect_bvh_binary,
+    occlusion_bvh_binary,
+)
 from raytracer_tpu_torch.ops.intersect import intersect_brute, occlusion_brute
 from raytracer_tpu_torch.ops.math3d import (
     cos_theta,
@@ -124,6 +132,9 @@ def _trace(scene, origin, direction, cfg: RenderConfig, active):
         )
         return rec._replace(hit=rec.hit & active,
                             tri=torch.where(active, rec.tri, -1))
+    if cfg.accel == "bvh":
+        return intersect_bvh_binary(origin, direction, scene, cfg.t_min,
+                                    cfg.t_max, active_mask=active)
     return intersect_quad(origin, direction, scene, cfg.t_min, cfg.t_max,
                           active_mask=active)
 
@@ -136,6 +147,10 @@ def _occluded(scene, origin, direction, t_max, skip_object, cfg, active):
             skip_object,
         )
         return occ & active
+    if cfg.accel == "bvh":
+        return occlusion_bvh_binary(origin, direction, cfg.t_min, t_max,
+                                    scene, skip_object,
+                                    active_mask=active) & active
     return occlusion_quad(origin, direction, cfg.t_min, t_max, scene,
                           skip_object, active_mask=active) & active
 

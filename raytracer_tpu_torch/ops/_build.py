@@ -2,10 +2,11 @@
 (csrc/*.cu) and, for accel/native_builder.py, the C++ BVH builder.
 
 Each source is compiled into a shared library with a plain C interface, in
-`raytracer_tpu_torch/_build/`, named by a hash of the source and the
-flags, at first use; later uses in any process load the cached library.
-The CUDA library is loaded with ctypes: every pointer and the stream are
-`c_void_p`. Nothing here runs at import time.
+`raytracer_tpu_torch/_build/`, named by a hash of the source, the headers
+it includes and the flags, at first use; later uses in any process load the
+cached library. The CUDA libraries are loaded with ctypes: every pointer
+and the stream are `c_void_p`. Nothing here runs at import time. Each
+library has its own lock, so two threads build two libraries at once.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false, which keeps nvcc from
 contracting a*b+c into one rounding so the kernels equal their plain torch
@@ -26,13 +27,16 @@ import time
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+# Device helpers shared by the traversal kernels (#included by each .cu).
+CUDA_HEADERS = (os.path.join(CSRC_DIR, "traverse_common.cuh"),)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks = {}
 _libs = {}
 # library stem -> {"seconds": build seconds (0 when cached), "log": the
 # compiler's output}
@@ -55,15 +59,18 @@ def _nvcc() -> str:
                        "toolkit (CUDA_HOME or nvcc on PATH)")
 
 
-def compile_library(argv, src: str, stem: str) -> str:
+def compile_library(argv, src: str, stem: str, headers=()) -> str:
     """Compile `src` into BUILD_DIR/<stem>_<hash>.so with the compiler
-    command `argv` (flags included; the hash covers the source and argv),
-    unless that library is there already. Returns its path; raises with
-    the compiler's output on failure. The library is written under a
-    private name and renamed, so concurrent first users never load a
-    half-written file."""
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(argv[1:]).encode())
+    command `argv` (flags included; the hash covers the source, the files
+    in `headers` and argv), unless that library is there already. Returns
+    its path; raises with the compiler's output on failure. The library is
+    written under a private name and renamed, so concurrent first users
+    never load a half-written file."""
+    key = hashlib.sha256()
+    for path in (src, *headers):
+        with open(path, "rb") as f:
+            key.update(f.read())
+    key.update(" ".join(argv[1:]).encode())
     path = os.path.join(BUILD_DIR, f"{stem}_{key.hexdigest()[:16]}.so")
     if os.path.exists(path):
         build_info[stem] = {"seconds": 0.0, "log": "cached"}
@@ -86,24 +93,47 @@ def compile_library(argv, src: str, stem: str) -> str:
     return path
 
 
-def quad_traverse_lib() -> ctypes.CDLL:
-    """The traversal kernels' library (csrc/quad_traverse.cu), built and
-    loaded once per process."""
-    with _lock:
-        lib = _libs.get("quad_traverse")
+def _cuda_lib(name: str, signatures) -> ctypes.CDLL:
+    """csrc/<name>.cu built (stem lib<name>) and loaded once per process;
+    `signatures` maps each entry point to its argtypes (restype int, the
+    launch's cudaError_t)."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        lib = _libs.get(name)
         if lib is not None:
             return lib
         lib = ctypes.CDLL(compile_library(
-            [_nvcc(), *NVCC_FLAGS],
-            os.path.join(CSRC_DIR, "quad_traverse.cu"), "libquad_traverse"))
-        p = ctypes.c_void_p
-        i64 = ctypes.c_int64
-        i32 = ctypes.c_int
-        lib.quad_closest.argtypes = [p, p, p, i64, i32, p, p, p, i32,
-                                     p, p, p, p, p]
-        lib.quad_closest.restype = ctypes.c_int
-        lib.quad_occlusion.argtypes = [p, p, p, p, i64, i32, p, p, p, i32,
-                                       p, p]
-        lib.quad_occlusion.restype = ctypes.c_int
-        _libs["quad_traverse"] = lib
+            [_nvcc(), *NVCC_FLAGS], os.path.join(CSRC_DIR, f"{name}.cu"),
+            f"lib{name}", headers=CUDA_HEADERS))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
         return lib
+
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+
+
+def quad_traverse_lib() -> ctypes.CDLL:
+    """The 4-wide tree's traversal kernels (csrc/quad_traverse.cu)."""
+    return _cuda_lib("quad_traverse", {
+        "quad_closest": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
+                         _P, _P, _P, _P, _P],
+        "quad_occlusion": [_P, _P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
+                           _P, _P],
+    })
+
+
+def binary_traverse_lib() -> ctypes.CDLL:
+    """The binary tree's traversal kernels (csrc/binary_traverse.cu)."""
+    return _cuda_lib("binary_traverse", {
+        "binary_closest": [_P, _P, _P, _I64, _F32, _I32, _P, _P, _I32,
+                           _P, _P, _P, _P, _P],
+        "binary_occlusion": [_P, _P, _P, _P, _I64, _F32, _I32, _P, _P, _I32,
+                             _P, _P],
+    })

@@ -1,0 +1,222 @@
+"""Closest-hit and any-hit traversal of the binary BVH: the port's
+counterpart of raytracer_tpu/ops/pallas_traverse.py, and the traversal of
+accel="bvh".
+
+`intersect_bvh_binary` and `occlusion_bvh_binary` compute what the JAX
+package's `intersect_bvh_pallas` / `occlusion_bvh_pallas` and its skip-link
+walk `intersect_bvh` / `occlusion_bvh` compute: for each ray the closest
+hit (t, tri, u, v) with t in (t_min, t_max), or whether any triangle not of
+the ray's `skip_object` blocks (t_min, t_max). They read the binary tree's
+arrays of scene/device_scene.py: pnodes f32[NI,16] (both child boxes and
+both child metas per internal node), root_meta (held on the host as
+`scene.binary_root`) and the leaf blocks ptris, shared with the 4-wide tree.
+
+On CUDA tensors they launch the hand-written kernels of
+csrc/binary_traverse.cu (built by ops/_build.py); on CPU tensors they run
+the kernels' plain torch versions below. A CUDA tensor never takes the
+plain version: the launch succeeds or the wrapper raises.
+
+The algorithm, shared by kernel and plain version (the TPU kernels' 4096-
+ray packets, SMEM stack and packet-wide child order exist because Mosaic
+has no per-lane gathers, and do not carry over):
+
+  - one depth-first traversal per ray with its own stack of STACK_CAP
+    metas, starting from root_meta; a meta < 0 is leaf block ~meta;
+  - an internal node slab-tests both children against [t_min, best t]
+    (t_max for any-hit) and pushes the hit ones, far first and near last,
+    near being the smaller t_near, a tie keeping left: the ray's own order
+    where the TPU kernel takes the packet's;
+  - a leaf tests its block's triangles in order with Möller–Trumbore
+    (|det| > 1e-10) and, for closest hits, a strictly smaller t; any-hit
+    stops at the first accepted hit;
+  - a ray whose t_max <= t_min (inactive lanes get exactly that) cannot
+    accept a hit and is not traversed: t stays t_max, tri -1, u = v = 0.
+
+t_min is an argument here, where the TPU kernels fix it at 1e-3: the walk
+that accel="bvh" stands for takes any t_min, and the renderer falls back
+to accel="bvh" for a t_min other than 1e-3. Every float operation is
+written in the same order in both versions, and the kernel is built with
+-fmad=false, so on the card the kernel equals its plain version bit for
+bit. Against the JAX kernels and walk, which visit leaves in another
+order, only hits at exactly equal t may name another triangle.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch.ops.intersect import HitRecord
+from raytracer_tpu_torch.ops.quad_traverse import (
+    BIG,
+    TRI_STRIDE,
+    _any_walk,
+    _check_ptris,
+    _check_rays,
+    _closest_walk,
+    _inv_dir,
+    _ptr,
+    _push,
+    _ray_inputs,
+    _require,
+    _slab_children,
+    _stream,
+)
+
+STACK_CAP = 128  # per-ray stack entries, as the TPU kernels' SMEM stack
+
+# Kernel launches, counted where the CUDA wrappers launch (never by the
+# plain versions), so a caller can show that a run went through them.
+closest_launches = 0
+occlusion_launches = 0
+
+
+def reset_launch_counts():
+    global closest_launches, occlusion_launches
+    closest_launches = 0
+    occlusion_launches = 0
+
+
+def stack_fits(max_depth: int) -> bool:
+    """Whether a tree of this depth traverses within STACK_CAP. The DFS
+    holds at most one pending far child per level plus the two pushes of
+    the node being expanded, so occupancy <= depth + 2."""
+    return max_depth + 2 <= STACK_CAP
+
+
+def _check_stack(scene):
+    if not stack_fits(scene.bvh_max_depth):
+        raise ValueError(
+            f"BVH depth {scene.bvh_max_depth} exceeds the binary traversal "
+            f"stack (STACK_CAP={STACK_CAP}); a stackless walk for such "
+            "trees is ROADMAP.md port queue item P2")
+
+
+def intersect_bvh_binary(origin, direction, scene, t_min, t_max,
+                         active_mask=None) -> HitRecord:
+    """Closest hit of rays f32[N,3] against `scene` (a DeviceScene);
+    `t_max` scalar or f32[N]; inactive lanes get t_max = t_min."""
+    _check_stack(scene)
+    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
+    if o.is_cuda:
+        t, tri, u, v = _intersect_binary_cuda(o, d, tm, t_min, scene)
+    else:
+        t, tri, u, v = _intersect_binary_plain(
+            o, d, tm, t_min, scene.binary_root, scene.pnodes, scene.ptris)
+    return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
+
+
+def occlusion_bvh_binary(origin, direction, t_min, t_max, scene,
+                         skip_object, active_mask=None):
+    """Any hit in (t_min, t_max) by a triangle whose object is not the
+    ray's `skip_object` (i32[N]); returns bool[N]."""
+    _check_stack(scene)
+    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
+    skip = torch.as_tensor(skip_object, device=o.device).to(
+        torch.int32).expand(o.shape[0]).contiguous()
+    if o.is_cuda:
+        return _occlusion_binary_cuda(o, d, tm, skip, t_min, scene)
+    return _occlusion_binary_plain(o, d, tm, skip, t_min, scene.binary_root,
+                                   scene.pnodes, scene.ptris)
+
+
+# --------------------------------------------------------------------------
+# Plain torch versions: the same per-ray DFS, run in lockstep over all rays
+# (the walks of ops/quad_traverse.py with the binary node visit).
+# --------------------------------------------------------------------------
+
+def _binary_visit(origin, inv, pnodes, t_min):
+    """The internal-node step of both walks: slab-test the two children of
+    pnodes rows `node` for `rays` against [t_min, t_cap], push the hit
+    ones far first, near last."""
+
+    def visit(stack, sp, rays, node, t_cap):
+        row = pnodes[node]
+        hit, tn = _slab_children(origin[rays], inv[rays], row[:, :12], t_cap,
+                                 t_min)
+        near = torch.where(hit, tn, BIG)
+        swap = near[:, 1] < near[:, 0]
+        kids = row[:, 12:14].to(torch.int32)
+        _push(stack, sp, rays, torch.where(swap, kids[:, 0], kids[:, 1]),
+              torch.where(swap, hit[:, 0], hit[:, 1]))
+        _push(stack, sp, rays, torch.where(swap, kids[:, 1], kids[:, 0]),
+              torch.where(swap, hit[:, 1], hit[:, 0]))
+
+    return visit
+
+
+def _intersect_binary_plain(origin, direction, t_max, t_min, root, pnodes,
+                            ptris):
+    """Plain torch version of the closest-hit kernel. Returns (t f32[N],
+    tri i32[N], u f32[N], v f32[N])."""
+    visit = _binary_visit(origin, _inv_dir(direction), pnodes, t_min)
+    return _closest_walk(origin, direction, t_max, root, ptris, visit,
+                         STACK_CAP, t_min)
+
+
+def _occlusion_binary_plain(origin, direction, t_max, skip_object, t_min,
+                            root, pnodes, ptris):
+    """Plain torch version of the any-hit kernel. Returns bool[N]."""
+    visit = _binary_visit(origin, _inv_dir(direction), pnodes, t_min)
+    return _any_walk(origin, direction, t_max, skip_object, root, ptris,
+                     visit, STACK_CAP, t_min)
+
+
+# --------------------------------------------------------------------------
+# CUDA wrappers (csrc/binary_traverse.cu).
+# --------------------------------------------------------------------------
+
+def _check_scene_arrays(scene, device):
+    _require("pnodes", scene.pnodes, torch.float32,
+             (scene.pnodes.shape[0], 16), device, vec=True)
+    _check_ptris(scene.ptris, device)
+
+
+def _intersect_binary_cuda(origin, direction, t_max, t_min, scene):
+    global closest_launches
+    from raytracer_tpu_torch.ops import _build
+
+    n, dev = _check_rays(origin, direction, t_max)
+    _check_scene_arrays(scene, dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=torch.float32, device=dev)
+    v = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, tri, u, v
+    lib = _build.binary_traverse_lib()
+    with torch.cuda.device(dev):
+        rc = lib.binary_closest(
+            _ptr(origin), _ptr(direction), _ptr(t_max), n, t_min,
+            scene.binary_root, _ptr(scene.pnodes), _ptr(scene.ptris),
+            scene.ptris.shape[1] // TRI_STRIDE,
+            _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"binary_closest launch failed: cudaError {rc}")
+    closest_launches += 1
+    return t, tri, u, v
+
+
+def _occlusion_binary_cuda(origin, direction, t_max, skip_object, t_min,
+                           scene):
+    global occlusion_launches
+    from raytracer_tpu_torch.ops import _build
+
+    n, dev = _check_rays(origin, direction, t_max)
+    _require("skip_object", skip_object, torch.int32, (n,), dev)
+    _check_scene_arrays(scene, dev)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    lib = _build.binary_traverse_lib()
+    with torch.cuda.device(dev):
+        rc = lib.binary_occlusion(
+            _ptr(origin), _ptr(direction), _ptr(t_max), _ptr(skip_object),
+            n, t_min, scene.binary_root, _ptr(scene.pnodes),
+            _ptr(scene.ptris), scene.ptris.shape[1] // TRI_STRIDE,
+            _ptr(occ), _stream(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"binary_occlusion launch failed: cudaError {rc}")
+    occlusion_launches += 1
+    return occ

@@ -75,12 +75,12 @@ def _check_t_min(t_min):
             f"the traversal kernels fix t_min at {T_MIN}, got {t_min}")
 
 
-def _ray_inputs(origin, direction, t_max, active_mask):
+def _ray_inputs(origin, direction, t_max, active_mask, t_min=T_MIN):
     r = origin.shape[0]
     t = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
     t = t.expand(r)
     if active_mask is not None:
-        t = torch.where(active_mask, t, T_MIN)
+        t = torch.where(active_mask, t, t_min)
     return (origin.to(torch.float32).contiguous(),
             direction.to(torch.float32).contiguous(),
             t.to(torch.float32).contiguous())
@@ -118,6 +118,8 @@ def occlusion_quad(origin, direction, t_min, t_max, scene, skip_object,
 
 # --------------------------------------------------------------------------
 # Plain torch versions: the same per-ray DFS, run in lockstep over all rays.
+# The walks and leaf tests below are shared with ops/binary_traverse.py,
+# whose trees differ only in how an internal node pushes its children.
 # --------------------------------------------------------------------------
 
 def _inv_dir(d):
@@ -125,7 +127,7 @@ def _inv_dir(d):
                              torch.where(d >= 0, 1e-20, -1e-20), d)
 
 
-def _moller(ox, oy, oz, dx, dy, dz, tri, t_cap):
+def _moller(ox, oy, oz, dx, dy, dz, tri, t_cap, t_min):
     """Möller–Trumbore for one triangle per ray; `tri` is [M,12] (v0, e1,
     e2, tri_f, obj_f, pad). The operation order is the kernel's."""
     v0x, v0y, v0z = tri[:, 0], tri[:, 1], tri[:, 2]
@@ -147,14 +149,14 @@ def _moller(ox, oy, oz, dx, dy, dz, tri, t_cap):
     v = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     valid = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-             & (t > T_MIN) & (t < t_cap))
+             & (t > t_min) & (t < t_cap))
     return t, u, v, valid
 
 
-def _slab4(o, inv, box, t_cap):
-    """Slab tests of 4 child boxes per ray. box [M,24] (4 x min.xyz,
-    max.xyz); returns (hit bool[M,4], t_near f32[M,4])."""
-    box = box.view(-1, 4, 6)
+def _slab_children(o, inv, box, t_cap, t_min):
+    """Slab tests of k child boxes per ray. box [M,6k] (k x min.xyz,
+    max.xyz); returns (hit bool[M,k], t_near f32[M,k])."""
+    box = box.view(box.shape[0], -1, 6)
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     ix, iy, iz = inv[:, 0:1], inv[:, 1:2], inv[:, 2:3]
     t0x = (box[:, :, 0] - ox) * ix
@@ -165,7 +167,7 @@ def _slab4(o, inv, box, t_cap):
     t1z = (box[:, :, 5] - oz) * iz
     t_near = torch.maximum(
         torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-        torch.clamp_min(torch.minimum(t0z, t1z), T_MIN),
+        torch.clamp_min(torch.minimum(t0z, t1z), t_min),
     )
     t_far = torch.minimum(
         torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
@@ -188,30 +190,31 @@ def _push(stack, sp, rays, meta, mask):
     """Write-then-advance push of meta[m] for rays[m] where mask[m]: the
     slot at sp is free, so the unconditional write clobbers nothing."""
     spr = sp[rays]
-    stack[rays, torch.clamp_max(spr, CAP - 1).long()] = meta
+    stack[rays, torch.clamp_max(spr, stack.shape[1] - 1).long()] = meta
     sp[rays] = spr + mask.to(sp.dtype)
 
 
-def _init_stack(n, root, t_max):
-    stack = torch.zeros((n, CAP), dtype=torch.int32, device=t_max.device)
+def _init_stack(n, root, t_max, cap, t_min):
+    stack = torch.zeros((n, cap), dtype=torch.int32, device=t_max.device)
     stack[:, 0] = root
-    sp = (t_max > T_MIN).to(torch.int32)
+    sp = (t_max > t_min).to(torch.int32)
     return stack, sp
 
 
-def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
-                          ptris):
-    """Plain torch version of the closest-hit kernel. Returns (t f32[N],
-    tri i32[N], u f32[N], v f32[N])."""
+def _closest_walk(origin, direction, t_max, root, ptris, visit_node, cap,
+                  t_min):
+    """Closest-hit DFS of every ray with a stack of `cap` metas: a meta < 0
+    is leaf block ~meta (its triangles tested in order, a strictly smaller
+    t kept); an internal meta goes to `visit_node(stack, sp, rays, nodes,
+    t_cap)`, which pushes the children that the rays' best t does not
+    prune. Returns (t f32[N], tri i32[N], u f32[N], v f32[N])."""
     n = origin.shape[0]
     leaf = ptris.shape[1] // TRI_STRIDE
-    inv = _inv_dir(direction)
     best_t = t_max.clone()
     best_tri = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
     best_u = torch.zeros_like(best_t)
     best_v = torch.zeros_like(best_t)
-    metas4 = qmeta.view(-1, 4)
-    stack, sp = _init_stack(n, root, t_max)
+    stack, sp = _init_stack(n, root, t_max, cap, t_min)
     while True:
         live, meta = _pop(stack, sp)
         if live.numel() == 0:
@@ -221,15 +224,14 @@ def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
         li = live[is_leaf]
         if li.numel():
             rows = ptris[(~meta[is_leaf]).long()]
-            o = origin[li]
-            d = direction[li]
-            ox, oy, oz = o.unbind(1)
-            dx, dy, dz = d.unbind(1)
+            ox, oy, oz = origin[li].unbind(1)
+            dx, dy, dz = direction[li].unbind(1)
             bt, btri = best_t[li], best_tri[li]
             bu, bv = best_u[li], best_v[li]
             for k in range(leaf):
                 tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
-                t, u, v, valid = _moller(ox, oy, oz, dx, dy, dz, tri, bt)
+                t, u, v, valid = _moller(ox, oy, oz, dx, dy, dz, tri, bt,
+                                         t_min)
                 bt = torch.where(valid, t, bt)
                 btri = torch.where(valid, tri[:, 9].to(torch.int32), btri)
                 bu = torch.where(valid, u, bu)
@@ -239,33 +241,20 @@ def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
 
         ii = live[~is_leaf]
         if ii.numel():
-            node = meta[~is_leaf].long()
-            hit, tn = _slab4(origin[ii], inv[ii], qnodes[node, :24],
-                             best_t[ii])
-            tn = torch.where(hit, tn, BIG)
-            b0 = (tn[:, 1] < tn[:, 0]).to(torch.int64)
-            b1 = (tn[:, 3] < tn[:, 2]).to(torch.int64)
-            use_hi = (torch.minimum(tn[:, 2], tn[:, 3])
-                      < torch.minimum(tn[:, 0], tn[:, 1]))
-            near = torch.where(use_hi, 2 + b1, b0)
-            kids = metas4[node]
-            for c in range(4):
-                _push(stack, sp, ii, kids[:, c], hit[:, c] & (near != c))
-            _push(stack, sp, ii, kids.gather(1, near[:, None])[:, 0],
-                  hit.gather(1, near[:, None])[:, 0])
+            visit_node(stack, sp, ii, meta[~is_leaf].long(), best_t[ii])
     return best_t, best_tri, best_u, best_v
 
 
-def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
-                          qnodes, ptris):
-    """Plain torch version of the any-hit kernel. Returns bool[N]."""
+def _any_walk(origin, direction, t_max, skip_object, root, ptris,
+              visit_node, cap, t_min):
+    """Any-hit DFS of every ray, as `_closest_walk` with t_max as the
+    pruning bound; a ray stops at its first accepted hit by a triangle not
+    of its `skip_object`. Returns bool[N]."""
     n = origin.shape[0]
     leaf = ptris.shape[1] // TRI_STRIDE
-    inv = _inv_dir(direction)
     skip_f = skip_object.to(torch.float32)
     occ = torch.zeros((n,), dtype=torch.bool, device=origin.device)
-    metas4 = qmeta.view(-1, 4)
-    stack, sp = _init_stack(n, root, t_max)
+    stack, sp = _init_stack(n, root, t_max, cap, t_min)
     while True:
         live, meta = _pop(stack, sp)
         if live.numel() == 0:
@@ -275,35 +264,74 @@ def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
         li = live[is_leaf]
         if li.numel():
             rows = ptris[(~meta[is_leaf]).long()]
-            o = origin[li]
-            d = direction[li]
-            ox, oy, oz = o.unbind(1)
-            dx, dy, dz = d.unbind(1)
+            ox, oy, oz = origin[li].unbind(1)
+            dx, dy, dz = direction[li].unbind(1)
             tm, sk = t_max[li], skip_f[li]
             found = torch.zeros_like(tm, dtype=torch.bool)
             for k in range(leaf):
                 tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
-                _, _, _, valid = _moller(ox, oy, oz, dx, dy, dz, tri, tm)
+                _, _, _, valid = _moller(ox, oy, oz, dx, dy, dz, tri, tm,
+                                         t_min)
                 found |= valid & (tri[:, 10] != sk)
             occ[li] |= found
             sp[li[found]] = 0  # the first accepted hit ends the ray
 
         ii = live[~is_leaf]
         if ii.numel():
-            node = meta[~is_leaf].long()
-            hit, _ = _slab4(origin[ii], inv[ii], qnodes[node, :24],
-                            t_max[ii])
-            kids = metas4[node]
-            for c in range(4):
-                _push(stack, sp, ii, kids[:, c], hit[:, c])
+            visit_node(stack, sp, ii, meta[~is_leaf].long(), t_max[ii])
     return occ
+
+
+def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
+                          ptris):
+    """Plain torch version of the closest-hit kernel. Returns (t f32[N],
+    tri i32[N], u f32[N], v f32[N])."""
+    inv = _inv_dir(direction)
+    metas4 = qmeta.view(-1, 4)
+
+    def visit(stack, sp, rays, node, t_cap):
+        hit, tn = _slab_children(origin[rays], inv[rays], qnodes[node, :24],
+                                 t_cap, T_MIN)
+        tn = torch.where(hit, tn, BIG)
+        b0 = (tn[:, 1] < tn[:, 0]).to(torch.int64)
+        b1 = (tn[:, 3] < tn[:, 2]).to(torch.int64)
+        use_hi = (torch.minimum(tn[:, 2], tn[:, 3])
+                  < torch.minimum(tn[:, 0], tn[:, 1]))
+        near = torch.where(use_hi, 2 + b1, b0)
+        kids = metas4[node]
+        for c in range(4):
+            _push(stack, sp, rays, kids[:, c], hit[:, c] & (near != c))
+        _push(stack, sp, rays, kids.gather(1, near[:, None])[:, 0],
+              hit.gather(1, near[:, None])[:, 0])
+
+    return _closest_walk(origin, direction, t_max, root, ptris, visit, CAP,
+                         T_MIN)
+
+
+def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
+                          qnodes, ptris):
+    """Plain torch version of the any-hit kernel. Returns bool[N]."""
+    inv = _inv_dir(direction)
+    metas4 = qmeta.view(-1, 4)
+
+    def visit(stack, sp, rays, node, t_cap):
+        hit, _ = _slab_children(origin[rays], inv[rays], qnodes[node, :24],
+                                t_cap, T_MIN)
+        kids = metas4[node]
+        for c in range(4):
+            _push(stack, sp, rays, kids[:, c], hit[:, c])
+
+    return _any_walk(origin, direction, t_max, skip_object, root, ptris,
+                     visit, CAP, T_MIN)
 
 
 # --------------------------------------------------------------------------
 # CUDA wrappers (csrc/quad_traverse.cu).
 # --------------------------------------------------------------------------
 
-def _require(name, t, dtype, shape, device):
+def _require(name, t, dtype, shape, device, vec=False):
+    """`t` on `device` with this dtype and shape, contiguous, and 16-byte
+    aligned when the kernels read it as float4/int4 vectors (`vec`)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -313,17 +341,24 @@ def _require(name, t, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+    if vec and t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _check_ptris(ptris, device):
+    nb, width = ptris.shape
+    if width % TRI_STRIDE:
+        raise ValueError(f"ptris width {width} is not a multiple of "
+                         f"{TRI_STRIDE}")
+    _require("ptris", ptris, torch.float32, (nb, width), device, vec=True)
 
 
 def _check_scene_arrays(scene, device):
     n4 = scene.qnodes.shape[0]
-    _require("qnodes", scene.qnodes, torch.float32, (n4, 32), device)
-    _require("qmeta", scene.qmeta, torch.int32, (4 * n4,), device)
-    nb, width = scene.ptris.shape
-    if width % TRI_STRIDE:
-        raise ValueError(f"ptris width {width} is not a multiple of "
-                         f"{TRI_STRIDE}")
-    _require("ptris", scene.ptris, torch.float32, (nb, width), device)
+    _require("qnodes", scene.qnodes, torch.float32, (n4, 32), device,
+             vec=True)
+    _require("qmeta", scene.qmeta, torch.int32, (4 * n4,), device, vec=True)
+    _check_ptris(scene.ptris, device)
 
 
 def _check_rays(origin, direction, t_max):

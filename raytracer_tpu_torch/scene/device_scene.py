@@ -15,11 +15,18 @@ shapes, array for array:
     light_center f32[L,3], light_meta_packed f32[L,8] (first_tri_f,
     num_tris_f, emission rgb, object_f, power, pad), light_tri_packed
     f32[LT,16] in the original (pre-BVH) triangle order;
-  - the traversal kernels' arrays (ops/quad_traverse.py): the 4-wide
-    collapsed tree qnodes f32[N4,32] (4 child boxes, then 4 metas as f32;
-    absent children are NaN boxes), qmeta i32[4*N4], qroot i32[1], and the
-    leaf blocks ptris f32[NB, leaf*12] (v0, e1, e2, tri_f, obj_f, pad per
-    triangle), with the DFS stack bound q_stack_need.
+  - the traversal kernels' arrays: the leaf blocks ptris f32[NB, leaf*12]
+    (v0, e1, e2, tri_f, obj_f, pad per triangle), shared by both trees;
+    the 4-wide collapsed tree (ops/quad_traverse.py) qnodes f32[N4,32] (4
+    child boxes, then 4 metas as f32; absent children are NaN boxes),
+    qmeta i32[4*N4], qroot i32[1], with the DFS stack bound q_stack_need;
+    and the binary tree (ops/binary_traverse.py) pnodes f32[NI,16] (per
+    internal node the left and right child boxes, then the two child metas
+    as f32) and root_meta i32[1], with the tree depth bvh_max_depth. A meta
+    >= 0 is a node row, a meta < 0 is leaf block ~meta; both trees number
+    leaf blocks in the binary tree's preorder, so their metas name the same
+    ptris rows. The binary arrays are always baked (64 B per internal
+    node), so a renderer can fall back to them without a second bake.
 
 Not ported here: multi-part bakes (they exist for the TPU kernel's VMEM
 ceiling), capacity-padded "stable" bakes, refit and material-only updates;
@@ -62,11 +69,16 @@ class DeviceScene:
     qmeta: torch.Tensor  # i32[4*N4]
     qroot: torch.Tensor  # i32[1]
     ptris: torch.Tensor  # f32[NB, leaf*12]
+    pnodes: torch.Tensor  # f32[NI,16]
+    root_meta: torch.Tensor  # i32[1]
     num_triangles: int
     num_lights: int
     q_stack_need: int
-    # qroot as a host int, so a kernel launch needs no device readback.
+    bvh_max_depth: int  # deepest binary node (root = 0)
+    # qroot and root_meta as host ints, so a kernel launch needs no device
+    # readback.
     root: int
+    binary_root: int
 
     @property
     def device(self) -> torch.device:
@@ -78,7 +90,7 @@ ARRAY_FIELDS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_object", "tri_shade", "mat_packed",
     "light_object", "light_power", "light_center", "light_meta_packed",
     "light_tri_packed", "scene_min", "scene_max", "qnodes", "qmeta", "qroot",
-    "ptris",
+    "ptris", "pnodes", "root_meta",
 )
 
 
@@ -150,6 +162,33 @@ def _pack_leaf_blocks(bvh, v0, e1, e2, tri_object, leaf_size):
     return ptris
 
 
+def _pack_binary_nodes(bvh):
+    """pnodes f32[NI,16] and root_meta i32[1] of the binary tree: one row
+    per internal node in preorder, left.min/max xyz, right.min/max xyz,
+    then the left and right child metas as exact f32 (an internal child's
+    row, or ~its leaf block). The JAX `_pack_pallas_arrays` layout."""
+    is_leaf = bvh.nodes_count > 0
+    leaf_ids = (np.cumsum(is_leaf) - 1).astype(np.int64)
+    internal_ids = (np.cumsum(~is_leaf) - 1).astype(np.int64)
+    ni = max(1, int((~is_leaf).sum()))
+    assert bvh.num_nodes < (1 << 24)
+    pnodes = np.zeros((ni, 16), np.float32)
+    internal = np.nonzero(~is_leaf)[0]
+    if len(internal):
+        left = internal + 1
+        right = bvh.nodes_skip[left]  # end of the left subtree
+        rows = internal_ids[internal]
+        pnodes[rows, 0:3] = bvh.nodes_min[left]
+        pnodes[rows, 3:6] = bvh.nodes_max[left]
+        pnodes[rows, 6:9] = bvh.nodes_min[right]
+        pnodes[rows, 9:12] = bvh.nodes_max[right]
+        for col, child in ((12, left), (13, right)):
+            pnodes[rows, col] = np.where(is_leaf[child], ~leaf_ids[child],
+                                         internal_ids[child])
+    root = ~leaf_ids[0] if is_leaf[0] else internal_ids[0]
+    return pnodes, np.asarray([root], np.int32)
+
+
 def _bake_arrays(scene: Scene, leaf_size: int = 16
                 ) -> Tuple[Dict[str, np.ndarray], BVH]:
     """The bake on the host: (numpy arrays by DeviceScene field name, with
@@ -219,6 +258,7 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16
 
     ptris = _pack_leaf_blocks(bvh, v0p, e1p, e2p, tri_object_p, leaf_size)
     qnodes, qmeta, qroot, q_stack_need = collapse_bvh4(bvh)
+    pnodes, root_meta = _pack_binary_nodes(bvh)
 
     t_pad = max(_PAD, ((num_refs + _PAD - 1) // _PAD) * _PAD)
 
@@ -279,9 +319,12 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16
         qmeta=qmeta,
         qroot=qroot,
         ptris=ptris,
+        pnodes=pnodes,
+        root_meta=root_meta,
         num_triangles=num_tris,
         num_lights=num_lights,
         q_stack_need=int(q_stack_need),
+        bvh_max_depth=bvh.max_depth(),
     )
     return arrays, bvh
 
@@ -295,7 +338,9 @@ def _to_device(arrays, device) -> DeviceScene:
         num_triangles=int(arrays["num_triangles"]),
         num_lights=int(arrays["num_lights"]),
         q_stack_need=int(arrays["q_stack_need"]),
+        bvh_max_depth=int(arrays["bvh_max_depth"]),
         root=int(np.asarray(arrays["qroot"]).reshape(-1)[0]),
+        binary_root=int(np.asarray(arrays["root_meta"]).reshape(-1)[0]),
     )
 
 
@@ -309,17 +354,20 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
     ds = _to_device(arrays, device)
     log.info(
         "bake: %d triangles, %d lights, qnodes %d x 32 f32 (%d bytes), "
-        "ptris %d x %d f32 (%d bytes), stack need %d",
+        "ptris %d x %d f32 (%d bytes), stack need %d; pnodes %d x 16 f32 "
+        "(%d bytes), depth %d",
         ds.num_triangles, ds.num_lights, ds.qnodes.shape[0],
         ds.qnodes.numel() * 4, ds.ptris.shape[0], ds.ptris.shape[1],
-        ds.ptris.numel() * 4, ds.q_stack_need,
+        ds.ptris.numel() * 4, ds.q_stack_need, ds.pnodes.shape[0],
+        ds.pnodes.numel() * 4, ds.bvh_max_depth,
     )
     return ds, bvh
 
 
 def from_jax_arrays(d: Dict[str, np.ndarray], device) -> DeviceScene:
     """Build a DeviceScene from a JAX SceneOnDevice's fields after
-    `np.asarray` (a single-part bake), so both packages trace one tree."""
+    `np.asarray` (a single-part bake, including pnodes, root_meta and
+    bvh_max_depth), so both packages trace one tree."""
     if int(np.asarray(d.get("num_parts", 1))) != 1:
         raise ValueError("multi-part bakes are not ported "
                          "(ROADMAP.md port queue item P4)")

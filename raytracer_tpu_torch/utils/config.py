@@ -3,9 +3,9 @@
 Every field and default of the JAX package's RenderConfig is kept, so one
 configuration describes the same render in both packages. Only `accel`
 differs: the port's values are "auto" (= "cuda"), "cuda" (the hand-written
-traversal kernels in ops/quad_traverse.py; on CPU tensors their plain torch
-versions), "brute" (the O(T) oracle) and "bvh", which is reserved for the
-port of the skip-link walk and raises until then.
+4-wide tree kernels in ops/quad_traverse.py; on CPU tensors their plain
+torch versions), "bvh" (the binary tree's kernels in ops/binary_traverse.py,
+likewise) and "brute" (the O(T) oracle).
 
 The reference hard-codes its knobs at compile time in GLSL
 (`shaders/simple.rchit:9-13`: USE_DIRECT_LIGHTING / USE_LIGHT_SAMPLING_ONLY /
@@ -83,9 +83,16 @@ class RenderConfig:
 
     # Acceleration structure:
     #   "auto"   — "cuda"
-    #   "cuda"   — 4-wide BVH traversal kernels (ops/quad_traverse.py);
-    #              CPU tensors take the kernels' plain torch versions
-    #   "bvh"    — skip-link walk: not ported yet (raises)
+    #   "cuda"   — 4-wide BVH traversal kernels (ops/quad_traverse.py,
+    #              ports of the JAX ops/pallas_subpacket.py kernels); CPU
+    #              tensors take their plain torch versions. t_min is fixed
+    #              at 1e-3: the renderer falls back to "bvh" for another
+    #              t_min or a tree too deep for the kernels' stack, as the
+    #              JAX package does
+    #   "bvh"    — binary-tree backend: the binary BVH traversal kernels
+    #              (ops/binary_traverse.py, ports of the JAX
+    #              ops/pallas_traverse.py kernels), any t_min; CPU tensors
+    #              take their plain torch versions
     #   "brute"  — O(T) oracle
     accel: str = "auto"
     # 16 tris/leaf: the latency-bound sub-packet kernel trades cheap extra
@@ -185,10 +192,6 @@ class RenderConfig:
             raise ValueError("max_depth must be >= 1")
         if self.accel not in ("auto", "cuda", "bvh", "brute"):
             raise ValueError(f"unknown accel {self.accel!r}")
-        if self.accel == "bvh":
-            raise NotImplementedError(
-                "accel='bvh' (the skip-link walk, ops/traverse.py) is not "
-                "ported yet: ROADMAP.md port queue item P2")
         if self.spp_batch < 1:
             raise ValueError("spp_batch must be >= 1")
         if self.spp_batch > 1:

@@ -1,7 +1,8 @@
 """The port's bake against the JAX package's `bake_scene(stable_shapes=
-False)`, field for field on the fields the render path reads, and the
-conversion of a JAX bake into the port's DeviceScene. Both sides use the
-numpy BVH builder."""
+False)`, field for field on the fields the render path reads (both trees'
+arrays: qnodes/qmeta/qroot, pnodes/root_meta/bvh_max_depth and the shared
+leaf blocks ptris), and the conversion of a JAX bake into the port's
+DeviceScene. Both sides use the numpy BVH builder."""
 
 import dataclasses
 
@@ -48,9 +49,11 @@ def _assert_same(port, want):
         got = getattr(port, k).cpu().numpy()
         assert got.dtype == want[k].dtype, k
         np.testing.assert_array_equal(got, want[k], err_msg=k)
-    for k in ("num_triangles", "num_lights", "q_stack_need"):
+    for k in ("num_triangles", "num_lights", "q_stack_need",
+              "bvh_max_depth"):
         assert getattr(port, k) == int(want[k]), k
     assert port.root == int(want["qroot"][0])
+    assert port.binary_root == int(want["root_meta"][0])
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -79,3 +82,26 @@ def test_from_jax_arrays_refuses_multi_part():
     assert jds.num_parts > 1
     with pytest.raises(ValueError, match="multi-part"):
         from_jax_arrays(_jax_fields(jds), "cpu")
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_both_trees_name_the_same_leaf_blocks(name):
+    """The binary tree's metas (pnodes) and the 4-wide tree's (qmeta) refer
+    to the one ptris baked: each names every leaf block once, and a leaf
+    block's box is the same in both trees."""
+    tds, _ = tbake(SCENES[name][1](), leaf_size=16, device="cpu")
+    nb = tds.ptris.shape[0]
+    pn = tds.pnodes.numpy()
+    pmeta = pn[:, 12:14].astype(np.int64).ravel()
+    pbox = pn[:, :12].reshape(-1, 6)
+    qm = tds.qmeta.numpy().astype(np.int64)
+    qbox = tds.qnodes.numpy()[:, :24].reshape(-1, 6)
+
+    def leaf_boxes(metas, box):
+        leaves = metas < 0
+        ids = ~metas[leaves]
+        np.testing.assert_array_equal(np.sort(ids), np.arange(nb))
+        return box[leaves][np.argsort(ids)]
+
+    np.testing.assert_array_equal(leaf_boxes(pmeta, pbox),
+                                  leaf_boxes(qm, qbox))

@@ -9,6 +9,8 @@ shared mesh edge, fell the other way because the two packages round a few
 f32 terms differently. Flipped pixels may be at most 1% of the image; each
 test prints its count. Both sides use the numpy BVH builder."""
 
+import functools
+import logging
 import os
 import subprocess
 import sys
@@ -21,11 +23,13 @@ import raytracer_tpu.accel.native_builder as jnative
 import raytracer_tpu.scene.benchmark as jbench
 import raytracer_tpu.scene.model as jmodel
 import raytracer_tpu_torch.accel.native_builder as tnative
+import raytracer_tpu_torch.api as tapi
 import raytracer_tpu_torch.scene.benchmark as tbench
 import raytracer_tpu_torch.scene.model as tmodel
 from raytracer_tpu.api import ProgressiveRenderer as JaxRenderer
 from raytracer_tpu.utils.config import RenderConfig as JaxConfig
 from raytracer_tpu_torch.api import ProgressiveRenderer
+from raytracer_tpu_torch.ops import binary_traverse
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 torch.set_num_threads(2)
@@ -51,25 +55,89 @@ def _port(scene, w, h, frames, **cfg):
                                device="cpu").render(frames)
 
 
-def _jax(scene, w, h, frames, accel):
-    return JaxRenderer(scene, None, JaxConfig(
-        width=w, height=h, accel=accel, stable_bake=False)).render(frames)
+@functools.cache
+def _jax(jmake, w, h, frames, accel, **cfg):
+    """The JAX package's image of the scene `jmake()` (kept per module: the
+    tests read, never write, it)."""
+    return JaxRenderer(jmake(), None, JaxConfig(
+        width=w, height=h, accel=accel, stable_bake=False,
+        **cfg)).render(frames)
 
 
-@pytest.mark.parametrize("case", [
+RENDER_CASES = [
     ("cornell", jmodel.create_cornell_box, tmodel.create_cornell_box, 32, 3),
     ("lightgrid", jbench.create_benchmark_lightgrid,
      tbench.create_benchmark_lightgrid, 24, 2),
-])
+]
+
+
+@pytest.mark.parametrize("case", RENDER_CASES)
 def test_render_matches_jax_walk(case):
     name, jmake, tmake, size, frames = case
-    want = _jax(jmake(), size, size, frames, "bvh")
+    want = _jax(jmake, size, size, frames, "bvh")
     got = _port(tmake(), size, size, frames)
     assert np.isfinite(got).all() and got.mean() > 0
     flipped = _flipped(got, want)
     print(f"{name} {size}x{size} x{frames} frames: {int(flipped.sum())} "
           f"flipped pixels of {flipped.size}")
     assert flipped.mean() <= MAX_FLIPPED
+
+
+@pytest.mark.parametrize("case", RENDER_CASES)
+def test_bvh_render_matches_jax_walk(case):
+    """accel="bvh" (the binary tree's traversal) against JAX accel="bvh"."""
+    name, jmake, tmake, size, frames = case
+    want = _jax(jmake, size, size, frames, "bvh")
+    got = _port(tmake(), size, size, frames, accel="bvh")
+    assert np.isfinite(got).all() and got.mean() > 0
+    flipped = _flipped(got, want)
+    print(f"{name} {size}x{size} x{frames} frames, accel=bvh: "
+          f"{int(flipped.sum())} flipped pixels of {flipped.size}")
+    assert flipped.mean() <= MAX_FLIPPED
+
+
+@pytest.mark.parametrize("accel", ["cuda", "auto"])
+def test_t_min_falls_back_to_bvh(accel, caplog):
+    """The 4-wide kernels fix t_min at 1e-3: another t_min warns, renders
+    on accel="bvh", and matches the JAX package, which falls back too."""
+    with caplog.at_level(logging.WARNING, logger=tapi.__name__):
+        r = ProgressiveRenderer(tmodel.create_cornell_box(), None,
+                                RenderConfig(width=20, height=14, t_min=0.01,
+                                             accel=accel), device="cpu")
+    assert r.config.accel == "bvh"
+    assert "t_min=0.01 unsupported by accel='cuda'" in caplog.text
+    assert "falling back to accel='bvh'" in caplog.text
+    got = r.render(2)
+    want = _jax(jmodel.create_cornell_box, 20, 14, 2, "pallas", t_min=0.01)
+    flipped = _flipped(got, want)
+    print(f"t_min=0.01 cornell 20x14 x2 frames: {int(flipped.sum())} "
+          f"flipped pixels of {flipped.size}")
+    assert flipped.mean() <= MAX_FLIPPED
+
+
+def test_stack_need_falls_back_to_bvh(monkeypatch, caplog):
+    """A 4-wide tree whose stack need exceeds the kernels' stack warns and
+    renders on accel="bvh" from the same bake."""
+    monkeypatch.setattr(tapi, "CAP", 1)
+    with caplog.at_level(logging.WARNING, logger=tapi.__name__):
+        r = ProgressiveRenderer(tmodel.create_cornell_box(), None,
+                                RenderConfig(width=12, height=10),
+                                device="cpu")
+    assert r.config.accel == "bvh"
+    assert "exceeds the quad traversal kernel's stack" in caplog.text
+    got = r.render(1)
+    want = _port(tmodel.create_cornell_box(), 12, 10, 1, accel="bvh")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bvh_refuses_a_tree_deeper_than_its_stack(monkeypatch):
+    """The one tree JAX accel="bvh" renders and the port refuses: deeper
+    than STACK_CAP - 2 (a stackless walk is ROADMAP item P2)."""
+    monkeypatch.setattr(binary_traverse, "STACK_CAP", 3)
+    with pytest.raises(ValueError, match="stack"):
+        ProgressiveRenderer(tmodel.create_cornell_box(), None,
+                            RenderConfig(width=8, height=8, accel="bvh"),
+                            device="cpu")
 
 
 def test_render_matches_jax_pallas_kernels():
@@ -80,8 +148,8 @@ def test_render_matches_jax_pallas_kernels():
     hits, and the walk misses 2 others. The port hits all of them, so it
     differs from each JAX path on those pixels; the gate is that it
     agrees with one of the two JAX traversals at all but 1% of pixels."""
-    pallas = _jax(jmodel.create_cornell_box(), 16, 16, 1, "pallas")
-    walk = _jax(jmodel.create_cornell_box(), 16, 16, 1, "bvh")
+    pallas = _jax(jmodel.create_cornell_box, 16, 16, 1, "pallas")
+    walk = _jax(jmodel.create_cornell_box, 16, 16, 1, "bvh")
     got = _port(tmodel.create_cornell_box(), 16, 16, 1)
     vs_pallas, vs_walk = _flipped(got, pallas), _flipped(got, walk)
     vs_both = vs_pallas & vs_walk
@@ -179,9 +247,25 @@ def test_cli_writes_png(tmp_path):
     assert int(np.load(str(ck))["frame"]) == 3
 
 
+@pytest.mark.parametrize("accel", ["bvh", "brute"])
+def test_cli_renders_with_accel(tmp_path, accel):
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.utils.image import read_png
+
+    scene = tmp_path / "box.json"
+    scene.write_text(CORNELL_JSON)
+    out = tmp_path / "out.png"
+    assert cli.main([str(scene), "--width", "12", "--height", "10", "--spp",
+                     "1", "--device", "cpu", "--out", str(out), "--accel",
+                     accel]) == 0
+    img = read_png(str(out))
+    assert img.shape == (10, 12, 3)
+    assert img.std() > 0
+
+
 @pytest.mark.parametrize("flag", [["--restir"], ["--adaptive", "0.1"],
                                   ["--denoise"], ["--spp-batch", "2"],
-                                  ["--aovs", "x"], ["--accel", "bvh"]])
+                                  ["--aovs", "x"]])
 def test_cli_refuses_unported_modes(tmp_path, flag):
     from raytracer_tpu_torch import cli
 
@@ -213,9 +297,10 @@ def test_port_never_imports_jax():
         "from raytracer_tpu_torch.api import render\n"
         "from raytracer_tpu_torch.scene.model import create_cornell_box\n"
         "from raytracer_tpu_torch.utils.config import RenderConfig\n"
-        "img = render(create_cornell_box(), config=RenderConfig(width=8, "
-        "height=8), device='cpu')\n"
-        "assert img.shape == (8, 8, 3)\n"
+        "for accel in ('auto', 'bvh'):\n"
+        "    img = render(create_cornell_box(), config=RenderConfig(width=8, "
+        "height=8, accel=accel), device='cpu')\n"
+        "    assert img.shape == (8, 8, 3)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
