@@ -7,9 +7,10 @@ Phases (any failure exits non-zero and prints no result line):
   0. Require a CUDA device; print torch/CUDA versions and the card's name
      and power limit (nvidia-smi).
   1. Build the traversal kernels (csrc/quad_traverse.cu, the 4-wide
-     tree's K1/K2, and csrc/binary_traverse.cu, the binary tree's K3/K4;
-     the names of ROADMAP.md's kernel table) with nvcc, one process per
-     source, both started together.
+     tree's K1/K2; csrc/binary_traverse.cu, the binary tree's K3/K4; and
+     csrc/lab_traverse.cu, the traversal lab's L1/L9/L2; the names of
+     ROADMAP.md's kernel table) with nvcc, one process per source, all
+     started together.
   2. Kernels against their plain torch versions on the card, on the
      300k-triangle atrium and three 1920x1080 ray sets (primary rays,
      incoherent reflected rays, shadow rays with finite t_max and a skipped
@@ -28,6 +29,18 @@ Phases (any failure exits non-zero and prints no result line):
   5. The accel="bvh" path: phase 3 with RenderConfig(accel="bvh"), whose
      frames must launch K3/K4 and not K1/K2, and whose image must agree
      with phase 3's; then card against CPU at 64x64, 2 frames.
+  6. The traversal lab (raytracer_tpu_torch/lab) at 1920x1080 on the atrium,
+     through the functions its entry points run: kernel_lab (leaf-16 bake;
+     primary rays and the bounce-1 wavefront in the renderer's and in the
+     sorted order), occl_lab (leaf-8 bake; the NEE shadow batches at bounce
+     0 and 1, the latter in both orders) and bvh4_lab (leaf-8 bake; the
+     closest-hit sets), with every lab launch count set to 0 just before
+     and read just after. Kernel times by CUDA events (mean of 5),
+     visits per ray, leaf share, ns per visit. Then every variant against
+     its plain torch version on every ray of every set (bit equality of
+     the hit records, masks and counts; plain timed by host clock, one
+     run), and L2 against K1 (hit flips and triangle differences at most
+     TREE_AGREEMENT of the rays).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
@@ -50,7 +63,9 @@ PIXEL_ATOL = 1e-4  # the slice tolerance: per pixel, except flipped pixels
 MAX_FLIPPED = 0.01
 KERNEL_SOURCE = "raytracer_tpu_torch/csrc/quad_traverse.cu"
 BINARY_SOURCE = "raytracer_tpu_torch/csrc/binary_traverse.cu"
-TREE_AGREEMENT = 1e-4  # K3 vs K1, K4 vs K2: share of rays that may differ
+LAB_SOURCE = "raytracer_tpu_torch/csrc/lab_traverse.cu"
+# K3 vs K1, K4 vs K2, L2 vs K1: share of rays that may differ
+TREE_AGREEMENT = 1e-4
 
 
 def log(msg):
@@ -78,22 +93,6 @@ def plain_timed(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def cuda_ms(fn, reps):
-    """Mean device ms of fn() over `reps` launches, after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase0():
     import torch
 
@@ -112,15 +111,17 @@ def phase1():
     from raytracer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         builds = [pool.submit(_build.quad_traverse_lib),
-                  pool.submit(_build.binary_traverse_lib)]
+                  pool.submit(_build.binary_traverse_lib),
+                  pool.submit(_build.lab_traverse_lib)]
         for b in builds:
             b.result()
-    log(f"phase 1: built both kernel libraries in "
+    log(f"phase 1: built the three kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, stem in ((KERNEL_SOURCE, "libquad_traverse"),
-                         (BINARY_SOURCE, "libbinary_traverse")):
+                         (BINARY_SOURCE, "libbinary_traverse"),
+                         (LAB_SOURCE, "liblab_traverse")):
         info = _build.build_info[stem]
         log(f"phase 1: {source}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -208,6 +209,7 @@ def phase2(ds, device):
     """Kernels vs plain versions; returns the kernels' report entries."""
     import torch
 
+    from raytracer_tpu_torch.lab.rays import cuda_ms
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     sets = ray_sets(ds, device)
@@ -272,6 +274,7 @@ def phase2_binary(ds, sets):
     and against K1/K2 (the other tree)."""
     import torch
 
+    from raytracer_tpu_torch.lab.rays import cuda_ms
     from raytracer_tpu_torch.ops import binary_traverse as bt
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
@@ -433,6 +436,167 @@ def phase5(scene_fn, device, cuda_img):
     return launches
 
 
+def lab_launch_counts():
+    from raytracer_tpu_torch.lab import bvh4_lab, kernel_lab, occl_lab
+
+    return {"lab_closest": kernel_lab.closest_launches,
+            "lab_closest_ts": kernel_lab.closest_ts_launches,
+            "lab_occlusion": occl_lab.occlusion_launches,
+            "lab_closest4": bvh4_lab.closest4_launches}
+
+
+def reset_lab_launch_counts():
+    from raytracer_tpu_torch.lab import bvh4_lab, kernel_lab, occl_lab
+
+    for mod in (kernel_lab, occl_lab, bvh4_lab):
+        mod.reset_launch_counts()
+
+
+def gate_equal(what, got, ref):
+    """Raise unless every output tensor of a kernel equals its plain
+    version's; returns max |got - ref| over them (0.0)."""
+    import torch
+
+    for g, r in zip(got, ref, strict=True):
+        if not torch.equal(g, r):
+            raise RuntimeError(f"{what}: kernel != plain version")
+    return max(float((g.double() - r.double()).abs().max()) if g.numel()
+               else 0.0 for g, r in zip(got, ref))
+
+
+def phase6(device):
+    """The traversal lab: its runs (the launch counts), then each kernel
+    against its plain version. Returns the four kernels' report entries."""
+    import torch
+
+    from raytracer_tpu_torch.lab import bvh4_lab, kernel_lab, occl_lab
+    from raytracer_tpu_torch.lab import rays as lab_rays
+
+    plog = lambda m: log(f"phase 6: {m}")  # noqa: E731
+    t0 = time.perf_counter()
+    ds16 = lab_rays.atrium(kernel_lab.LEAF_SIZE, device)
+    ds8 = lab_rays.atrium(occl_lab.LEAF_SIZE, device)
+    closest16 = lab_rays.closest_sets(ds16)
+    closest8 = lab_rays.closest_sets(ds8)
+    shadow8 = lab_rays.shadow_sets(ds8)
+    torch.cuda.synchronize()
+    plog(f"two bakes (leaf 16: {ds16.pnodes.shape[0]} binary internal nodes, "
+         f"depth {ds16.bvh_max_depth}; leaf 8: {ds8.pnodes.shape[0]}, depth "
+         f"{ds8.bvh_max_depth}, {ds8.qnodes.shape[0]} quad nodes) and ray "
+         f"sets in {time.perf_counter() - t0:.2f} s; live rays: "
+         + ", ".join(f"{k} {int((v[2] > 1e-3).sum())}"
+                     for k, v in {**closest16, **shadow8}.items()))
+    plog(f"card: {lab_rays.card_line()}")
+
+    reset_lab_launch_counts()
+    kres = kernel_lab.run(ds16, closest16, log=plog)
+    ores = occl_lab.run(ds8, shadow8, log=plog)
+    bres = bvh4_lab.run(ds8, closest8, log=plog)
+    launches = lab_launch_counts()
+    plog(f"lab launch counts {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a lab kernel was not launched: {launches}")
+
+    t0 = time.perf_counter()
+    report = {name: dict(max_abs_err=0.0) for name in launches}
+
+    def keep(name, err, plain_ms=None):
+        entry = report[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if plain_ms is not None:
+            entry["plain_ms"] = plain_ms
+
+    for label, (o, d, tm) in closest16.items():
+        for plain_variant in ("nored", "leafilp", "pop2", "pop4"):
+            ref, plain_ms = plain_timed(
+                kernel_lab.closest_lab_plain, o, d, tm, ds16.binary_root,
+                ds16.pnodes, ds16.ptris, plain_variant)
+            names = [plain_variant]
+            if plain_variant == "nored":
+                names = ["base", "nored"]
+                for block in kernel_lab.BLOCKS:
+                    err = gate_equal(f"lab_closest_ts {label} {block}",
+                                     kres[(label, f"ts{block}")]["out"], ref)
+                    keep("lab_closest_ts", err,
+                         plain_ms if label == "bounce1" else None)
+            for name in names:
+                err = gate_equal(f"lab_closest {label} {name}",
+                                 kres[(label, name)]["out"], ref)
+                keep("lab_closest", err, plain_ms
+                     if (label, name) == ("bounce1", "base") else None)
+            plog(f"lab_closest {label} {'/'.join(names)}: equal to the "
+                 f"plain version on all {o.shape[0]} rays (t, tri, u, v, "
+                 f"nvisit, nleaf); plain {plain_ms:.1f} ms")
+
+    for label, (o, d, tm, skip, _) in shadow8.items():
+        args = (ds8.binary_root, ds8.pnodes, ds8.ptris)
+        for variant in occl_lab.VARIANTS:
+            ordered = variant != "noorder"
+            if variant == "resort":
+                perm = occl_lab.resort_perm(o, tm, ds8)
+                got_p, plain_ms = plain_timed(
+                    occl_lab.occl_lab_plain, o[perm], d[perm], tm[perm],
+                    skip[perm], *args, ordered)
+                ref = tuple(torch.empty_like(g) for g in got_p)
+                for dst, src in zip(ref, got_p):
+                    dst[perm] = src
+            else:
+                ref, plain_ms = plain_timed(occl_lab.occl_lab_plain, o, d,
+                                            tm, skip, *args, ordered)
+            err = gate_equal(f"lab_occlusion {label} {variant}",
+                             ores[(label, variant)]["out"], ref)
+            keep("lab_occlusion", err, plain_ms
+                 if (label, variant) == ("shadow_b1", "lean") else None)
+            plog(f"lab_occlusion {label} {variant}: equal to the plain "
+                 f"version on all {o.shape[0]} rays (occ, nvisit, nleaf); "
+                 f"plain {plain_ms:.1f} ms")
+
+    n = lab_rays.WIDTH * lab_rays.HEIGHT
+    for label, (o, d, tm) in closest8.items():
+        live = max(int((tm > 1e-3).sum()), 1)
+        for order in bvh4_lab.ORDERS:
+            # The kernel has no counters; its plain version counts the
+            # same walk's pops.
+            counts = tuple(torch.zeros((o.shape[0],), dtype=torch.int32,
+                                       device=device) for _ in range(2))
+            ref, plain_ms = plain_timed(
+                bvh4_lab.closest4_plain, o, d, tm, ds8.root, ds8.qmeta,
+                ds8.qnodes, ds8.ptris, order == "ordered", counts)
+            r = bres[(label, order)]
+            err = gate_equal(f"lab_closest4 {label} {order}", r["out"], ref)
+            keep("lab_closest4", err, plain_ms
+                 if (label, order) == ("bounce1", "ordered") else None)
+            visits, leaves = (int(c.sum()) for c in counts)
+            plog(f"lab_closest4 {label} {order}: equal to the plain version "
+                 f"on all {o.shape[0]} rays (t, tri, u, v); plain "
+                 f"{plain_ms:.1f} ms; vs K1 {r['flips']} hit flips, "
+                 f"{r['tri_diff']} triangle differences; 4-wide walk "
+                 f"{visits / live:.3f} visits/ray, {leaves / live:.3f} of "
+                 f"them leaves")
+            if r["flips"] + r["tri_diff"] > TREE_AGREEMENT * n:
+                raise RuntimeError(f"L2 and K1 disagree beyond "
+                                   f"{TREE_AGREEMENT} of the rays ({label}, "
+                                   f"{order})")
+        # The binary walk on the same (leaf-8) bake, for the two trees side
+        # by side.
+        b = kernel_lab.run_closest_lab(o, d, tm, ds8, "base")
+        b_ms = lab_rays.cuda_ms(
+            lambda: kernel_lab.run_closest_lab(o, d, tm, ds8, "base"), 5)
+        plog(f"trees on the leaf-8 bake, {label}: binary L1 {b_ms:.3f} ms, "
+             f"{int(b[4].sum()) / live:.3f} visits/ray, "
+             f"{int(b[5].sum()) / live:.3f} of them leaves; 4-wide K1 "
+             f"{bres[(label, 'k1')]['ms']:.3f} ms (counts above)")
+    plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
+
+    report["lab_closest"]["ms"] = kres[("bounce1", "base")]["ms"]
+    report["lab_closest_ts"]["ms"] = kres[("bounce1", "ts128")]["ms"]
+    report["lab_occlusion"]["ms"] = ores[("shadow_b1", "lean")]["ms"]
+    report["lab_closest4"]["ms"] = bres[("bounce1", "ordered")]["ms"]
+    for name, entry in report.items():
+        entry["launches"] = launches[name]
+    return report
+
+
 CORNELL_JSON = {
     "materials": {
         "white": {"albedo": [0.73, 0.73, 0.73], "roughness": 1.0},
@@ -514,6 +678,7 @@ def main():
     cuda_launches, cuda_img = phase3(atrium, device)
     phase4()
     bvh_launches = phase5(atrium, device, cuda_img)
+    lab = phase6(device)
 
     kernels = [
         {"name": "quad_closest", "route": "cuda", "source": KERNEL_SOURCE,
@@ -543,7 +708,15 @@ def main():
          "ms": k["binary_occlusion_shadow"]["ms"],
          "plain_ms": k["binary_occlusion_shadow"]["plain_ms"]},
     ]
-    log(f"kernel ms and plain_ms: one launch on {WIDTH * HEIGHT} rays")
+    for name, replaces in (("lab_closest", "tools/kernel_lab.py:273"),
+                           ("lab_closest_ts", "tools/kernel_lab.py:378"),
+                           ("lab_occlusion", "tools/occl_lab.py:163"),
+                           ("lab_closest4", "tools/bvh4_lab.py:302")):
+        kernels.append({"name": name, "route": "cuda", "source": LAB_SOURCE,
+                        "replaces": replaces, **lab[name]})
+    log(f"kernel ms and plain_ms: one launch on {WIDTH * HEIGHT} rays (the "
+        "lab kernels: on the bounce-1 wavefront in renderer order, "
+        "lab_occlusion on its shadow batch)")
     log(f"nvidia-smi: {nvidia_smi_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,9 +21,9 @@
 //
 // t_min is an argument: K3 fixes it at 1e-3, but the backend these kernels
 // serve (accel="bvh", whose JAX walk takes any t_min) does not. The
-// arithmetic (traverse_common.cuh) is written in the order of the plain
-// torch versions in ops/binary_traverse.py, and the library is built with
-// -fmad=false, so the kernels equal them bit for bit.
+// arithmetic, leaf loops and node step (traverse_common.cuh) are written in
+// the order of the plain torch versions in ops/binary_traverse.py, and the
+// library is built with -fmad=false, so the kernels equal them bit for bit.
 //
 // What bounds it on the card: dependent loads, as for the 4-wide kernels,
 // and about twice as many of them, since a binary walk pops twice the
@@ -38,31 +38,6 @@ using namespace traverse;
 namespace {
 
 constexpr int kStackCap = 128;  // per-ray stack entries (STACK_CAP)
-
-// Slab-test both children of pnodes row `p` (lanes 0-5 left box, 6-11
-// right box, 12/13 the child metas as f32) against [t_min, t_cap], and
-// push the hit ones: far first, then near.
-__device__ __forceinline__ void visit_node(const Ray& r,
-                                           const float4* __restrict__ p,
-                                           float t_min, float t_cap,
-                                           int* stack, int& sp) {
-  float4 f0 = __ldg(p);
-  float4 f1 = __ldg(p + 1);
-  float4 f2 = __ldg(p + 2);
-  float4 f3 = __ldg(p + 3);
-  float tn_l, tn_r;
-  bool hit_l = slab(r, f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, t_min, t_cap,
-                    &tn_l);
-  bool hit_r = slab(r, f1.z, f1.w, f2.x, f2.y, f2.z, f2.w, t_min, t_cap,
-                    &tn_r);
-  int lmeta = (int)f3.x;
-  int rmeta = (int)f3.y;
-  float near_l = hit_l ? tn_l : kBig;
-  float near_r = hit_r ? tn_r : kBig;
-  bool swap = near_r < near_l;
-  if (swap ? hit_l : hit_r) stack[sp++] = swap ? lmeta : rmeta;
-  if (swap ? hit_r : hit_l) stack[sp++] = swap ? rmeta : lmeta;
-}
 
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ origin,
@@ -86,21 +61,11 @@ closest_kernel(const float* __restrict__ origin,
   while (sp > 0) {
     int meta = stack[--sp];
     if (meta < 0) {
-      const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
-      for (int k = 0; k < leaf; ++k) {
-        float4 a = __ldg(row + 3 * k);
-        float4 b = __ldg(row + 3 * k + 1);
-        float4 c = __ldg(row + 3 * k + 2);
-        float t, u, v;
-        if (moller(r, a, b, c, t_min, bt, &t, &u, &v)) {
-          bt = t;
-          btri = (int)c.y;
-          bu = u;
-          bv = v;
-        }
-      }
+      closest_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, t_min, bt,
+                   btri, bu, bv);
     } else {
-      visit_node(r, pnodes + (int64_t)meta * 4, t_min, bt, stack, sp);
+      binary_visit<true>(r, pnodes + (int64_t)meta * 4, t_min, bt, stack,
+                         sp);
     }
   }
   out_t[i] = bt;
@@ -131,19 +96,11 @@ occlusion_kernel(const float* __restrict__ origin,
   while (sp > 0 && !occ) {
     int meta = stack[--sp];
     if (meta < 0) {
-      const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
-      for (int k = 0; k < leaf; ++k) {
-        float4 a = __ldg(row + 3 * k);
-        float4 b = __ldg(row + 3 * k + 1);
-        float4 c = __ldg(row + 3 * k + 2);
-        float t, u, v;
-        if (moller(r, a, b, c, t_min, tm, &t, &u, &v) && c.z != skip) {
-          occ = true;
-          break;
-        }
-      }
+      occ = occluded_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, t_min,
+                          tm, skip);
     } else {
-      visit_node(r, pnodes + (int64_t)meta * 4, t_min, tm, stack, sp);
+      binary_visit<true>(r, pnodes + (int64_t)meta * 4, t_min, tm, stack,
+                         sp);
     }
   }
   out_occ[i] = occ;

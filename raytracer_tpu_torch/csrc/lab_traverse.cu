@@ -1,0 +1,341 @@
+// The traversal lab's kernels, one thread per ray, for Hopper (sm_90a):
+// variants of the binary and 4-wide closest-hit and any-hit walks, the
+// binary ones with per-ray visit counters.
+//
+// Replaces the TPU lab kernels
+//   - tools/kernel_lab.py:273 (run_closest_lab, L1a): K3 with per-packet
+//     visit/leaf counters, variants base, nored, leafilp, pop2, pop4;
+//   - tools/kernel_lab.py:378 (run_closest_ts, L1b): the nored kernel with
+//     a parametric packet height;
+//   - tools/occl_lab.py:163 (run_occl_lab, L9): K4 with counters, variants
+//     base, lean, noorder, resort;
+//   - tools/bvh4_lab.py:302 (run_closest4, L2): the 4-wide closest hit,
+//     nearest child pushed last or children in fixed order.
+// Those walk one tree per packet with an SMEM stack (and, for L2, a
+// deferred leaf queue) because Mosaic has no per-lane gathers; none of that
+// carries over. Each thread walks its own ray depth-first with a private
+// stack in local memory, and counts per ray what the TPU kernels count per
+// packet: nvisit, every pop, and nleaf, the leaf pops.
+//
+//   - lab_closest: K3's walk (binary_visit, far first, near last) with
+//     counters. Variant 0 serves both `base` and `nored`: for one ray,
+//     any(hit) and min(t_near) < BIG are the same predicate. Variant 1
+//     (`leafilp`) tests every triangle of a leaf against the entry best t
+//     and picks the winner with a pairwise min tree in which a tie keeps
+//     the lower index; it equals the serial leaf, and needs the leaf size as
+//     a template argument (8 or 16, the sizes the lab bakes). Variants 2/3
+//     (`pop2`, `pop4`) are tools/kernel_lab.py:69's multi-pop loop: read
+//     k = min(sp, N) metas off the top of the stack, sp -= k, visit them in
+//     order (each internal visit pushes at the current sp and later visits
+//     see the updated best t), nvisit += k. `threads` is the block size:
+//     L1b's rays per packet become threads per block, which changes neither
+//     the results nor the counts.
+//   - lab_occlusion: K4's walk with counters; `ordered` serves base, lean
+//     and resort (where the packet refreshes its union cap only matters
+//     across lanes; resort is a permutation of the rays, applied by the
+//     wrapper), and !ordered pushes right first so left pops first
+//     (noorder).
+//   - lab_closest4: K1's walk, with `ordered` (nearest hit child last) or
+//     children pushed in order 0..3. No counters (the TPU kernel has none).
+//
+// The arithmetic, leaf loops and node steps are traverse_common.cuh's,
+// written in the order of the plain torch versions (raytracer_tpu_torch/
+// lab/*.py), and the library is built with -fmad=false, so each kernel
+// equals its plain version bit for bit, counts included.
+//
+// What bounds them on the card: dependent node and leaf loads, as for
+// K1-K4; the counters add two registers. The multi-pop variants keep up to
+// N metas in registers, the ILP leaf 4 x leaf values. The wrappers refuse a
+// tree whose stack bound exceeds the stack, so it never overflows.
+
+#include "traverse_common.cuh"
+
+using namespace traverse;
+
+namespace {
+
+constexpr int kStackCap = 128;  // binary stack (STACK_CAP)
+constexpr int kQuadCap = 64;    // 4-wide stack (CAP)
+constexpr float kTMin = 1e-3f;  // the lab kernels' fixed t_min
+constexpr int kMaxThreads = 1024;
+
+// One level of the pairwise min tree: pair (2a, 2a+1) -> slot a for a <
+// kW, a tie keeping the lower index; then the next level. A template
+// recursion, so every index is a constant and the candidates stay in
+// registers.
+template <int kW>
+__device__ __forceinline__ void min_tree(float* ts, float* us, float* vs,
+                                         int* tris) {
+  if constexpr (kW >= 1) {
+#pragma unroll
+    for (int a = 0; a < kW; ++a) {
+      bool take_b = ts[2 * a + 1] < ts[2 * a];
+      ts[a] = take_b ? ts[2 * a + 1] : ts[2 * a];
+      us[a] = take_b ? us[2 * a + 1] : us[2 * a];
+      vs[a] = take_b ? vs[2 * a + 1] : vs[2 * a];
+      tris[a] = take_b ? tris[2 * a + 1] : tris[2 * a];
+    }
+    min_tree<kW / 2>(ts, us, vs, tris);
+  }
+}
+
+// tools/kernel_lab.py:187 leaf_fn_ilp: every triangle against the entry
+// best t, then a pairwise min tree (3 levels for 8); a tie keeps the lower
+// index, so the winner is the serial leaf's.
+template <int kLeaf>
+__device__ __forceinline__ void ilp_leaf(const Ray& r,
+                                         const float4* __restrict__ row,
+                                         float& bt, int& btri, float& bu,
+                                         float& bv) {
+  float ts[kLeaf], us[kLeaf], vs[kLeaf];
+  int tris[kLeaf];
+#pragma unroll
+  for (int k = 0; k < kLeaf; ++k) {
+    float4 a = __ldg(row + 3 * k);
+    float4 b = __ldg(row + 3 * k + 1);
+    float4 c = __ldg(row + 3 * k + 2);
+    float t, u, v;
+    bool valid = moller(r, a, b, c, kTMin, bt, &t, &u, &v);
+    ts[k] = valid ? t : kBig;
+    us[k] = u;
+    vs[k] = v;
+    tris[k] = (int)c.y;
+  }
+  min_tree<kLeaf / 2>(ts, us, vs, tris);
+  if (ts[0] < bt) {
+    bt = ts[0];
+    btri = tris[0];
+    bu = us[0];
+    bv = vs[0];
+  }
+}
+
+// kNpop metas popped per step; kIlpLeaf 0 = the serial leaf, else the ILP
+// leaf of that many triangles.
+template <int kNpop, int kIlpLeaf>
+__global__ void __launch_bounds__(kMaxThreads)
+closest_lab_kernel(const float* __restrict__ origin,
+                   const float* __restrict__ direction,
+                   const float* __restrict__ t_max, int64_t n, int root,
+                   const float4* __restrict__ pnodes,
+                   const float4* __restrict__ ptris, int leaf,
+                   float* __restrict__ out_t, int* __restrict__ out_tri,
+                   float* __restrict__ out_u, float* __restrict__ out_v,
+                   int* __restrict__ out_nvisit, int* __restrict__ out_nleaf) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(origin, direction, i);
+  float bt = t_max[i];
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  const int leaf_f4 = leaf * kTriStride / 4;
+  int nvisit = 0, nleaf = 0;
+
+  int stack[kStackCap];
+  int sp = 0;
+  if (bt > kTMin) stack[sp++] = root;
+  while (sp > 0) {
+    const int k = min(sp, kNpop);
+    int metas[kNpop];
+#pragma unroll
+    for (int j = 0; j < kNpop; ++j) metas[j] = stack[max(sp - 1 - j, 0)];
+    sp -= k;
+    nvisit += k;
+#pragma unroll
+    for (int j = 0; j < kNpop; ++j) {
+      if (j >= k) break;
+      const int meta = metas[j];
+      if (meta < 0) {
+        ++nleaf;
+        const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
+        if constexpr (kIlpLeaf > 0) {
+          ilp_leaf<kIlpLeaf>(r, row, bt, btri, bu, bv);
+        } else {
+          closest_leaf(r, row, leaf, kTMin, bt, btri, bu, bv);
+        }
+      } else {
+        binary_visit<true>(r, pnodes + (int64_t)meta * 4, kTMin, bt, stack,
+                           sp);
+      }
+    }
+  }
+  out_t[i] = bt;
+  out_tri[i] = btri;
+  out_u[i] = bu;
+  out_v[i] = bv;
+  out_nvisit[i] = nvisit;
+  out_nleaf[i] = nleaf;
+}
+
+template <bool kOrdered>
+__global__ void __launch_bounds__(kThreads)
+occlusion_lab_kernel(const float* __restrict__ origin,
+                     const float* __restrict__ direction,
+                     const float* __restrict__ t_max,
+                     const int* __restrict__ skip_object, int64_t n, int root,
+                     const float4* __restrict__ pnodes,
+                     const float4* __restrict__ ptris, int leaf,
+                     bool* __restrict__ out_occ, int* __restrict__ out_nvisit,
+                     int* __restrict__ out_nleaf) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(origin, direction, i);
+  float tm = t_max[i];
+  float skip = (float)skip_object[i];
+  const int leaf_f4 = leaf * kTriStride / 4;
+  bool occ = false;
+  int nvisit = 0, nleaf = 0;
+
+  int stack[kStackCap];
+  int sp = 0;
+  if (tm > kTMin) stack[sp++] = root;
+  while (sp > 0 && !occ) {
+    int meta = stack[--sp];
+    ++nvisit;
+    if (meta < 0) {
+      ++nleaf;
+      occ = occluded_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, kTMin,
+                          tm, skip);
+    } else {
+      binary_visit<kOrdered>(r, pnodes + (int64_t)meta * 4, kTMin, tm, stack,
+                             sp);
+    }
+  }
+  out_occ[i] = occ;
+  out_nvisit[i] = nvisit;
+  out_nleaf[i] = nleaf;
+}
+
+template <bool kOrdered>
+__global__ void __launch_bounds__(kThreads)
+closest4_lab_kernel(const float* __restrict__ origin,
+                    const float* __restrict__ direction,
+                    const float* __restrict__ t_max, int64_t n, int root,
+                    const int4* __restrict__ qmeta,
+                    const float4* __restrict__ qnodes,
+                    const float4* __restrict__ ptris, int leaf,
+                    float* __restrict__ out_t, int* __restrict__ out_tri,
+                    float* __restrict__ out_u, float* __restrict__ out_v) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r = load_ray(origin, direction, i);
+  float bt = t_max[i];
+  int btri = -1;
+  float bu = 0.0f, bv = 0.0f;
+  const int leaf_f4 = leaf * kTriStride / 4;
+
+  int stack[kQuadCap];
+  int sp = 0;
+  if (bt > kTMin) stack[sp++] = root;
+  while (sp > 0) {
+    int meta = stack[--sp];
+    if (meta < 0) {
+      closest_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, kTMin, bt,
+                   btri, bu, bv);
+    } else {
+      quad_visit<kOrdered>(r, qnodes + (int64_t)meta * 8,
+                           __ldg(qmeta + meta), kTMin, bt, stack, sp);
+    }
+  }
+  out_t[i] = bt;
+  out_tri[i] = btri;
+  out_u[i] = bu;
+  out_v[i] = bv;
+}
+
+template <int kNpop, int kIlpLeaf>
+int launch_closest(const float* origin, const float* direction,
+                   const float* t_max, int64_t n, int root,
+                   const float* pnodes, const float* ptris, int leaf,
+                   float* out_t, int* out_tri, float* out_u, float* out_v,
+                   int* out_nvisit, int* out_nleaf, int threads,
+                   cudaStream_t stream) {
+  closest_lab_kernel<kNpop, kIlpLeaf>
+      <<<blocks_for(n, threads), threads, 0, stream>>>(
+          origin, direction, t_max, n, root,
+          reinterpret_cast<const float4*>(pnodes),
+          reinterpret_cast<const float4*>(ptris), leaf, out_t, out_tri,
+          out_u, out_v, out_nvisit, out_nleaf);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). Each launches on `stream` and
+// returns the launch's cudaError_t (cudaErrorInvalidValue for an argument
+// no kernel takes); none synchronises or allocates.
+
+// variant: 0 base/nored, 1 leafilp (leaf 8 or 16), 2 pop2, 3 pop4;
+// threads: a power of two in [32, 1024].
+extern "C" int lab_closest(const float* origin, const float* direction,
+                           const float* t_max, int64_t n, int root,
+                           const float* pnodes, const float* ptris, int leaf,
+                           int variant, int threads, float* out_t,
+                           int* out_tri, float* out_u, float* out_v,
+                           int* out_nvisit, int* out_nleaf, void* stream) {
+  if (threads < 32 || threads > kMaxThreads || (threads & (threads - 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+#define LAB_CLOSEST_ARGS                                                  \
+  origin, direction, t_max, n, root, pnodes, ptris, leaf, out_t, out_tri, \
+      out_u, out_v, out_nvisit, out_nleaf, threads, s
+  switch (variant) {
+    case 0:
+      return launch_closest<1, 0>(LAB_CLOSEST_ARGS);
+    case 1:
+      if (leaf == 8) return launch_closest<1, 8>(LAB_CLOSEST_ARGS);
+      if (leaf == 16) return launch_closest<1, 16>(LAB_CLOSEST_ARGS);
+      return (int)cudaErrorInvalidValue;
+    case 2:
+      return launch_closest<2, 0>(LAB_CLOSEST_ARGS);
+    case 3:
+      return launch_closest<4, 0>(LAB_CLOSEST_ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LAB_CLOSEST_ARGS
+}
+
+extern "C" int lab_occlusion(const float* origin, const float* direction,
+                             const float* t_max, const int* skip_object,
+                             int64_t n, int root, const float* pnodes,
+                             const float* ptris, int leaf, int ordered,
+                             bool* out_occ, int* out_nvisit, int* out_nleaf,
+                             void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  auto p4 = reinterpret_cast<const float4*>(pnodes);
+  auto t4 = reinterpret_cast<const float4*>(ptris);
+  if (ordered) {
+    occlusion_lab_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+        origin, direction, t_max, skip_object, n, root, p4, t4, leaf,
+        out_occ, out_nvisit, out_nleaf);
+  } else {
+    occlusion_lab_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+        origin, direction, t_max, skip_object, n, root, p4, t4, leaf,
+        out_occ, out_nvisit, out_nleaf);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lab_closest4(const float* origin, const float* direction,
+                            const float* t_max, int64_t n, int root,
+                            const int* qmeta, const float* qnodes,
+                            const float* ptris, int leaf, int ordered,
+                            float* out_t, int* out_tri, float* out_u,
+                            float* out_v, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  auto m4 = reinterpret_cast<const int4*>(qmeta);
+  auto q4 = reinterpret_cast<const float4*>(qnodes);
+  auto t4 = reinterpret_cast<const float4*>(ptris);
+  if (ordered) {
+    closest4_lab_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+        origin, direction, t_max, n, root, m4, q4, t4, leaf, out_t, out_tri,
+        out_u, out_v);
+  } else {
+    closest4_lab_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+        origin, direction, t_max, n, root, m4, q4, t4, leaf, out_t, out_tri,
+        out_u, out_v);
+  }
+  return (int)cudaGetLastError();
+}

@@ -38,28 +38,6 @@ namespace {
 constexpr int kCap = 64;          // per-ray stack entries
 constexpr float kTMin = 1e-3f;    // traceRayEXT t_min (simple.rgen:92-104)
 
-// The 4 child slab tests of quad node `node`.
-__device__ __forceinline__ void test_children(const Ray& r,
-                                              const float4* __restrict__ q,
-                                              float t_cap, bool hit[4],
-                                              float tn[4]) {
-  float b[24];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    float4 f = __ldg(q + j);
-    b[4 * j + 0] = f.x;
-    b[4 * j + 1] = f.y;
-    b[4 * j + 2] = f.z;
-    b[4 * j + 3] = f.w;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float* x = b + 6 * c;
-    hit[c] = slab(r, x[0], x[1], x[2], x[3], x[4], x[5], kTMin, t_cap,
-                  &tn[c]);
-  }
-}
-
 __global__ void __launch_bounds__(128)
 closest_kernel(const float* __restrict__ origin,
                const float* __restrict__ direction,
@@ -83,37 +61,11 @@ closest_kernel(const float* __restrict__ origin,
   while (sp > 0) {
     int meta = stack[--sp];
     if (meta < 0) {
-      const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
-      for (int k = 0; k < leaf; ++k) {
-        float4 a = __ldg(row + 3 * k);
-        float4 b = __ldg(row + 3 * k + 1);
-        float4 c = __ldg(row + 3 * k + 2);
-        float t, u, v;
-        if (moller(r, a, b, c, kTMin, bt, &t, &u, &v)) {
-          bt = t;
-          btri = (int)c.y;
-          bu = u;
-          bv = v;
-        }
-      }
+      closest_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, kTMin, bt,
+                   btri, bu, bv);
     } else {
-      bool hit[4];
-      float tn[4];
-      test_children(r, qnodes + (int64_t)meta * 8, bt, hit, tn);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) tn[c] = hit[c] ? tn[c] : kBig;
-      int4 m = __ldg(qmeta + meta);
-      int kids[4] = {m.x, m.y, m.z, m.w};
-      // The TPU kernel's 2-bit argmin of the children's t_near.
-      int b0 = tn[1] < tn[0];
-      int b1 = tn[3] < tn[2];
-      bool use_hi = nmin(tn[2], tn[3]) < nmin(tn[0], tn[1]);
-      int near = use_hi ? 2 + b1 : b0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (hit[c] && c != near) stack[sp++] = kids[c];
-      }
-      if (hit[near]) stack[sp++] = kids[near];
+      quad_visit<true>(r, qnodes + (int64_t)meta * 8, __ldg(qmeta + meta),
+                       kTMin, bt, stack, sp);
     }
   }
   out_t[i] = bt;
@@ -145,26 +97,11 @@ occlusion_kernel(const float* __restrict__ origin,
   while (sp > 0 && !occ) {
     int meta = stack[--sp];
     if (meta < 0) {
-      const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
-      for (int k = 0; k < leaf; ++k) {
-        float4 a = __ldg(row + 3 * k);
-        float4 b = __ldg(row + 3 * k + 1);
-        float4 c = __ldg(row + 3 * k + 2);
-        float t, u, v;
-        if (moller(r, a, b, c, kTMin, tm, &t, &u, &v) && c.z != skip) {
-          occ = true;
-          break;
-        }
-      }
+      occ = occluded_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, kTMin,
+                          tm, skip);
     } else {
-      bool hit[4];
-      float tn[4];
-      test_children(r, qnodes + (int64_t)meta * 8, tm, hit, tn);
-      int4 m = __ldg(qmeta + meta);
-      if (hit[0]) stack[sp++] = m.x;
-      if (hit[1]) stack[sp++] = m.y;
-      if (hit[2]) stack[sp++] = m.z;
-      if (hit[3]) stack[sp++] = m.w;
+      quad_visit<false>(r, qnodes + (int64_t)meta * 8, __ldg(qmeta + meta),
+                        kTMin, tm, stack, sp);
     }
   }
   out_occ[i] = occ;

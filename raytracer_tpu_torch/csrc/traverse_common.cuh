@@ -1,6 +1,8 @@
 // Device helpers shared by the traversal kernels (quad_traverse.cu,
-// binary_traverse.cu): the ray with its clamped inverse direction, the slab
-// test of one box and Moller-Trumbore against one leaf triangle.
+// binary_traverse.cu, lab_traverse.cu): the ray with its clamped inverse
+// direction, the slab test of one box, Moller-Trumbore against one leaf
+// triangle, the closest-hit and any-hit leaf loops, and the binary and
+// 4-wide node steps.
 //
 // Each term is written in the order of the plain torch versions
 // (ops/quad_traverse.py: _inv_dir, _slab_children, _moller), and the
@@ -106,8 +108,122 @@ __device__ __forceinline__ bool moller(const Ray& r, float4 a, float4 b,
          t < t_cap;
 }
 
-inline unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+// Closest-hit leaf: the `leaf` triangles of one leaf row (3 float4 each) in
+// order k = 0..leaf-1, each kept when its t is strictly below the best t.
+__device__ __forceinline__ void closest_leaf(const Ray& r,
+                                             const float4* __restrict__ row,
+                                             int leaf, float t_min,
+                                             float& bt, int& btri, float& bu,
+                                             float& bv) {
+  for (int k = 0; k < leaf; ++k) {
+    float4 a = __ldg(row + 3 * k);
+    float4 b = __ldg(row + 3 * k + 1);
+    float4 c = __ldg(row + 3 * k + 2);
+    float t, u, v;
+    if (moller(r, a, b, c, t_min, bt, &t, &u, &v)) {
+      bt = t;
+      btri = (int)c.y;
+      bu = u;
+      bv = v;
+    }
+  }
+}
+
+// Any-hit leaf: whether a triangle of one leaf row, not of object `skip`,
+// hits in (t_min, t_max).
+__device__ __forceinline__ bool occluded_leaf(const Ray& r,
+                                              const float4* __restrict__ row,
+                                              int leaf, float t_min,
+                                              float t_max, float skip) {
+  for (int k = 0; k < leaf; ++k) {
+    float4 a = __ldg(row + 3 * k);
+    float4 b = __ldg(row + 3 * k + 1);
+    float4 c = __ldg(row + 3 * k + 2);
+    float t, u, v;
+    if (moller(r, a, b, c, t_min, t_max, &t, &u, &v) && c.z != skip) {
+      return true;
+    }
+  }
+  return false;
+}
+
+// Binary node step: slab-test both children of pnodes row `p` (lanes 0-5
+// left box, 6-11 right box, 12/13 the child metas as f32) against [t_min,
+// t_cap] and push the hit ones: far first and near last (kOrdered; near is
+// the smaller t_near, a tie keeps left), or right first and left last.
+template <bool kOrdered>
+__device__ __forceinline__ void binary_visit(const Ray& r,
+                                             const float4* __restrict__ p,
+                                             float t_min, float t_cap,
+                                             int* stack, int& sp) {
+  float4 f0 = __ldg(p);
+  float4 f1 = __ldg(p + 1);
+  float4 f2 = __ldg(p + 2);
+  float4 f3 = __ldg(p + 3);
+  float tn_l, tn_r;
+  bool hit_l = slab(r, f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, t_min, t_cap,
+                    &tn_l);
+  bool hit_r = slab(r, f1.z, f1.w, f2.x, f2.y, f2.z, f2.w, t_min, t_cap,
+                    &tn_r);
+  int lmeta = (int)f3.x;
+  int rmeta = (int)f3.y;
+  float near_l = hit_l ? tn_l : kBig;
+  float near_r = hit_r ? tn_r : kBig;
+  bool swap = kOrdered && near_r < near_l;
+  if (swap ? hit_l : hit_r) stack[sp++] = swap ? lmeta : rmeta;
+  if (swap ? hit_r : hit_l) stack[sp++] = swap ? rmeta : lmeta;
+}
+
+// 4-wide node step: slab-test the 4 children of quad row `q` (6 float4: 4
+// boxes) against [t_min, t_cap] with NaN-propagating min/max (absent
+// children are NaN boxes and never hit), and push the hit ones of metas `m`
+// in child order; with kOrdered the nearest (the TPU kernel's 2-bit argmin
+// of t_near) goes last instead.
+template <bool kOrdered>
+__device__ __forceinline__ void quad_visit(const Ray& r,
+                                           const float4* __restrict__ q,
+                                           int4 m, float t_min, float t_cap,
+                                           int* stack, int& sp) {
+  float b[24];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float4 f = __ldg(q + j);
+    b[4 * j + 0] = f.x;
+    b[4 * j + 1] = f.y;
+    b[4 * j + 2] = f.z;
+    b[4 * j + 3] = f.w;
+  }
+  bool hit[4];
+  float tn[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float* x = b + 6 * c;
+    hit[c] = slab(r, x[0], x[1], x[2], x[3], x[4], x[5], t_min, t_cap,
+                  &tn[c]);
+  }
+  int kids[4] = {m.x, m.y, m.z, m.w};
+  if (kOrdered) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) tn[c] = hit[c] ? tn[c] : kBig;
+    int b0 = tn[1] < tn[0];
+    int b1 = tn[3] < tn[2];
+    bool use_hi = nmin(tn[2], tn[3]) < nmin(tn[0], tn[1]);
+    int near = use_hi ? 2 + b1 : b0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (hit[c] && c != near) stack[sp++] = kids[c];
+    }
+    if (hit[near]) stack[sp++] = kids[near];
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (hit[c]) stack[sp++] = kids[c];
+    }
+  }
+}
+
+inline unsigned blocks_for(int64_t n, int threads = kThreads) {
+  return (unsigned)((n + threads - 1) / threads);
 }
 
 }  // namespace traverse

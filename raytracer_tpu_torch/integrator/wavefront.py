@@ -32,10 +32,16 @@ Every reference quirk the JAX module reproduces is reproduced here:
     the reference); scenes without transmission take the exact reference
     path.
 
-Not ported in this module yet (ROADMAP.md port queue): the Morton sorts of
-lanes and of shadow rays (pure lane permutations, so the image does not
-depend on them; lane i is pixel i here), deep-bounce compaction (every
-bounce runs full-size, the same image), per-pixel frame vectors (adaptive
+`_sort_wavefront` ports the JAX lane sort (position Morton under direction
+octant under dead-last), but the renderer does not call it: lane i is pixel
+i here, and whether the sort pays for one-thread-per-ray traversal is
+ROADMAP.md port queue item P1. The traversal lab (lab/rays.py) uses it to
+build the sorted wavefront the JAX labs measure.
+
+Not ported in this module yet (ROADMAP.md port queue): the renderer's use
+of the Morton sorts of lanes and of shadow rays (pure lane permutations, so
+the image does not depend on them), deep-bounce compaction (every bounce
+runs full-size, the same image), per-pixel frame vectors (adaptive
 sampling) and spp batching.
 """
 
@@ -91,6 +97,43 @@ class WavefrontState(NamedTuple):
     did_direct: torch.Tensor  # bool[N]
     # Spectral channel lock for dispersion (-1 = broadband).
     channel: torch.Tensor  # i32[N]
+
+
+def _morton9(q):
+    """Spread 9-bit ints (i64) so their bits land 3 apart, for a 3-axis
+    interleave (raytracer_tpu/integrator/wavefront.py:91)."""
+    q = q & 0x1FF
+    q = (q | (q << 16)) & 0x030000FF
+    q = (q | (q << 8)) & 0x0300F00F
+    q = (q | (q << 4)) & 0x030C30C3
+    q = (q | (q << 2)) & 0x09249249
+    return q
+
+
+def position_morton(origin, scene):
+    """27-bit Morton code (i64[N]) of each origin on a 512^3 grid over the
+    scene's bounds, computed in the JAX package's f32 order."""
+    extent = torch.clamp_min(scene.scene_max - scene.scene_min, 1e-6)
+    q = torch.clamp((origin - scene.scene_min) / extent * 511.0, 0.0,
+                    511.0).to(torch.int64)
+    return (_morton9(q[:, 0]) | (_morton9(q[:, 1]) << 1)
+            | (_morton9(q[:, 2]) << 2))
+
+
+def _sort_wavefront(state: WavefrontState, scene):
+    """Sort lanes by (dead last, direction octant, position Morton): the
+    single-part branch of raytracer_tpu/integrator/wavefront.py:125.
+    Returns (the permuted state, perm i64[N]); lane j of the result is lane
+    perm[j] of `state`. The sort is stable, as jnp.argsort, so equal keys
+    keep their order and the permutation equals the JAX one."""
+    d = state.direction
+    octant = ((d[:, 0] >= 0).to(torch.int64)
+              | ((d[:, 1] >= 0).to(torch.int64) << 1)
+              | ((d[:, 2] >= 0).to(torch.int64) << 2))
+    dead = (~state.alive).to(torch.int64)
+    key = (dead << 31) | (octant << 27) | position_morton(state.origin, scene)
+    perm = torch.argsort(key, stable=True)
+    return WavefrontState(*(field[perm] for field in state)), perm
 
 
 def _camera_rays(inverse_view, inverse_proj, width, height, jitter,

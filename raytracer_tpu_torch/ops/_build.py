@@ -1,5 +1,7 @@
 """Build and load the port's native libraries: the CUDA kernels
-(csrc/*.cu) and, for accel/native_builder.py, the C++ BVH builder.
+(csrc/*.cu: the render path's quad_traverse and binary_traverse, the
+traversal lab's lab_traverse) and, for accel/native_builder.py, the C++ BVH
+builder.
 
 Each source is compiled into a shared library with a plain C interface, in
 `raytracer_tpu_torch/_build/`, named by a hash of the source, the headers
@@ -136,4 +138,16 @@ def binary_traverse_lib() -> ctypes.CDLL:
                            _P, _P, _P, _P, _P],
         "binary_occlusion": [_P, _P, _P, _P, _I64, _F32, _I32, _P, _P, _I32,
                              _P, _P],
+    })
+
+
+def lab_traverse_lib() -> ctypes.CDLL:
+    """The traversal lab's kernels (csrc/lab_traverse.cu)."""
+    return _cuda_lib("lab_traverse", {
+        "lab_closest": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32, _I32,
+                        _P, _P, _P, _P, _P, _P, _P],
+        "lab_occlusion": [_P, _P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
+                          _P, _P, _P, _P],
+        "lab_closest4": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32, _I32,
+                         _P, _P, _P, _P, _P],
     })

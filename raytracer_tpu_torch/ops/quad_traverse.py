@@ -176,14 +176,20 @@ def _slab_children(o, inv, box, t_cap, t_min):
     return t_near <= t_far, t_near
 
 
-def _pop(stack, sp):
+def _pop(stack, sp, counts=None):
     """Pop one entry for every ray with a non-empty stack: (ray ids, metas);
-    both are empty once every stack is."""
+    both are empty once every stack is. `counts` (nvisit, nleaf), i32[N]
+    each, counts every pop and every leaf pop of the rays popped."""
     live = torch.nonzero(sp > 0).squeeze(1)
     if live.numel() == 0:
         return live, live
     sp[live] -= 1
-    return live, stack[live, sp[live].long()]
+    meta = stack[live, sp[live].long()]
+    if counts is not None:
+        nvisit, nleaf = counts
+        nvisit[live] += 1
+        nleaf[live] += (meta < 0).to(nleaf.dtype)
+    return live, meta
 
 
 def _push(stack, sp, rays, meta, mask):
@@ -201,52 +207,69 @@ def _init_stack(n, root, t_max, cap, t_min):
     return stack, sp
 
 
-def _closest_walk(origin, direction, t_max, root, ptris, visit_node, cap,
-                  t_min):
-    """Closest-hit DFS of every ray with a stack of `cap` metas: a meta < 0
-    is leaf block ~meta (its triangles tested in order, a strictly smaller
-    t kept); an internal meta goes to `visit_node(stack, sp, rays, nodes,
-    t_cap)`, which pushes the children that the rays' best t does not
-    prune. Returns (t f32[N], tri i32[N], u f32[N], v f32[N])."""
-    n = origin.shape[0]
-    leaf = ptris.shape[1] // TRI_STRIDE
+def _serial_leaf(origin, direction, rows, bt, btri, bu, bv, t_min):
+    """Closest-hit leaf test: the triangles of leaf rows [M, leaf*12] in
+    order k = 0..leaf-1, each kept when its t is strictly smaller than the
+    best so far. Returns the updated (t, tri, u, v)."""
+    ox, oy, oz = origin.unbind(1)
+    dx, dy, dz = direction.unbind(1)
+    for k in range(rows.shape[1] // TRI_STRIDE):
+        tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
+        t, u, v, valid = _moller(ox, oy, oz, dx, dy, dz, tri, bt, t_min)
+        bt = torch.where(valid, t, bt)
+        btri = torch.where(valid, tri[:, 9].to(torch.int32), btri)
+        bu = torch.where(valid, u, bu)
+        bv = torch.where(valid, v, bv)
+    return bt, btri, bu, bv
+
+
+def _init_best(t_max):
+    """The closest-hit record before any hit: (t = t_max, tri = -1, u = v =
+    0)."""
     best_t = t_max.clone()
-    best_tri = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
+    best_tri = torch.full(t_max.shape, -1, dtype=torch.int32,
+                          device=t_max.device)
+    return best_t, best_tri, torch.zeros_like(best_t), torch.zeros_like(best_t)
+
+
+def _closest_leaves(origin, direction, ptris, best, rays, meta, t_min,
+                   leaf_test=_serial_leaf):
+    """Test leaf blocks ~meta for `rays` with `leaf_test` and store the
+    results in `best` (t, tri, u, v)."""
+    rows = ptris[(~meta).long()]
+    out = leaf_test(origin[rays], direction[rays], rows,
+                    *(b[rays] for b in best), t_min)
+    for b, o in zip(best, out):
+        b[rays] = o
+
+
+def _closest_walk(origin, direction, t_max, root, ptris, visit_node, cap,
+                  t_min, leaf_test=_serial_leaf, counts=None):
+    """Closest-hit DFS of every ray with a stack of `cap` metas: a meta < 0
+    is leaf block ~meta (tested by `leaf_test`, by default in order with a
+    strictly smaller t kept); an internal meta goes to `visit_node(stack,
+    sp, rays, nodes, t_cap)`, which pushes the children that the rays' best
+    t does not prune. `counts` (nvisit, nleaf) adds up the pops of each
+    ray. Returns (t f32[N], tri i32[N], u f32[N], v f32[N])."""
+    n = origin.shape[0]
+    best = _init_best(t_max)
     stack, sp = _init_stack(n, root, t_max, cap, t_min)
     while True:
-        live, meta = _pop(stack, sp)
+        live, meta = _pop(stack, sp, counts)
         if live.numel() == 0:
             break
         is_leaf = meta < 0
-
-        li = live[is_leaf]
-        if li.numel():
-            rows = ptris[(~meta[is_leaf]).long()]
-            ox, oy, oz = origin[li].unbind(1)
-            dx, dy, dz = direction[li].unbind(1)
-            bt, btri = best_t[li], best_tri[li]
-            bu, bv = best_u[li], best_v[li]
-            for k in range(leaf):
-                tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
-                t, u, v, valid = _moller(ox, oy, oz, dx, dy, dz, tri, bt,
-                                         t_min)
-                bt = torch.where(valid, t, bt)
-                btri = torch.where(valid, tri[:, 9].to(torch.int32), btri)
-                bu = torch.where(valid, u, bu)
-                bv = torch.where(valid, v, bv)
-            best_t[li], best_tri[li] = bt, btri
-            best_u[li], best_v[li] = bu, bv
-
+        if is_leaf.any():
+            _closest_leaves(origin, direction, ptris, best, live[is_leaf],
+                           meta[is_leaf], t_min, leaf_test)
         ii = live[~is_leaf]
         if ii.numel():
-            visit_node(stack, sp, ii, meta[~is_leaf].long(), best_t[ii])
-    return best_t, best_tri, best_u, best_v
+            visit_node(stack, sp, ii, meta[~is_leaf].long(), best[0][ii])
+    return best
 
 
 def _any_walk(origin, direction, t_max, skip_object, root, ptris,
-              visit_node, cap, t_min):
+              visit_node, cap, t_min, counts=None):
     """Any-hit DFS of every ray, as `_closest_walk` with t_max as the
     pruning bound; a ray stops at its first accepted hit by a triangle not
     of its `skip_object`. Returns bool[N]."""
@@ -256,7 +279,7 @@ def _any_walk(origin, direction, t_max, skip_object, root, ptris,
     occ = torch.zeros((n,), dtype=torch.bool, device=origin.device)
     stack, sp = _init_stack(n, root, t_max, cap, t_min)
     while True:
-        live, meta = _pop(stack, sp)
+        live, meta = _pop(stack, sp, counts)
         if live.numel() == 0:
             break
         is_leaf = meta < 0
@@ -282,11 +305,10 @@ def _any_walk(origin, direction, t_max, skip_object, root, ptris,
     return occ
 
 
-def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
-                          ptris):
-    """Plain torch version of the closest-hit kernel. Returns (t f32[N],
-    tri i32[N], u f32[N], v f32[N])."""
-    inv = _inv_dir(direction)
+def _quad_near_last_visit(origin, inv, qmeta, qnodes):
+    """The closest-hit node step: slab-test the 4 children against [1e-3,
+    t_cap] and push the hit ones in child order, except the nearest (the
+    TPU kernel's 2-bit argmin of t_near), which goes last."""
     metas4 = qmeta.view(-1, 4)
 
     def visit(stack, sp, rays, node, t_cap):
@@ -304,14 +326,11 @@ def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
         _push(stack, sp, rays, kids.gather(1, near[:, None])[:, 0],
               hit.gather(1, near[:, None])[:, 0])
 
-    return _closest_walk(origin, direction, t_max, root, ptris, visit, CAP,
-                         T_MIN)
+    return visit
 
 
-def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
-                          qnodes, ptris):
-    """Plain torch version of the any-hit kernel. Returns bool[N]."""
-    inv = _inv_dir(direction)
+def _quad_fixed_visit(origin, inv, qmeta, qnodes):
+    """The any-hit node step: push the hit children in child order 0..3."""
     metas4 = qmeta.view(-1, 4)
 
     def visit(stack, sp, rays, node, t_cap):
@@ -321,6 +340,22 @@ def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
         for c in range(4):
             _push(stack, sp, rays, kids[:, c], hit[:, c])
 
+    return visit
+
+
+def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
+                          ptris):
+    """Plain torch version of the closest-hit kernel. Returns (t f32[N],
+    tri i32[N], u f32[N], v f32[N])."""
+    visit = _quad_near_last_visit(origin, _inv_dir(direction), qmeta, qnodes)
+    return _closest_walk(origin, direction, t_max, root, ptris, visit, CAP,
+                         T_MIN)
+
+
+def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
+                          qnodes, ptris):
+    """Plain torch version of the any-hit kernel. Returns bool[N]."""
+    visit = _quad_fixed_visit(origin, _inv_dir(direction), qmeta, qnodes)
     return _any_walk(origin, direction, t_max, skip_object, root, ptris,
                      visit, CAP, T_MIN)
 

@@ -301,6 +301,15 @@ def test_port_never_imports_jax():
         "    img = render(create_cornell_box(), config=RenderConfig(width=8, "
         "height=8, accel=accel), device='cpu')\n"
         "    assert img.shape == (8, 8, 3)\n"
+        "from raytracer_tpu_torch.lab import bvh4_lab, kernel_lab, occl_lab, "
+        "rays\n"
+        "from raytracer_tpu_torch.scene.device_scene import bake_scene\n"
+        "ds, _ = bake_scene(create_cornell_box(), device='cpu')\n"
+        "o, d, tm = rays.closest_sets(ds, 8, 8)['bounce1_sorted']\n"
+        "assert kernel_lab.run_closest_lab(o, d, tm, ds, 'pop2')[4].sum() > 0\n"
+        "o, d, tm, skip, _ = rays.shadow_sets(ds, 8, 8)['shadow_b0']\n"
+        "occl_lab.run_occl_lab(o, d, tm, skip, ds, 'resort')\n"
+        "bvh4_lab.run_closest4(o, d, tm, ds, ordered=False)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
