@@ -7,10 +7,10 @@ Phases (any failure exits non-zero and prints no result line):
   0. Require a CUDA device; print torch/CUDA versions and the card's name
      and power limit (nvidia-smi).
   1. Build the traversal kernels (csrc/quad_traverse.cu, the 4-wide
-     tree's K1/K2; csrc/binary_traverse.cu, the binary tree's K3/K4; and
-     csrc/lab_traverse.cu, the traversal lab's L1/L9/L2; the names of
-     ROADMAP.md's kernel table) with nvcc, one process per source, all
-     started together.
+     tree's K1/K2; csrc/binary_traverse.cu, the binary tree's K3/K4;
+     csrc/lab_traverse.cu, the traversal lab's L1/L9/L2; and
+     csrc/lab2_traverse.cu, its L3-L6; the names of ROADMAP.md's kernel
+     table) with nvcc, one process per source, all started together.
   2. Kernels against their plain torch versions on the card, on the
      300k-triangle atrium and three 1920x1080 ray sets (primary rays,
      incoherent reflected rays, shadow rays with finite t_max and a skipped
@@ -41,6 +41,18 @@ Phases (any failure exits non-zero and prints no result line):
      the hit records, masks and counts; plain timed by host clock, one
      run), and L2 against K1 (hit flips and triangle differences at most
      TREE_AGREEMENT of the rays).
+  7. The deferred-leaf and component-major labs at 1920x1080 on the leaf-8
+     atrium (its closest-hit sets), through the functions their entry
+     points run: v2_kernel_lab (L3), v3_kernel_lab (L4: base, nocond,
+     dblread), v4_interleave_lab (L5: shared, switch) and r3_kernel_lab
+     (L6: the four descent/divfree combinations and leafpar), with their
+     launch counts set to 0 just before and read just after. Then every
+     variant against its plain torch version on every ray of every set
+     (bit equality of t, tri, u, v and L4's counts; plain timed by host
+     clock, one run); L4 dblread = base, L5 switch = L4 base, L6 descent =
+     no descent; L3/L4 against K3 and L5/L6 against K1 (hit flips and
+     triangle differences at most TREE_AGREEMENT of the rays; nocond's
+     results are wrong by design and exempt).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
@@ -64,6 +76,7 @@ MAX_FLIPPED = 0.01
 KERNEL_SOURCE = "raytracer_tpu_torch/csrc/quad_traverse.cu"
 BINARY_SOURCE = "raytracer_tpu_torch/csrc/binary_traverse.cu"
 LAB_SOURCE = "raytracer_tpu_torch/csrc/lab_traverse.cu"
+LAB2_SOURCE = "raytracer_tpu_torch/csrc/lab2_traverse.cu"
 # K3 vs K1, K4 vs K2, L2 vs K1: share of rays that may differ
 TREE_AGREEMENT = 1e-4
 
@@ -111,17 +124,19 @@ def phase1():
     from raytracer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         builds = [pool.submit(_build.quad_traverse_lib),
                   pool.submit(_build.binary_traverse_lib),
-                  pool.submit(_build.lab_traverse_lib)]
+                  pool.submit(_build.lab_traverse_lib),
+                  pool.submit(_build.lab2_traverse_lib)]
         for b in builds:
             b.result()
-    log(f"phase 1: built the three kernel libraries in "
+    log(f"phase 1: built the four kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, stem in ((KERNEL_SOURCE, "libquad_traverse"),
                          (BINARY_SOURCE, "libbinary_traverse"),
-                         (LAB_SOURCE, "liblab_traverse")):
+                         (LAB_SOURCE, "liblab_traverse"),
+                         (LAB2_SOURCE, "liblab2_traverse")):
         info = _build.build_info[stem]
         log(f"phase 1: {source}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -597,6 +612,137 @@ def phase6(device):
     return report
 
 
+def lab2_modules():
+    from raytracer_tpu_torch.lab import (
+        r3_kernel_lab,
+        v2_kernel_lab,
+        v3_kernel_lab,
+        v4_interleave_lab,
+    )
+
+    return {"lab_closest_cm": v2_kernel_lab,
+            "lab_closest_queued": v3_kernel_lab,
+            "lab_closest_pair": v4_interleave_lab,
+            "lab_closest4_queued": r3_kernel_lab}
+
+
+def phase7(device):
+    """The deferred-leaf and component-major labs: their runs (the launch
+    counts), then each kernel against its plain version, the identities
+    and the agreement with K3/K1. Returns the four kernels' report
+    entries."""
+    import torch
+
+    from raytracer_tpu_torch.lab import queue_walk as qw
+    from raytracer_tpu_torch.lab import rays as lab_rays
+
+    mods = lab2_modules()
+    v2, v3 = mods["lab_closest_cm"], mods["lab_closest_queued"]
+    v4, r3 = mods["lab_closest_pair"], mods["lab_closest4_queued"]
+    plog = lambda m: log(f"phase 7: {m}")  # noqa: E731
+    t0 = time.perf_counter()
+    ds = lab_rays.atrium(v3.LEAF_SIZE, device)
+    sets = lab_rays.closest_sets(ds)
+    torch.cuda.synchronize()
+    plog(f"leaf-8 bake ({ds.pnodes.shape[0]} binary internal nodes, depth "
+         f"{ds.bvh_max_depth}; {ds.qnodes.shape[0]} quad nodes) and ray sets "
+         f"in {time.perf_counter() - t0:.2f} s; live rays: "
+         + ", ".join(f"{k} {int((v[2] > 1e-3).sum())}"
+                     for k, v in sets.items()))
+    plog(f"card: {lab_rays.card_line()}")
+    combos = r3.ALL + r3.LEAFPAR[1:]
+
+    for mod in mods.values():
+        mod.reset_launch_counts()
+    res = {"lab_closest_cm": v2.run(ds, sets, log=plog),
+           "lab_closest_queued": v3.run(ds, sets, log=plog),
+           "lab_closest_pair": v4.run(ds, sets, log=plog),
+           "lab_closest4_queued": r3.run(ds, sets, combos, log=plog)}
+    launches = {name: mod.closest_launches for name, mod in mods.items()}
+    plog(f"lab launch counts {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a lab kernel was not launched: {launches}")
+
+    t0 = time.perf_counter()
+    ptris_cm = v2.to_component_major(ds.ptris)
+    plain = {
+        "lab_closest_cm": [("v2", lambda o, d, tm: v2.closest_v2_plain(
+            o, d, tm, ds.binary_root, ds.pnodes, ptris_cm))],
+        "lab_closest_queued": [
+            (var, lambda o, d, tm, var=var: v3.closest_v3_plain(
+                o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, qw.DRAIN_AT,
+                var)) for var in v3.VARIANTS],
+        "lab_closest_pair": [
+            (var, lambda o, d, tm, var=var: v4.closest_v4_plain(
+                o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, var))
+            for var in v4.VARIANTS],
+        "lab_closest4_queued": [
+            (c, lambda o, d, tm, c=c: r3.closest_variant_plain(
+                o, d, tm, ds.root, ds.qmeta, ds.qnodes, ds.ptris, *c,
+                counts=quad_counts(o)))
+            for c in combos],
+    }
+    # The 4-wide kernel has no counters; its plain version counts the same
+    # steps (the last run's counts, per set).
+    steps = {}
+
+    def quad_counts(o):
+        steps["quad"] = tuple(torch.zeros((o.shape[0],), dtype=torch.int32,
+                                          device=o.device) for _ in range(2))
+        return steps["quad"]
+
+    report = {name: dict(max_abs_err=0.0) for name in mods}
+    n = lab_rays.WIDTH * lab_rays.HEIGHT
+    for label, (o, d, tm) in sets.items():
+        for name, variants in plain.items():
+            for variant, fn in variants:
+                ref, plain_ms = plain_timed(fn, o, d, tm)
+                r = res[name][(label, variant)]
+                err = gate_equal(f"{name} {label} {variant}", r["out"], ref)
+                entry = report[name]
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                if label == "bounce1" and variant == variants[0][0]:
+                    entry["plain_ms"] = plain_ms
+                vname = (r3.name(*variant) if isinstance(variant, tuple)
+                         else variant)
+                plog(f"{name} {label} {vname}: equal to the plain version "
+                     f"on all {o.shape[0]} rays; plain {plain_ms:.1f} ms; "
+                     f"vs the production kernel {r['flips']} hit flips, "
+                     f"{r['tri_diff']} triangle differences")
+                if name == "lab_closest4_queued" and not any(variant):
+                    live = max(int((tm > 1e-3).sum()), 1)
+                    nit, nleaf = (int(c.sum()) for c in steps["quad"])
+                    plog(f"4-wide queued walk {label}: {nit / live:.3f} steps"
+                         f"/ray, {nleaf / live:.3f} of them leaf steps")
+                if variant != "nocond" and (r["flips"] + r["tri_diff"]
+                                            > TREE_AGREEMENT * n):
+                    raise RuntimeError(f"{name} {variant} and the production "
+                                       f"kernel disagree beyond "
+                                       f"{TREE_AGREEMENT} of the rays "
+                                       f"({label})")
+        q, p = res["lab_closest_queued"], res["lab_closest_pair"]
+        quad = res["lab_closest4_queued"]
+        base = q[(label, "base")]["out"]
+        gate_equal(f"L4 dblread vs base {label}",
+                   q[(label, "dblread")]["out"], base)
+        gate_equal(f"L5 switch vs L4 base {label}",
+                   p[(label, "switch")]["out"], base[:4])
+        for divfree in (False, True):
+            gate_equal(f"L6 descent divfree={divfree} {label}",
+                       quad[(label, (True, divfree, False))]["out"],
+                       quad[(label, (False, divfree, False))]["out"])
+        plog(f"{label}: L4 dblread = base (counts included), L5 switch = L4 "
+             f"base, L6 descent = no descent, on all {o.shape[0]} rays")
+    plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
+
+    for name, key in (("lab_closest_cm", "v2"), ("lab_closest_queued", "base"),
+                      ("lab_closest_pair", "shared"),
+                      ("lab_closest4_queued", (False, False, False))):
+        report[name]["ms"] = res[name][("bounce1", key)]["ms"]
+        report[name]["launches"] = launches[name]
+    return report
+
+
 CORNELL_JSON = {
     "materials": {
         "white": {"albedo": [0.73, 0.73, 0.73], "roughness": 1.0},
@@ -679,6 +825,7 @@ def main():
     phase4()
     bvh_launches = phase5(atrium, device, cuda_img)
     lab = phase6(device)
+    lab2 = phase7(device)
 
     kernels = [
         {"name": "quad_closest", "route": "cuda", "source": KERNEL_SOURCE,
@@ -714,9 +861,17 @@ def main():
                            ("lab_closest4", "tools/bvh4_lab.py:302")):
         kernels.append({"name": name, "route": "cuda", "source": LAB_SOURCE,
                         "replaces": replaces, **lab[name]})
+    for name, replaces in (
+            ("lab_closest_cm", "tools/v2_kernel_lab.py:174"),
+            ("lab_closest_queued", "tools/v3_kernel_lab.py:290"),
+            ("lab_closest_pair", "tools/v4_interleave_lab.py:276"),
+            ("lab_closest4_queued", "tools/r3_kernel_lab.py:334")):
+        kernels.append({"name": name, "route": "cuda", "source": LAB2_SOURCE,
+                        "replaces": replaces, **lab2[name]})
     log(f"kernel ms and plain_ms: one launch on {WIDTH * HEIGHT} rays (the "
         "lab kernels: on the bounce-1 wavefront in renderer order, "
-        "lab_occlusion on its shadow batch)")
+        "lab_occlusion on its shadow batch; phase 7's: L3, L4 base, L5 "
+        "shared, L6 without flags)")
     log(f"nvidia-smi: {nvidia_smi_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -59,57 +59,6 @@ constexpr int kQuadCap = 64;    // 4-wide stack (CAP)
 constexpr float kTMin = 1e-3f;  // the lab kernels' fixed t_min
 constexpr int kMaxThreads = 1024;
 
-// One level of the pairwise min tree: pair (2a, 2a+1) -> slot a for a <
-// kW, a tie keeping the lower index; then the next level. A template
-// recursion, so every index is a constant and the candidates stay in
-// registers.
-template <int kW>
-__device__ __forceinline__ void min_tree(float* ts, float* us, float* vs,
-                                         int* tris) {
-  if constexpr (kW >= 1) {
-#pragma unroll
-    for (int a = 0; a < kW; ++a) {
-      bool take_b = ts[2 * a + 1] < ts[2 * a];
-      ts[a] = take_b ? ts[2 * a + 1] : ts[2 * a];
-      us[a] = take_b ? us[2 * a + 1] : us[2 * a];
-      vs[a] = take_b ? vs[2 * a + 1] : vs[2 * a];
-      tris[a] = take_b ? tris[2 * a + 1] : tris[2 * a];
-    }
-    min_tree<kW / 2>(ts, us, vs, tris);
-  }
-}
-
-// tools/kernel_lab.py:187 leaf_fn_ilp: every triangle against the entry
-// best t, then a pairwise min tree (3 levels for 8); a tie keeps the lower
-// index, so the winner is the serial leaf's.
-template <int kLeaf>
-__device__ __forceinline__ void ilp_leaf(const Ray& r,
-                                         const float4* __restrict__ row,
-                                         float& bt, int& btri, float& bu,
-                                         float& bv) {
-  float ts[kLeaf], us[kLeaf], vs[kLeaf];
-  int tris[kLeaf];
-#pragma unroll
-  for (int k = 0; k < kLeaf; ++k) {
-    float4 a = __ldg(row + 3 * k);
-    float4 b = __ldg(row + 3 * k + 1);
-    float4 c = __ldg(row + 3 * k + 2);
-    float t, u, v;
-    bool valid = moller(r, a, b, c, kTMin, bt, &t, &u, &v);
-    ts[k] = valid ? t : kBig;
-    us[k] = u;
-    vs[k] = v;
-    tris[k] = (int)c.y;
-  }
-  min_tree<kLeaf / 2>(ts, us, vs, tris);
-  if (ts[0] < bt) {
-    bt = ts[0];
-    btri = tris[0];
-    bu = us[0];
-    bv = vs[0];
-  }
-}
-
 // kNpop metas popped per step; kIlpLeaf 0 = the serial leaf, else the ILP
 // leaf of that many triangles.
 template <int kNpop, int kIlpLeaf>
@@ -149,7 +98,7 @@ closest_lab_kernel(const float* __restrict__ origin,
         ++nleaf;
         const float4* row = ptris + (int64_t)(~meta) * leaf_f4;
         if constexpr (kIlpLeaf > 0) {
-          ilp_leaf<kIlpLeaf>(r, row, bt, btri, bu, bv);
+          ilp_leaf<kIlpLeaf>(r, row, kTMin, bt, btri, bu, bv);
         } else {
           closest_leaf(r, row, leaf, kTMin, bt, btri, bu, bv);
         }

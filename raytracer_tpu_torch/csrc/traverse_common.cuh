@@ -1,8 +1,8 @@
 // Device helpers shared by the traversal kernels (quad_traverse.cu,
-// binary_traverse.cu, lab_traverse.cu): the ray with its clamped inverse
-// direction, the slab test of one box, Moller-Trumbore against one leaf
-// triangle, the closest-hit and any-hit leaf loops, and the binary and
-// 4-wide node steps.
+// binary_traverse.cu, lab_traverse.cu, lab2_traverse.cu): the ray with its
+// clamped inverse direction, the slab test of one box, Moller-Trumbore
+// against one leaf triangle, the closest-hit (serial and ILP) and any-hit
+// leaf loops, and the binary and 4-wide node steps with their push policy.
 //
 // Each term is written in the order of the plain torch versions
 // (ops/quad_traverse.py: _inv_dir, _slab_children, _moller), and the
@@ -147,15 +147,28 @@ __device__ __forceinline__ bool occluded_leaf(const Ray& r,
   return false;
 }
 
+// The node steps' push policy: every hit child goes through push(meta), the
+// near one (pushed last) through push.near(meta). StackPush puts both on the
+// ray's stack; the lab's queued walks (lab2_traverse.cu) route leaf children
+// to a leaf queue instead.
+struct StackPush {
+  int* stack;
+  int& sp;
+  __device__ __forceinline__ void operator()(int meta) const {
+    stack[sp++] = meta;
+  }
+  __device__ __forceinline__ void near(int meta) const { stack[sp++] = meta; }
+};
+
 // Binary node step: slab-test both children of pnodes row `p` (lanes 0-5
 // left box, 6-11 right box, 12/13 the child metas as f32) against [t_min,
 // t_cap] and push the hit ones: far first and near last (kOrdered; near is
 // the smaller t_near, a tie keeps left), or right first and left last.
-template <bool kOrdered>
+template <bool kOrdered, class Push>
 __device__ __forceinline__ void binary_visit(const Ray& r,
                                              const float4* __restrict__ p,
                                              float t_min, float t_cap,
-                                             int* stack, int& sp) {
+                                             const Push& push) {
   float4 f0 = __ldg(p);
   float4 f1 = __ldg(p + 1);
   float4 f2 = __ldg(p + 2);
@@ -170,20 +183,28 @@ __device__ __forceinline__ void binary_visit(const Ray& r,
   float near_l = hit_l ? tn_l : kBig;
   float near_r = hit_r ? tn_r : kBig;
   bool swap = kOrdered && near_r < near_l;
-  if (swap ? hit_l : hit_r) stack[sp++] = swap ? lmeta : rmeta;
-  if (swap ? hit_r : hit_l) stack[sp++] = swap ? rmeta : lmeta;
+  if (swap ? hit_l : hit_r) push(swap ? lmeta : rmeta);
+  if (swap ? hit_r : hit_l) push.near(swap ? rmeta : lmeta);
+}
+
+template <bool kOrdered>
+__device__ __forceinline__ void binary_visit(const Ray& r,
+                                             const float4* __restrict__ p,
+                                             float t_min, float t_cap,
+                                             int* stack, int& sp) {
+  binary_visit<kOrdered>(r, p, t_min, t_cap, StackPush{stack, sp});
 }
 
 // 4-wide node step: slab-test the 4 children of quad row `q` (6 float4: 4
 // boxes) against [t_min, t_cap] with NaN-propagating min/max (absent
 // children are NaN boxes and never hit), and push the hit ones of metas `m`
 // in child order; with kOrdered the nearest (the TPU kernel's 2-bit argmin
-// of t_near) goes last instead.
-template <bool kOrdered>
+// of t_near) goes last instead, through push.near.
+template <bool kOrdered, class Push>
 __device__ __forceinline__ void quad_visit(const Ray& r,
                                            const float4* __restrict__ q,
                                            int4 m, float t_min, float t_cap,
-                                           int* stack, int& sp) {
+                                           const Push& push) {
   float b[24];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
@@ -211,14 +232,74 @@ __device__ __forceinline__ void quad_visit(const Ray& r,
     int near = use_hi ? 2 + b1 : b0;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if (hit[c] && c != near) stack[sp++] = kids[c];
+      if (hit[c] && c != near) push(kids[c]);
     }
-    if (hit[near]) stack[sp++] = kids[near];
+    if (hit[near]) push.near(kids[near]);
   } else {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if (hit[c]) stack[sp++] = kids[c];
+      if (hit[c]) push(kids[c]);
     }
+  }
+}
+
+template <bool kOrdered>
+__device__ __forceinline__ void quad_visit(const Ray& r,
+                                           const float4* __restrict__ q,
+                                           int4 m, float t_min, float t_cap,
+                                           int* stack, int& sp) {
+  quad_visit<kOrdered>(r, q, m, t_min, t_cap, StackPush{stack, sp});
+}
+
+// One level of the pairwise min tree: pair (2a, 2a+1) -> slot a for a <
+// kW, a tie keeping the lower index; then the next level. A template
+// recursion, so every index is a constant and the candidates stay in
+// registers.
+template <int kW>
+__device__ __forceinline__ void min_tree(float* ts, float* us, float* vs,
+                                         int* tris) {
+  if constexpr (kW >= 1) {
+#pragma unroll
+    for (int a = 0; a < kW; ++a) {
+      bool take_b = ts[2 * a + 1] < ts[2 * a];
+      ts[a] = take_b ? ts[2 * a + 1] : ts[2 * a];
+      us[a] = take_b ? us[2 * a + 1] : us[2 * a];
+      vs[a] = take_b ? vs[2 * a + 1] : vs[2 * a];
+      tris[a] = take_b ? tris[2 * a + 1] : tris[2 * a];
+    }
+    min_tree<kW / 2>(ts, us, vs, tris);
+  }
+}
+
+// The ILP closest-hit leaf (tools/kernel_lab.py:187 leaf_fn_ilp,
+// tools/r3_kernel_lab.py:102 _leaf_step_leafpar): every triangle against
+// the entry best t, then a pairwise min tree (3 levels for 8); a tie keeps
+// the lower index, so the winner is the serial leaf's.
+template <int kLeaf>
+__device__ __forceinline__ void ilp_leaf(const Ray& r,
+                                         const float4* __restrict__ row,
+                                         float t_min, float& bt, int& btri,
+                                         float& bu, float& bv) {
+  float ts[kLeaf], us[kLeaf], vs[kLeaf];
+  int tris[kLeaf];
+#pragma unroll
+  for (int k = 0; k < kLeaf; ++k) {
+    float4 a = __ldg(row + 3 * k);
+    float4 b = __ldg(row + 3 * k + 1);
+    float4 c = __ldg(row + 3 * k + 2);
+    float t, u, v;
+    bool valid = moller(r, a, b, c, t_min, bt, &t, &u, &v);
+    ts[k] = valid ? t : kBig;
+    us[k] = u;
+    vs[k] = v;
+    tris[k] = (int)c.y;
+  }
+  min_tree<kLeaf / 2>(ts, us, vs, tris);
+  if (ts[0] < bt) {
+    bt = ts[0];
+    btri = tris[0];
+    bu = us[0];
+    bv = vs[0];
   }
 }
 

@@ -208,3 +208,12 @@ def resort_key(origin, active, ds):
     """occl_lab's `resort` key (tools/occl_lab.py:275-281): inactive rays
     last, then the 27-bit position Morton code of the origin."""
     return ((~active).to(torch.int64) << 31) | wf.position_morton(origin, ds)
+
+
+def parity_mismatches(out, ref):
+    """The JAX labs' parity count (tools/v2_kernel_lab.py:264,
+    tools/v3_kernel_lab.py:385) of closest-hit outputs (t, tri, ...)
+    against a reference: rays whose triangle differs and whose t is not
+    within rtol 1e-5 (atol 1e-8, numpy's isclose) of the reference's."""
+    close = torch.isclose(out[0], ref[0], rtol=1e-5, atol=1e-8)
+    return int(((out[1] != ref[1]) & ~close).sum())

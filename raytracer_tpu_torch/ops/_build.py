@@ -1,7 +1,7 @@
 """Build and load the port's native libraries: the CUDA kernels
 (csrc/*.cu: the render path's quad_traverse and binary_traverse, the
-traversal lab's lab_traverse) and, for accel/native_builder.py, the C++ BVH
-builder.
+traversal lab's lab_traverse and lab2_traverse) and, for
+accel/native_builder.py, the C++ BVH builder.
 
 Each source is compiled into a shared library with a plain C interface, in
 `raytracer_tpu_torch/_build/`, named by a hash of the source, the headers
@@ -150,4 +150,18 @@ def lab_traverse_lib() -> ctypes.CDLL:
                           _P, _P, _P, _P],
         "lab_closest4": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32, _I32,
                          _P, _P, _P, _P, _P],
+    })
+
+
+def lab2_traverse_lib() -> ctypes.CDLL:
+    """The traversal lab's deferred-leaf and component-major kernels
+    (csrc/lab2_traverse.cu)."""
+    return _cuda_lib("lab2_traverse", {
+        "lab_closest_cm": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _P, _P, _P],
+        "lab_closest_queued": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
+                               _I32, _P, _P, _P, _P, _P, _P, _P],
+        "lab_closest_pair": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
+                             _I32, _P, _P, _P, _P, _P],
+        "lab_closest4_queued": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
+                                _I32, _I32, _I32, _P, _P, _P, _P, _P],
     })

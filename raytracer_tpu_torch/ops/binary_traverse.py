@@ -124,22 +124,33 @@ def occlusion_bvh_binary(origin, direction, t_min, t_max, scene,
 # (the walks of ops/quad_traverse.py with the binary node visit).
 # --------------------------------------------------------------------------
 
+def _binary_children(origin, inv, pnodes, t_min, rays, node, t_cap,
+                     ordered=True):
+    """The tests of the internal-node step: slab-test the two children of
+    pnodes rows `node` for `rays` against [t_min, t_cap]. Returns ((far
+    meta, far hit), (near meta, near hit)), i32[M] and bool[M]: near is the
+    child of the smaller t_near, a tie keeping left (`ordered`), or left."""
+    row = pnodes[node]
+    hit, tn = _slab_children(origin[rays], inv[rays], row[:, :12], t_cap,
+                             t_min)
+    near = torch.where(hit, tn, BIG)
+    swap = (near[:, 1] < near[:, 0]) & ordered
+    kids = row[:, 12:14].to(torch.int32)
+    return ((torch.where(swap, kids[:, 0], kids[:, 1]),
+             torch.where(swap, hit[:, 0], hit[:, 1])),
+            (torch.where(swap, kids[:, 1], kids[:, 0]),
+             torch.where(swap, hit[:, 1], hit[:, 0])))
+
+
 def _binary_visit(origin, inv, pnodes, t_min, ordered=True):
     """The internal-node step of both walks: slab-test the two children of
     pnodes rows `node` for `rays` against [t_min, t_cap], push the hit
     ones far first, near last (`ordered`), or right first, left last."""
 
     def visit(stack, sp, rays, node, t_cap):
-        row = pnodes[node]
-        hit, tn = _slab_children(origin[rays], inv[rays], row[:, :12], t_cap,
-                                 t_min)
-        near = torch.where(hit, tn, BIG)
-        swap = (near[:, 1] < near[:, 0]) & ordered
-        kids = row[:, 12:14].to(torch.int32)
-        _push(stack, sp, rays, torch.where(swap, kids[:, 0], kids[:, 1]),
-              torch.where(swap, hit[:, 0], hit[:, 1]))
-        _push(stack, sp, rays, torch.where(swap, kids[:, 1], kids[:, 0]),
-              torch.where(swap, hit[:, 1], hit[:, 0]))
+        for meta, hit in _binary_children(origin, inv, pnodes, t_min, rays,
+                                          node, t_cap, ordered):
+            _push(stack, sp, rays, meta, hit)
 
     return visit
 

@@ -305,6 +305,21 @@ def _any_walk(origin, direction, t_max, skip_object, root, ptris,
     return occ
 
 
+def _quad_children(origin, inv, metas4, qnodes, rays, node, t_cap):
+    """The closest-hit node step's tests: slab-test the 4 children of quad
+    nodes `node` for `rays` against [1e-3, t_cap]. Returns (kids i32[M,4],
+    hit bool[M,4], near i64[M]), near being the TPU kernel's 2-bit argmin
+    of t_near."""
+    hit, tn = _slab_children(origin[rays], inv[rays], qnodes[node, :24],
+                             t_cap, T_MIN)
+    tn = torch.where(hit, tn, BIG)
+    b0 = (tn[:, 1] < tn[:, 0]).to(torch.int64)
+    b1 = (tn[:, 3] < tn[:, 2]).to(torch.int64)
+    use_hi = (torch.minimum(tn[:, 2], tn[:, 3])
+              < torch.minimum(tn[:, 0], tn[:, 1]))
+    return metas4[node], hit, torch.where(use_hi, 2 + b1, b0)
+
+
 def _quad_near_last_visit(origin, inv, qmeta, qnodes):
     """The closest-hit node step: slab-test the 4 children against [1e-3,
     t_cap] and push the hit ones in child order, except the nearest (the
@@ -312,15 +327,8 @@ def _quad_near_last_visit(origin, inv, qmeta, qnodes):
     metas4 = qmeta.view(-1, 4)
 
     def visit(stack, sp, rays, node, t_cap):
-        hit, tn = _slab_children(origin[rays], inv[rays], qnodes[node, :24],
-                                 t_cap, T_MIN)
-        tn = torch.where(hit, tn, BIG)
-        b0 = (tn[:, 1] < tn[:, 0]).to(torch.int64)
-        b1 = (tn[:, 3] < tn[:, 2]).to(torch.int64)
-        use_hi = (torch.minimum(tn[:, 2], tn[:, 3])
-                  < torch.minimum(tn[:, 0], tn[:, 1]))
-        near = torch.where(use_hi, 2 + b1, b0)
-        kids = metas4[node]
+        kids, hit, near = _quad_children(origin, inv, metas4, qnodes, rays,
+                                         node, t_cap)
         for c in range(4):
             _push(stack, sp, rays, kids[:, c], hit[:, c] & (near != c))
         _push(stack, sp, rays, kids.gather(1, near[:, None])[:, 0],

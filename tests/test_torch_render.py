@@ -310,6 +310,15 @@ def test_port_never_imports_jax():
         "o, d, tm, skip, _ = rays.shadow_sets(ds, 8, 8)['shadow_b0']\n"
         "occl_lab.run_occl_lab(o, d, tm, skip, ds, 'resort')\n"
         "bvh4_lab.run_closest4(o, d, tm, ds, ordered=False)\n"
+        "from raytracer_tpu_torch.lab import r3_kernel_lab, v2_kernel_lab, "
+        "v3_kernel_lab, v4_interleave_lab\n"
+        "o, d, tm = rays.closest_sets(ds, 8, 8)['primary']\n"
+        "v2_kernel_lab.run_closest_v2(o, d, tm, ds, "
+        "v2_kernel_lab.to_component_major(ds.ptris))\n"
+        "assert v3_kernel_lab.run_closest_v3(o, d, tm, ds, "
+        "variant='dblread')[5].sum() > 0\n"
+        "v4_interleave_lab.run_closest_v4(o, d, tm, ds, 'shared')\n"
+        "r3_kernel_lab.run_closest_variant(o, d, tm, ds, True, True)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
