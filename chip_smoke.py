@@ -9,7 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
   1. Build the traversal kernels (csrc/quad_traverse.cu, the 4-wide
      tree's K1/K2; csrc/binary_traverse.cu, the binary tree's K3/K4;
      csrc/lab_traverse.cu, the traversal lab's L1/L9/L2; and
-     csrc/lab2_traverse.cu, its L3-L6; the names of ROADMAP.md's kernel
+     csrc/lab2_traverse.cu, its L3-L8; the names of ROADMAP.md's kernel
      table) with nvcc, one process per source, all started together.
   2. Kernels against their plain torch versions on the card, on the
      300k-triangle atrium and three 1920x1080 ray sets (primary rays,
@@ -53,8 +53,23 @@ Phases (any failure exits non-zero and prints no result line):
      no descent; L3/L4 against K3 and L5/L6 against K1 (hit flips and
      triangle differences at most TREE_AGREEMENT of the rays; nocond's
      results are wrong by design and exempt).
+  8. The 8-wide lab L7 and the near-first any-hit lab L8 at 1920x1080 on
+     the leaf-8 atrium, through the functions their entry points run:
+     r3_oct_lab (the oct collapse of the bake's BVH, timed; K1 and L7 on
+     the closest-hit sets) and r3_occl3_lab (K2 and L8 in both orders on
+     the shadow batches and on the bounce-1 batch resorted by origin), with
+     their launch counts set to 0 just before and read just after; each run
+     times its plain version once (host clock) and counts its steps. Then
+     every kernel against its plain version on every ray of every set (bit
+     equality), L7 against K1 (hit flips and triangle differences at most
+     TREE_AGREEMENT of the rays) and L8, both orders, against K2 (the same
+     mask on every ray: any-hit does not depend on the visiting order).
 
-The line before the last is {"kernels": [...]}; the last line is
+Every kernel's entry in the kernels line has its bound (bound_ms,
+bound_by): the larger of its bytes over the card's memory rate and its
+FP32 operations over the card's FP32 rate, counted on the run whose ms it
+shows (bound()); library_ms is null, as no PyTorch call computes a BVH
+walk. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
 fixed seeds; nothing is downloaded.
 """
@@ -80,6 +95,34 @@ LAB2_SOURCE = "raytracer_tpu_torch/csrc/lab2_traverse.cu"
 # K3 vs K1, K4 vs K2, L2 vs K1: share of rays that may differ
 TREE_AGREEMENT = 1e-4
 
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
+# HBM3 bytes per second, and FP32 operations per second outside the
+# tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# FP32 operations of one test, counted from csrc/traverse_common.cuh: each
+# add, sub, mul, min, max, divide and compare counts one (the libraries
+# are built with -fmad=false, so there are no FMAs); selects, fabsf, the
+# NaN checks of nmin/nmax and integer work count none.
+SLAB_OPS = 25  # slab(): 6 sub, 6 mul, 6 min, 6 max, 1 compare
+NODE_OPS = {
+    "binary": 2 * SLAB_OPS + 1,  # binary_visit<true>: + near_r < near_l
+    "quad": 4 * SLAB_OPS + 5,  # quad_visit<true>: + argmin, 3 cmp, 2 min
+    "quad_fixed": 4 * SLAB_OPS,  # quad_visit<false>
+    "oct": 8 * SLAB_OPS + 13,  # oct_visit: + tournament, 7 cmp, 6 min
+}
+# moller(): 38 mul/add/sub of the two cross and four dot products, 3 sub
+# (origin - v0), 3 mul by 1/det, 1 divide, |det| > 1e-10, u + v and 5
+# bounds compares.
+TRI_OPS = {
+    "closest": 52,
+    "any": 53,  # + the skip-object compare
+    "cm": 54,  # L3's one-pass leaf: + t < t_min, t == t_min
+}
+CLOSEST_RAY_BYTES = 28 + 16  # origin, direction, t_max in; t, tri, u, v out
+ANY_RAY_BYTES = 32 + 1  # + skip_object in; the bool mask out
+COUNTER_BYTES = 8  # nvisit/nit and nleaf out (L1, L4, L9)
+
 
 def log(msg):
     print(msg, flush=True)
@@ -95,15 +138,34 @@ def nvidia_smi_line():
     return proc.stdout.strip().splitlines()[0]
 
 
-def plain_timed(fn, *args):
-    """(fn(*args), host ms of that one synchronised run)."""
+def new_counts(like):
+    """Zeroed (visits or steps, leaf ones) i32 counters for the rays of
+    `like`, as the plain versions take them."""
     import torch
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn(*args)
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
+    return tuple(torch.zeros(like.shape[0], dtype=torch.int32,
+                             device=like.device) for _ in range(2))
+
+
+def bound(n_rays, ray_bytes, arrays, counts, node, tri):
+    """The least time the card could take for a walk's work on these rays:
+    the larger of its bytes (each ray's inputs read and outputs written
+    once, the tree's `arrays` and last the leaf rows read once) over
+    PEAK_BYTES_PER_S and its FP32 operations (the internal visits of
+    `counts` times NODE_OPS[node], the leaf rows times the leaf size times
+    TRI_OPS[tri]) over PEAK_FP32_PER_S. `counts` (visits or steps, leaf
+    ones) per ray, from the plain version on the same rays (or the
+    kernel's own counters).
+    Returns {"bound_ms", "bound_by", "bytes", "ops"}."""
+    leaf = arrays[-1].shape[1] // 12  # triangles per leaf row
+    visits, leaves = (int(c.sum()) for c in counts)
+    ops = (visits - leaves) * NODE_OPS[node] + leaves * leaf * TRI_OPS[tri]
+    nbytes = n_rays * ray_bytes + sum(a.numel() * a.element_size()
+                                      for a in arrays)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def phase0():
@@ -224,7 +286,7 @@ def phase2(ds, device):
     """Kernels vs plain versions; returns the kernels' report entries."""
     import torch
 
-    from raytracer_tpu_torch.lab.rays import cuda_ms
+    from raytracer_tpu_torch.lab.rays import cuda_ms, host_ms
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     sets = ray_sets(ds, device)
@@ -239,11 +301,12 @@ def phase2(ds, device):
         o, d = sets[name]
         tmax = torch.full((n,), 1e4, device=device)
         got = qt.intersect_quad(o, d, ds, 1e-3, tmax)
-        _, sub_ms = plain_timed(qt._intersect_quad_plain, o[sub].contiguous(),
+        _, sub_ms = host_ms(qt._intersect_quad_plain, o[sub].contiguous(),
                                 d[sub].contiguous(), tmax[sub], *scene_args)
         # The full set contains the strided subset: gate on every ray.
-        ref, plain_ms = plain_timed(qt._intersect_quad_plain, o, d, tmax,
-                                    *scene_args)
+        counts = new_counts(o)
+        ref, plain_ms = host_ms(qt._intersect_quad_plain, o, d, tmax,
+                                    *scene_args, counts)
         hit_mism = int(((got.tri >= 0) != (ref[1] >= 0)).sum())
         tri_mism = int((got.tri != ref[1]).sum())
         max_dt = float((got.t - ref[0]).abs().max())
@@ -257,17 +320,20 @@ def phase2(ds, device):
             f"plain {sub_ms:.1f} ms on the {sub.numel()}-ray subset")
         if hit_mism or tri_mism or max_dt != 0.0 or not uv_equal:
             raise RuntimeError(f"closest kernel != plain version ({name})")
-        report[f"closest_{name}"] = dict(ms=ms, plain_ms=plain_ms,
-                                         max_abs_err=max_dt)
+        report[f"closest_{name}"] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=max_dt,
+            **bound(n, CLOSEST_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris),
+                    counts, "quad", "closest"))
 
     o, d, tmax, skip, active = sets["shadow"]
     got = qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip, active_mask=active)
     tm_eff = torch.where(active, tmax, 1e-3)
-    _, sub_ms = plain_timed(qt._occlusion_quad_plain, o[sub].contiguous(),
+    _, sub_ms = host_ms(qt._occlusion_quad_plain, o[sub].contiguous(),
                             d[sub].contiguous(), tm_eff[sub], skip[sub],
                             *scene_args)
-    ref, plain_ms = plain_timed(qt._occlusion_quad_plain, o, d, tm_eff, skip,
-                                *scene_args)
+    counts = new_counts(o)
+    ref, plain_ms = host_ms(qt._occlusion_quad_plain, o, d, tm_eff, skip,
+                                *scene_args, counts)
     mism = int((got != ref).sum())
     ms = cuda_ms(lambda: qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip,
                                            active_mask=active), 5)
@@ -279,7 +345,9 @@ def phase2(ds, device):
         raise RuntimeError("occlusion kernel != plain version")
     report["occlusion_shadow"] = dict(
         ms=ms, plain_ms=plain_ms,
-        max_abs_err=float((got.int() - ref.int()).abs().max()))
+        max_abs_err=float((got.int() - ref.int()).abs().max()),
+        **bound(n, ANY_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris), counts,
+                "quad_fixed", "any"))
     report.update(phase2_binary(ds, sets))
     return report
 
@@ -289,7 +357,7 @@ def phase2_binary(ds, sets):
     and against K1/K2 (the other tree)."""
     import torch
 
-    from raytracer_tpu_torch.lab.rays import cuda_ms
+    from raytracer_tpu_torch.lab.rays import cuda_ms, host_ms
     from raytracer_tpu_torch.ops import binary_traverse as bt
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
@@ -301,8 +369,9 @@ def phase2_binary(ds, sets):
         o, d = sets[name]
         tmax = torch.full((n,), 1e4, device=device)
         got = bt.intersect_bvh_binary(o, d, ds, 1e-3, tmax)
-        ref, plain_ms = plain_timed(bt._intersect_binary_plain, o, d, tmax,
-                                    1e-3, *scene_args)
+        counts = new_counts(o)
+        ref, plain_ms = host_ms(bt._intersect_binary_plain, o, d, tmax,
+                                    1e-3, *scene_args, counts)
         hit_mism = int(((got.tri >= 0) != (ref[1] >= 0)).sum())
         tri_mism = int((got.tri != ref[1]).sum())
         max_dt = float((got.t - ref[0]).abs().max())
@@ -328,15 +397,18 @@ def phase2_binary(ds, sets):
         if flips + tri_diff > TREE_AGREEMENT * n:
             raise RuntimeError(f"K3 and K1 disagree beyond {TREE_AGREEMENT} "
                                f"of the rays ({name})")
-        report[f"binary_closest_{name}"] = dict(ms=ms, plain_ms=plain_ms,
-                                                max_abs_err=max_dt)
+        report[f"binary_closest_{name}"] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=max_dt,
+            **bound(n, CLOSEST_RAY_BYTES, (ds.pnodes, ds.ptris), counts,
+                    "binary", "closest"))
 
     o, d, tmax, skip, active = sets["shadow"]
     got = bt.occlusion_bvh_binary(o, d, 1e-3, tmax, ds, skip,
                                   active_mask=active)
     tm_eff = torch.where(active, tmax, 1e-3)
-    ref, plain_ms = plain_timed(bt._occlusion_binary_plain, o, d, tm_eff,
-                                skip, 1e-3, *scene_args)
+    counts = new_counts(o)
+    ref, plain_ms = host_ms(bt._occlusion_binary_plain, o, d, tm_eff,
+                                skip, 1e-3, *scene_args, counts)
     mism = int((got != ref).sum())
     ms = cuda_ms(lambda: bt.occlusion_bvh_binary(o, d, 1e-3, tmax, ds, skip,
                                                  active_mask=active), 5)
@@ -353,7 +425,9 @@ def phase2_binary(ds, sets):
                            "the rays")
     report["binary_occlusion_shadow"] = dict(
         ms=ms, plain_ms=plain_ms,
-        max_abs_err=float((got.int() - ref.int()).abs().max()))
+        max_abs_err=float((got.int() - ref.int()).abs().max()),
+        **bound(n, ANY_RAY_BYTES, (ds.pnodes, ds.ptris), counts, "binary",
+                "any"))
     return report
 
 
@@ -400,9 +474,11 @@ def main_path(scene_fn, device, label, accel):
     mrays = sum(rays) / sum(times) / 1e6
     peak = torch.cuda.max_memory_allocated()
     img = r.image()
+    per_frame = {k: v / 6 for k, v in launches.items()}
     log(f"{label}: {ms:.1f} ms/frame, {sum(rays) // len(rays)} rays/frame, "
         f"{mrays:.2f} Mrays/s, peak device memory {peak} B, kernel "
-        f"launches {launches}, image mean {float(img.mean()):.5f}")
+        f"launches {launches} in 6 frames ({per_frame} per frame), image "
+        f"mean {float(img.mean()):.5f}")
     if not np.isfinite(img).all() or not img.mean() > 0:
         raise RuntimeError(f"{label}: image is not finite and non-black")
 
@@ -523,7 +599,7 @@ def phase6(device):
 
     for label, (o, d, tm) in closest16.items():
         for plain_variant in ("nored", "leafilp", "pop2", "pop4"):
-            ref, plain_ms = plain_timed(
+            ref, plain_ms = lab_rays.host_ms(
                 kernel_lab.closest_lab_plain, o, d, tm, ds16.binary_root,
                 ds16.pnodes, ds16.ptris, plain_variant)
             names = [plain_variant]
@@ -549,14 +625,14 @@ def phase6(device):
             ordered = variant != "noorder"
             if variant == "resort":
                 perm = occl_lab.resort_perm(o, tm, ds8)
-                got_p, plain_ms = plain_timed(
+                got_p, plain_ms = lab_rays.host_ms(
                     occl_lab.occl_lab_plain, o[perm], d[perm], tm[perm],
                     skip[perm], *args, ordered)
                 ref = tuple(torch.empty_like(g) for g in got_p)
                 for dst, src in zip(ref, got_p):
                     dst[perm] = src
             else:
-                ref, plain_ms = plain_timed(occl_lab.occl_lab_plain, o, d,
+                ref, plain_ms = lab_rays.host_ms(occl_lab.occl_lab_plain, o, d,
                                             tm, skip, *args, ordered)
             err = gate_equal(f"lab_occlusion {label} {variant}",
                              ores[(label, variant)]["out"], ref)
@@ -574,10 +650,11 @@ def phase6(device):
             # same walk's pops.
             counts = tuple(torch.zeros((o.shape[0],), dtype=torch.int32,
                                        device=device) for _ in range(2))
-            ref, plain_ms = plain_timed(
+            ref, plain_ms = lab_rays.host_ms(
                 bvh4_lab.closest4_plain, o, d, tm, ds8.root, ds8.qmeta,
                 ds8.qnodes, ds8.ptris, order == "ordered", counts)
             r = bres[(label, order)]
+            r["counts"] = counts
             err = gate_equal(f"lab_closest4 {label} {order}", r["out"], ref)
             keep("lab_closest4", err, plain_ms
                  if (label, order) == ("bounce1", "ordered") else None)
@@ -603,12 +680,24 @@ def phase6(device):
              f"{bres[(label, 'k1')]['ms']:.3f} ms (counts above)")
     plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
 
-    report["lab_closest"]["ms"] = kres[("bounce1", "base")]["ms"]
-    report["lab_closest_ts"]["ms"] = kres[("bounce1", "ts128")]["ms"]
-    report["lab_occlusion"]["ms"] = ores[("shadow_b1", "lean")]["ms"]
-    report["lab_closest4"]["ms"] = bres[("bounce1", "ordered")]["ms"]
-    for name, entry in report.items():
-        entry["launches"] = launches[name]
+    # L1's and L9's kernels count their own visits (equal to their plain
+    # versions', gated above); L2's plain version counts for it.
+    n = closest16["bounce1"][0].shape[0]
+    base, ts = kres[("bounce1", "base")], kres[("bounce1", "ts128")]
+    lean, l2 = ores[("shadow_b1", "lean")], bres[("bounce1", "ordered")]
+    for name, r, ray_bytes, arrays, counts, node, tri in (
+            ("lab_closest", base, CLOSEST_RAY_BYTES + COUNTER_BYTES,
+             (ds16.pnodes, ds16.ptris), base["out"][4:], "binary",
+             "closest"),
+            ("lab_closest_ts", ts, CLOSEST_RAY_BYTES + COUNTER_BYTES,
+             (ds16.pnodes, ds16.ptris), ts["out"][4:], "binary", "closest"),
+            ("lab_occlusion", lean, ANY_RAY_BYTES + COUNTER_BYTES,
+             (ds8.pnodes, ds8.ptris), lean["out"][1:], "binary", "any"),
+            ("lab_closest4", l2, CLOSEST_RAY_BYTES,
+             (ds8.qnodes, ds8.qmeta, ds8.ptris), l2["counts"], "quad",
+             "closest")):
+        report[name].update(ms=r["ms"], launches=launches[name],
+                            **bound(n, ray_bytes, arrays, counts, node, tri))
     return report
 
 
@@ -665,44 +754,58 @@ def phase7(device):
 
     t0 = time.perf_counter()
     ptris_cm = v2.to_component_major(ds.ptris)
+    # Each plain version takes zeroed counters `c` (L4's returns its own)
+    # and counts its walk's visits or steps: the kernels but L4's have no
+    # counters, and take the same walk.
     plain = {
-        "lab_closest_cm": [("v2", lambda o, d, tm: v2.closest_v2_plain(
-            o, d, tm, ds.binary_root, ds.pnodes, ptris_cm))],
+        "lab_closest_cm": [("v2", lambda o, d, tm, c: v2.closest_v2_plain(
+            o, d, tm, ds.binary_root, ds.pnodes, ptris_cm, counts=c))],
         "lab_closest_queued": [
-            (var, lambda o, d, tm, var=var: v3.closest_v3_plain(
+            (var, lambda o, d, tm, c, var=var: v3.closest_v3_plain(
                 o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, qw.DRAIN_AT,
                 var)) for var in v3.VARIANTS],
         "lab_closest_pair": [
-            (var, lambda o, d, tm, var=var: v4.closest_v4_plain(
-                o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, var))
+            (var, lambda o, d, tm, c, var=var: v4.closest_v4_plain(
+                o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, var,
+                counts=c))
             for var in v4.VARIANTS],
         "lab_closest4_queued": [
-            (c, lambda o, d, tm, c=c: r3.closest_variant_plain(
-                o, d, tm, ds.root, ds.qmeta, ds.qnodes, ds.ptris, *c,
-                counts=quad_counts(o)))
-            for c in combos],
+            (combo, lambda o, d, tm, c, combo=combo: r3.closest_variant_plain(
+                o, d, tm, ds.root, ds.qmeta, ds.qnodes, ds.ptris, *combo,
+                counts=c))
+            for combo in combos],
     }
-    # The 4-wide kernel has no counters; its plain version counts the same
-    # steps (the last run's counts, per set).
-    steps = {}
-
-    def quad_counts(o):
-        steps["quad"] = tuple(torch.zeros((o.shape[0],), dtype=torch.int32,
-                                          device=o.device) for _ in range(2))
-        return steps["quad"]
+    # The walk each kernel's bound counts: its first variant on bounce 1.
+    bounds = {
+        "lab_closest_cm": (CLOSEST_RAY_BYTES - 8, (ds.pnodes, ptris_cm),
+                           "binary", "cm"),
+        "lab_closest_queued": (CLOSEST_RAY_BYTES + COUNTER_BYTES,
+                               (ds.pnodes, ds.ptris), "binary", "closest"),
+        "lab_closest_pair": (CLOSEST_RAY_BYTES, (ds.pnodes, ds.ptris),
+                             "binary", "closest"),
+        "lab_closest4_queued": (CLOSEST_RAY_BYTES,
+                                (ds.qnodes, ds.qmeta, ds.ptris), "quad",
+                                "closest"),
+    }
 
     report = {name: dict(max_abs_err=0.0) for name in mods}
     n = lab_rays.WIDTH * lab_rays.HEIGHT
     for label, (o, d, tm) in sets.items():
         for name, variants in plain.items():
             for variant, fn in variants:
-                ref, plain_ms = plain_timed(fn, o, d, tm)
+                counts = new_counts(o)
+                ref, plain_ms = lab_rays.host_ms(fn, o, d, tm, counts)
+                if name == "lab_closest_queued":
+                    counts = ref[4:]
                 r = res[name][(label, variant)]
                 err = gate_equal(f"{name} {label} {variant}", r["out"], ref)
                 entry = report[name]
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if label == "bounce1" and variant == variants[0][0]:
                     entry["plain_ms"] = plain_ms
+                    ray_bytes, arrays, node, tri = bounds[name]
+                    entry.update(bound(o.shape[0], ray_bytes, arrays, counts,
+                                       node, tri))
                 vname = (r3.name(*variant) if isinstance(variant, tuple)
                          else variant)
                 plog(f"{name} {label} {vname}: equal to the plain version "
@@ -711,7 +814,7 @@ def phase7(device):
                      f"{r['tri_diff']} triangle differences")
                 if name == "lab_closest4_queued" and not any(variant):
                     live = max(int((tm > 1e-3).sum()), 1)
-                    nit, nleaf = (int(c.sum()) for c in steps["quad"])
+                    nit, nleaf = (int(c.sum()) for c in counts)
                     plog(f"4-wide queued walk {label}: {nit / live:.3f} steps"
                          f"/ray, {nleaf / live:.3f} of them leaf steps")
                 if variant != "nocond" and (r["flips"] + r["tri_diff"]
@@ -741,6 +844,80 @@ def phase7(device):
         report[name]["ms"] = res[name][("bounce1", key)]["ms"]
         report[name]["launches"] = launches[name]
     return report
+
+
+def phase8(device):
+    """The 8-wide lab L7 and the near-first any-hit lab L8: their runs
+    (the launch counts; each run also times its plain version once), then
+    each kernel against its plain version, L7 against K1 and L8 against
+    K2. Returns the two kernels' report entries."""
+    import torch
+
+    from raytracer_tpu_torch.lab import r3_occl3_lab as l8
+    from raytracer_tpu_torch.lab import r3_oct_lab as l7
+    from raytracer_tpu_torch.lab import rays as lab_rays
+
+    plog = lambda m: log(f"phase 8: {m}")  # noqa: E731
+    t0 = time.perf_counter()
+    ds, bvh = lab_rays.atrium_and_bvh(l7.LEAF_SIZE, device)
+    tree = l7.oct_tree(bvh, device)
+    del bvh
+    closest = lab_rays.closest_sets(ds)
+    shadow = lab_rays.shadow_sets(ds)
+    torch.cuda.synchronize()
+    plog(f"leaf-8 bake, oct collapse ({tree.collapse_s:.2f} s: "
+         f"{tree.nodes.shape[0]} oct nodes against {ds.qnodes.shape[0]} quad "
+         f"nodes, stack need {tree.stack_need}) and ray sets in "
+         f"{time.perf_counter() - t0:.2f} s")
+    plog(f"card: {lab_rays.card_line()}")
+
+    l7.reset_launch_counts()
+    l8.reset_launch_counts()
+    res7 = l7.run(ds, tree, closest, log=plog)
+    res8 = l8.run(ds, shadow, log=plog)
+    launches = {"lab_closest8_queued": l7.closest_launches,
+                "lab_occlusion4_queued": l8.occlusion_launches}
+    plog(f"lab launch counts {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a lab kernel was not launched: {launches}")
+
+    n = lab_rays.WIDTH * lab_rays.HEIGHT
+    err7 = err8 = 0.0
+    for label in closest:
+        r = res7[(label, "oct")]
+        err7 = max(err7, gate_equal(f"lab_closest8_queued {label}", r["out"],
+                                    r["plain"]))
+        plog(f"lab_closest8_queued {label}: equal to the plain version on "
+             f"all {n} rays (t, tri, u, v); vs K1 {r['flips']} hit flips, "
+             f"{r['tri_diff']} triangle differences")
+        if r["flips"] + r["tri_diff"] > TREE_AGREEMENT * n:
+            raise RuntimeError(f"L7 and K1 disagree beyond {TREE_AGREEMENT} "
+                               f"of the rays ({label})")
+    for label, order in res8:
+        if order not in l8.ORDERS:
+            continue
+        r = res8[(label, order)]
+        err8 = max(err8, gate_equal(f"lab_occlusion4_queued {label} {order}",
+                                    (r["out"],), (r["plain"],)))
+        plog(f"lab_occlusion4_queued {label} {order}: equal to the plain "
+             f"version on all {n} rays; {r['mism']} rays differ from K2")
+        if r["mism"]:
+            raise RuntimeError(f"L8 {order} and K2 differ ({label})")
+
+    oct_run = res7[("bounce1", "oct")]
+    occl_run = res8[("shadow_b1", "ordered")]
+    return {
+        "lab_closest8_queued": dict(
+            launches=launches["lab_closest8_queued"], max_abs_err=err7,
+            ms=oct_run["ms"], plain_ms=oct_run["plain_ms"],
+            **bound(n, CLOSEST_RAY_BYTES, (tree.nodes, tree.meta, ds.ptris),
+                    oct_run["counts"], "oct", "closest")),
+        "lab_occlusion4_queued": dict(
+            launches=launches["lab_occlusion4_queued"], max_abs_err=err8,
+            ms=occl_run["ms"], plain_ms=occl_run["plain_ms"],
+            **bound(n, ANY_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris),
+                    occl_run["counts"], "quad", "any")),
+    }
 
 
 CORNELL_JSON = {
@@ -826,52 +1003,66 @@ def main():
     bvh_launches = phase5(atrium, device, cuda_img)
     lab = phase6(device)
     lab2 = phase7(device)
+    lab3 = phase8(device)
+
+    def entry(name, source, replaces, launches, shown, *others):
+        """A kernel's entry of the kernels line: the ms, plain ms and bound
+        of the run `shown`, the largest error over it and `others`."""
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in (shown, *others)),
+                "ms": shown["ms"], "plain_ms": shown["plain_ms"],
+                "bound_ms": shown["bound_ms"], "bound_by": shown["bound_by"],
+                # No PyTorch call computes a BVH walk.
+                "library_ms": None}
 
     kernels = [
-        {"name": "quad_closest", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "raytracer_tpu/ops/pallas_subpacket.py:329",
-         "launches": cuda_launches["quad_closest"],
-         "max_abs_err": max(k["closest_primary"]["max_abs_err"],
-                            k["closest_incoherent"]["max_abs_err"]),
-         "ms": k["closest_incoherent"]["ms"],
-         "plain_ms": k["closest_incoherent"]["plain_ms"]},
-        {"name": "quad_occlusion", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "raytracer_tpu/ops/pallas_subpacket.py:423",
-         "launches": cuda_launches["quad_occlusion"],
-         "max_abs_err": k["occlusion_shadow"]["max_abs_err"],
-         "ms": k["occlusion_shadow"]["ms"],
-         "plain_ms": k["occlusion_shadow"]["plain_ms"]},
-        {"name": "binary_closest", "route": "cuda", "source": BINARY_SOURCE,
-         "replaces": "raytracer_tpu/ops/pallas_traverse.py:167",
-         "launches": bvh_launches["binary_closest"],
-         "max_abs_err": max(k["binary_closest_primary"]["max_abs_err"],
-                            k["binary_closest_incoherent"]["max_abs_err"]),
-         "ms": k["binary_closest_incoherent"]["ms"],
-         "plain_ms": k["binary_closest_incoherent"]["plain_ms"]},
-        {"name": "binary_occlusion", "route": "cuda", "source": BINARY_SOURCE,
-         "replaces": "raytracer_tpu/ops/pallas_traverse.py:227",
-         "launches": bvh_launches["binary_occlusion"],
-         "max_abs_err": k["binary_occlusion_shadow"]["max_abs_err"],
-         "ms": k["binary_occlusion_shadow"]["ms"],
-         "plain_ms": k["binary_occlusion_shadow"]["plain_ms"]},
+        entry("quad_closest", KERNEL_SOURCE,
+              "raytracer_tpu/ops/pallas_subpacket.py:329",
+              cuda_launches["quad_closest"], k["closest_incoherent"],
+              k["closest_primary"]),
+        entry("quad_occlusion", KERNEL_SOURCE,
+              "raytracer_tpu/ops/pallas_subpacket.py:423",
+              cuda_launches["quad_occlusion"], k["occlusion_shadow"]),
+        entry("binary_closest", BINARY_SOURCE,
+              "raytracer_tpu/ops/pallas_traverse.py:167",
+              bvh_launches["binary_closest"], k["binary_closest_incoherent"],
+              k["binary_closest_primary"]),
+        entry("binary_occlusion", BINARY_SOURCE,
+              "raytracer_tpu/ops/pallas_traverse.py:227",
+              bvh_launches["binary_occlusion"], k["binary_occlusion_shadow"]),
     ]
-    for name, replaces in (("lab_closest", "tools/kernel_lab.py:273"),
-                           ("lab_closest_ts", "tools/kernel_lab.py:378"),
-                           ("lab_occlusion", "tools/occl_lab.py:163"),
-                           ("lab_closest4", "tools/bvh4_lab.py:302")):
-        kernels.append({"name": name, "route": "cuda", "source": LAB_SOURCE,
-                        "replaces": replaces, **lab[name]})
-    for name, replaces in (
-            ("lab_closest_cm", "tools/v2_kernel_lab.py:174"),
-            ("lab_closest_queued", "tools/v3_kernel_lab.py:290"),
-            ("lab_closest_pair", "tools/v4_interleave_lab.py:276"),
-            ("lab_closest4_queued", "tools/r3_kernel_lab.py:334")):
-        kernels.append({"name": name, "route": "cuda", "source": LAB2_SOURCE,
-                        "replaces": replaces, **lab2[name]})
+    for source, report, names in (
+            (LAB_SOURCE, lab, (("lab_closest", "tools/kernel_lab.py:273"),
+                               ("lab_closest_ts", "tools/kernel_lab.py:378"),
+                               ("lab_occlusion", "tools/occl_lab.py:163"),
+                               ("lab_closest4", "tools/bvh4_lab.py:302"))),
+            (LAB2_SOURCE, lab2, (
+                ("lab_closest_cm", "tools/v2_kernel_lab.py:174"),
+                ("lab_closest_queued", "tools/v3_kernel_lab.py:290"),
+                ("lab_closest_pair", "tools/v4_interleave_lab.py:276"),
+                ("lab_closest4_queued", "tools/r3_kernel_lab.py:334"))),
+            (LAB2_SOURCE, lab3, (
+                ("lab_closest8_queued", "tools/r3_oct_lab.py:265"),
+                ("lab_occlusion4_queued", "tools/r3_occl3_lab.py:133")))):
+        for name, replaces in names:
+            kernels.append(entry(name, source, replaces,
+                                 report[name]["launches"], report[name]))
     log(f"kernel ms and plain_ms: one launch on {WIDTH * HEIGHT} rays (the "
         "lab kernels: on the bounce-1 wavefront in renderer order, "
-        "lab_occlusion on its shadow batch; phase 7's: L3, L4 base, L5 "
-        "shared, L6 without flags)")
+        "lab_occlusion and lab_occlusion4_queued on its shadow batch; phase "
+        "7's: L3, L4 base, L5 shared, L6 without flags; phase 8's: L8 "
+        "ordered); library_ms null: no PyTorch call computes a BVH walk")
+    for name, r in (("quad_closest", k["closest_incoherent"]),
+                    ("quad_occlusion", k["occlusion_shadow"]),
+                    ("binary_closest", k["binary_closest_incoherent"]),
+                    ("binary_occlusion", k["binary_occlusion_shadow"]),
+                    *lab.items(), *lab2.items(), *lab3.items()):
+        log(f"bound {name}: {r['ms']:.3f} ms against a bound of "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} B, "
+            f"{r['ops']} FP32 operations), {100 * r['bound_ms'] / r['ms']:.1f}"
+            f"% of the bound")
     log(f"nvidia-smi: {nvidia_smi_line()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,7 +11,13 @@
 //     interleaved in one instance, sharing the step kind or not;
 //   - tools/r3_kernel_lab.py:334 (run_closest_variant, L6): the deferred-
 //     leaf walk on the 4-wide tree, with register descent, the division-
-//     free Moller-Trumbore and the ILP leaf.
+//     free Moller-Trumbore and the ILP leaf;
+//   - tools/r3_oct_lab.py:265 (run_closest8, _closest_kernel8 :105, L7):
+//     the deferred-leaf walk on the 8-wide (oct) tree;
+//   - tools/r3_occl3_lab.py:133 (run_occl_ordered,
+//     _occlusion_kernel_ordered :36, L8): the deferred-leaf any-hit walk
+//     on the 4-wide tree with the near child pushed last (and, for the
+//     comparison with K2, in child order).
 // The TPU kernels walk one tree per 8-row sub-packet (a row per ray path)
 // out of SMEM stacks and queues, because Mosaic has no per-lane gathers.
 // Here each thread walks its own ray with the same state in local memory:
@@ -41,6 +47,19 @@
 //     goes to the queue); leaf kinds serial, division-free (accepts in
 //     det-scaled space, best t carried as num/den through the step, one
 //     divide at its end) or ILP (leaf 8);
+//   - lab_closest8_queued (L7): the 8-wide walk (oct_visit of
+//     traverse_common.cuh): a node reads the 48 box floats of its 256-byte
+//     onodes row (12 float4; the row's f32 metas and padding are not read)
+//     and its 8 metas from ometa (2 int4), slab-tests the 8 children, and
+//     pushes the hit ones in child order but the near one (the 3-bit
+//     tournament), which goes last. A step queues up to 8 leaves, so
+//     drain_at is in 1..LQ-8; the stack holds up to 7 children per oct
+//     level, and the wrapper refuses a tree whose stack need exceeds CAP;
+//   - lab_occlusion4_queued (L8): the 4-wide walk with the any-hit leaf
+//     step (occluded_leaf against t_max, skip_object as f32): an occluded
+//     ray stops at once, as the TPU kernel's per-row exit; the internal
+//     step caps its slab tests at t_max and pushes the near child last
+//     (ordered) or every child in child order (the production K2's order);
 //   - lab_closest_cm (L3): K3's stack walk (leaves on the stack, STACK_CAP
 //     128); a leaf reads each of its 10 used components as leaf/4 float4
 //     (component c of triangle k at lane leaf*c + k), tests every triangle
@@ -56,8 +75,16 @@
 // queue holds up to drain_at blocks while the walk descends, which delays
 // the best t and can only add visits. Stack and queue sit in local memory
 // (320 B a ray, 640 B for the pair kernel), cached in L1. The wrappers
-// refuse trees whose stack bound exceeds CAP and drain_at outside
-// 1..LQ-2, so neither overflows.
+// refuse trees whose stack bound exceeds CAP and drain_at above LQ less a
+// node's width, so neither overflows.
+//
+// L7 and L8 are first versions, simple and right, not tuned. Per ray, L7
+// reads 224 B an oct node (192 B of boxes, 32 B of metas) against the
+// 4-wide walk's 112 B, for fewer internal steps; each step does 8 slab
+// tests (25 FP32 operations each) and the 3-bit tournament (13). L8 reads
+// what the 4-wide queued walk reads, until its ray is occluded. Both, like
+// L4-L6, are bounded by their dependent node and leaf loads, not by their
+// arithmetic (PERF.md gives each kernel's byte and operation bound).
 
 #include "traverse_common.cuh"
 
@@ -215,7 +242,10 @@ __device__ __forceinline__ void binary_step(QueuedRay& q,
                      QueuePush<false, kVariant == kNocond>{q});
 }
 
-template <bool kDescent>
+// The 4-wide internal step, its slab tests capped at the best t (t_max for
+// any-hit, which never shrinks); the near child last (kOrdered) or child
+// order.
+template <bool kDescent, bool kOrdered = true>
 __device__ __forceinline__ void quad_step(QueuedRay& q,
                                           const int4* __restrict__ qmeta,
                                           const float4* __restrict__ qnodes) {
@@ -226,8 +256,29 @@ __device__ __forceinline__ void quad_step(QueuedRay& q,
   } else {
     node = q.stack[--q.sp];
   }
-  quad_visit<true>(q.r, qnodes + (int64_t)node * 8, __ldg(qmeta + node),
-                   kTMin, q.bt, QueuePush<kDescent, false>{q});
+  quad_visit<kOrdered>(q.r, qnodes + (int64_t)node * 8, __ldg(qmeta + node),
+                       kTMin, q.bt, QueuePush<kDescent, false>{q});
+}
+
+// The 8-wide internal step: onodes rows are 16 float4, ometa 2 int4 a node.
+__device__ __forceinline__ void oct_step(QueuedRay& q,
+                                         const int4* __restrict__ ometa,
+                                         const float4* __restrict__ onodes) {
+  const int node = q.stack[--q.sp];
+  oct_visit(q.r, onodes + (int64_t)node * 16, __ldg(ometa + 2 * node),
+            __ldg(ometa + 2 * node + 1), kTMin, q.bt,
+            QueuePush<false, false>{q});
+}
+
+// The any-hit leaf step: pop the queue's top block and test it against
+// t_max (q.bt) with occluded_leaf; whether a triangle not of object `skip`
+// hits.
+__device__ __forceinline__ bool any_leaf_step(QueuedRay& q,
+                                              const float4* __restrict__ ptris,
+                                              int leaf, float skip) {
+  const int blk = q.lq[--q.ln];
+  return occluded_leaf(q.r, ptris + (int64_t)blk * (leaf * kTriStride / 4),
+                       leaf, kTMin, q.bt, skip);
 }
 
 __device__ __forceinline__ void store_hit(const QueuedRay& q, int64_t i,
@@ -336,6 +387,57 @@ closest4_queued_kernel(const float* __restrict__ origin,
     }
   }
   store_hit(q, i, out_t, out_tri, out_u, out_v);
+}
+
+__global__ void __launch_bounds__(kThreads)
+closest8_queued_kernel(const float* __restrict__ origin,
+                       const float* __restrict__ direction,
+                       const float* __restrict__ t_max, int64_t n, int root,
+                       const int4* __restrict__ ometa,
+                       const float4* __restrict__ onodes,
+                       const float4* __restrict__ ptris, int leaf,
+                       int drain_at, float* __restrict__ out_t,
+                       int* __restrict__ out_tri, float* __restrict__ out_u,
+                       float* __restrict__ out_v) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  QueuedRay q;
+  init_ray(q, load_ray(origin, direction, i), t_max[i], root, false);
+  while (alive(q)) {
+    if (wants_leaf(q, drain_at)) {
+      leaf_step<kSerialLeaf>(q, ptris, leaf);
+    } else {
+      oct_step(q, ometa, onodes);
+    }
+  }
+  store_hit(q, i, out_t, out_tri, out_u, out_v);
+}
+
+// The best t of a QueuedRay is t_max throughout: any-hit never shrinks it.
+template <bool kOrdered>
+__global__ void __launch_bounds__(kThreads)
+occlusion4_queued_kernel(const float* __restrict__ origin,
+                         const float* __restrict__ direction,
+                         const float* __restrict__ t_max,
+                         const int* __restrict__ skip_object, int64_t n,
+                         int root, const int4* __restrict__ qmeta,
+                         const float4* __restrict__ qnodes,
+                         const float4* __restrict__ ptris, int leaf,
+                         int drain_at, bool* __restrict__ out_occ) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  QueuedRay q;
+  init_ray(q, load_ray(origin, direction, i), t_max[i], root, false);
+  const float skip = (float)skip_object[i];
+  bool occ = false;
+  while (!occ && alive(q)) {
+    if (wants_leaf(q, drain_at)) {
+      occ = any_leaf_step(q, ptris, leaf, skip);
+    } else {
+      quad_step<false, kOrdered>(q, qmeta, qnodes);
+    }
+  }
+  out_occ[i] = occ;
 }
 
 // Lane j of a float4 (j a constant once the loops are unrolled).
@@ -531,5 +633,49 @@ extern "C" int lab_closest4_queued(const float* origin, const float* direction,
       return (int)cudaErrorInvalidValue;
   }
 #undef LAB_QUAD_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// onodes f32[N8,64], ometa i32[8*N8]; drain_at in 1..LQ-8 (an 8-wide step
+// queues up to 8 leaves).
+extern "C" int lab_closest8_queued(const float* origin, const float* direction,
+                                   const float* t_max, int64_t n, int root,
+                                   const int* ometa, const float* onodes,
+                                   const float* ptris, int leaf, int drain_at,
+                                   float* out_t, int* out_tri, float* out_u,
+                                   float* out_v, void* stream) {
+  if (drain_at < 1 || drain_at > kLQ - 8) return (int)cudaErrorInvalidValue;
+  closest8_queued_kernel<<<blocks_for(n), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      origin, direction, t_max, n, root, reinterpret_cast<const int4*>(ometa),
+      reinterpret_cast<const float4*>(onodes),
+      reinterpret_cast<const float4*>(ptris), leaf, drain_at, out_t, out_tri,
+      out_u, out_v);
+  return (int)cudaGetLastError();
+}
+
+// ordered: 1 the near child last, 0 child order; drain_at in 1..LQ-4.
+extern "C" int lab_occlusion4_queued(const float* origin,
+                                     const float* direction,
+                                     const float* t_max,
+                                     const int* skip_object, int64_t n,
+                                     int root, const int* qmeta,
+                                     const float* qnodes, const float* ptris,
+                                     int leaf, int drain_at, int ordered,
+                                     bool* out_occ, void* stream) {
+  if (drain_at < 1 || drain_at > kLQ - 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto m4 = reinterpret_cast<const int4*>(qmeta);
+  auto q4 = reinterpret_cast<const float4*>(qnodes);
+  auto t4 = reinterpret_cast<const float4*>(ptris);
+  if (ordered) {
+    occlusion4_queued_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+        origin, direction, t_max, skip_object, n, root, m4, q4, t4, leaf,
+        drain_at, out_occ);
+  } else {
+    occlusion4_queued_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+        origin, direction, t_max, skip_object, n, root, m4, q4, t4, leaf,
+        drain_at, out_occ);
+  }
   return (int)cudaGetLastError();
 }

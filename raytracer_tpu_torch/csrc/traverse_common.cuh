@@ -2,7 +2,8 @@
 // binary_traverse.cu, lab_traverse.cu, lab2_traverse.cu): the ray with its
 // clamped inverse direction, the slab test of one box, Moller-Trumbore
 // against one leaf triangle, the closest-hit (serial and ILP) and any-hit
-// leaf loops, and the binary and 4-wide node steps with their push policy.
+// leaf loops, and the binary, 4-wide and 8-wide node steps with their push
+// policy.
 //
 // Each term is written in the order of the plain torch versions
 // (ops/quad_traverse.py: _inv_dir, _slab_children, _moller), and the
@@ -249,6 +250,60 @@ __device__ __forceinline__ void quad_visit(const Ray& r,
                                            int4 m, float t_min, float t_cap,
                                            int* stack, int& sp) {
   quad_visit<kOrdered>(r, q, m, t_min, t_cap, StackPush{stack, sp});
+}
+
+// 8-wide node step (tools/r3_oct_lab.py:154-234 per ray): slab-test the 8
+// children of oct row `o` (the 48 box floats of the row's 64, 12 float4)
+// against [t_min, t_cap] with NaN-propagating min/max (absent children are
+// NaN boxes and never hit), pick the near child by the TPU kernel's 3-bit
+// tournament of t_near (a missed child counts as kBig; each level compares
+// with a strict <, so a tie keeps the lower index), and push the hit ones
+// of metas `m` (two int4) in child order but the near one, which goes last
+// through push.near.
+template <class Push>
+__device__ __forceinline__ void oct_visit(const Ray& r,
+                                          const float4* __restrict__ o,
+                                          int4 m_lo, int4 m_hi, float t_min,
+                                          float t_cap, const Push& push) {
+  float b[48];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    float4 f = __ldg(o + j);
+    b[4 * j + 0] = f.x;
+    b[4 * j + 1] = f.y;
+    b[4 * j + 2] = f.z;
+    b[4 * j + 3] = f.w;
+  }
+  bool hit[8];
+  float tn[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float* x = b + 6 * c;
+    hit[c] = slab(r, x[0], x[1], x[2], x[3], x[4], x[5], t_min, t_cap,
+                  &tn[c]);
+    tn[c] = hit[c] ? tn[c] : kBig;
+  }
+  int b01 = tn[1] < tn[0];
+  int b23 = tn[3] < tn[2];
+  int b45 = tn[5] < tn[4];
+  int b67 = tn[7] < tn[6];
+  float m01 = nmin(tn[0], tn[1]);
+  float m23 = nmin(tn[2], tn[3]);
+  float m45 = nmin(tn[4], tn[5]);
+  float m67 = nmin(tn[6], tn[7]);
+  int near_lo = m23 < m01 ? 2 + b23 : b01;
+  int near_hi = m67 < m45 ? 6 + b67 : 4 + b45;
+  int near = nmin(m45, m67) < nmin(m01, m23) ? near_hi : near_lo;
+  int kids[8] = {m_lo.x, m_lo.y, m_lo.z, m_lo.w,
+                 m_hi.x, m_hi.y, m_hi.z, m_hi.w};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (hit[c] && c != near) push(kids[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (c == near && hit[c]) push.near(kids[c]);
+  }
 }
 
 // One level of the pairwise min tree: pair (2a, 2a+1) -> slot a for a <

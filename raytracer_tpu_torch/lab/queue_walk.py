@@ -1,9 +1,10 @@
 """The deferred-leaf ("queued") walk in plain torch: the walk of the
 production sub-packet kernel K1 (raytracer_tpu/ops/pallas_subpacket.py:329)
 that the traversal lab's L4 (tools/v3_kernel_lab.py), L5
-(tools/v4_interleave_lab.py) and L6 (tools/r3_kernel_lab.py) vary, run per
-ray and vectorised over rays. csrc/lab2_traverse.cu is its CUDA version;
-the two are equal bit for bit.
+(tools/v4_interleave_lab.py), L6 (tools/r3_kernel_lab.py) and L7
+(tools/r3_oct_lab.py) vary, run per ray and vectorised over rays, and its
+any-hit form (K2, :423, and L8, tools/r3_occl3_lab.py).
+csrc/lab2_traverse.cu is its CUDA version; the two are equal bit for bit.
 
 State per ray: an internal-node stack of CAP entries, a leaf queue of LQ
 blocks and, for descent, the node kept in a register (`cur`, -1 when
@@ -19,9 +20,12 @@ none). Each iteration every live ray takes one step:
     descent, into `cur`).
 
 The node steps are the binary one (pnodes columns 0-13, far/near by the
-smaller t_near) and the 4-wide one (qnodes/qmeta, the near child the TPU
-kernel's 2-bit argmin). A ray whose t_max <= 1e-3 is not walked, as in
-K1-K4. The slab test, Möller–Trumbore and the leaf loops are
+smaller t_near), the 4-wide one (qnodes/qmeta, the near child the TPU
+kernel's 2-bit argmin, or no near child: child order) and the 8-wide one
+(onodes/ometa of lab/r3_oct_lab.collapse_bvh8, the near child a 3-bit
+tournament). The any-hit walk tests leaves against t_max and ends a ray at
+its first occluder. A ray whose t_max <= 1e-3 is not walked, as in K1-K4.
+The slab test, Möller–Trumbore and the leaf loops are
 ops/quad_traverse.py's, so every term keeps its order.
 """
 
@@ -31,12 +35,15 @@ import torch
 
 from raytracer_tpu_torch.ops.binary_traverse import _binary_children
 from raytracer_tpu_torch.ops.quad_traverse import (
+    BIG,
     T_MIN,
+    _any_leaf,
     _closest_leaves,
     _init_best,
     _push,
     _quad_children,
     _serial_leaf,
+    _slab_children,
 )
 
 CAP = 64  # internal-node stack entries per ray
@@ -60,18 +67,60 @@ def binary_step(origin, inv, pnodes, dblread=False):
     return step
 
 
-def quad_step(origin, inv, qmeta, qnodes):
+def _near_last(kids, hit, near):
+    """The pushes of a node step: the hit children in child order but the
+    near one, then the near one (if hit) last."""
+    pushes = [(kids[:, c], hit[:, c] & (near != c))
+              for c in range(kids.shape[1])]
+    pushes.append((kids.gather(1, near[:, None])[:, 0],
+                   hit.gather(1, near[:, None])[:, 0]))
+    return pushes
+
+
+def quad_step(origin, inv, qmeta, qnodes, ordered=True):
     """The 4-wide internal step: the hit children in child order but the
-    near one, then the near one last."""
+    near one, then the near one last (`ordered`); or all of them in child
+    order (the production any-hit kernel's order,
+    pallas_subpacket.py:486-490)."""
     metas4 = qmeta.view(-1, 4)
 
     def step(rays, node, t_cap):
         kids, hit, near = _quad_children(origin, inv, metas4, qnodes, rays,
                                          node, t_cap)
-        pushes = [(kids[:, c], hit[:, c] & (near != c)) for c in range(4)]
-        pushes.append((kids.gather(1, near[:, None])[:, 0],
-                       hit.gather(1, near[:, None])[:, 0]))
-        return pushes
+        if ordered:
+            return _near_last(kids, hit, near)
+        return [(kids[:, c], hit[:, c]) for c in range(4)]
+
+    return step
+
+
+def oct_near(tn):
+    """tools/r3_oct_lab.py:182-198: the near child of t_near f32[M,8] (BIG
+    for a missed child) by a 3-bit tournament; every level compares with a
+    strict <, so a tie goes to the lower index."""
+    m = tn.unbind(1)
+    b = [(m[2 * j + 1] < m[2 * j]).to(torch.int64) for j in range(4)]
+    m2 = [torch.minimum(m[2 * j], m[2 * j + 1]) for j in range(4)]
+    lo_hi = m2[1] < m2[0]
+    hi_hi = m2[3] < m2[2]
+    use_hi = torch.minimum(m2[2], m2[3]) < torch.minimum(m2[0], m2[1])
+    near_lo = torch.where(lo_hi, 2 + b[1], b[0])
+    near_hi = torch.where(hi_hi, 6 + b[3], 4 + b[2])
+    return torch.where(use_hi, near_hi, near_lo)
+
+
+def oct_step(origin, inv, ometa, onodes):
+    """The 8-wide internal step (tools/r3_oct_lab.py:154-234 per ray):
+    slab-test the 8 children of oct nodes `node` (onodes columns 0-47, NaN
+    boxes for absent children) against [1e-3, t_cap] and push the hit ones
+    in child order but the near one, then the near one last."""
+    metas8 = ometa.view(-1, 8)
+
+    def step(rays, node, t_cap):
+        hit, tn = _slab_children(origin[rays], inv[rays], onodes[node, :48],
+                                 t_cap, T_MIN)
+        near = oct_near(torch.where(hit, tn, BIG))
+        return _near_last(metas8[node], hit, near)
 
     return step
 
@@ -84,21 +133,12 @@ def _pair_any(flags):
     return padded.view(-1, 2).any(1).repeat_interleave(2)[:n]
 
 
-def queued_walk(origin, direction, t_max, root, ptris, step,
-                leaf_test=_serial_leaf, drain_at=DRAIN_AT, descent=False,
-                drop_leaves=False, paired=False, counts=None):
-    """Closest hit of every ray by the deferred-leaf walk from `root` (an
-    internal node, or a leaf block ~root when < 0). `step` is binary_step
-    or quad_step; `leaf_test` the leaf hook, called as _serial_leaf;
-    `descent` keeps the near internal child in `cur`; `drop_leaves` drops
-    leaf children at push time (L4 `nocond`); `paired` makes rays 2j and
-    2j+1 take one step kind, a leaf step if either's drain condition holds
-    (L5 `shared`), a ray with nothing of that kind sitting the step out;
-    `counts` (nit, nleaf), i32[N] each, adds up each ray's steps and leaf
-    steps. Returns (t f32[N], tri i32[N], u f32[N], v f32[N])."""
-    n = origin.shape[0]
-    i32 = dict(dtype=torch.int32, device=origin.device)
-    best = _init_best(t_max)
+def _init_walk(t_max, root, descent):
+    """(stack, sp, lq, ln, cur) of every ray before its first step: the
+    root on the stack (in `cur` with descent), or its leaf block in the
+    queue when root < 0; nothing for a ray whose t_max <= 1e-3."""
+    n = t_max.shape[0]
+    i32 = dict(dtype=torch.int32, device=t_max.device)
     walked = (t_max > T_MIN).to(torch.int32)
     stack = torch.zeros((n, CAP), **i32)
     lq = torch.zeros((n, LQ), **i32)
@@ -113,6 +153,24 @@ def queued_walk(origin, direction, t_max, root, ptris, step,
     else:
         stack[:, 0] = root
         sp = walked
+    return stack, sp, lq, ln, cur
+
+
+def queued_walk(origin, direction, t_max, root, ptris, step,
+                leaf_test=_serial_leaf, drain_at=DRAIN_AT, descent=False,
+                drop_leaves=False, paired=False, counts=None):
+    """Closest hit of every ray by the deferred-leaf walk from `root` (an
+    internal node, or a leaf block ~root when < 0). `step` is binary_step
+    or quad_step; `leaf_test` the leaf hook, called as _serial_leaf;
+    `descent` keeps the near internal child in `cur`; `drop_leaves` drops
+    leaf children at push time (L4 `nocond`); `paired` makes rays 2j and
+    2j+1 take one step kind, a leaf step if either's drain condition holds
+    (L5 `shared`), a ray with nothing of that kind sitting the step out;
+    `counts` (nit, nleaf), i32[N] each, adds up each ray's steps and leaf
+    steps (a step sat out is none). Returns (t f32[N], tri i32[N], u
+    f32[N], v f32[N])."""
+    best = _init_best(t_max)
+    stack, sp, lq, ln, cur = _init_walk(t_max, root, descent)
     while True:
         has_node = (cur >= 0) | (sp > 0)
         alive = has_node | (ln > 0)
@@ -123,9 +181,7 @@ def queued_walk(origin, direction, t_max, root, ptris, step,
             leaf_kind = _pair_any(leaf_kind)
         leaf_rays = torch.nonzero(leaf_kind & (ln > 0)).squeeze(1)
         node_rays = torch.nonzero(~leaf_kind & has_node).squeeze(1)
-        if counts is not None:
-            counts[0].add_(alive.to(torch.int32))
-            counts[1].add_((leaf_kind & alive).to(torch.int32))
+        _count(counts, leaf_rays, node_rays)
 
         if leaf_rays.numel():
             ln[leaf_rays] -= 1
@@ -154,6 +210,70 @@ def queued_walk(origin, direction, t_max, root, ptris, step,
     return best
 
 
+def _count(counts, leaf_rays, node_rays):
+    """Add one step to the rays of this iteration and one leaf step to
+    those of its leaf step."""
+    if counts is not None:
+        counts[0][leaf_rays] += 1
+        counts[0][node_rays] += 1
+        counts[1][leaf_rays] += 1
+
+
+def queued_any_walk(origin, direction, t_max, skip_object, root, ptris, step,
+                    drain_at=DRAIN_AT, counts=None):
+    """Any hit of every ray by the deferred-leaf walk from `root` (the
+    any-hit kernels of tools/r3_occl3_lab.py:36 and
+    pallas_subpacket.py:423, per ray): a leaf step tests its block against
+    t_max, a triangle of the ray's `skip_object` (i32[N], compared as f32)
+    not counting, and an occluded ray stops (the row exit of
+    r3_occl3_lab.py:68-78, per ray); an internal step slab-tests against
+    [1e-3, t_max] and pushes as `step` (quad_step) says. `counts` as in
+    queued_walk. Returns occ bool[N]."""
+    skip_f = skip_object.to(torch.float32)
+    occ = torch.zeros(t_max.shape, dtype=torch.bool, device=t_max.device)
+    stack, sp, lq, ln, _ = _init_walk(t_max, root, False)
+    while True:
+        has_node = sp > 0
+        if not bool((has_node | (ln > 0)).any()):
+            break
+        leaf_kind = (ln >= drain_at) | (~has_node & (ln > 0))
+        leaf_rays = torch.nonzero(leaf_kind).squeeze(1)
+        node_rays = torch.nonzero(~leaf_kind & has_node).squeeze(1)
+        _count(counts, leaf_rays, node_rays)
+
+        if leaf_rays.numel():
+            ln[leaf_rays] -= 1
+            blk = lq[leaf_rays, ln[leaf_rays].long()]
+            found = _any_leaf(origin[leaf_rays], direction[leaf_rays],
+                              ptris[blk.long()], t_max[leaf_rays],
+                              skip_f[leaf_rays], T_MIN)
+            occ[leaf_rays] |= found
+            done = leaf_rays[found]
+            sp[done] = 0
+            ln[done] = 0
+
+        if node_rays.numel():
+            spr = sp[node_rays] - 1
+            sp[node_rays] = spr
+            node = stack[node_rays, spr.long()]
+            for meta, hit in step(node_rays, node.long(), t_max[node_rays]):
+                leaf = meta < 0
+                _push(stack, sp, node_rays, meta, hit & ~leaf)
+                _push(lq, ln, node_rays, ~meta, hit & leaf)
+    return occ
+
+
+def step_stats(counts, t_max):
+    """(mean, p90) steps per live ray (t_max > 1e-3) and leaf steps per
+    live ray of a walk's counts (nit, nleaf)."""
+    live = t_max > T_MIN
+    nit = counts[0][live].to(torch.float32)
+    if not nit.numel():
+        return 0.0, 0.0, 0.0
+    return (float(nit.mean()), float(torch.quantile(nit, 0.9)),
+            float(counts[1][live].to(torch.float32).mean()))
+
+
 def check_binary(scene):
     """The binary queued walk's stack holds internal nodes only: at most one
     pending far child per level plus the two of the node expanded, so
@@ -164,12 +284,13 @@ def check_binary(scene):
             f"stack (CAP={CAP})")
 
 
-def check_drain_at(drain_at):
-    """drain_at in 1..LQ - 2: a binary internal step, taken while ln <
-    drain_at, queues at most 2 leaves, so the queue never overflows."""
-    if not 1 <= drain_at <= LQ - 2:
-        raise ValueError(f"drain_at {drain_at} is not in 1..{LQ - 2} "
-                         f"(LQ={LQ})")
+def check_drain_at(drain_at, width=2):
+    """drain_at in 1..LQ - width: an internal step of a `width`-wide tree,
+    taken while ln < drain_at, queues at most `width` leaves, so the queue
+    never overflows."""
+    if not 1 <= drain_at <= LQ - width:
+        raise ValueError(f"drain_at {drain_at} is not in 1..{LQ - width} "
+                         f"(LQ={LQ}, a {width}-wide step)")
 
 
 # --------------------------------------------------------------------------

@@ -86,14 +86,31 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, *args):
+    """(fn(*args), host ms of that one run between two device
+    synchronisations): the plain versions' timer."""
+    import time
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def atrium(leaf_size, device):
     """The 300k-triangle atrium baked with `leaf_size` on `device`."""
+    return atrium_and_bvh(leaf_size, device)[0]
+
+
+def atrium_and_bvh(leaf_size, device):
+    """(the atrium's bake, the binary BVH it was baked from), for the labs
+    that build another tree from the BVH (lab/r3_oct_lab.collapse_bvh8)."""
     from raytracer_tpu_torch.scene.benchmark import create_benchmark_atrium
     from raytracer_tpu_torch.scene.device_scene import bake_scene
 
-    ds, _ = bake_scene(create_benchmark_atrium(TRIANGLES),
-                       leaf_size=leaf_size, device=device)
-    return ds
+    return bake_scene(create_benchmark_atrium(TRIANGLES),
+                      leaf_size=leaf_size, device=device)
 
 
 def camera_ubo(device, width, height, position=CAM_POS, target=CAM_TARGET):

@@ -119,11 +119,15 @@ def _cm_leaf(origin, direction, rows, bt_, btri, bu, bv, t_min):
     return torch.where(win, tmin, bt_), torch.where(win, trimax, btri), bu, bv
 
 
-def closest_v2_plain(origin, direction, t_max, root, pnodes, ptris_cm):
-    """Plain torch version of lab_closest_cm. Returns (t, tri)."""
+def closest_v2_plain(origin, direction, t_max, root, pnodes, ptris_cm,
+                     counts=None):
+    """Plain torch version of lab_closest_cm. Returns (t, tri). `counts`
+    (nvisit, nleaf), i32[N] each, adds up each ray's pops: the kernel has
+    no counters, but pops the same entries."""
     visit = _binary_visit(origin, _inv_dir(direction), pnodes, T_MIN)
     t, tri, _, _ = _closest_walk(origin, direction, t_max, root, ptris_cm,
-                                 visit, STACK_CAP, T_MIN, leaf_test=_cm_leaf)
+                                 visit, STACK_CAP, T_MIN, leaf_test=_cm_leaf,
+                                 counts=counts)
     return t, tri
 
 

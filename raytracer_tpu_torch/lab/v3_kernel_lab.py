@@ -127,17 +127,6 @@ def _closest_v3_cuda(origin, direction, t_max, scene, drain_at,
 # The lab.
 # --------------------------------------------------------------------------
 
-def step_stats(out, t_max):
-    """(mean, p90) steps per live ray and leaf steps per live ray of an L4
-    output."""
-    live = t_max > T_MIN
-    nit = out[4][live].to(torch.float32)
-    if not nit.numel():
-        return 0.0, 0.0, 0.0
-    return (float(nit.mean()), float(torch.quantile(nit, 0.9)),
-            float(out[5][live].to(torch.float32).mean()))
-
-
 def run(scene, sets, variants=VARIANTS, drain_at=qw.DRAIN_AT, reps=REPS,
         log=print):
     """K3 and every variant on every closest-hit set; prints one line each.
@@ -157,7 +146,7 @@ def run(scene, sets, variants=VARIANTS, drain_at=qw.DRAIN_AT, reps=REPS,
                 reps)
             flips, tri_diff, max_dt = against(out, k3)
             mism = lab_rays.parity_mismatches(out, k3)
-            mean, p90, leaf = step_stats(out, tm)
+            mean, p90, leaf = qw.step_stats(out[4:], tm)
             results[(label, variant)] = dict(
                 ms=ms, flips=flips, tri_diff=tri_diff, max_dt=max_dt,
                 mism=mism, steps_mean=mean, steps_p90=p90, leaf_steps=leaf,

@@ -79,11 +79,15 @@ def run_closest_v4(origin, direction, t_max, scene, variant="shared"):
                             scene.ptris, variant)
 
 
-def closest_v4_plain(origin, direction, t_max, root, pnodes, ptris, variant):
-    """Plain torch version of lab_closest_pair. Returns (t, tri, u, v)."""
+def closest_v4_plain(origin, direction, t_max, root, pnodes, ptris, variant,
+                     counts=None):
+    """Plain torch version of lab_closest_pair. Returns (t, tri, u, v).
+    `counts` (nit, nleaf), i32[N] each, adds up each ray's steps and leaf
+    steps, a step sat out being none: the kernel has no counters, but takes
+    the same steps."""
     step = qw.binary_step(origin, _inv_dir(direction), pnodes)
     return qw.queued_walk(origin, direction, t_max, root, ptris, step,
-                          paired=variant == "shared")
+                          paired=variant == "shared", counts=counts)
 
 
 def _closest_v4_cuda(origin, direction, t_max, scene, shared):

@@ -154,8 +154,8 @@ def lab_traverse_lib() -> ctypes.CDLL:
 
 
 def lab2_traverse_lib() -> ctypes.CDLL:
-    """The traversal lab's deferred-leaf and component-major kernels
-    (csrc/lab2_traverse.cu)."""
+    """The traversal lab's deferred-leaf (binary, 4-wide, 8-wide, any-hit)
+    and component-major kernels (csrc/lab2_traverse.cu)."""
     return _cuda_lib("lab2_traverse", {
         "lab_closest_cm": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _P, _P, _P],
         "lab_closest_queued": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
@@ -164,4 +164,8 @@ def lab2_traverse_lib() -> ctypes.CDLL:
                              _I32, _P, _P, _P, _P, _P],
         "lab_closest4_queued": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
                                 _I32, _I32, _I32, _P, _P, _P, _P, _P],
+        "lab_closest8_queued": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
+                                _I32, _P, _P, _P, _P, _P],
+        "lab_occlusion4_queued": [_P, _P, _P, _P, _I64, _I32, _P, _P, _P,
+                                  _I32, _I32, _I32, _P, _P],
     })

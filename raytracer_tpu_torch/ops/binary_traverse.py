@@ -156,20 +156,23 @@ def _binary_visit(origin, inv, pnodes, t_min, ordered=True):
 
 
 def _intersect_binary_plain(origin, direction, t_max, t_min, root, pnodes,
-                            ptris):
+                            ptris, counts=None):
     """Plain torch version of the closest-hit kernel. Returns (t f32[N],
-    tri i32[N], u f32[N], v f32[N])."""
+    tri i32[N], u f32[N], v f32[N]). `counts` (nvisit, nleaf), i32[N] each,
+    adds up each ray's pops: the kernel has no counters, but pops the same
+    entries."""
     visit = _binary_visit(origin, _inv_dir(direction), pnodes, t_min)
     return _closest_walk(origin, direction, t_max, root, ptris, visit,
-                         STACK_CAP, t_min)
+                         STACK_CAP, t_min, counts=counts)
 
 
 def _occlusion_binary_plain(origin, direction, t_max, skip_object, t_min,
-                            root, pnodes, ptris):
-    """Plain torch version of the any-hit kernel. Returns bool[N]."""
+                            root, pnodes, ptris, counts=None):
+    """Plain torch version of the any-hit kernel. Returns bool[N]; `counts`
+    as in _intersect_binary_plain."""
     visit = _binary_visit(origin, _inv_dir(direction), pnodes, t_min)
     return _any_walk(origin, direction, t_max, skip_object, root, ptris,
-                     visit, STACK_CAP, t_min)
+                     visit, STACK_CAP, t_min, counts=counts)
 
 
 # --------------------------------------------------------------------------

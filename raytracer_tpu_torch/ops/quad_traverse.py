@@ -268,13 +268,26 @@ def _closest_walk(origin, direction, t_max, root, ptris, visit_node, cap,
     return best
 
 
+def _any_leaf(origin, direction, rows, t_max, skip_f, t_min):
+    """Any-hit leaf test: whether a triangle of leaf rows [M, leaf*12] hits
+    in (t_min, t_max) and is not of object skip_f (f32[M]). Returns
+    bool[M]."""
+    ox, oy, oz = origin.unbind(1)
+    dx, dy, dz = direction.unbind(1)
+    found = torch.zeros_like(t_max, dtype=torch.bool)
+    for k in range(rows.shape[1] // TRI_STRIDE):
+        tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
+        _, _, _, valid = _moller(ox, oy, oz, dx, dy, dz, tri, t_max, t_min)
+        found |= valid & (tri[:, 10] != skip_f)
+    return found
+
+
 def _any_walk(origin, direction, t_max, skip_object, root, ptris,
               visit_node, cap, t_min, counts=None):
     """Any-hit DFS of every ray, as `_closest_walk` with t_max as the
     pruning bound; a ray stops at its first accepted hit by a triangle not
     of its `skip_object`. Returns bool[N]."""
     n = origin.shape[0]
-    leaf = ptris.shape[1] // TRI_STRIDE
     skip_f = skip_object.to(torch.float32)
     occ = torch.zeros((n,), dtype=torch.bool, device=origin.device)
     stack, sp = _init_stack(n, root, t_max, cap, t_min)
@@ -286,16 +299,9 @@ def _any_walk(origin, direction, t_max, skip_object, root, ptris,
 
         li = live[is_leaf]
         if li.numel():
-            rows = ptris[(~meta[is_leaf]).long()]
-            ox, oy, oz = origin[li].unbind(1)
-            dx, dy, dz = direction[li].unbind(1)
-            tm, sk = t_max[li], skip_f[li]
-            found = torch.zeros_like(tm, dtype=torch.bool)
-            for k in range(leaf):
-                tri = rows[:, k * TRI_STRIDE:(k + 1) * TRI_STRIDE]
-                _, _, _, valid = _moller(ox, oy, oz, dx, dy, dz, tri, tm,
-                                         t_min)
-                found |= valid & (tri[:, 10] != sk)
+            found = _any_leaf(origin[li], direction[li],
+                              ptris[(~meta[is_leaf]).long()], t_max[li],
+                              skip_f[li], t_min)
             occ[li] |= found
             sp[li[found]] = 0  # the first accepted hit ends the ray
 
@@ -352,20 +358,23 @@ def _quad_fixed_visit(origin, inv, qmeta, qnodes):
 
 
 def _intersect_quad_plain(origin, direction, t_max, root, qmeta, qnodes,
-                          ptris):
+                          ptris, counts=None):
     """Plain torch version of the closest-hit kernel. Returns (t f32[N],
-    tri i32[N], u f32[N], v f32[N])."""
+    tri i32[N], u f32[N], v f32[N]). `counts` (nvisit, nleaf), i32[N] each,
+    adds up each ray's pops: the kernel has no counters, but pops the same
+    entries."""
     visit = _quad_near_last_visit(origin, _inv_dir(direction), qmeta, qnodes)
     return _closest_walk(origin, direction, t_max, root, ptris, visit, CAP,
-                         T_MIN)
+                         T_MIN, counts=counts)
 
 
 def _occlusion_quad_plain(origin, direction, t_max, skip_object, root, qmeta,
-                          qnodes, ptris):
-    """Plain torch version of the any-hit kernel. Returns bool[N]."""
+                          qnodes, ptris, counts=None):
+    """Plain torch version of the any-hit kernel. Returns bool[N]; `counts`
+    as in _intersect_quad_plain."""
     visit = _quad_fixed_visit(origin, _inv_dir(direction), qmeta, qnodes)
     return _any_walk(origin, direction, t_max, skip_object, root, ptris,
-                     visit, CAP, T_MIN)
+                     visit, CAP, T_MIN, counts=counts)
 
 
 # --------------------------------------------------------------------------

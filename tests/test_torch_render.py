@@ -319,6 +319,14 @@ def test_port_never_imports_jax():
         "variant='dblread')[5].sum() > 0\n"
         "v4_interleave_lab.run_closest_v4(o, d, tm, ds, 'shared')\n"
         "r3_kernel_lab.run_closest_variant(o, d, tm, ds, True, True)\n"
+        "from raytracer_tpu_torch.lab import r3_occl3_lab, r3_oct_lab\n"
+        "ds8, bvh = bake_scene(create_cornell_box(), leaf_size=8, "
+        "device='cpu')\n"
+        "tree = r3_oct_lab.oct_tree(bvh, 'cpu')\n"
+        "o, d, tm = rays.closest_sets(ds8, 8, 8)['bounce1']\n"
+        "r3_oct_lab.run_closest8(o, d, tm, tree, ds8.ptris)\n"
+        "o, d, tm, skip, _ = rays.shadow_sets(ds8, 8, 8)['shadow_b1']\n"
+        "r3_occl3_lab.run_occl_ordered(o, d, tm, skip, ds8, ordered=True)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
