@@ -6,11 +6,13 @@ GPU: the quickest proof that the port builds and renders on the card.
 Phases (any failure exits non-zero and prints no result line):
   0. Require a CUDA device; print torch/CUDA versions and the card's name
      and power limit (nvidia-smi).
-  1. Build the traversal kernels (csrc/quad_traverse.cu, the 4-wide
-     tree's K1/K2; csrc/binary_traverse.cu, the binary tree's K3/K4;
-     csrc/lab_traverse.cu, the traversal lab's L1/L9/L2; and
-     csrc/lab2_traverse.cu, its L3-L8; the names of ROADMAP.md's kernel
-     table) with nvcc, one process per source, all started together.
+  1. Build the kernels (csrc/quad_traverse.cu, the 4-wide tree's K1/K2;
+     csrc/binary_traverse.cu, the binary tree's K3/K4;
+     csrc/lab_traverse.cu, the traversal lab's L1/L9/L2;
+     csrc/lab2_traverse.cu, its L3-L8; csrc/lab3_traverse.cu, the
+     fixed-sequence labs' L10/L11; csrc/bf16_lab.cu, L12; the names of
+     PERF.md's kernel table) with nvcc, one process per source, all
+     started together.
   2. Kernels against their plain torch versions on the card, on the
      300k-triangle atrium and three 1920x1080 ray sets (primary rays,
      incoherent reflected rays, shadow rays with finite t_max and a skipped
@@ -64,12 +66,28 @@ Phases (any failure exits non-zero and prints no result line):
      equality), L7 against K1 (hit flips and triangle differences at most
      TREE_AGREEMENT of the rays) and L8, both orders, against K2 (the same
      mask on every ray: any-hit does not depend on the visiting order).
+  9. The fixed-sequence labs on the leaf-8 atrium, through the functions
+     their entry points run, with their launch counts set to 0 just before
+     and read just after: visit_cost_lab (L11a, its six variants; L11b, its
+     four) and smem_lab (L10, smem and transp) at the JAX labs' sizes and
+     at the card size (every SM full) at the labs' K, with each warp's
+     clock64() cycles per iteration and CUDA-event times; bf16_lab (L12,
+     the six JAX chains and the two fused forms). Then every L10/L11
+     variant against its plain version at K_CHECK iterations on every ray
+     of every size, on the lab's rays and on rays aimed at the sequence's
+     triangles (bit equality); L12's against its plain versions at its K
+     on the ones input and a random one (bit equality; the fused forms
+     within 1 ulp, the differing elements counted); the identities (L11b
+     slice = base and sliceilp = ilp, L10 smem = L11b base, L12 bf16 =
+     bf16_mul on the ones input); each variant's bound at the card size.
 
 Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
-FP32 operations over the card's FP32 rate, counted on the run whose ms it
-shows (bound()); library_ms is null, as no PyTorch call computes a BVH
-walk. The line before the last is {"kernels": [...]}; the last line is
+FP32 operations over the card's FP32 rate (L12: its results over the
+card's instruction rate for their type), counted on the run whose ms it
+shows (bound(), fixed_seq_bound(), chain_bound()); library_ms is null, as
+no PyTorch call computes a BVH walk, a fixed-sequence walk or a K-step
+chain. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
 fixed seeds; nothing is downloaded.
 """
@@ -92,6 +110,9 @@ KERNEL_SOURCE = "raytracer_tpu_torch/csrc/quad_traverse.cu"
 BINARY_SOURCE = "raytracer_tpu_torch/csrc/binary_traverse.cu"
 LAB_SOURCE = "raytracer_tpu_torch/csrc/lab_traverse.cu"
 LAB2_SOURCE = "raytracer_tpu_torch/csrc/lab2_traverse.cu"
+LAB3_SOURCE = "raytracer_tpu_torch/csrc/lab3_traverse.cu"
+BF16_SOURCE = "raytracer_tpu_torch/csrc/bf16_lab.cu"
+AIMED_SEED = 9  # phase 9's rays that hit
 # K3 vs K1, K4 vs K2, L2 vs K1: share of rays that may differ
 TREE_AGREEMENT = 1e-4
 
@@ -122,6 +143,32 @@ TRI_OPS = {
 CLOSEST_RAY_BYTES = 28 + 16  # origin, direction, t_max in; t, tri, u, v out
 ANY_RAY_BYTES = 32 + 1  # + skip_object in; the bool mask out
 COUNTER_BYTES = 8  # nvisit/nit and nleaf out (L1, L4, L9)
+# The fixed-sequence labs (phase 9): FP32 operations per iteration of
+# csrc/lab3_traverse.cu, counted as above. A warp's min of 32 values is 31
+# mins, counted as one a ray. L11a: full = 2 slab() + the two t_near mins +
+# the swap compare; nored = 2 slab(); noslab = 4 compares of t_cap with
+# the row + the two mins + the swap compare; extracts = 11 adds; rowonly
+# and empty none (their bound is bytes, and their share means nothing).
+VISIT_OPS = {"full": 2 * SLAB_OPS + 3, "nored": 2 * SLAB_OPS, "noslab": 7,
+             "extracts": 11, "rowonly": 0, "empty": 0}
+# One leaf visit of 8 triangles: base/slice and smem the serial leaf;
+# ilp/sliceilp + 7 min-tree compares and the compare with the best t;
+# transp cm_leaf's 8 triangles + the compare with the best t.
+LEAF_VISIT_OPS = {"base": 8 * TRI_OPS["closest"],
+                  "slice": 8 * TRI_OPS["closest"],
+                  "ilp": 8 * TRI_OPS["closest"] + 8,
+                  "sliceilp": 8 * TRI_OPS["closest"] + 8,
+                  "smem": 8 * TRI_OPS["closest"],
+                  "transp": 8 * TRI_OPS["cm"] + 1}
+FIXED_RAY_BYTES = 24 + 4  # origin, direction in; one int32 out
+# L12 is bound by instruction issue. An FP32 add, multiply or FMA is one
+# instruction, and an SM retires 128 FP32 results a clock; a bf16x2 add,
+# multiply or FMA gives two results, 256 a clock (the CUDA C++ Programming
+# Guide's arithmetic-instruction throughput table, compute capability
+# 9.0). At the data sheet's 132 SMs and 1.98 GHz these are half of
+# PEAK_FP32_PER_S (which counts an FMA as two operations) and all of it.
+PEAK_FP32_RESULTS_PER_S = PEAK_FP32_PER_S / 2
+PEAK_BF16_RESULTS_PER_S = PEAK_FP32_PER_S
 
 
 def log(msg):
@@ -162,10 +209,45 @@ def bound(n_rays, ray_bytes, arrays, counts, node, tri):
     ops = (visits - leaves) * NODE_OPS[node] + leaves * leaf * TRI_OPS[tri]
     nbytes = n_rays * ray_bytes + sum(a.numel() * a.element_size()
                                       for a in arrays)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return bound_of(nbytes, ops)
+
+
+def bound_of(nbytes, ops, ops_per_s=PEAK_FP32_PER_S):
+    """{"bound_ms", "bound_by", "bytes", "ops"}: the larger of nbytes over
+    PEAK_BYTES_PER_S and ops over ops_per_s."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
+
+
+def fixed_seq_bound(n_rays, k, table, ops_per_iter):
+    """The bound of a fixed-sequence walk (phase 9): each ray's
+    FIXED_RAY_BYTES and the min(k, rows) rows of `table` that k iterations
+    read, once; n_rays x k x ops_per_iter FP32 operations."""
+    rows = min(k, table.shape[0])
+    nbytes = (n_rays * FIXED_RAY_BYTES
+              + rows * table.shape[1] * table.element_size())
+    return bound_of(nbytes, n_rays * k * ops_per_iter)
+
+
+def chain_bound(variant, x, y, k):
+    """The bound of an L12 chain (phase 9): its inputs read and its output
+    written once; its results (one per element and instruction; bf16x2
+    instructions give two) over the card's rate for their type. Per
+    element of x (and of y): k (mul, fma) or 2k (mul + add) chain results;
+    the ILP forms 2 x 8 or 2 x 16 per k/4 steps, + 4 + 3 (f32: the scales
+    and the sum of 4 chains) or 8 + 7 (bf16, 8 chains); the f32 forms one
+    add per output element."""
+    steps = k // 4
+    per = {"f32": 2 * k, "f32_mul": k, "f32_fma": k,
+           "f32_ilp": 8 * steps + 7, "bf16": 2 * k, "bf16_mul": k,
+           "bf16_fma": k, "bf16_ilp": 16 * steps + 15}[variant]
+    elems = x.numel() + (0 if y is None else y.numel())
+    nbytes = (elems + x.numel()) * x.element_size()
+    if y is None:
+        return bound_of(nbytes, elems * per, PEAK_BF16_RESULTS_PER_S)
+    return bound_of(nbytes, elems * per + x.numel(), PEAK_FP32_RESULTS_PER_S)
 
 
 def phase0():
@@ -185,20 +267,21 @@ def phase1():
 
     from raytracer_tpu_torch.ops import _build
 
+    loaders = (_build.quad_traverse_lib, _build.binary_traverse_lib,
+               _build.lab_traverse_lib, _build.lab2_traverse_lib,
+               _build.lab3_traverse_lib, _build.bf16_lab_lib)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        builds = [pool.submit(_build.quad_traverse_lib),
-                  pool.submit(_build.binary_traverse_lib),
-                  pool.submit(_build.lab_traverse_lib),
-                  pool.submit(_build.lab2_traverse_lib)]
-        for b in builds:
+    with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
+        for b in [pool.submit(load) for load in loaders]:
             b.result()
-    log(f"phase 1: built the four kernel libraries in "
+    log(f"phase 1: built the {len(loaders)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, stem in ((KERNEL_SOURCE, "libquad_traverse"),
                          (BINARY_SOURCE, "libbinary_traverse"),
                          (LAB_SOURCE, "liblab_traverse"),
-                         (LAB2_SOURCE, "liblab2_traverse")):
+                         (LAB2_SOURCE, "liblab2_traverse"),
+                         (LAB3_SOURCE, "liblab3_traverse"),
+                         (BF16_SOURCE, "libbf16_lab")):
         info = _build.build_info[stem]
         log(f"phase 1: {source}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -920,6 +1003,199 @@ def phase8(device):
     }
 
 
+def aimed_rays(ptris, n, rows, seed, device):
+    """n distinct rays that hit: from points of the box around the
+    centroids of the non-degenerate triangles of ptris' first `rows` rows
+    (what `rows` leaf visits of a fixed sequence test), grown by half its
+    size, each toward one of those centroids; made from a numpy seed."""
+    import numpy as np
+    import torch
+
+    tris = ptris[:rows].reshape(-1, 12).double().cpu().numpy()
+    v0, e1, e2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    cent = (v0 + (e1 + e2) / 3)[np.linalg.norm(np.cross(e1, e2), axis=1) > 0]
+    lo, hi = cent.min(0), cent.max(0)
+    grow = 0.5 * (hi - lo) + 1e-3
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo - grow, hi + grow, (n, 3))
+    d = cent[rng.integers(0, len(cent), n)] - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in (o, d))
+
+
+def phase9(device):
+    """The fixed-sequence labs L11a, L11b (visit_cost_lab), L10 (smem_lab)
+    and L12 (bf16_lab): their runs at the full K (the launch counts), then
+    every variant against its plain version at K_CHECK on the lab's rays
+    and on rays that hit, at every size, the identities, and each variant's
+    bound at the card size. Returns the four kernels' report entries."""
+    import torch
+
+    from raytracer_tpu_torch.lab import bf16_lab, smem_lab
+    from raytracer_tpu_torch.lab import fixed_seq as fs
+    from raytracer_tpu_torch.lab import rays as lab_rays
+    from raytracer_tpu_torch.lab import visit_cost_lab as vc
+
+    plog = lambda m: log(f"phase 9: {m}")  # noqa: E731
+    t0 = time.perf_counter()
+    ds = lab_rays.atrium(vc.LEAF_SIZE, device)
+    torch.cuda.synchronize()
+    plog(f"leaf-8 bake in {time.perf_counter() - t0:.2f} s: pnodes "
+         f"{tuple(ds.pnodes.shape)}, ptris {tuple(ds.ptris.shape)}; card "
+         f"rays {fs.card_rays(device)}; card: {lab_rays.card_line()}")
+
+    for mod in (vc, smem_lab, bf16_lab):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = {"lab_visit": vc.run(ds, log=plog),
+            "lab_leaf_visit": vc.run_leaf(ds, log=plog),
+            "lab_smem": smem_lab.run(ds, log=plog)}
+    chains = bf16_lab.run(device, log=plog)
+    launches = {"lab_visit": vc.visit_launches,
+                "lab_leaf_visit": vc.leaf_visit_launches,
+                "lab_smem": smem_lab.smem_launches,
+                "lab_bf16": bf16_lab.bf16_launches}
+    plog(f"the labs' runs in {time.perf_counter() - t0:.1f} s; card after: "
+         f"{lab_rays.card_line()}; lab launch counts {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a lab kernel was not launched: {launches}")
+
+    # Every variant against its plain version at K_CHECK iterations. The
+    # plain versions of variants that share an instantiation are run once.
+    kc = fs.K_CHECK
+    t0 = time.perf_counter()
+    labs = (
+        ("lab_visit", vc.VISIT_LAB_RAYS, vc.VISIT_VARIANTS,
+         lambda o, d, v: vc.run_visit(o, d, ds.pnodes, v, kc),
+         lambda v: v,
+         lambda o, d, v: (vc.visit_plain(o, d, ds.pnodes, v, kc), None)),
+        ("lab_leaf_visit", vc.LEAF_LAB_RAYS, vc.LEAF_VARIANTS,
+         lambda o, d, v: vc.run_leaf_visit(o, d, ds.ptris, v, kc),
+         lambda v: ("ilp" if vc.LEAF_ILP[v] else "base"),
+         lambda o, d, v: vc.leaf_visit_plain(o, d, ds.ptris, v, kc)),
+        ("lab_smem", smem_lab.LAB_RAYS, smem_lab.VARIANTS,
+         lambda o, d, v: smem_lab.run_smem(o, d, ds.ptris, v, kc),
+         # smem computes L11b base: one plain version for both
+         lambda v: "base" if v == "smem" else v,
+         lambda o, d, v: smem_lab.smem_plain(o, d, ds.ptris, v, kc)),
+    )
+    err = {name: 0.0 for name in launches}
+    plain_ms, check_ms, outs, cache = {}, {}, {}, {}
+    for name, lab_sizes, variants, launch, plain_key, plain in labs:
+        for label, n in fs.sizes(device, lab_sizes):
+            ray_sets = {"lab rays": fs.lab_rays_const(n, device),
+                        "aimed": aimed_rays(ds.ptris, n, kc, AIMED_SEED,
+                                            device)}
+            for rays, (o, d) in ray_sets.items():
+                for v in variants:
+                    got = outs[(name, label, rays, v)] = launch(o, d, v)
+                    key = (name != "lab_visit", plain_key(v), n, rays)
+                    if key not in cache:
+                        cache[key] = lab_rays.host_ms(plain, o, d, v)
+                    (ref, bt), ms = cache[key]
+                    if bt is not None:
+                        hits, ref = int((ref >= 0).sum()), fs.leaf_out(ref, bt)
+                    err[name] = max(err[name], gate_equal(
+                        f"{name} {v} {label} {rays}", (got,), (ref,)))
+                    if rays == "lab rays":
+                        plain_ms[(name, label, v)] = ms
+                        check_ms[(name, label, v)] = lab_rays.cuda_ms(
+                            lambda: launch(o, d, v), 3)
+                    plog(f"{name} {v} {label} {rays}: equal to the plain "
+                         f"version on all {n} rays at k = {kc} ("
+                         + (f"{hits} with btri >= 0" if bt is not None else
+                            f"{torch.unique(got).numel()} distinct outputs")
+                         + f"); plain {ms:.1f} ms")
+    # The identities: one instantiation per pair; L10 smem computes L11b
+    # base; bf16 = bf16_mul on the ones input (b below half an ulp).
+    for label, n in fs.sizes(device, vc.LEAF_LAB_RAYS):
+        for rays in ("lab rays", "aimed"):
+            for a, b in (("slice", "base"), ("sliceilp", "ilp")):
+                gate_equal(f"L11b {a} vs {b} {label} {rays}",
+                           (outs[("lab_leaf_visit", label, rays, a)],),
+                           (outs[("lab_leaf_visit", label, rays, b)],))
+    for label, n in fs.sizes(device, smem_lab.LAB_RAYS):
+        for rays in ("lab rays", "aimed"):
+            gate_equal(f"L10 smem vs L11b base {label} {rays}",
+                       (outs[("lab_smem", label, rays, "smem")],),
+                       (outs[("lab_leaf_visit", label, rays, "base")],))
+    gate_equal("L12 bf16 vs bf16_mul on the ones input",
+               (chains["bf16"]["out"].view(torch.int16),),
+               (chains["bf16_mul"]["out"].view(torch.int16),))
+    plog("identities hold: L11b slice = base and sliceilp = ilp at every "
+         "size, L10 smem = L11b base, L12 bf16 = bf16_mul on the ones input")
+
+    # L12 against its plain version at the full K, on the ones input and
+    # on a seeded random one: the six JAX chains bit for bit, the fused
+    # forms within 1 ulp.
+    for v in bf16_lab.ALL:
+        for seed in (None, 11):
+            if seed is None:
+                x, y, got = (chains[v][key] for key in ("x", "y", "out"))
+            else:
+                x, y = bf16_lab.inputs(v, chains[v]["x"].shape[0], device,
+                                       seed)
+                got = bf16_lab.run_bf16(v, x, y, bf16_lab.K)
+            ref, ms = lab_rays.host_ms(bf16_lab.bf16_plain, v, x, y,
+                                       bf16_lab.K)
+            ulps = bf16_lab.ulp_diff(got, ref)
+            worst, differ = int(ulps.max()), int((ulps > 0).sum())
+            if (v in bf16_lab.VARIANTS and differ) or worst > 1:
+                raise RuntimeError(f"lab_bf16 {v}: kernel != plain version "
+                                   f"({differ} elements, {worst} ulp)")
+            err["lab_bf16"] = max(err["lab_bf16"], float(
+                (got.double() - ref.double()).abs().max()))
+            if seed is None:
+                plain_ms[("lab_bf16", v)] = ms
+            plog(f"lab_bf16 {v} {'ones' if seed is None else 'random'}: "
+                 f"{differ} of {got.numel()} elements differ from the plain "
+                 f"version (at most {worst} ulp) at k = {bf16_lab.K}; plain "
+                 f"{ms:.1f} ms")
+    plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
+
+    # Each variant's bound on its card-size run.
+    bounds = {}
+    for name, variants, table, ops in (
+            ("lab_visit", vc.VISIT_VARIANTS, ds.pnodes, VISIT_OPS),
+            ("lab_leaf_visit", vc.LEAF_VARIANTS, ds.ptris, LEAF_VISIT_OPS),
+            ("lab_smem", smem_lab.VARIANTS, ds.ptris, LEAF_VISIT_OPS)):
+        for v in variants:
+            r = runs[name][("card", v)]
+            b = bounds[(name, v)] = fixed_seq_bound(r["rays"], r["k"], table,
+                                                    ops[v])
+            plog(f"bound {name} {v} card: {r['ms']:.3f} ms against "
+                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+                 f"{b['ops']} FP32 operations), "
+                 f"{100 * b['bound_ms'] / r['ms']:.2f}% of the bound; "
+                 f"{r['ns_per_ray_iter']:.6f} ns/ray-iteration, "
+                 f"{r['cycles_per_iter']:.1f} cycles/iteration a warp; at k "
+                 f"= {kc}: kernel {check_ms[(name, 'card', v)]:.3f} ms, plain "
+                 f"{plain_ms[(name, 'card', v)]:.1f} ms")
+    for v in bf16_lab.ALL:
+        r = chains[v]
+        b = bounds[("lab_bf16", v)] = chain_bound(v, r["x"], r["y"],
+                                                  bf16_lab.K)
+        plog(f"bound lab_bf16 {v}: {r['ms']:.4f} ms against "
+             f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+             f"{b['ops']} results), {100 * b['bound_ms'] / r['ms']:.2f}% of "
+             f"the bound")
+
+    report = {}
+    for name, v, r in (
+            ("lab_visit", "full", runs["lab_visit"][("card", "full")]),
+            ("lab_leaf_visit", "base",
+             runs["lab_leaf_visit"][("card", "base")]),
+            ("lab_smem", "smem", runs["lab_smem"][("card", "smem")]),
+            ("lab_bf16", "f32", chains["f32"])):
+        report[name] = dict(
+            launches=launches[name], max_abs_err=err[name], ms=r["ms"],
+            plain_ms=plain_ms[(name, "card", v) if name != "lab_bf16"
+                              else (name, v)],
+            **bounds[(name, v)])
+    return report
+
+
 CORNELL_JSON = {
     "materials": {
         "white": {"albedo": [0.73, 0.73, 0.73], "roughness": 1.0},
@@ -1004,6 +1280,7 @@ def main():
     lab = phase6(device)
     lab2 = phase7(device)
     lab3 = phase8(device)
+    lab4 = phase9(device)
 
     def entry(name, source, replaces, launches, shown, *others):
         """A kernel's entry of the kernels line: the ms, plain ms and bound
@@ -1014,7 +1291,8 @@ def main():
                                    for r in (shown, *others)),
                 "ms": shown["ms"], "plain_ms": shown["plain_ms"],
                 "bound_ms": shown["bound_ms"], "bound_by": shown["bound_by"],
-                # No PyTorch call computes a BVH walk.
+                # No PyTorch call computes a BVH walk, a fixed-sequence
+                # walk or a K-step chain.
                 "library_ms": None}
 
     kernels = [
@@ -1045,7 +1323,12 @@ def main():
                 ("lab_closest4_queued", "tools/r3_kernel_lab.py:334"))),
             (LAB2_SOURCE, lab3, (
                 ("lab_closest8_queued", "tools/r3_oct_lab.py:265"),
-                ("lab_occlusion4_queued", "tools/r3_occl3_lab.py:133")))):
+                ("lab_occlusion4_queued", "tools/r3_occl3_lab.py:133"))),
+            (LAB3_SOURCE, lab4, (
+                ("lab_visit", "tools/visit_cost_lab.py:266"),
+                ("lab_leaf_visit", "tools/visit_cost_lab.py:231"),
+                ("lab_smem", "tools/smem_lab.py:146"))),
+            (BF16_SOURCE, lab4, (("lab_bf16", "tools/bf16_lab.py:73"),))):
         for name, replaces in names:
             kernels.append(entry(name, source, replaces,
                                  report[name]["launches"], report[name]))
@@ -1053,12 +1336,16 @@ def main():
         "lab kernels: on the bounce-1 wavefront in renderer order, "
         "lab_occlusion and lab_occlusion4_queued on its shadow batch; phase "
         "7's: L3, L4 base, L5 shared, L6 without flags; phase 8's: L8 "
-        "ordered); library_ms null: no PyTorch call computes a BVH walk")
+        "ordered); phase 9's: the card-size run at the lab's K (L11a full, "
+        "L11b base, L10 smem) and L12 f32, their plain versions at k = "
+        "K_CHECK (L12: at its K); library_ms null: no PyTorch call computes "
+        "a BVH walk, a fixed-sequence walk or a K-step chain")
     for name, r in (("quad_closest", k["closest_incoherent"]),
                     ("quad_occlusion", k["occlusion_shadow"]),
                     ("binary_closest", k["binary_closest_incoherent"]),
                     ("binary_occlusion", k["binary_occlusion_shadow"]),
-                    *lab.items(), *lab2.items(), *lab3.items()):
+                    *lab.items(), *lab2.items(), *lab3.items(),
+                    *lab4.items()):
         log(f"bound {name}: {r['ms']:.3f} ms against a bound of "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} B, "
             f"{r['ops']} FP32 operations), {100 * r['bound_ms'] / r['ms']:.1f}"

@@ -5,8 +5,9 @@ Usage:
       [--spp N] [--out image.png] [--camera X Y Z] [--target X Y Z]
       [--device cuda|cpu] ...
 
-The parser is the JAX package's, plus --device; --accel takes the port's
-values. Flags of modes the port does not run yet (--restir, --adaptive,
+The parser is the JAX package's, plus --device; --accel takes every JAX
+value (auto, pallas, bvh, brute) plus cuda, the port's name for pallas.
+Flags of modes the port does not run yet (--restir, --adaptive,
 --denoise, --preview, --preview-scale, --aovs, --spp-batch > 1) exit with
 an error naming their ROADMAP.md port queue item.
 """
@@ -41,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=3)
     p.add_argument("--background", type=float, nargs=3,
                    default=(0.53, 0.81, 0.92))
-    p.add_argument("--accel", choices=("auto", "cuda", "bvh", "brute"),
+    p.add_argument("--accel",
+                   choices=("auto", "pallas", "cuda", "bvh", "brute"),
                    default="auto")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, or cpu for the "

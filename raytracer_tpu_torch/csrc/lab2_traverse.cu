@@ -440,50 +440,6 @@ occlusion4_queued_kernel(const float* __restrict__ origin,
   out_occ[i] = occ;
 }
 
-// Lane j of a float4 (j a constant once the loops are unrolled).
-__device__ __forceinline__ float lane(float4 v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// tools/v2_kernel_lab.py:82-118 per ray: every triangle of the component-
-// major row against the entry best t; the least t, and the largest
-// triangle index among those at it (an invalid triangle counts as t =
-// BIG, as in the TPU kernel's reduction); kept if below the best t.
-__device__ __forceinline__ void cm_leaf(const Ray& r,
-                                        const float4* __restrict__ row,
-                                        int leaf, float& bt, int& btri) {
-  const int quads = leaf / 4;  // float4s per component
-  float tmin = kBig;
-  int trimax = -1;
-  for (int k4 = 0; k4 < quads; ++k4) {
-    float4 comp[10];
-#pragma unroll
-    for (int c = 0; c < 10; ++c) comp[c] = __ldg(row + quads * c + k4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float4 a = make_float4(lane(comp[0], j), lane(comp[1], j),
-                             lane(comp[2], j), lane(comp[3], j));
-      float4 b = make_float4(lane(comp[4], j), lane(comp[5], j),
-                             lane(comp[6], j), lane(comp[7], j));
-      float4 c = make_float4(lane(comp[8], j), lane(comp[9], j), 0.0f, 0.0f);
-      float t, u, v;
-      bool valid = moller(r, a, b, c, kTMin, bt, &t, &u, &v);
-      float tc = valid ? t : kBig;
-      int tri = (int)c.y;
-      if (tc < tmin) {
-        tmin = tc;
-        trimax = tri;
-      } else if (tc == tmin) {
-        trimax = max(trimax, tri);
-      }
-    }
-  }
-  if (tmin < bt) {
-    bt = tmin;
-    btri = trimax;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 closest_cm_kernel(const float* __restrict__ origin,
                   const float* __restrict__ direction,
@@ -504,7 +460,8 @@ closest_cm_kernel(const float* __restrict__ origin,
   while (sp > 0) {
     const int meta = stack[--sp];
     if (meta < 0) {
-      cm_leaf(r, ptris_cm + (int64_t)(~meta) * leaf_f4, leaf, bt, btri);
+      cm_leaf(r, ptris_cm + (int64_t)(~meta) * leaf_f4, leaf, kTMin, bt,
+              btri);
     } else {
       binary_visit<true>(r, pnodes + (int64_t)meta * 4, kTMin, bt, stack,
                          sp);

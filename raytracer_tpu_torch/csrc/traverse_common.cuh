@@ -1,9 +1,9 @@
 // Device helpers shared by the traversal kernels (quad_traverse.cu,
-// binary_traverse.cu, lab_traverse.cu, lab2_traverse.cu): the ray with its
-// clamped inverse direction, the slab test of one box, Moller-Trumbore
-// against one leaf triangle, the closest-hit (serial and ILP) and any-hit
-// leaf loops, and the binary, 4-wide and 8-wide node steps with their push
-// policy.
+// binary_traverse.cu, lab_traverse.cu, lab2_traverse.cu, lab3_traverse.cu):
+// the ray with its clamped inverse direction, the slab test of one box,
+// Moller-Trumbore against one leaf triangle, the closest-hit (serial, ILP
+// and component-major) and any-hit leaf loops, and the binary, 4-wide and
+// 8-wide node steps with their push policy.
 //
 // Each term is written in the order of the plain torch versions
 // (ops/quad_traverse.py: _inv_dir, _slab_children, _moller), and the
@@ -355,6 +355,62 @@ __device__ __forceinline__ void ilp_leaf(const Ray& r,
     btri = tris[0];
     bu = us[0];
     bv = vs[0];
+  }
+}
+
+// Lane j of a float4 (j a constant once the loops are unrolled).
+__device__ __forceinline__ float lane(float4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The component-major leaf (tools/v2_kernel_lab.py:82-118 per ray, and
+// tools/smem_lab.py:66 transp_kernel with leaf 8): float4 quads*c + k4 of
+// the row holds component c (v0.xyz, e1.xyz, e2.xyz, tri_f) of triangles
+// 4*k4 .. 4*k4+3. Every triangle against the entry best t; the least t
+// (an invalid triangle counts as t = BIG) and the TPU kernels' reduction
+// of the indices, max over the triangles of (t at the least ? index : -1),
+// so -1 takes part unless every triangle is at the least t; kept if below
+// the best t.
+__device__ __forceinline__ void cm_leaf(const Ray& r,
+                                        const float4* __restrict__ row,
+                                        int leaf, float t_min, float& bt,
+                                        int& btri) {
+  const int quads = leaf / 4;  // float4s per component
+  float tmin = kBig;
+  int trimax = -1;
+  bool first = true;
+  for (int k4 = 0; k4 < quads; ++k4) {
+    float4 comp[10];
+#pragma unroll
+    for (int c = 0; c < 10; ++c) comp[c] = __ldg(row + quads * c + k4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 a = make_float4(lane(comp[0], j), lane(comp[1], j),
+                             lane(comp[2], j), lane(comp[3], j));
+      float4 b = make_float4(lane(comp[4], j), lane(comp[5], j),
+                             lane(comp[6], j), lane(comp[7], j));
+      float4 c = make_float4(lane(comp[8], j), lane(comp[9], j), 0.0f, 0.0f);
+      float t, u, v;
+      bool valid = moller(r, a, b, c, t_min, bt, &t, &u, &v);
+      float tc = valid ? t : kBig;
+      int tri = (int)c.y;
+      if (first) {
+        tmin = tc;
+        trimax = tri;
+        first = false;
+      } else if (tc < tmin) {  // every triangle before is above the least
+        tmin = tc;
+        trimax = max(tri, -1);
+      } else if (tc == tmin) {
+        trimax = max(trimax, tri);
+      } else {
+        trimax = max(trimax, -1);
+      }
+    }
+  }
+  if (tmin < bt) {
+    bt = tmin;
+    btri = trimax;
   }
 }
 

@@ -15,11 +15,13 @@ The walk is K3's: one stack per ray (STACK_CAP), leaves on the stack, the
 ordered binary step. A leaf (tools/v2_kernel_lab.py:82-118, per ray) tests
 all its triangles against the entry best t, takes the least valid t and,
 among the triangles at that t, the largest triangle index (not the serial
-leaf's first), and keeps them if that t is below the best t. The kernel
-reads each of the 10 components a triangle needs (v0, e1, e2, tri) as
-leaf/4 float4 loads; the object and pad components are never read. It
-returns no u, v (the TPU kernel has none). The TPU kernel's tile height
-(8 or 16 rows) has no per-ray meaning: the results do not depend on it.
+leaf's first; -1 takes part in that max unless every triangle is at that
+t, as in the TPU kernel), and keeps them if that t is below the best t.
+The kernel reads each of the 10 components a triangle needs (v0, e1, e2,
+tri) as leaf/4 float4 loads; the object and pad components are never
+read. It returns no u, v (the TPU kernel has none). The TPU kernel's tile
+height (8 or 16 rows) has no per-ray meaning: the results do not depend on
+it.
 
 On CUDA tensors the wrapper launches csrc/lab2_traverse.cu:lab_closest_cm;
 on CPU tensors it runs the plain torch version, which the kernel equals bit
@@ -35,6 +37,7 @@ import torch
 
 from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import rays as lab_rays
+from raytracer_tpu_torch.lab.fixed_seq import sat_i32
 from raytracer_tpu_torch.lab.bvh4_lab import against
 from raytracer_tpu_torch.ops import binary_traverse as bt
 from raytracer_tpu_torch.ops.binary_traverse import STACK_CAP, _binary_visit
@@ -98,23 +101,23 @@ def run_closest_v2(origin, direction, t_max, scene, ptris_cm):
 def _cm_leaf(origin, direction, rows, bt_, btri, bu, bv, t_min):
     """The one-pass leaf of component-major rows [M, leaf*12]: every
     triangle against the entry best t; the least valid t (BIG when none)
-    and the largest triangle index among those at it, kept if below the
-    best t. u, v pass through unchanged."""
+    and the TPU kernel's index reduction, max over the triangles of (t at
+    the least ? index : -1) (the largest index at the least t, or -1 when
+    larger and some triangle is above it), kept if below the best t. u, v
+    pass through unchanged."""
     ox, oy, oz = origin.unbind(1)
     dx, dy, dz = direction.unbind(1)
     leaf = rows.shape[1] // TRI_STRIDE
     tris = rows.view(-1, TRI_STRIDE, leaf).transpose(1, 2)  # [M, leaf, 12]
-    tmin = torch.full_like(bt_, BIG)
-    trimax = torch.full_like(btri, -1)
+    tcs, trik = [], []
     for k in range(leaf):
         tri = tris[:, k]
         t, _, _, valid = _moller(ox, oy, oz, dx, dy, dz, tri, bt_, t_min)
-        tc = torch.where(valid, t, BIG)
-        trik = tri[:, 9].to(torch.int32)
-        lower = tc < tmin
-        trimax = torch.where(lower, trik, torch.where(
-            tc == tmin, torch.maximum(trimax, trik), trimax))
-        tmin = torch.where(lower, tc, tmin)
+        tcs.append(torch.where(valid, t, BIG))
+        trik.append(sat_i32(tri[:, 9]))
+    tc, trik = torch.stack(tcs, 1), torch.stack(trik, 1)
+    tmin = tc.amin(1)
+    trimax = torch.where(tc == tmin[:, None], trik, -1).amax(1)
     win = tmin < bt_
     return torch.where(win, tmin, bt_), torch.where(win, trimax, btri), bu, bv
 

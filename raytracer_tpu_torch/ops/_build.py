@@ -1,7 +1,8 @@
 """Build and load the port's native libraries: the CUDA kernels
 (csrc/*.cu: the render path's quad_traverse and binary_traverse, the
-traversal lab's lab_traverse and lab2_traverse) and, for
-accel/native_builder.py, the C++ BVH builder.
+traversal lab's lab_traverse, lab2_traverse and lab3_traverse, and the
+bf16 throughput lab's bf16_lab) and, for accel/native_builder.py, the C++
+BVH builder.
 
 Each source is compiled into a shared library with a plain C interface, in
 `raytracer_tpu_torch/_build/`, named by a hash of the source, the headers
@@ -95,10 +96,11 @@ def compile_library(argv, src: str, stem: str, headers=()) -> str:
     return path
 
 
-def _cuda_lib(name: str, signatures) -> ctypes.CDLL:
-    """csrc/<name>.cu built (stem lib<name>) and loaded once per process;
-    `signatures` maps each entry point to its argtypes (restype int, the
-    launch's cudaError_t)."""
+def _cuda_lib(name: str, signatures, headers=CUDA_HEADERS) -> ctypes.CDLL:
+    """csrc/<name>.cu built (stem lib<name>; its hash covers `headers`, the
+    repo's headers it includes) and loaded once per process; `signatures`
+    maps each entry point to its argtypes (restype int, the launch's
+    cudaError_t)."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
@@ -107,7 +109,7 @@ def _cuda_lib(name: str, signatures) -> ctypes.CDLL:
             return lib
         lib = ctypes.CDLL(compile_library(
             [_nvcc(), *NVCC_FLAGS], os.path.join(CSRC_DIR, f"{name}.cu"),
-            f"lib{name}", headers=CUDA_HEADERS))
+            f"lib{name}", headers=headers))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
@@ -169,3 +171,20 @@ def lab2_traverse_lib() -> ctypes.CDLL:
         "lab_occlusion4_queued": [_P, _P, _P, _P, _I64, _I32, _P, _P, _P,
                                   _I32, _I32, _I32, _P, _P],
     })
+
+
+def lab3_traverse_lib() -> ctypes.CDLL:
+    """The fixed-sequence labs' kernels, L11a, L11b and L10
+    (csrc/lab3_traverse.cu)."""
+    row = [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P, _P]
+    return _cuda_lib("lab3_traverse", {
+        "lab_visit": row, "lab_leaf_visit": row, "lab_smem": row,
+    })
+
+
+def bf16_lab_lib() -> ctypes.CDLL:
+    """The packed-bf16 throughput lab's kernels, L12 (csrc/bf16_lab.cu,
+    which includes no repo header)."""
+    return _cuda_lib("bf16_lab", {
+        "lab_bf16": [_P, _P, _I64, _I32, _I32, _P, _P],
+    }, headers=())

@@ -1,11 +1,12 @@
 """Render configuration (the port's copy of raytracer_tpu/utils/config.py).
 
 Every field and default of the JAX package's RenderConfig is kept, so one
-configuration describes the same render in both packages. Only `accel`
-differs: the port's values are "auto" (= "cuda"), "cuda" (the hand-written
-4-wide tree kernels in ops/quad_traverse.py; on CPU tensors their plain
-torch versions), "bvh" (the binary tree's kernels in ops/binary_traverse.py,
-likewise) and "brute" (the O(T) oracle).
+configuration describes the same render in both packages. `accel` takes
+every JAX value, "auto", "pallas", "bvh" and "brute", plus "cuda", the
+port's own name for "pallas": "auto" and "pallas" resolve to "cuda" (the
+hand-written 4-wide tree kernels in ops/quad_traverse.py; on CPU tensors
+their plain torch versions), "bvh" is the binary tree's kernels in
+ops/binary_traverse.py (likewise) and "brute" the O(T) oracle.
 
 The reference hard-codes its knobs at compile time in GLSL
 (`shaders/simple.rchit:9-13`: USE_DIRECT_LIGHTING / USE_LIGHT_SAMPLING_ONLY /
@@ -81,8 +82,9 @@ class RenderConfig:
     t_min: float = 0.001
     t_max: float = 10000.0
 
-    # Acceleration structure:
+    # Acceleration structure (every JAX value, plus "cuda"):
     #   "auto"   — "cuda"
+    #   "pallas" — "cuda": the JAX name of the same 4-wide tree and kernels
     #   "cuda"   — 4-wide BVH traversal kernels (ops/quad_traverse.py,
     #              ports of the JAX ops/pallas_subpacket.py kernels); CPU
     #              tensors take their plain torch versions. t_min is fixed
@@ -190,7 +192,7 @@ class RenderConfig:
             raise ValueError("width/height must be positive")
         if self.max_depth < 1:
             raise ValueError("max_depth must be >= 1")
-        if self.accel not in ("auto", "cuda", "bvh", "brute"):
+        if self.accel not in ("auto", "pallas", "cuda", "bvh", "brute"):
             raise ValueError(f"unknown accel {self.accel!r}")
         if self.spp_batch < 1:
             raise ValueError("spp_batch must be >= 1")
@@ -218,8 +220,8 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
     def resolve_accel(self) -> "RenderConfig":
-        """Pin accel="auto" to "cuda" (the kernels' wrappers pick the plain
-        torch versions for CPU tensors)."""
-        if self.accel != "auto":
+        """Pin accel="auto" and "pallas" to "cuda" (the kernels' wrappers
+        pick the plain torch versions for CPU tensors)."""
+        if self.accel not in ("auto", "pallas"):
             return self
         return self.replace(accel="cuda")

@@ -327,6 +327,15 @@ def test_port_never_imports_jax():
         "r3_oct_lab.run_closest8(o, d, tm, tree, ds8.ptris)\n"
         "o, d, tm, skip, _ = rays.shadow_sets(ds8, 8, 8)['shadow_b1']\n"
         "r3_occl3_lab.run_occl_ordered(o, d, tm, skip, ds8, ordered=True)\n"
+        "from raytracer_tpu_torch.lab import bf16_lab, fixed_seq, smem_lab, "
+        "visit_cost_lab\n"
+        "o, d = fixed_seq.lab_rays_const(64, 'cpu')\n"
+        "visit_cost_lab.run_visit(o, d, ds8.pnodes, 'full', 4)\n"
+        "visit_cost_lab.run_leaf_visit(o, d, ds8.ptris, 'ilp', 4)\n"
+        "smem_lab.run_smem(o, d, ds8.ptris, 'smem', 4)\n"
+        "x, y = bf16_lab.inputs('f32_fma', 1)\n"
+        "bf16_lab.run_bf16('f32_fma', x, y, 8)\n"
+        "bf16_lab.run_bf16('bf16', *bf16_lab.inputs('bf16', 1), 8)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
