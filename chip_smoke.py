@@ -14,14 +14,19 @@ Phases (any failure exits non-zero and prints no result line):
      PERF.md's kernel table) with nvcc, one process per source, all
      started together.
   2. Kernels against their plain torch versions on the card, on the
-     300k-triangle atrium and three 1920x1080 ray sets (primary rays,
-     incoherent reflected rays, shadow rays with finite t_max and a skipped
-     light object). The plain versions run on every ray (and, for K1/K2,
-     timed apart on a strided subset of >= 65,536 rays); the gate is bit
-     equality (hit, tri, t, u, v; the occlusion mask). Times the kernels
-     (CUDA events, mean of 5 launches) and the plain versions (host clock,
-     one run). K3 against K1 and K4 against K2 on the same rays: hit
-     flips and triangle differences at most 1e-4 of the rays.
+     300k-triangle atrium and five 1920x1080 ray sets (primary rays,
+     incoherent reflected rays, the incoherent rays with a quarter of the
+     lanes inactive, shadow rays with finite t_max and a skipped light
+     object, and the shadow rays with the same lanes inactive). The plain
+     versions run on every ray (and, for K1/K2, timed apart on a strided
+     subset of >= 65,536 rays); the gate is bit equality (hit, tri, t, u,
+     v; the occlusion mask). Times the kernels (CUDA events, mean of 5
+     launches) and the plain versions (host clock, one run). Prints how
+     K1/K2 launch on this card (registers and ptxas spills, local and
+     dynamic shared memory, resident blocks a SM, the persistent grid, G
+     and the refill threshold) and the share of inactive lanes in each
+     set. K3 against K1 and K4 against K2 on the same rays: hit flips and
+     triangle differences at most 1e-4 of the rays.
   3. The main path: ProgressiveRenderer on the atrium at 1920x1080, depth 3,
      NEE; 2 warm and 4 timed frames, with ms/frame, rays/frame, Mrays/s
      and peak device memory; a finite, non-black image; both kernels
@@ -85,7 +90,8 @@ Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
 FP32 operations over the card's FP32 rate (L12: its results over the
 card's instruction rate for their type), counted on the run whose ms it
-shows (bound(), fixed_seq_bound(), chain_bound()); library_ms is null, as
+shows (bound(), quad_bound() for K1/K2, which count only the triangles
+they test, fixed_seq_bound(), chain_bound()); library_ms is null, as
 no PyTorch call computes a BVH walk, a fixed-sequence walk or a K-step
 chain. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
@@ -115,6 +121,9 @@ BF16_SOURCE = "raytracer_tpu_torch/csrc/bf16_lab.cu"
 AIMED_SEED = 9  # phase 9's rays that hit
 # K3 vs K1, K4 vs K2, L2 vs K1: share of rays that may differ
 TREE_AGREEMENT = 1e-4
+# Phase 2's partly inactive sets: the share of inactive lanes and its seed.
+INACTIVE_SHARE = 0.25
+INACTIVE_SEED = 8
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet, at 700 W):
 # HBM3 bytes per second, and FP32 operations per second outside the
@@ -210,6 +219,67 @@ def bound(n_rays, ray_bytes, arrays, counts, node, tri):
     nbytes = n_rays * ray_bytes + sum(a.numel() * a.element_size()
                                       for a in arrays)
     return bound_of(nbytes, ops)
+
+
+def quad_bound(ds, n_rays, ray_bytes, counts, tests, node, tri):
+    """K1's or K2's bound: as bound(), for what they read and test. Bytes:
+    each ray's inputs and outputs, the node rows (the child metas are in
+    them; qmeta is not read), the leaf counts and the real triangles of
+    each leaf row, once. Operations: the internal visits of `counts` times
+    NODE_OPS[node] and `tests` (leaf_tests(): the triangles they test, not
+    every slot of each row visited) times TRI_OPS[tri]."""
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    lc = qt.leaf_counts(ds)
+    visits, leaves = (int(c.sum()) for c in counts)
+    ops = (visits - leaves) * NODE_OPS[node] + tests * TRI_OPS[tri]
+    nbytes = (n_rays * ray_bytes + ds.qnodes.numel() * 4 + lc.numel() * 4
+              + int(lc.sum()) * qt.TRI_STRIDE * 4)
+    return bound_of(nbytes, ops)
+
+
+def leaf_tests(ds, origin, direction, t_max, skip_object=None):
+    """The triangle tests K1 (skip_object None) or K2 make on these rays:
+    the plain walk's, counting in each leaf row it visits the slots below
+    the row's count (quad_traverse.row_counts), and for any-hit those up to
+    the first accepted hit only. Returns an int."""
+    import torch
+
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    total = [0]
+
+    def closest(o, d, rows, *best_and_t_min):
+        total[0] += int(qt.row_counts(rows).sum())
+        return qt._serial_leaf(o, d, rows, *best_and_t_min)
+
+    def any_hit(o, d, rows, tm, skip_f, t_min):
+        ox, oy, oz = o.unbind(1)
+        dx, dy, dz = d.unbind(1)
+        tests = qt.row_counts(rows)
+        found = torch.zeros_like(tm, dtype=torch.bool)
+        for k in range(rows.shape[1] // qt.TRI_STRIDE):
+            tri = rows[:, k * qt.TRI_STRIDE:(k + 1) * qt.TRI_STRIDE]
+            _, _, _, valid = qt._moller(ox, oy, oz, dx, dy, dz, tri, tm,
+                                        t_min)
+            first = valid & (tri[:, 10] != skip_f) & ~found
+            tests = torch.where(first, k + 1, tests)
+            found |= first
+        total[0] += int(tests.sum())
+        return found
+
+    inv = qt._inv_dir(direction)
+    if skip_object is None:
+        qt._closest_walk(origin, direction, t_max, ds.root, ds.ptris,
+                         qt._quad_near_last_visit(origin, inv, ds.qmeta,
+                                                  ds.qnodes),
+                         qt.CAP, qt.T_MIN, leaf_test=closest)
+    else:
+        qt._any_walk(origin, direction, t_max, skip_object, ds.root,
+                     ds.ptris, qt._quad_fixed_visit(origin, inv, ds.qmeta,
+                                                    ds.qnodes),
+                     qt.CAP, qt.T_MIN, leaf_test=any_hit)
+    return total[0]
 
 
 def bound_of(nbytes, ops, ops_per_s=PEAK_FP32_PER_S):
@@ -321,8 +391,10 @@ def bench_camera_ubo(device, width, height):
 
 
 def ray_sets(ds, device):
-    """The three 1920x1080 ray sets: primary, incoherent reflected, shadow
-    (t_max, skip_object, active mask)."""
+    """The 1920x1080 ray sets: primary, incoherent reflected (both with
+    active mask None) and the incoherent set with INACTIVE_SHARE of its
+    lanes inactive; shadow (t_max, skip_object, active mask) and the shadow
+    set with the same lanes inactive."""
     import numpy as np
     import torch
 
@@ -356,12 +428,18 @@ def ray_sets(ds, device):
     to_l = target - pos
     dist = to_l.norm(dim=1)
     sdir = (to_l / dist.clamp_min(1e-20)[:, None]).contiguous()
+    shadow = (pos.contiguous(), sdir, (dist * 0.999).contiguous(),
+              torch.full((n,), light_obj, dtype=torch.int32, device=device))
+    # A quarter of the lanes inactive, from a numpy seed: the kernels'
+    # fetch answers such rays without walking them.
+    keep = torch.from_numpy(np.random.default_rng(INACTIVE_SEED).uniform(
+        size=n) >= INACTIVE_SHARE).to(device)
     return {
-        "primary": (origin, direction),
-        "incoherent": (origin, bdir),
-        "shadow": (pos.contiguous(), sdir, (dist * 0.999).contiguous(),
-                   torch.full((n,), light_obj, dtype=torch.int32,
-                              device=device), hit.hit),
+        "primary": (origin, direction, None),
+        "incoherent": (origin, bdir, None),
+        "incoherent_inactive": (origin, bdir, keep),
+        "shadow": (*shadow, hit.hit),
+        "shadow_inactive": (*shadow, hit.hit & keep),
     }
 
 
@@ -380,59 +458,109 @@ def phase2(ds, device):
     report = {}
 
     scene_args = (ds.root, ds.qmeta, ds.qnodes, ds.ptris)
-    for name in ("primary", "incoherent"):
-        o, d = sets[name]
+    for name in ("primary", "incoherent", "incoherent_inactive"):
+        o, d, active = sets[name]
         tmax = torch.full((n,), 1e4, device=device)
-        got = qt.intersect_quad(o, d, ds, 1e-3, tmax)
+        got = qt.intersect_quad(o, d, ds, 1e-3, tmax, active_mask=active)
+        tm_eff = qt._ray_inputs(o, d, tmax, active)[2]
         _, sub_ms = host_ms(qt._intersect_quad_plain, o[sub].contiguous(),
-                                d[sub].contiguous(), tmax[sub], *scene_args)
+                            d[sub].contiguous(), tm_eff[sub], *scene_args)
         # The full set contains the strided subset: gate on every ray.
         counts = new_counts(o)
-        ref, plain_ms = host_ms(qt._intersect_quad_plain, o, d, tmax,
-                                    *scene_args, counts)
+        ref, plain_ms = host_ms(qt._intersect_quad_plain, o, d, tm_eff,
+                                *scene_args, counts)
         hit_mism = int(((got.tri >= 0) != (ref[1] >= 0)).sum())
         tri_mism = int((got.tri != ref[1]).sum())
         max_dt = float((got.t - ref[0]).abs().max())
         uv_equal = bool(torch.equal(got.u, ref[2])
                         and torch.equal(got.v, ref[3]))
-        ms = cuda_ms(lambda: qt.intersect_quad(o, d, ds, 1e-3, tmax), 5)
-        log(f"phase 2: closest {name}: {int((got.tri >= 0).sum())} of {n} "
-            f"rays hit; all {n} rays vs plain: hit_mism {hit_mism} "
-            f"tri_mism {tri_mism} max|dt| {max_dt} uv_equal {uv_equal}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {n} rays, "
-            f"plain {sub_ms:.1f} ms on the {sub.numel()}-ray subset")
+        ms = cuda_ms(lambda: qt.intersect_quad(o, d, ds, 1e-3, tmax,
+                                               active_mask=active), 5)
+        log(f"phase 2: closest {name}: {inactive_share(tm_eff):.4f} of the "
+            f"lanes inactive, {int((got.tri >= 0).sum())} of {n} rays hit; "
+            f"all {n} rays vs plain: hit_mism {hit_mism} tri_mism "
+            f"{tri_mism} max|dt| {max_dt} uv_equal {uv_equal}; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms on {n} rays, plain "
+            f"{sub_ms:.1f} ms on the {sub.numel()}-ray subset")
         if hit_mism or tri_mism or max_dt != 0.0 or not uv_equal:
             raise RuntimeError(f"closest kernel != plain version ({name})")
         report[f"closest_{name}"] = dict(
             ms=ms, plain_ms=plain_ms, max_abs_err=max_dt,
-            **bound(n, CLOSEST_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris),
-                    counts, "quad", "closest"))
+            **quad_bound(ds, n, CLOSEST_RAY_BYTES, counts,
+                         leaf_tests(ds, o, d, tm_eff), "quad", "closest"))
+        log_quad_bound(f"closest {name}", report[f"closest_{name}"], ds,
+                       counts, "quad", "closest")
 
-    o, d, tmax, skip, active = sets["shadow"]
-    got = qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip, active_mask=active)
-    tm_eff = torch.where(active, tmax, 1e-3)
-    _, sub_ms = host_ms(qt._occlusion_quad_plain, o[sub].contiguous(),
+    for name in ("shadow", "shadow_inactive"):
+        o, d, tmax, skip, active = sets[name]
+        got = qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip,
+                                active_mask=active)
+        tm_eff = qt._ray_inputs(o, d, tmax, active)[2]
+        _, sub_ms = host_ms(qt._occlusion_quad_plain, o[sub].contiguous(),
                             d[sub].contiguous(), tm_eff[sub], skip[sub],
                             *scene_args)
-    counts = new_counts(o)
-    ref, plain_ms = host_ms(qt._occlusion_quad_plain, o, d, tm_eff, skip,
+        counts = new_counts(o)
+        ref, plain_ms = host_ms(qt._occlusion_quad_plain, o, d, tm_eff, skip,
                                 *scene_args, counts)
-    mism = int((got != ref).sum())
-    ms = cuda_ms(lambda: qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip,
-                                           active_mask=active), 5)
-    log(f"phase 2: occlusion shadow: {int(active.sum())} active, "
-        f"{int(got.sum())} occluded; all {n} rays vs plain: mism {mism}; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {n} rays, plain "
-        f"{sub_ms:.1f} ms on the {sub.numel()}-ray subset")
-    if mism:
-        raise RuntimeError("occlusion kernel != plain version")
-    report["occlusion_shadow"] = dict(
-        ms=ms, plain_ms=plain_ms,
-        max_abs_err=float((got.int() - ref.int()).abs().max()),
-        **bound(n, ANY_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris), counts,
-                "quad_fixed", "any"))
+        mism = int((got != ref).sum())
+        ms = cuda_ms(lambda: qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip,
+                                               active_mask=active), 5)
+        log(f"phase 2: occlusion {name}: {inactive_share(tm_eff):.4f} of "
+            f"the lanes inactive, {int(got.sum())} occluded; all {n} rays "
+            f"vs plain: mism {mism}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms on {n} rays, plain {sub_ms:.1f} ms on the "
+            f"{sub.numel()}-ray subset")
+        if mism:
+            raise RuntimeError(f"occlusion kernel != plain version ({name})")
+        report[f"occlusion_{name}"] = dict(
+            ms=ms, plain_ms=plain_ms,
+            max_abs_err=float((got.int() - ref.int()).abs().max()),
+            **quad_bound(ds, n, ANY_RAY_BYTES, counts,
+                         leaf_tests(ds, o, d, tm_eff, skip), "quad_fixed",
+                         "any"))
+        log_quad_bound(f"occlusion {name}", report[f"occlusion_{name}"], ds,
+                       counts, "quad_fixed", "any")
+    phase2_launch_info(ds)
     report.update(phase2_binary(ds, sets))
     return report
+
+
+def log_quad_bound(what, r, ds, counts, node, tri):
+    """K1's or K2's bound on one set, beside bound() of the same walk,
+    which counts every slot of each leaf row visited and reads qmeta and
+    every row whole (the bound given for the one-thread-per-ray design)."""
+    whole = bound(WIDTH * HEIGHT, CLOSEST_RAY_BYTES if tri == "closest"
+                  else ANY_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris),
+                  counts, node, tri)
+    log(f"phase 2: bound {what}: {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        f"{r['bytes']} B, {r['ops']} FP32 operations); every slot of each "
+        f"row visited: {whole['bound_ms']:.4f} ms ({whole['ops']} "
+        f"operations)")
+
+
+def inactive_share(t_max):
+    """The share of lanes whose t_max leaves them inactive (<= 1e-3)."""
+    return float((t_max <= 1e-3).float().mean())
+
+
+def phase2_launch_info(ds):
+    """K1 and K2 as launched on this card: registers and ptxas spills,
+    local memory, dynamic shared memory, resident blocks a SM, the
+    persistent grid, G and the refill threshold."""
+    from raytracer_tpu_torch.ops import _build
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    ptxas = _build.build_info.get("libquad_traverse", {}).get("log", "")
+    for kernel in ("closest", "occlusion"):
+        i = qt.launch_info(kernel, ds)
+        st, ld = _build.ptxas_spills(ptxas, f"{kernel}_kernel")
+        log(f"phase 2: {kernel}_kernel: {i['registers']} registers, spill "
+            f"stores {st} B, spill loads {ld} B, local {i['local_bytes']} B "
+            f"a thread, dynamic shared {i['smem_bytes']} B a block (stack "
+            f"need {ds.q_stack_need}), {i['blocks_per_sm']} blocks of 128 a "
+            f"SM ({4 * i['blocks_per_sm']} warps), grid {i['grid']} blocks "
+            f"on {i['sms']} SMs; G = {i['group']}, refill at "
+            f"{i['refill_at']} idle lanes")
 
 
 def phase2_binary(ds, sets):
@@ -449,7 +577,7 @@ def phase2_binary(ds, sets):
     report = {}
     scene_args = (ds.binary_root, ds.pnodes, ds.ptris)
     for name in ("primary", "incoherent"):
-        o, d = sets[name]
+        o, d, _ = sets[name]
         tmax = torch.full((n,), 1e4, device=device)
         got = bt.intersect_bvh_binary(o, d, ds, 1e-3, tmax)
         counts = new_counts(o)
@@ -1299,10 +1427,11 @@ def main():
         entry("quad_closest", KERNEL_SOURCE,
               "raytracer_tpu/ops/pallas_subpacket.py:329",
               cuda_launches["quad_closest"], k["closest_incoherent"],
-              k["closest_primary"]),
+              k["closest_primary"], k["closest_incoherent_inactive"]),
         entry("quad_occlusion", KERNEL_SOURCE,
               "raytracer_tpu/ops/pallas_subpacket.py:423",
-              cuda_launches["quad_occlusion"], k["occlusion_shadow"]),
+              cuda_launches["quad_occlusion"], k["occlusion_shadow"],
+              k["occlusion_shadow_inactive"]),
         entry("binary_closest", BINARY_SOURCE,
               "raytracer_tpu/ops/pallas_traverse.py:167",
               bvh_launches["binary_closest"], k["binary_closest_incoherent"],

@@ -38,4 +38,10 @@ the kernels' plain torch versions, which the tests compare with the JAX
 lab kernels. `rays` builds the lab's ray sets; `queue_walk` is the plain
 deferred-leaf walk of L4-L8; `fixed_seq` is the fixed-sequence harness of
 L10-L12.
+
+One more lab has no JAX counterpart: `quad_variant_lab` rebuilds the
+render path's K1/K2 (csrc/quad_traverse.cu) with other values of their
+two tuning constants and times them on the lab's sets:
+
+    python -m raytracer_tpu_torch.lab.quad_variant_lab
 """

@@ -1,0 +1,175 @@
+"""K1/K2 variant lab: csrc/quad_traverse.cu rebuilt with other values of
+its two tuning constants, timed against each other on the render path's
+ray sets. The constants are kGroup (G, the triangles of a leaf row whose
+loads start together) and kRefillAt (the idle lanes of a warp's 32 at
+which it fetches new rays; 32 waits for the whole warp).
+
+    python -m raytracer_tpu_torch.lab.quad_variant_lab [--reps 20]
+
+Bakes the 300k atrium at leaf 16 (the render path's bake) and builds the
+closest-hit sets of lab.rays (primary rays, the bounce-1 wavefront in the
+renderer's order) and its NEE shadow batches (bounces 0 and 1). The
+variants: each G of GROUPS at the source's refill threshold, and each
+threshold of REFILLS at the source's G. Each is built with nvcc from an
+edited copy of the source (all at once, into the build directory; csrc/ is
+not touched) and must equal the plain versions on every ray of every set
+(bit equality), else the lab exits non-zero. Then it prints, per variant,
+its registers and ptxas spills, resident blocks a SM, the ms of each set
+(CUDA events, mean of --reps, in two passes over the variants, the second
+in reverse order) and the sum of the sets' means.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import os
+import re
+import sys
+
+import torch
+
+from raytracer_tpu_torch.lab import rays as lab_rays
+from raytracer_tpu_torch.ops import _build
+from raytracer_tpu_torch.ops import quad_traverse as qt
+
+LEAF_SIZE = 16
+SOURCE = os.path.join(_build.CSRC_DIR, "quad_traverse.cu")
+CONSTANTS = {"group": "kGroup", "refill_at": "kRefillAt"}
+GROUPS = (2, 4, 8)
+REFILLS = (1, 4, 8, 16, 24, 32)
+REPS = 20
+CLOSEST_SETS = ("primary", "bounce1")
+SHADOW_SETS = ("shadow_b0", "shadow_b1")
+
+
+def _pattern(name):
+    return re.compile(rf"constexpr int {name} = (\d+);")
+
+
+def source_values(text):
+    """{"group", "refill_at"} -> the value the source sets."""
+    out = {}
+    for key, name in CONSTANTS.items():
+        found = _pattern(name).findall(text)
+        if len(found) != 1:
+            raise ValueError(f"{name} is set {len(found)} times, not once")
+        out[key] = int(found[0])
+    return out
+
+
+def variant_source(text, group, refill_at):
+    """The source with kGroup = group and kRefillAt = refill_at."""
+    source_values(text)  # each set exactly once
+    for name, value in (("kGroup", group), ("kRefillAt", refill_at)):
+        text = _pattern(name).sub(f"constexpr int {name} = {value};", text)
+    return text
+
+
+def variants(values):
+    """(group, refill_at) of every variant: each of GROUPS at the source's
+    refill threshold, then each other one of REFILLS at the source's G."""
+    out = [(g, values["refill_at"]) for g in GROUPS]
+    out += [(values["group"], r) for r in REFILLS if r != values["refill_at"]]
+    return out
+
+
+def build_variant(text, group, refill_at):
+    """(the variant's library, its ptxas log)."""
+    stem = f"libquad_traverse_g{group}_r{refill_at}"
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_build.BUILD_DIR, f"{stem}.cu")
+    with open(src, "w") as f:
+        f.write(variant_source(text, group, refill_at))
+    path = _build.compile_library(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR], src,
+        stem, headers=_build.CUDA_HEADERS)
+    lib = _build.bind(ctypes.CDLL(path), _build.QUAD_TRAVERSE_SIGNATURES)
+    return lib, _build.build_info[stem]["log"]
+
+
+def run(reps=REPS, say=print):
+    """Build, gate and time every variant; returns {(group, refill_at):
+    {"info": launch_info of K1 and K2, "ms": {set: [pass 1, pass 2]}}}."""
+    device = lab_rays.require_cuda()
+    with open(SOURCE) as f:
+        text = f.read()
+    values = source_values(text)
+    todo = variants(values)
+    with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+        built = dict(zip(todo, pool.map(
+            lambda v: build_variant(text, *v), todo)))
+
+    ds = lab_rays.atrium(LEAF_SIZE, device)
+    closest = lab_rays.closest_sets(ds)
+    shadow = lab_rays.shadow_sets(ds)
+    scene = (ds.root, ds.qmeta, ds.qnodes, ds.ptris)
+    calls, refs = {}, {}
+    for name in CLOSEST_SETS:
+        o, d, tm = closest[name]
+        calls[name] = lambda lib, o=o, d=d, tm=tm: qt._intersect_quad_cuda(
+            o, d, tm, ds, lib)
+        refs[name] = qt._intersect_quad_plain(o, d, tm, *scene)
+    for name in SHADOW_SETS:
+        o, d, tm, skip, _ = shadow[name]
+        calls[name] = lambda lib, o=o, d=d, tm=tm, skip=skip: (
+            qt._occlusion_quad_cuda(o, d, tm, skip, ds, lib),)
+        refs[name] = (qt._occlusion_quad_plain(o, d, tm, skip, *scene),)
+
+    out = {}
+    for v in todo:
+        lib, log = built[v]
+        for name, call in calls.items():
+            got = call(lib)
+            if not all(torch.equal(a, b) for a, b in zip(got, refs[name])):
+                raise RuntimeError(f"variant G={v[0]} refill_at={v[1]} != "
+                                   f"the plain version on {name}")
+        info = {k: qt.launch_info(k, ds, lib) for k in ("closest",
+                                                         "occlusion")}
+        for k in info:
+            info[k]["spills"] = _build.ptxas_spills(log, f"{k}_kernel")
+        out[v] = {"info": info, "ms": {name: [] for name in calls}}
+    for v in todo + todo[::-1]:
+        lib = built[v][0]
+        for name, call in calls.items():
+            out[v]["ms"][name].append(
+                lab_rays.cuda_ms(lambda: call(lib), reps))
+
+    n = {name: int((closest[name][2] > qt.T_MIN).sum())
+         for name in CLOSEST_SETS}
+    n.update({name: int(shadow[name][4].sum()) for name in SHADOW_SETS})
+    say(f"quad_variant_lab: atrium leaf {LEAF_SIZE}, stack need "
+        f"{ds.q_stack_need}; live rays of {lab_rays.WIDTH * lab_rays.HEIGHT}: "
+        + ", ".join(f"{k} {c}" for k, c in n.items())
+        + f"; the source's G = {values['group']}, refill at "
+        f"{values['refill_at']}; every variant equal to the plain versions "
+        "on every ray")
+    for v in todo:
+        parts = []
+        for k, i in out[v]["info"].items():
+            st, ld = i["spills"]
+            parts.append(f"{k} {i['registers']} registers, spills {st}/{ld} "
+                         f"B, {i['blocks_per_sm']} blocks a SM")
+        ms = out[v]["ms"]
+        total = sum(sum(m) / 2 for m in ms.values())
+        say(f"G={v[0]} refill_at={v[1]}: " + "; ".join(parts) + "; ms (two "
+            "passes) " + ", ".join(f"{name} {m[0]:.3f}/{m[1]:.3f}"
+                                   for name, m in ms.items())
+            + f"; sum of the means {total:.3f}")
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--reps", type=int, default=REPS)
+    args = p.parse_args(argv)
+    say = lambda m: print(m, flush=True)  # noqa: E731
+    run(args.reps, say)
+    say(f"quad_variant_lab on {lab_rays.card_line()} (SM clock read after "
+        "the runs)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -96,23 +97,43 @@ def compile_library(argv, src: str, stem: str, headers=()) -> str:
     return path
 
 
+def ptxas_spills(log_text: str, kernel: str):
+    """(spill store bytes, spill load bytes) of the first function whose
+    mangled name contains `kernel`, from a -Xptxas=-v build log; ("?",
+    "?") when the log does not hold it (a cached library)."""
+    found = False
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            found = kernel in line
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and found:
+            return int(m.group(1)), int(m.group(2))
+    return "?", "?"
+
+
+def bind(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    """Set `lib`'s entry points' argtypes from `signatures` (entry point ->
+    argtypes) and their restype to int, the launch's cudaError_t."""
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def _cuda_lib(name: str, signatures, headers=CUDA_HEADERS) -> ctypes.CDLL:
     """csrc/<name>.cu built (stem lib<name>; its hash covers `headers`, the
-    repo's headers it includes) and loaded once per process; `signatures`
-    maps each entry point to its argtypes (restype int, the launch's
-    cudaError_t)."""
+    repo's headers it includes) and loaded once per process, its entry
+    points bound to `signatures`."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        lib = ctypes.CDLL(compile_library(
+        lib = bind(ctypes.CDLL(compile_library(
             [_nvcc(), *NVCC_FLAGS], os.path.join(CSRC_DIR, f"{name}.cu"),
-            f"lib{name}", headers=headers))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            f"lib{name}", headers=headers)), signatures)
         _libs[name] = lib
         return lib
 
@@ -123,14 +144,20 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
 
+# csrc/quad_traverse.cu's entry points. After the rays: root, qnodes,
+# ptris, leaf counts, leaf, stack need, the ray counter; then the outputs
+# and the stream.
+_QUAD_SCENE = [_I32, _P, _P, _P, _I32, _I32, _P]
+QUAD_TRAVERSE_SIGNATURES = {
+    "quad_closest": [_P, _P, _P, _I64, *_QUAD_SCENE, _P, _P, _P, _P, _P],
+    "quad_occlusion": [_P, _P, _P, _P, _I64, *_QUAD_SCENE, _P, _P],
+    "quad_launch_info": [_I32, _I32, _P],
+}
+
+
 def quad_traverse_lib() -> ctypes.CDLL:
     """The 4-wide tree's traversal kernels (csrc/quad_traverse.cu)."""
-    return _cuda_lib("quad_traverse", {
-        "quad_closest": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
-                         _P, _P, _P, _P, _P],
-        "quad_occlusion": [_P, _P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
-                           _P, _P],
-    })
+    return _cuda_lib("quad_traverse", QUAD_TRAVERSE_SIGNATURES)
 
 
 def binary_traverse_lib() -> ctypes.CDLL:

@@ -10,7 +10,11 @@ u, v) with t in (1e-3, t_max), or whether any triangle not of the ray's
 On CUDA tensors they launch the hand-written kernels of
 csrc/quad_traverse.cu (built by ops/_build.py); on CPU tensors they run the
 kernels' plain torch versions below. A CUDA tensor never takes the plain
-version: the launch succeeds or the wrapper raises.
+version: the launch succeeds or the wrapper raises. The kernels run
+persistent warps that take rays from a counter (one int32 allocated with
+each launch), stop each leaf at its last real triangle (`leaf_counts`,
+cached per ptris tensor) and read the child metas from the node rows
+(qnodes lanes 24-27), not from qmeta; see the source's head comment.
 
 The algorithm, shared by kernel and plain version (the TPU kernel's 8-row
 sub-packets, SMEM stacks and leaf queues exist because Mosaic has no
@@ -40,6 +44,7 @@ another order, only hits at exactly equal t may name another triangle.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -49,11 +54,14 @@ CAP = 64  # per-ray stack entries (quad nodes and leaf blocks)
 T_MIN = 1e-3  # the reference's traceRayEXT t_min, fixed in the kernels
 BIG = 3.0e38
 TRI_STRIDE = 12
+MAX_RAYS = 1 << 30  # the kernels' int32 ray counter
 
 # Kernel launches, counted where the CUDA wrappers launch (never by the
 # plain versions), so a caller can show that a run went through them.
 closest_launches = 0
 occlusion_launches = 0
+# id(ptris) -> (a weak reference to that ptris, its leaf counts)
+_leaf_counts = {}
 
 
 def reset_launch_counts():
@@ -283,10 +291,11 @@ def _any_leaf(origin, direction, rows, t_max, skip_f, t_min):
 
 
 def _any_walk(origin, direction, t_max, skip_object, root, ptris,
-              visit_node, cap, t_min, counts=None):
+              visit_node, cap, t_min, counts=None, leaf_test=_any_leaf):
     """Any-hit DFS of every ray, as `_closest_walk` with t_max as the
     pruning bound; a ray stops at its first accepted hit by a triangle not
-    of its `skip_object`. Returns bool[N]."""
+    of its `skip_object` (`leaf_test`, by default any slot of the row).
+    Returns bool[N]."""
     n = origin.shape[0]
     skip_f = skip_object.to(torch.float32)
     occ = torch.zeros((n,), dtype=torch.bool, device=origin.device)
@@ -299,7 +308,7 @@ def _any_walk(origin, direction, t_max, skip_object, root, ptris,
 
         li = live[is_leaf]
         if li.numel():
-            found = _any_leaf(origin[li], direction[li],
+            found = leaf_test(origin[li], direction[li],
                               ptris[(~meta[is_leaf]).long()], t_max[li],
                               skip_f[li], t_min)
             occ[li] |= found
@@ -430,24 +439,71 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _intersect_quad_cuda(origin, direction, t_max, scene):
+def row_counts(rows):
+    """i32[M]: for each leaf row of `rows` (f32[M, leaf*12]), the index of
+    its last slot whose edges are not all zero, plus one (0 for a row
+    without one)."""
+    rows = rows.view(rows.shape[0], -1, TRI_STRIDE)
+    real = (rows[:, :, 3:9] != 0).any(dim=2).to(torch.int32)
+    slot = torch.arange(1, rows.shape[1] + 1, dtype=torch.int32,
+                        device=rows.device)
+    return (real * slot).amax(dim=1).to(torch.int32).contiguous()
+
+
+def leaf_counts(scene):
+    """`row_counts` of `scene.ptris`: the kernels test a row's triangles
+    below its count only, as the slots past it are zero triangles (e1 = e2
+    = 0, so det = 0), which are never valid. Computed on the scene's device
+    at first use and cached per ptris tensor, for as long as it lives."""
+    ptris = scene.ptris
+    key = id(ptris)
+    cached = _leaf_counts.get(key)
+    if cached is not None and cached[0]() is ptris:
+        return cached[1]
+    counts = row_counts(ptris)
+    _leaf_counts[key] = (
+        weakref.ref(ptris, lambda _: _leaf_counts.pop(key, None)), counts)
+    return counts
+
+
+def _launch_args(scene, dev):
+    """The scene and launch arguments both kernels take after the rays:
+    root, qnodes, ptris, leaf counts, leaf size, stack need and the ray
+    counter, one int32 for this launch (the C entry zeroes it on the
+    launch's stream, and the caching allocator hands it to no other
+    stream's work before this launch ends)."""
+    _check_scene_arrays(scene, dev)
+    counts = leaf_counts(scene)  # on ptris's device, i32[NB], contiguous
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)
+    return ((scene.root, _ptr(scene.qnodes), _ptr(scene.ptris),
+             _ptr(counts), scene.ptris.shape[1] // TRI_STRIDE,
+             scene.q_stack_need, _ptr(counter)), counter)
+
+
+def _check_n(n):
+    if n > MAX_RAYS:
+        raise ValueError(f"{n} rays exceed the kernels' {MAX_RAYS}")
+
+
+def _intersect_quad_cuda(origin, direction, t_max, scene, lib=None):
+    """K1 on the card; `lib` another build of csrc/quad_traverse.cu (the
+    variant lab's), else the render path's."""
     global closest_launches
     from raytracer_tpu_torch.ops import _build
 
     n, dev = _check_rays(origin, direction, t_max)
-    _check_scene_arrays(scene, dev)
+    _check_n(n)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return t, tri, u, v
-    lib = _build.quad_traverse_lib()
+    args, _counter = _launch_args(scene, dev)
+    lib = lib or _build.quad_traverse_lib()
     with torch.cuda.device(dev):
         rc = lib.quad_closest(
-            _ptr(origin), _ptr(direction), _ptr(t_max), n, scene.root,
-            _ptr(scene.qmeta), _ptr(scene.qnodes), _ptr(scene.ptris),
-            scene.ptris.shape[1] // TRI_STRIDE,
+            _ptr(origin), _ptr(direction), _ptr(t_max), n, *args,
             _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _stream(dev),
         )
     if rc != 0:
@@ -456,25 +512,47 @@ def _intersect_quad_cuda(origin, direction, t_max, scene):
     return t, tri, u, v
 
 
-def _occlusion_quad_cuda(origin, direction, t_max, skip_object, scene):
+def _occlusion_quad_cuda(origin, direction, t_max, skip_object, scene,
+                         lib=None):
+    """K2 on the card; `lib` as in _intersect_quad_cuda."""
     global occlusion_launches
     from raytracer_tpu_torch.ops import _build
 
     n, dev = _check_rays(origin, direction, t_max)
+    _check_n(n)
     _require("skip_object", skip_object, torch.int32, (n,), dev)
-    _check_scene_arrays(scene, dev)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    lib = _build.quad_traverse_lib()
+    args, _counter = _launch_args(scene, dev)
+    lib = lib or _build.quad_traverse_lib()
     with torch.cuda.device(dev):
         rc = lib.quad_occlusion(
             _ptr(origin), _ptr(direction), _ptr(t_max), _ptr(skip_object),
-            n, scene.root, _ptr(scene.qmeta), _ptr(scene.qnodes),
-            _ptr(scene.ptris), scene.ptris.shape[1] // TRI_STRIDE,
-            _ptr(occ), _stream(dev),
+            n, *args, _ptr(occ), _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"quad_occlusion launch failed: cudaError {rc}")
     occlusion_launches += 1
     return occ
+
+
+def launch_info(kernel, scene, lib=None):
+    """What a launch of `kernel` ("closest" or "occlusion") on `scene`'s
+    device looks like: {"registers", "local_bytes" (a thread), "smem_bytes"
+    (dynamic, a block), "blocks_per_sm", "sms", "grid" (the persistent
+    grid), "group" (the triangles of a leaf loaded together), "refill_at"
+    (the idle lanes at which a warp fetches rays)}; `lib` as in
+    _intersect_quad_cuda."""
+    from raytracer_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 8)()
+    dev = scene.qnodes.device
+    with torch.cuda.device(dev):
+        rc = (lib or _build.quad_traverse_lib()).quad_launch_info(
+            int(kernel == "occlusion"), scene.q_stack_need, out)
+    if rc != 0:
+        raise RuntimeError(f"quad_launch_info failed: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "sms", "grid", "group", "refill_at"),
+                    out))

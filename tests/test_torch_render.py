@@ -336,6 +336,12 @@ def test_port_never_imports_jax():
         "x, y = bf16_lab.inputs('f32_fma', 1)\n"
         "bf16_lab.run_bf16('f32_fma', x, y, 8)\n"
         "bf16_lab.run_bf16('bf16', *bf16_lab.inputs('bf16', 1), 8)\n"
+        "from raytracer_tpu_torch.ops import quad_traverse\n"
+        "assert quad_traverse.leaf_counts(ds8).min() > 0\n"
+        "from raytracer_tpu_torch.utils import profile_frame\n"
+        "from raytracer_tpu_torch.lab import quad_variant_lab\n"
+        "quad_variant_lab.variants(quad_variant_lab.source_values(open("
+        "quad_variant_lab.SOURCE).read()))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
