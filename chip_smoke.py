@@ -17,15 +17,19 @@ Phases (any failure exits non-zero and prints no result line):
      300k-triangle atrium and five 1920x1080 ray sets (primary rays,
      incoherent reflected rays, the incoherent rays with a quarter of the
      lanes inactive, shadow rays with finite t_max and a skipped light
-     object, and the shadow rays with the same lanes inactive). The plain
-     versions run on every ray (and, for K1/K2, timed apart on a strided
-     subset of >= 65,536 rays); the gate is bit equality (hit, tri, t, u,
-     v; the occlusion mask). Times the kernels (CUDA events, mean of 5
-     launches) and the plain versions (host clock, one run). Prints how
-     K1/K2 launch on this card (registers and ptxas spills, local and
-     dynamic shared memory, resident blocks a SM, the persistent grid, G
-     and the refill threshold) and the share of inactive lanes in each
-     set. K3 against K1 and K4 against K2 on the same rays: hit flips and
+     object, and the shadow rays with the same lanes inactive); K3/K4
+     also on the primary and shadow sets at t_min 0.01 (a t_min that
+     makes the renderer fall back to accel="bvh"), and once at the
+     largest stack need (128 entries, 64 KB of shared memory a block) on
+     the primary and shadow sets. The plain versions run on every ray
+     (and, for K1/K2, timed apart on a strided subset of >= 65,536 rays);
+     the gate is bit equality (hit, tri, t, u, v; the occlusion mask).
+     Times the kernels (CUDA events, mean of 5 launches) and the plain
+     versions (host clock, one run). Prints how K1-K4 launch on this card
+     (registers and ptxas spills, local and dynamic shared memory,
+     resident blocks a SM, the persistent grid, G and the refill
+     threshold) and the share of inactive lanes in each set. K3 against
+     K1 and K4 against K2 on the same rays at t_min 1e-3: hit flips and
      triangle differences at most 1e-4 of the rays.
   3. The main path: ProgressiveRenderer on the atrium at 1920x1080, depth 3,
      NEE; 2 warm and 4 timed frames, with ms/frame, rays/frame, Mrays/s
@@ -90,7 +94,7 @@ Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
 FP32 operations over the card's FP32 rate (L12: its results over the
 card's instruction rate for their type), counted on the run whose ms it
-shows (bound(), quad_bound() for K1/K2, which count only the triangles
+shows (bound(), walk_bound() for K1-K4, which count only the triangles
 they test, fixed_seq_bound(), chain_bound()); library_ms is null, as
 no PyTorch call computes a BVH walk, a fixed-sequence walk or a K-step
 chain. The line before the last is {"kernels": [...]}; the last line is
@@ -221,28 +225,51 @@ def bound(n_rays, ray_bytes, arrays, counts, node, tri):
     return bound_of(nbytes, ops)
 
 
-def quad_bound(ds, n_rays, ray_bytes, counts, tests, node, tri):
-    """K1's or K2's bound: as bound(), for what they read and test. Bytes:
-    each ray's inputs and outputs, the node rows (the child metas are in
-    them; qmeta is not read), the leaf counts and the real triangles of
-    each leaf row, once. Operations: the internal visits of `counts` times
-    NODE_OPS[node] and `tests` (leaf_tests(): the triangles they test, not
-    every slot of each row visited) times TRI_OPS[tri]."""
+def walk_bound(ds, nodes, n_rays, ray_bytes, counts, tests, node, tri):
+    """The bound of K1-K4, which test only the triangles below each leaf
+    row's count: as bound(), for what they read and test. Bytes: each ray's
+    inputs and outputs, the tree's node rows `nodes` (qnodes, whose rows
+    hold the child metas, or pnodes), the leaf counts and the real
+    triangles of each leaf row, once. Operations: the internal visits of
+    `counts` times NODE_OPS[node] and `tests` (leaf_tests(): the triangles
+    they test, not every slot of each row visited) times TRI_OPS[tri]."""
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     lc = qt.leaf_counts(ds)
     visits, leaves = (int(c.sum()) for c in counts)
     ops = (visits - leaves) * NODE_OPS[node] + tests * TRI_OPS[tri]
-    nbytes = (n_rays * ray_bytes + ds.qnodes.numel() * 4 + lc.numel() * 4
+    nbytes = (n_rays * ray_bytes + nodes.numel() * 4 + lc.numel() * 4
               + int(lc.sum()) * qt.TRI_STRIDE * 4)
     return bound_of(nbytes, ops)
 
 
-def leaf_tests(ds, origin, direction, t_max, skip_object=None):
-    """The triangle tests K1 (skip_object None) or K2 make on these rays:
-    the plain walk's, counting in each leaf row it visits the slots below
-    the row's count (quad_traverse.row_counts), and for any-hit those up to
-    the first accepted hit only. Returns an int."""
+def quad_walk(ds, origin, direction, closest):
+    """(root, node step, stack cap) of K1's (`closest`) or K2's plain
+    walk."""
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    visit = qt._quad_near_last_visit if closest else qt._quad_fixed_visit
+    return (ds.root, visit(origin, qt._inv_dir(direction), ds.qmeta,
+                           ds.qnodes), qt.CAP)
+
+
+def binary_walk(ds, origin, direction, t_min):
+    """(root, node step, stack cap) of K3's and K4's plain walk."""
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    return (ds.binary_root, bt._binary_visit(origin, qt._inv_dir(direction),
+                                             ds.pnodes, t_min), bt.STACK_CAP)
+
+
+def leaf_tests(ds, walk, origin, direction, t_max, skip_object=None,
+               t_min=1e-3):
+    """The triangle tests a kernel of the persistent walk makes on these
+    rays, closest hit (skip_object None) or any-hit: those of the plain
+    walk `walk` (quad_walk() or binary_walk()), counting in each leaf row
+    it visits the slots below the row's count (quad_traverse.row_counts),
+    and for any-hit those up to the first accepted hit only. Returns an
+    int."""
     import torch
 
     from raytracer_tpu_torch.ops import quad_traverse as qt
@@ -268,17 +295,13 @@ def leaf_tests(ds, origin, direction, t_max, skip_object=None):
         total[0] += int(tests.sum())
         return found
 
-    inv = qt._inv_dir(direction)
+    root, visit, cap = walk
     if skip_object is None:
-        qt._closest_walk(origin, direction, t_max, ds.root, ds.ptris,
-                         qt._quad_near_last_visit(origin, inv, ds.qmeta,
-                                                  ds.qnodes),
-                         qt.CAP, qt.T_MIN, leaf_test=closest)
+        qt._closest_walk(origin, direction, t_max, root, ds.ptris, visit,
+                         cap, t_min, leaf_test=closest)
     else:
-        qt._any_walk(origin, direction, t_max, skip_object, ds.root,
-                     ds.ptris, qt._quad_fixed_visit(origin, inv, ds.qmeta,
-                                                    ds.qnodes),
-                     qt.CAP, qt.T_MIN, leaf_test=any_hit)
+        qt._any_walk(origin, direction, t_max, skip_object, root, ds.ptris,
+                     visit, cap, t_min, leaf_test=any_hit)
     return total[0]
 
 
@@ -469,27 +492,23 @@ def phase2(ds, device):
         counts = new_counts(o)
         ref, plain_ms = host_ms(qt._intersect_quad_plain, o, d, tm_eff,
                                 *scene_args, counts)
-        hit_mism = int(((got.tri >= 0) != (ref[1] >= 0)).sum())
-        tri_mism = int((got.tri != ref[1]).sum())
-        max_dt = float((got.t - ref[0]).abs().max())
-        uv_equal = bool(torch.equal(got.u, ref[2])
-                        and torch.equal(got.v, ref[3]))
+        max_dt = gate_closest(f"K1 {name}", (got.t, got.tri, got.u, got.v),
+                              ref)
         ms = cuda_ms(lambda: qt.intersect_quad(o, d, ds, 1e-3, tmax,
                                                active_mask=active), 5)
         log(f"phase 2: closest {name}: {inactive_share(tm_eff):.4f} of the "
             f"lanes inactive, {int((got.tri >= 0).sum())} of {n} rays hit; "
-            f"all {n} rays vs plain: hit_mism {hit_mism} tri_mism "
-            f"{tri_mism} max|dt| {max_dt} uv_equal {uv_equal}; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms on {n} rays, plain "
+            f"all {n} rays equal to the plain version (t, tri, u, v); "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {n} rays, plain "
             f"{sub_ms:.1f} ms on the {sub.numel()}-ray subset")
-        if hit_mism or tri_mism or max_dt != 0.0 or not uv_equal:
-            raise RuntimeError(f"closest kernel != plain version ({name})")
         report[f"closest_{name}"] = dict(
             ms=ms, plain_ms=plain_ms, max_abs_err=max_dt,
-            **quad_bound(ds, n, CLOSEST_RAY_BYTES, counts,
-                         leaf_tests(ds, o, d, tm_eff), "quad", "closest"))
-        log_quad_bound(f"closest {name}", report[f"closest_{name}"], ds,
-                       counts, "quad", "closest")
+            **walk_bound(ds, ds.qnodes, n, CLOSEST_RAY_BYTES, counts,
+                         leaf_tests(ds, quad_walk(ds, o, d, True), o, d,
+                                    tm_eff), "quad", "closest"))
+        log_walk_bound(f"closest {name}", report[f"closest_{name}"],
+                       (ds.qnodes, ds.qmeta, ds.ptris), counts, "quad",
+                       "closest")
 
     for name in ("shadow", "shadow_inactive"):
         o, d, tmax, skip, active = sets[name]
@@ -515,57 +534,83 @@ def phase2(ds, device):
         report[f"occlusion_{name}"] = dict(
             ms=ms, plain_ms=plain_ms,
             max_abs_err=float((got.int() - ref.int()).abs().max()),
-            **quad_bound(ds, n, ANY_RAY_BYTES, counts,
-                         leaf_tests(ds, o, d, tm_eff, skip), "quad_fixed",
-                         "any"))
-        log_quad_bound(f"occlusion {name}", report[f"occlusion_{name}"], ds,
-                       counts, "quad_fixed", "any")
+            **walk_bound(ds, ds.qnodes, n, ANY_RAY_BYTES, counts,
+                         leaf_tests(ds, quad_walk(ds, o, d, False), o, d,
+                                    tm_eff, skip), "quad_fixed", "any"))
+        log_walk_bound(f"occlusion {name}", report[f"occlusion_{name}"],
+                       (ds.qnodes, ds.qmeta, ds.ptris), counts, "quad_fixed",
+                       "any")
     phase2_launch_info(ds)
     report.update(phase2_binary(ds, sets))
     return report
 
 
-def log_quad_bound(what, r, ds, counts, node, tri):
-    """K1's or K2's bound on one set, beside bound() of the same walk,
-    which counts every slot of each leaf row visited and reads qmeta and
-    every row whole (the bound given for the one-thread-per-ray design)."""
+def log_walk_bound(what, r, arrays, counts, node, tri):
+    """A persistent kernel's bound on one set, beside bound() of the same
+    walk, which counts every slot of each leaf row visited and reads the
+    tree's `arrays` whole (qmeta too for K1/K2): the bound given for the
+    one-thread-per-ray design."""
     whole = bound(WIDTH * HEIGHT, CLOSEST_RAY_BYTES if tri == "closest"
-                  else ANY_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris),
-                  counts, node, tri)
+                  else ANY_RAY_BYTES, arrays, counts, node, tri)
     log(f"phase 2: bound {what}: {r['bound_ms']:.4f} ms ({r['bound_by']}: "
         f"{r['bytes']} B, {r['ops']} FP32 operations); every slot of each "
         f"row visited: {whole['bound_ms']:.4f} ms ({whole['ops']} "
         f"operations)")
 
 
-def inactive_share(t_max):
-    """The share of lanes whose t_max leaves them inactive (<= 1e-3)."""
-    return float((t_max <= 1e-3).float().mean())
+def inactive_share(t_max, t_min=1e-3):
+    """The share of lanes whose t_max leaves them inactive (<= t_min)."""
+    return float((t_max <= t_min).float().mean())
 
 
 def phase2_launch_info(ds):
-    """K1 and K2 as launched on this card: registers and ptxas spills,
-    local memory, dynamic shared memory, resident blocks a SM, the
-    persistent grid, G and the refill threshold."""
+    """K1-K4 as launched on this card: registers and ptxas spills, local
+    memory, dynamic shared memory, resident blocks a SM, the persistent
+    grid, G and the refill threshold; K3/K4 also at the largest stack need
+    the port accepts (STACK_CAP)."""
     from raytracer_tpu_torch.ops import _build
+    from raytracer_tpu_torch.ops import binary_traverse as bt
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
-    ptxas = _build.build_info.get("libquad_traverse", {}).get("log", "")
-    for kernel in ("closest", "occlusion"):
-        i = qt.launch_info(kernel, ds)
-        st, ld = _build.ptxas_spills(ptxas, f"{kernel}_kernel")
-        log(f"phase 2: {kernel}_kernel: {i['registers']} registers, spill "
-            f"stores {st} B, spill loads {ld} B, local {i['local_bytes']} B "
-            f"a thread, dynamic shared {i['smem_bytes']} B a block (stack "
-            f"need {ds.q_stack_need}), {i['blocks_per_sm']} blocks of 128 a "
-            f"SM ({4 * i['blocks_per_sm']} warps), grid {i['grid']} blocks "
-            f"on {i['sms']} SMs; G = {i['group']}, refill at "
-            f"{i['refill_at']} idle lanes")
+    for label, stem, info, needs in (
+            ("K1/K2", "libquad_traverse",
+             lambda kernel, _: qt.launch_info(kernel, ds),
+             (ds.q_stack_need,)),
+            ("K3/K4", "libbinary_traverse",
+             lambda kernel, need: bt.launch_info(kernel, ds, need),
+             (bt.stack_need(ds), bt.STACK_CAP))):
+        ptxas = _build.build_info.get(stem, {}).get("log", "")
+        for kernel in ("closest", "occlusion"):
+            for need in needs:
+                i = info(kernel, need)
+                st, ld = _build.ptxas_spills(ptxas, f"{kernel}_kernel")
+                log(f"phase 2: {label} {kernel}_kernel: {i['registers']} "
+                    f"registers, spill stores {st} B, spill loads {ld} B, "
+                    f"local {i['local_bytes']} B a thread, dynamic shared "
+                    f"{i['smem_bytes']} B a block (stack need {need}), "
+                    f"{i['blocks_per_sm']} blocks of 128 a SM "
+                    f"({4 * i['blocks_per_sm']} warps), grid {i['grid']} "
+                    f"blocks on {i['sms']} SMs; G = {i['group']}, refill at "
+                    f"{i['refill_at']} idle lanes")
+
+
+# Phase 2's K3 and K4 runs: (report name, ray set, t_min). The t_min of
+# 0.01 is one that makes the renderer fall back to accel="bvh".
+BINARY_CLOSEST_RUNS = (("primary", "primary", 1e-3),
+                       ("incoherent", "incoherent", 1e-3),
+                       ("incoherent_inactive", "incoherent_inactive", 1e-3),
+                       ("primary_tmin", "primary", 0.01))
+BINARY_SHADOW_RUNS = (("shadow", "shadow", 1e-3),
+                      ("shadow_inactive", "shadow_inactive", 1e-3),
+                      ("shadow_tmin", "shadow", 0.01))
+OTHER_T_MIN = 0.01
 
 
 def phase2_binary(ds, sets):
     """K3/K4 against their plain versions on the same rays (bit equality),
-    and against K1/K2 (the other tree)."""
+    at t_min 1e-3 and OTHER_T_MIN, and once more at the largest stack need
+    (STACK_CAP, over 48 KB of shared memory a block) on the primary and
+    shadow sets; at t_min 1e-3 also against K1/K2 (the other tree)."""
     import torch
 
     from raytracer_tpu_torch.lab.rays import cuda_ms, host_ms
@@ -576,70 +621,121 @@ def phase2_binary(ds, sets):
     device = ds.device
     report = {}
     scene_args = (ds.binary_root, ds.pnodes, ds.ptris)
-    for name in ("primary", "incoherent"):
-        o, d, _ = sets[name]
-        tmax = torch.full((n,), 1e4, device=device)
-        got = bt.intersect_bvh_binary(o, d, ds, 1e-3, tmax)
+    arrays = (ds.pnodes, ds.ptris)
+    tmax = torch.full((n,), 1e4, device=device)
+    for name, set_name, t_min in BINARY_CLOSEST_RUNS:
+        o, d, active = sets[set_name]
+        got = bt.intersect_bvh_binary(o, d, ds, t_min, tmax,
+                                      active_mask=active)
+        tm_eff = qt._ray_inputs(o, d, tmax, active, t_min)[2]
         counts = new_counts(o)
-        ref, plain_ms = host_ms(bt._intersect_binary_plain, o, d, tmax,
-                                    1e-3, *scene_args, counts)
-        hit_mism = int(((got.tri >= 0) != (ref[1] >= 0)).sum())
-        tri_mism = int((got.tri != ref[1]).sum())
-        max_dt = float((got.t - ref[0]).abs().max())
-        uv_equal = bool(torch.equal(got.u, ref[2])
-                        and torch.equal(got.v, ref[3]))
-        ms = cuda_ms(lambda: bt.intersect_bvh_binary(o, d, ds, 1e-3, tmax),
-                     5)
-        log(f"phase 2: binary closest {name}: {int(got.hit.sum())} of {n} "
-            f"rays hit; all {n} rays vs plain: hit_mism {hit_mism} "
-            f"tri_mism {tri_mism} max|dt| {max_dt} uv_equal {uv_equal}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {n} rays")
-        if hit_mism or tri_mism or max_dt != 0.0 or not uv_equal:
-            raise RuntimeError(f"binary closest kernel != plain version "
-                               f"({name})")
-        quad = qt.intersect_quad(o, d, ds, 1e-3, tmax)
-        flips = int((got.hit != quad.hit).sum())
-        both = got.hit & quad.hit
-        tri_diff = int((both & (got.tri != quad.tri)).sum())
-        dt_both = float((got.t - quad.t).abs()[both].max())
-        log(f"phase 2: binary vs quad closest {name}: {flips} hit flips, "
-            f"{tri_diff} triangle differences of {n} rays, max|dt| on "
-            f"common hits {dt_both}")
-        if flips + tri_diff > TREE_AGREEMENT * n:
-            raise RuntimeError(f"K3 and K1 disagree beyond {TREE_AGREEMENT} "
-                               f"of the rays ({name})")
+        ref, plain_ms = host_ms(bt._intersect_binary_plain, o, d, tm_eff,
+                                t_min, *scene_args, counts)
+        max_dt = gate_closest(f"K3 {name}", (got.t, got.tri, got.u, got.v),
+                              ref)
+        ms = cuda_ms(lambda: bt.intersect_bvh_binary(
+            o, d, ds, t_min, tmax, active_mask=active), 5)
+        log(f"phase 2: binary closest {name} (t_min {t_min}): "
+            f"{inactive_share(tm_eff, t_min):.4f} of the lanes inactive, "
+            f"{int(got.hit.sum())} of {n} rays hit; all {n} rays equal to "
+            f"the plain version (t, tri, u, v); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms on {n} rays")
+        if name == "primary":
+            deep = bt._intersect_binary_cuda(o, d, tm_eff, t_min, ds,
+                                             need=bt.STACK_CAP)
+            deep_ms = cuda_ms(lambda: bt._intersect_binary_cuda(
+                o, d, tm_eff, t_min, ds, need=bt.STACK_CAP), 5)
+            gate_closest(f"K3 {name} at stack need {bt.STACK_CAP}", deep,
+                         ref)
+            log(f"phase 2: binary closest {name} at stack need "
+                f"{bt.STACK_CAP} ({bt.STACK_CAP * 128 * 4} B of shared "
+                f"memory a block): all {n} rays equal to the plain version; "
+                f"kernel {deep_ms:.3f} ms")
+        if t_min == 1e-3:
+            quad = qt.intersect_quad(o, d, ds, 1e-3, tmax,
+                                     active_mask=active)
+            flips = int((got.hit != quad.hit).sum())
+            both = got.hit & quad.hit
+            tri_diff = int((both & (got.tri != quad.tri)).sum())
+            dt_both = float((got.t - quad.t).abs()[both].max())
+            log(f"phase 2: binary vs quad closest {name}: {flips} hit "
+                f"flips, {tri_diff} triangle differences of {n} rays, "
+                f"max|dt| on common hits {dt_both}")
+            if flips + tri_diff > TREE_AGREEMENT * n:
+                raise RuntimeError(f"K3 and K1 disagree beyond "
+                                   f"{TREE_AGREEMENT} of the rays ({name})")
         report[f"binary_closest_{name}"] = dict(
             ms=ms, plain_ms=plain_ms, max_abs_err=max_dt,
-            **bound(n, CLOSEST_RAY_BYTES, (ds.pnodes, ds.ptris), counts,
-                    "binary", "closest"))
+            **walk_bound(ds, ds.pnodes, n, CLOSEST_RAY_BYTES, counts,
+                         leaf_tests(ds, binary_walk(ds, o, d, t_min), o, d,
+                                    tm_eff, t_min=t_min), "binary",
+                         "closest"))
+        log_walk_bound(f"binary closest {name}",
+                       report[f"binary_closest_{name}"], arrays, counts,
+                       "binary", "closest")
 
-    o, d, tmax, skip, active = sets["shadow"]
-    got = bt.occlusion_bvh_binary(o, d, 1e-3, tmax, ds, skip,
-                                  active_mask=active)
-    tm_eff = torch.where(active, tmax, 1e-3)
-    counts = new_counts(o)
-    ref, plain_ms = host_ms(bt._occlusion_binary_plain, o, d, tm_eff,
-                                skip, 1e-3, *scene_args, counts)
-    mism = int((got != ref).sum())
-    ms = cuda_ms(lambda: bt.occlusion_bvh_binary(o, d, 1e-3, tmax, ds, skip,
-                                                 active_mask=active), 5)
-    quad = qt.occlusion_quad(o, d, 1e-3, tmax, ds, skip, active_mask=active)
-    vs_quad = int((got != quad).sum())
-    log(f"phase 2: binary occlusion shadow: {int(got.sum())} occluded; all "
-        f"{n} rays vs plain: mism {mism}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms on {n} rays; vs quad occlusion: {vs_quad} "
-        f"differ")
-    if mism:
-        raise RuntimeError("binary occlusion kernel != plain version")
-    if vs_quad > TREE_AGREEMENT * n:
-        raise RuntimeError(f"K4 and K2 disagree beyond {TREE_AGREEMENT} of "
-                           "the rays")
-    report["binary_occlusion_shadow"] = dict(
-        ms=ms, plain_ms=plain_ms,
-        max_abs_err=float((got.int() - ref.int()).abs().max()),
-        **bound(n, ANY_RAY_BYTES, (ds.pnodes, ds.ptris), counts, "binary",
-                "any"))
+    for name, set_name, t_min in BINARY_SHADOW_RUNS:
+        o, d, tmax_s, skip, active = sets[set_name]
+        got = bt.occlusion_bvh_binary(o, d, t_min, tmax_s, ds, skip,
+                                      active_mask=active)
+        tm_eff = qt._ray_inputs(o, d, tmax_s, active, t_min)[2]
+        counts = new_counts(o)
+        ref, plain_ms = host_ms(bt._occlusion_binary_plain, o, d, tm_eff,
+                                skip, t_min, *scene_args, counts)
+        gate_equal(f"K4 {name}", (got,), (ref,))
+        ms = cuda_ms(lambda: bt.occlusion_bvh_binary(
+            o, d, t_min, tmax_s, ds, skip, active_mask=active), 5)
+        log(f"phase 2: binary occlusion {name} (t_min {t_min}): "
+            f"{inactive_share(tm_eff, t_min):.4f} of the lanes inactive, "
+            f"{int(got.sum())} occluded; all {n} rays equal to the plain "
+            f"version; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on {n} "
+            "rays")
+        if name == "shadow":
+            deep = bt._occlusion_binary_cuda(o, d, tm_eff, skip, t_min, ds,
+                                             need=bt.STACK_CAP)
+            deep_ms = cuda_ms(lambda: bt._occlusion_binary_cuda(
+                o, d, tm_eff, skip, t_min, ds, need=bt.STACK_CAP), 5)
+            gate_equal(f"K4 {name} at stack need {bt.STACK_CAP}", (deep,),
+                       (ref,))
+            log(f"phase 2: binary occlusion {name} at stack need "
+                f"{bt.STACK_CAP}: all {n} rays equal to the plain version; "
+                f"kernel {deep_ms:.3f} ms")
+        if t_min == 1e-3:
+            quad = qt.occlusion_quad(o, d, 1e-3, tmax_s, ds, skip,
+                                     active_mask=active)
+            vs_quad = int((got != quad).sum())
+            log(f"phase 2: binary vs quad occlusion {name}: {vs_quad} of "
+                f"{n} rays differ")
+            if vs_quad > TREE_AGREEMENT * n:
+                raise RuntimeError(f"K4 and K2 disagree beyond "
+                                   f"{TREE_AGREEMENT} of the rays ({name})")
+        report[f"binary_occlusion_{name}"] = dict(
+            ms=ms, plain_ms=plain_ms,
+            max_abs_err=float((got.int() - ref.int()).abs().max()),
+            **walk_bound(ds, ds.pnodes, n, ANY_RAY_BYTES, counts,
+                         leaf_tests(ds, binary_walk(ds, o, d, t_min), o, d,
+                                    tm_eff, skip, t_min), "binary", "any"))
+        log_walk_bound(f"binary occlusion {name}",
+                       report[f"binary_occlusion_{name}"], arrays, counts,
+                       "binary", "any")
     return report
+
+
+def gate_closest(what, got, ref):
+    """Raise unless a closest-hit kernel's (t, tri, u, v) equal its plain
+    version's on every ray; returns max |dt| (0.0)."""
+    import torch
+
+    t, tri, u, v = got
+    hit_mism = int(((tri >= 0) != (ref[1] >= 0)).sum())
+    tri_mism = int((tri != ref[1]).sum())
+    max_dt = float((t - ref[0]).abs().max())
+    uv_equal = bool(torch.equal(u, ref[2]) and torch.equal(v, ref[3]))
+    if hit_mism or tri_mism or max_dt != 0.0 or not uv_equal:
+        raise RuntimeError(f"{what}: kernel != plain version (hit_mism "
+                           f"{hit_mism}, tri_mism {tri_mism}, max|dt| "
+                           f"{max_dt}, uv_equal {uv_equal})")
+    return max_dt
 
 
 def main_path(scene_fn, device, label, accel):
@@ -1435,10 +1531,13 @@ def main():
         entry("binary_closest", BINARY_SOURCE,
               "raytracer_tpu/ops/pallas_traverse.py:167",
               bvh_launches["binary_closest"], k["binary_closest_incoherent"],
-              k["binary_closest_primary"]),
+              *(k[f"binary_closest_{name}"]
+                for name, _, _ in BINARY_CLOSEST_RUNS)),
         entry("binary_occlusion", BINARY_SOURCE,
               "raytracer_tpu/ops/pallas_traverse.py:227",
-              bvh_launches["binary_occlusion"], k["binary_occlusion_shadow"]),
+              bvh_launches["binary_occlusion"], k["binary_occlusion_shadow"],
+              *(k[f"binary_occlusion_{name}"]
+                for name, _, _ in BINARY_SHADOW_RUNS)),
     ]
     for source, report, names in (
             (LAB_SOURCE, lab, (("lab_closest", "tools/kernel_lab.py:273"),

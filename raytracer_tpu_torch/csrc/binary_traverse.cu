@@ -1,137 +1,159 @@
-// Closest-hit and any-hit traversal of the binary BVH, one thread per ray,
-// for Hopper (sm_90a).
+// Closest-hit (K3) and any-hit (K4) traversal of the binary BVH for Hopper
+// (sm_90a): the kernels of accel="bvh".
 //
 // Replaces the TPU kernels raytracer_tpu/ops/pallas_traverse.py:167
 // (_closest_kernel, K3) and :227 (_occlusion_kernel, K4). Those walk one
 // tree per 4096-ray packet with an SMEM stack, ordering children by the
 // packet's minimum t_near, because Mosaic has no per-lane gathers; none of
-// that carries over. Here each thread walks its own ray depth-first with a
-// private stack of STACK_CAP = 128 metas in local memory (a meta >= 0 is a
-// pnodes row, a meta < 0 is leaf block ~meta), starting from root_meta:
+// that carries over. Here each lane walks one ray depth-first at a time: a
+// meta >= 0 is a pnodes row (both child boxes and both child metas, 4
+// float4), a meta < 0 is leaf block ~meta, starting from root_meta.
 //
-//   - an internal node reads its pnodes row (both child boxes and both
-//     child metas, 4 x float4), slab-tests the two children against
-//     [t_min, best t] (t_max for any-hit) and pushes the hit ones, far
-//     first and near last; near is the smaller t_near, a tie keeps left;
-//   - a leaf tests its leaf_size triangles in order with Moller-Trumbore;
-//     closest hit keeps a strictly smaller t, any-hit returns at the first
-//     triangle not of the ray's skip object;
-//   - a ray whose t_max <= t_min (inactive lanes get exactly t_min) cannot
-//     accept a hit and is not walked.
+// What bounds them on the card: the latency of dependent loads, as for the
+// 4-wide K1/K2, and more of them, since a binary walk pops about 1.5x the
+// nodes of a 4-wide one (the one-thread-per-ray design ran at 2.3% and
+// 5.4% of its operation bound). Each step reads a 64-byte node row or a
+// leaf row whose address comes from the step before, and the lanes of a
+// warp walk different rays. The design is K1/K2's (persistent_walk.cuh):
 //
-// t_min is an argument: K3 fixes it at 1e-3, but the backend these kernels
-// serve (accel="bvh", whose JAX walk takes any t_min) does not. The
-// arithmetic, leaf loops and node step (traverse_common.cuh) are written in
-// the order of the plain torch versions in ops/binary_traverse.py, and the
-// library is built with -fmad=false, so the kernels equal them bit for bit.
+//   1. Persistent warps that fetch live rays. The grid fills the card, and
+//      a warp takes ray indices from a global counter with one atomicAdd
+//      for all its idle lanes. An inactive ray (t_max <= the launch's
+//      t_min) is answered at fetch time and never holds a lane; once
+//      kRefillAt lanes of a warp are idle they take new rays while the
+//      others walk on, so a warp does not wait for its slowest ray.
+//   2. Leaves stop at their last real triangle: `counts[block]` (shared
+//      with K1/K2, which read the same leaf rows) bounds the leaf loop. The
+//      slots past it are zero triangles (det = 0), which are never valid.
+//   3. Grouped leaf loads: the 3 x kGroup float4 of kGroup triangles are
+//      loaded before the first of their tests, so a leaf visit waits on
+//      memory once per group, not once per triangle behind the previous
+//      test's division.
+//   4. The entry to visit next stays in a register: the node step
+//      (binary_visit<true> of traverse_common.cuh, the lab's and the plain
+//      version's) pushes the far child to the stack and keeps the near one
+//      when both are hit (a tie keeps left), keeps the one hit child, and
+//      pops when none is hit. The rest of the stack is in shared memory,
+//      laid out [entry][thread]: `need` = bvh_max_depth + 2 entries a
+//      thread (the wrapper's; at most STACK_CAP = 128, 64 KB a block),
+//      where the one-thread-per-ray design kept 128 in local memory.
+//   5. While-while: the lanes of a warp run node steps until none has an
+//      internal node next, then leaf visits until none has a leaf next.
 //
-// What bounds it on the card: dependent loads, as for the 4-wide kernels,
-// and about twice as many of them, since a binary walk pops twice the
-// nodes of a 4-wide one. A tree deeper than STACK_CAP - 2 is refused by the
-// wrapper (stack_fits), so the stack never overflows. Making it fast
-// (a shared-memory cache of the top levels, wider nodes) is later work.
+// t_min is an argument, used by the inactive test, every slab test and
+// every Moller-Trumbore test: K3 is the renderer's fallback for a t_min
+// other than 1e-3. K4 keeps the near-first order of the plain walk: its
+// mask does not depend on the order, but its steps (and so its bound) do.
+// Per ray the walk pops the plain version's entries (ops/binary_traverse.py)
+// in its order, tests each leaf's triangles in slot order with a strictly
+// smaller t kept, and uses the arithmetic of traverse_common.cuh built with
+// -fmad=false, so each kernel equals its plain version bit for bit.
 
-#include "traverse_common.cuh"
+#include "persistent_walk.cuh"
 
 using namespace traverse;
 
 namespace {
 
-constexpr int kStackCap = 128;  // per-ray stack entries (STACK_CAP)
+constexpr int kGroup = 4;      // triangles of a leaf loaded together
+constexpr int kRefillAt = 16;  // idle lanes of 32 at which a warp fetches
+constexpr int kCap = 128;      // stack entries at most (STACK_CAP)
+
+// binary_visit's push policy here: the far child goes to the stack, the
+// near one to the register entry.
+struct NearInRegister {
+  Stack& st;
+  int& next;
+  __device__ __forceinline__ void operator()(int meta) const { st.push(meta); }
+  __device__ __forceinline__ void near(int meta) const { next = meta; }
+};
+
+// Node step of both kernels: slab-test both children of pnodes row `p`
+// against [t_min, t_cap] and return the entry to visit next.
+__device__ __forceinline__ int binary_node(const Ray& r,
+                                           const float4* __restrict__ p,
+                                           float t_min, float t_cap,
+                                           Stack& st) {
+  int next = kNone;
+  binary_visit<true>(r, p, t_min, t_cap, NearInRegister{st, next});
+  return next != kNone ? next : st.pop();
+}
 
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ origin,
                const float* __restrict__ direction,
-               const float* __restrict__ t_max, int64_t n, float t_min,
-               int root, const float4* __restrict__ pnodes,
-               const float4* __restrict__ ptris, int leaf,
-               float* __restrict__ out_t, int* __restrict__ out_tri,
-               float* __restrict__ out_u, float* __restrict__ out_v) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(origin, direction, i);
-  float bt = t_max[i];
-  int btri = -1;
-  float bu = 0.0f, bv = 0.0f;
-  const int leaf_f4 = leaf * kTriStride / 4;
-
-  int stack[kStackCap];
-  int sp = 0;
-  if (bt > t_min) stack[sp++] = root;
-  while (sp > 0) {
-    int meta = stack[--sp];
-    if (meta < 0) {
-      closest_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, t_min, bt,
-                   btri, bu, bv);
-    } else {
-      binary_visit<true>(r, pnodes + (int64_t)meta * 4, t_min, bt, stack,
-                         sp);
-    }
-  }
-  out_t[i] = bt;
-  out_tri[i] = btri;
-  out_u[i] = bu;
-  out_v[i] = bv;
+               const float* __restrict__ t_max, int n, float t_min, int root,
+               const float4* __restrict__ pnodes,
+               const float4* __restrict__ ptris,
+               const int* __restrict__ counts, int leaf,
+               int* __restrict__ next_ray, float* __restrict__ out_t,
+               int* __restrict__ out_tri, float* __restrict__ out_u,
+               float* __restrict__ out_v) {
+  extern __shared__ int smem[];
+  closest_walk<kGroup, kRefillAt>(
+      smem, origin, direction, t_max, n, t_min, root, ptris, counts, leaf,
+      next_ray, out_t, out_tri, out_u, out_v,
+      [&](const Ray& r, int cur, float bt, Stack& st) {
+        return binary_node(r, pnodes + (int64_t)cur * 4, t_min, bt, st);
+      });
 }
 
 __global__ void __launch_bounds__(kThreads)
 occlusion_kernel(const float* __restrict__ origin,
                  const float* __restrict__ direction,
                  const float* __restrict__ t_max,
-                 const int* __restrict__ skip_object, int64_t n,
-                 float t_min, int root, const float4* __restrict__ pnodes,
-                 const float4* __restrict__ ptris, int leaf,
-                 bool* __restrict__ out_occ) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(origin, direction, i);
-  float tm = t_max[i];
-  float skip = (float)skip_object[i];
-  const int leaf_f4 = leaf * kTriStride / 4;
-  bool occ = false;
-
-  int stack[kStackCap];
-  int sp = 0;
-  if (tm > t_min) stack[sp++] = root;
-  while (sp > 0 && !occ) {
-    int meta = stack[--sp];
-    if (meta < 0) {
-      occ = occluded_leaf(r, ptris + (int64_t)(~meta) * leaf_f4, leaf, t_min,
-                          tm, skip);
-    } else {
-      binary_visit<true>(r, pnodes + (int64_t)meta * 4, t_min, tm, stack,
-                         sp);
-    }
-  }
-  out_occ[i] = occ;
+                 const int* __restrict__ skip_object, int n, float t_min,
+                 int root, const float4* __restrict__ pnodes,
+                 const float4* __restrict__ ptris,
+                 const int* __restrict__ counts, int leaf,
+                 int* __restrict__ next_ray, bool* __restrict__ out_occ) {
+  extern __shared__ int smem[];
+  any_walk<kGroup, kRefillAt>(
+      smem, origin, direction, t_max, skip_object, n, t_min, root, ptris,
+      counts, leaf, next_ray, out_occ,
+      [&](const Ray& r, int cur, float tm, Stack& st) {
+        return binary_node(r, pnodes + (int64_t)cur * 4, t_min, tm, st);
+      });
 }
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes). Each launches on `stream`
-// and returns the launch's cudaError_t; none synchronises or allocates.
+// Plain C entry points (loaded with ctypes). Each zeroes the ray counter
+// `next_ray` (one int32 on the device) and launches on `stream`, and
+// returns the first cudaError_t; none synchronises or allocates. `need` is
+// the stack entries a thread (1..128).
 extern "C" int binary_closest(const float* origin, const float* direction,
                               const float* t_max, int64_t n, float t_min,
                               int root, const float* pnodes,
-                              const float* ptris, int leaf, float* out_t,
-                              int* out_tri, float* out_u, float* out_v,
-                              void* stream) {
-  closest_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_max, n, t_min, root,
-      reinterpret_cast<const float4*>(pnodes),
-      reinterpret_cast<const float4*>(ptris), leaf, out_t, out_tri, out_u,
-      out_v);
-  return (int)cudaGetLastError();
+                              const float* ptris, const int* leaf_counts,
+                              int leaf, int need, int* next_ray,
+                              float* out_t, int* out_tri, float* out_u,
+                              float* out_v, void* stream) {
+  return launch(closest_kernel, n, need, kCap, next_ray, stream, origin,
+                direction, t_max, (int)n, t_min, root,
+                reinterpret_cast<const float4*>(pnodes),
+                reinterpret_cast<const float4*>(ptris), leaf_counts, leaf,
+                next_ray, out_t, out_tri, out_u, out_v);
 }
 
 extern "C" int binary_occlusion(const float* origin, const float* direction,
                                 const float* t_max, const int* skip_object,
                                 int64_t n, float t_min, int root,
                                 const float* pnodes, const float* ptris,
-                                int leaf, bool* out_occ, void* stream) {
-  occlusion_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_max, skip_object, n, t_min, root,
-      reinterpret_cast<const float4*>(pnodes),
-      reinterpret_cast<const float4*>(ptris), leaf, out_occ);
-  return (int)cudaGetLastError();
+                                const int* leaf_counts, int leaf, int need,
+                                int* next_ray, bool* out_occ, void* stream) {
+  return launch(occlusion_kernel, n, need, kCap, next_ray, stream, origin,
+                direction, t_max, skip_object, (int)n, t_min, root,
+                reinterpret_cast<const float4*>(pnodes),
+                reinterpret_cast<const float4*>(ptris), leaf_counts, leaf,
+                next_ray, out_occ);
+}
+
+// What a launch of kernel `occlusion` (0 K3, 1 K4) at stack need `need`
+// looks like on the current device: out[0..7] as persistent_walk.cuh's
+// info().
+extern "C" int binary_launch_info(int occlusion, int need, int* out) {
+  return occlusion
+             ? info<kGroup, kRefillAt>(occlusion_kernel, need, kCap, out)
+             : info<kGroup, kRefillAt>(closest_kernel, need, kCap, out);
 }

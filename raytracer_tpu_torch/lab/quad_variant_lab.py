@@ -5,6 +5,7 @@ loads start together) and kRefillAt (the idle lanes of a warp's 32 at
 which it fetches new rays; 32 waits for the whole warp).
 
     python -m raytracer_tpu_torch.lab.quad_variant_lab [--reps 20]
+        [--against DIR]
 
 Bakes the 300k atrium at leaf 16 (the render path's bake) and builds the
 closest-hit sets of lab.rays (primary rays, the bounce-1 wavefront in the
@@ -16,7 +17,15 @@ not touched) and must equal the plain versions on every ray of every set
 (bit equality), else the lab exits non-zero. Then it prints, per variant,
 its registers and ptxas spills, resident blocks a SM, the ms of each set
 (CUDA events, mean of --reps, in two passes over the variants, the second
-in reverse order) and the sum of the sets' means.
+in reverse order) and the sum of the sets' means, and a digest of each
+kernel's SASS (its instruction count and a hash of the instructions'
+text, from cuobjdump).
+
+--against DIR also builds DIR/quad_traverse.cu, another tree's K1/K2 (its
+csrc/ directory, e.g. a parent commit unpacked with `git archive`), with
+the same flags and the headers beside it, and gates, times and digests it
+as one more variant: equal digests mean the two trees compile K1/K2 to
+the same machine code.
 """
 
 from __future__ import annotations
@@ -24,8 +33,11 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import glob
+import hashlib
 import os
 import re
+import subprocess
 import sys
 
 import torch
@@ -75,31 +87,80 @@ def variants(values):
     return out
 
 
+def _build_lib(src, stem, csrc_dir, headers):
+    """(library, ptxas log, path) of quad_traverse source `src`, compiled
+    with the repo's flags and `csrc_dir` on the include path."""
+    path = _build.compile_library(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc_dir], src, stem,
+        headers=headers)
+    lib = _build.bind(ctypes.CDLL(path), _build.QUAD_TRAVERSE_SIGNATURES)
+    return lib, _build.build_info[stem]["log"], path
+
+
 def build_variant(text, group, refill_at):
-    """(the variant's library, its ptxas log)."""
+    """(the variant's library, its ptxas log, its path)."""
     stem = f"libquad_traverse_g{group}_r{refill_at}"
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     src = os.path.join(_build.BUILD_DIR, f"{stem}.cu")
     with open(src, "w") as f:
         f.write(variant_source(text, group, refill_at))
-    path = _build.compile_library(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR], src,
-        stem, headers=_build.CUDA_HEADERS)
-    lib = _build.bind(ctypes.CDLL(path), _build.QUAD_TRAVERSE_SIGNATURES)
-    return lib, _build.build_info[stem]["log"]
+    return _build_lib(src, stem, _build.CSRC_DIR, _build.CUDA_HEADERS)
 
 
-def run(reps=REPS, say=print):
-    """Build, gate and time every variant; returns {(group, refill_at):
-    {"info": launch_info of K1 and K2, "ms": {set: [pass 1, pass 2]}}}."""
+def build_against(csrc_dir):
+    """(library, ptxas log, path, {"group", "refill_at"}) of another tree's
+    csrc_dir/quad_traverse.cu, its headers the .cuh files beside it."""
+    src = os.path.join(csrc_dir, "quad_traverse.cu")
+    with open(src) as f:
+        values = source_values(f.read())
+    headers = sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
+    return (*_build_lib(src, "libquad_traverse_against", csrc_dir, headers),
+            values)
+
+
+def sass_digest(sass, kernel):
+    """(instructions, a 12-digit hash of their text) of the function whose
+    name contains `kernel` in `sass` (cuobjdump -sass output), without its
+    name, addresses and encodings, so two builds of the same code agree."""
+    ins, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            ins.append(m.group(1))
+    return len(ins), hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12]
+
+
+def library_sass(path):
+    """cuobjdump -sass of a library (cuobjdump beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def run(reps=REPS, say=print, against=None):
+    """Build, gate and time every variant (and, with `against`, another
+    tree's csrc/ build, keyed "against"); returns {(group, refill_at) or
+    "against": {"info": launch_info of K1 and K2 with their "spills" and
+    "sass" digest, "ms": {set: [pass 1, pass 2]}}}."""
     device = lab_rays.require_cuda()
     with open(SOURCE) as f:
         text = f.read()
     values = source_values(text)
     todo = variants(values)
-    with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
-        built = dict(zip(todo, pool.map(
-            lambda v: build_variant(text, *v), todo)))
+    names = {v: f"G={v[0]} refill_at={v[1]}" for v in todo}
+    with concurrent.futures.ThreadPoolExecutor(len(todo) + 1) as pool:
+        jobs = {v: pool.submit(build_variant, text, *v) for v in todo}
+        if against:
+            jobs["against"] = pool.submit(build_against, against)
+        built = {v: job.result() for v, job in jobs.items()}
+    if against:
+        other = built["against"][3]
+        names["against"] = (f"{against} (G={other['group']} refill_at="
+                            f"{other['refill_at']})")
+        todo.append("against")
 
     ds = lab_rays.atrium(LEAF_SIZE, device)
     closest = lab_rays.closest_sets(ds)
@@ -119,16 +180,18 @@ def run(reps=REPS, say=print):
 
     out = {}
     for v in todo:
-        lib, log = built[v]
+        lib, log, path = built[v][:3]
         for name, call in calls.items():
             got = call(lib)
             if not all(torch.equal(a, b) for a, b in zip(got, refs[name])):
-                raise RuntimeError(f"variant G={v[0]} refill_at={v[1]} != "
-                                   f"the plain version on {name}")
+                raise RuntimeError(f"variant {names[v]} != the plain "
+                                   f"version on {name}")
         info = {k: qt.launch_info(k, ds, lib) for k in ("closest",
                                                          "occlusion")}
+        sass = library_sass(path)
         for k in info:
             info[k]["spills"] = _build.ptxas_spills(log, f"{k}_kernel")
+            info[k]["sass"] = sass_digest(sass, f"{k}_kernel")
         out[v] = {"info": info, "ms": {name: [] for name in calls}}
     for v in todo + todo[::-1]:
         lib = built[v][0]
@@ -150,10 +213,11 @@ def run(reps=REPS, say=print):
         for k, i in out[v]["info"].items():
             st, ld = i["spills"]
             parts.append(f"{k} {i['registers']} registers, spills {st}/{ld} "
-                         f"B, {i['blocks_per_sm']} blocks a SM")
+                         f"B, {i['blocks_per_sm']} blocks a SM, SASS "
+                         f"{i['sass'][0]} instructions #{i['sass'][1]}")
         ms = out[v]["ms"]
         total = sum(sum(m) / 2 for m in ms.values())
-        say(f"G={v[0]} refill_at={v[1]}: " + "; ".join(parts) + "; ms (two "
+        say(f"{names[v]}: " + "; ".join(parts) + "; ms (two "
             "passes) " + ", ".join(f"{name} {m[0]:.3f}/{m[1]:.3f}"
                                    for name, m in ms.items())
             + f"; sum of the means {total:.3f}")
@@ -163,9 +227,11 @@ def run(reps=REPS, say=print):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=REPS)
+    p.add_argument("--against", metavar="DIR",
+                   help="another tree's csrc/ directory to build and time")
     args = p.parse_args(argv)
     say = lambda m: print(m, flush=True)  # noqa: E731
-    run(args.reps, say)
+    run(args.reps, say, args.against)
     say(f"quad_variant_lab on {lab_rays.card_line()} (SM clock read after "
         "the runs)")
     return 0

@@ -31,8 +31,10 @@ import time
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-# Device helpers shared by the traversal kernels (#included by each .cu).
-CUDA_HEADERS = (os.path.join(CSRC_DIR, "traverse_common.cuh"),)
+# Device helpers shared by the traversal kernels (#included by each .cu;
+# persistent_walk.cuh by quad_traverse.cu and binary_traverse.cu).
+CUDA_HEADERS = (os.path.join(CSRC_DIR, "traverse_common.cuh"),
+                os.path.join(CSRC_DIR, "persistent_walk.cuh"))
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -144,13 +146,13 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
 
-# csrc/quad_traverse.cu's entry points. After the rays: root, qnodes,
-# ptris, leaf counts, leaf, stack need, the ray counter; then the outputs
-# and the stream.
-_QUAD_SCENE = [_I32, _P, _P, _P, _I32, _I32, _P]
+# The persistent walks' scene arguments (csrc/persistent_walk.cuh), after
+# the rays: root, node rows, ptris, leaf counts, leaf, stack need, the ray
+# counter; then the outputs and the stream.
+_SCENE = [_I32, _P, _P, _P, _I32, _I32, _P]
 QUAD_TRAVERSE_SIGNATURES = {
-    "quad_closest": [_P, _P, _P, _I64, *_QUAD_SCENE, _P, _P, _P, _P, _P],
-    "quad_occlusion": [_P, _P, _P, _P, _I64, *_QUAD_SCENE, _P, _P],
+    "quad_closest": [_P, _P, _P, _I64, *_SCENE, _P, _P, _P, _P, _P],
+    "quad_occlusion": [_P, _P, _P, _P, _I64, *_SCENE, _P, _P],
     "quad_launch_info": [_I32, _I32, _P],
 }
 
@@ -160,14 +162,18 @@ def quad_traverse_lib() -> ctypes.CDLL:
     return _cuda_lib("quad_traverse", QUAD_TRAVERSE_SIGNATURES)
 
 
+# csrc/binary_traverse.cu's entry points: as the 4-wide tree's, with the
+# launch's t_min after the ray count.
+BINARY_TRAVERSE_SIGNATURES = {
+    "binary_closest": [_P, _P, _P, _I64, _F32, *_SCENE, _P, _P, _P, _P, _P],
+    "binary_occlusion": [_P, _P, _P, _P, _I64, _F32, *_SCENE, _P, _P],
+    "binary_launch_info": [_I32, _I32, _P],
+}
+
+
 def binary_traverse_lib() -> ctypes.CDLL:
     """The binary tree's traversal kernels (csrc/binary_traverse.cu)."""
-    return _cuda_lib("binary_traverse", {
-        "binary_closest": [_P, _P, _P, _I64, _F32, _I32, _P, _P, _I32,
-                           _P, _P, _P, _P, _P],
-        "binary_occlusion": [_P, _P, _P, _P, _I64, _F32, _I32, _P, _P, _I32,
-                             _P, _P],
-    })
+    return _cuda_lib("binary_traverse", BINARY_TRAVERSE_SIGNATURES)
 
 
 def lab_traverse_lib() -> ctypes.CDLL:

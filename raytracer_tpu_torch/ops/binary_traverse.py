@@ -14,7 +14,13 @@ both child metas per internal node), root_meta (held on the host as
 On CUDA tensors they launch the hand-written kernels of
 csrc/binary_traverse.cu (built by ops/_build.py); on CPU tensors they run
 the kernels' plain torch versions below. A CUDA tensor never takes the
-plain version: the launch succeeds or the wrapper raises.
+plain version: the launch succeeds or the wrapper raises. The kernels run
+K1/K2's persistent walk (csrc/persistent_walk.cuh): warps that take rays
+from a counter (one int32 allocated with each launch), leaves that stop at
+their last real triangle (the leaf counts of ops/quad_traverse.py, cached
+per ptris and shared with K1/K2) and a shared-memory stack of
+`stack_need(scene)` = bvh_max_depth + 2 entries a thread below the entry
+kept in a register; see the source's head comment.
 
 The algorithm, shared by kernel and plain version (the TPU kernels' 4096-
 ray packets, SMEM stack and packet-wide child order exist because Mosaic
@@ -48,18 +54,20 @@ import torch
 from raytracer_tpu_torch.ops.intersect import HitRecord
 from raytracer_tpu_torch.ops.quad_traverse import (
     BIG,
-    TRI_STRIDE,
     _any_walk,
+    _check_n,
     _check_ptris,
     _check_rays,
     _closest_walk,
     _inv_dir,
+    _launch_info,
     _ptr,
     _push,
     _ray_inputs,
     _require,
     _slab_children,
     _stream,
+    _walk_args,
 )
 
 STACK_CAP = 128  # per-ray stack entries, as the TPU kernels' SMEM stack
@@ -81,6 +89,15 @@ def stack_fits(max_depth: int) -> bool:
     holds at most one pending far child per level plus the two pushes of
     the node being expanded, so occupancy <= depth + 2."""
     return max_depth + 2 <= STACK_CAP
+
+
+def stack_need(scene) -> int:
+    """The kernels' stack entries a thread: bvh_max_depth + 2, at most
+    STACK_CAP for a tree that `stack_fits`. The walk's stack holds at most
+    bvh_max_depth + 1 entries (a far child for each level above the deepest
+    internal node and that node's two children), the one visited next in a
+    register and the rest in shared memory."""
+    return scene.bvh_max_depth + 2
 
 
 def _check_stack(scene):
@@ -185,24 +202,38 @@ def _check_scene_arrays(scene, device):
     _check_ptris(scene.ptris, device)
 
 
-def _intersect_binary_cuda(origin, direction, t_max, t_min, scene):
+def _launch_args(scene, dev, need=None):
+    """K3's and K4's scene and launch arguments after the rays and t_min
+    (quad_traverse._walk_args): the binary root and node rows, and `need`
+    stack entries a thread (default `stack_need(scene)`, 1..STACK_CAP).
+    Returns (the arguments, the ray counter)."""
+    need = stack_need(scene) if need is None else need
+    if not 1 <= need <= STACK_CAP:
+        raise ValueError(f"stack need {need} is outside 1..{STACK_CAP}")
+    _check_scene_arrays(scene, dev)
+    return _walk_args(scene, dev, scene.binary_root, scene.pnodes, need)
+
+
+def _intersect_binary_cuda(origin, direction, t_max, t_min, scene,
+                           need=None):
+    """K3 on the card; `need` the stack entries a thread, as in
+    _launch_args."""
     global closest_launches
     from raytracer_tpu_torch.ops import _build
 
     n, dev = _check_rays(origin, direction, t_max)
-    _check_scene_arrays(scene, dev)
+    _check_n(n)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return t, tri, u, v
+    args, _counter = _launch_args(scene, dev, need)
     lib = _build.binary_traverse_lib()
     with torch.cuda.device(dev):
         rc = lib.binary_closest(
-            _ptr(origin), _ptr(direction), _ptr(t_max), n, t_min,
-            scene.binary_root, _ptr(scene.pnodes), _ptr(scene.ptris),
-            scene.ptris.shape[1] // TRI_STRIDE,
+            _ptr(origin), _ptr(direction), _ptr(t_max), n, t_min, *args,
             _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _stream(dev),
         )
     if rc != 0:
@@ -212,25 +243,36 @@ def _intersect_binary_cuda(origin, direction, t_max, t_min, scene):
 
 
 def _occlusion_binary_cuda(origin, direction, t_max, skip_object, t_min,
-                           scene):
+                           scene, need=None):
+    """K4 on the card; `need` as in _intersect_binary_cuda."""
     global occlusion_launches
     from raytracer_tpu_torch.ops import _build
 
     n, dev = _check_rays(origin, direction, t_max)
+    _check_n(n)
     _require("skip_object", skip_object, torch.int32, (n,), dev)
-    _check_scene_arrays(scene, dev)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return occ
+    args, _counter = _launch_args(scene, dev, need)
     lib = _build.binary_traverse_lib()
     with torch.cuda.device(dev):
         rc = lib.binary_occlusion(
             _ptr(origin), _ptr(direction), _ptr(t_max), _ptr(skip_object),
-            n, t_min, scene.binary_root, _ptr(scene.pnodes),
-            _ptr(scene.ptris), scene.ptris.shape[1] // TRI_STRIDE,
-            _ptr(occ), _stream(dev),
+            n, t_min, *args, _ptr(occ), _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"binary_occlusion launch failed: cudaError {rc}")
     occlusion_launches += 1
     return occ
+
+
+def launch_info(kernel, scene, need=None):
+    """What a launch of K3 or K4 (`kernel` "closest" or "occlusion") on
+    `scene`'s device looks like, at `need` stack entries a thread (default
+    `stack_need(scene)`): quad_traverse.launch_info's keys."""
+    from raytracer_tpu_torch.ops import _build
+
+    return _launch_info(_build.binary_traverse_lib().binary_launch_info,
+                        kernel, stack_need(scene) if need is None else need,
+                        scene.pnodes.device)

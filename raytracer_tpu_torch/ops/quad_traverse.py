@@ -466,18 +466,26 @@ def leaf_counts(scene):
     return counts
 
 
-def _launch_args(scene, dev):
-    """The scene and launch arguments both kernels take after the rays:
-    root, qnodes, ptris, leaf counts, leaf size, stack need and the ray
-    counter, one int32 for this launch (the C entry zeroes it on the
-    launch's stream, and the caching allocator hands it to no other
-    stream's work before this launch ends)."""
-    _check_scene_arrays(scene, dev)
+def _walk_args(scene, dev, root, nodes, need):
+    """The scene and launch arguments the persistent walks
+    (csrc/persistent_walk.cuh) take after the rays: root, node rows, ptris,
+    leaf counts, leaf size, stack need and the ray counter, one int32 for
+    this launch (the C entry zeroes it on the launch's stream, and the
+    caching allocator hands it to no other stream's work before this launch
+    ends). Returns (the arguments, the counter)."""
     counts = leaf_counts(scene)  # on ptris's device, i32[NB], contiguous
     counter = torch.empty((1,), dtype=torch.int32, device=dev)
-    return ((scene.root, _ptr(scene.qnodes), _ptr(scene.ptris),
-             _ptr(counts), scene.ptris.shape[1] // TRI_STRIDE,
-             scene.q_stack_need, _ptr(counter)), counter)
+    return ((root, _ptr(nodes), _ptr(scene.ptris), _ptr(counts),
+             scene.ptris.shape[1] // TRI_STRIDE, need, _ptr(counter)),
+            counter)
+
+
+def _launch_args(scene, dev):
+    """K1's and K2's `_walk_args`: the 4-wide tree's root and node rows,
+    and its stack need."""
+    _check_scene_arrays(scene, dev)
+    return _walk_args(scene, dev, scene.root, scene.qnodes,
+                      scene.q_stack_need)
 
 
 def _check_n(n):
@@ -537,6 +545,21 @@ def _occlusion_quad_cuda(origin, direction, t_max, skip_object, scene,
     return occ
 
 
+LAUNCH_INFO_KEYS = ("registers", "local_bytes", "smem_bytes",
+                    "blocks_per_sm", "sms", "grid", "group", "refill_at")
+
+
+def _launch_info(entry, kernel, need, dev):
+    """Call a library's `*_launch_info` entry point `entry` for `kernel`
+    ("closest" or "occlusion") at stack need `need` on `dev`."""
+    out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    with torch.cuda.device(dev):
+        rc = entry(int(kernel == "occlusion"), need, out)
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__} failed: cudaError {rc}")
+    return dict(zip(LAUNCH_INFO_KEYS, out))
+
+
 def launch_info(kernel, scene, lib=None):
     """What a launch of `kernel` ("closest" or "occlusion") on `scene`'s
     device looks like: {"registers", "local_bytes" (a thread), "smem_bytes"
@@ -546,13 +569,6 @@ def launch_info(kernel, scene, lib=None):
     _intersect_quad_cuda."""
     from raytracer_tpu_torch.ops import _build
 
-    out = (ctypes.c_int * 8)()
-    dev = scene.qnodes.device
-    with torch.cuda.device(dev):
-        rc = (lib or _build.quad_traverse_lib()).quad_launch_info(
-            int(kernel == "occlusion"), scene.q_stack_need, out)
-    if rc != 0:
-        raise RuntimeError(f"quad_launch_info failed: cudaError {rc}")
-    return dict(zip(("registers", "local_bytes", "smem_bytes",
-                     "blocks_per_sm", "sms", "grid", "group", "refill_at"),
-                    out))
+    lib = lib or _build.quad_traverse_lib()
+    return _launch_info(lib.quad_launch_info, kernel, scene.q_stack_need,
+                        scene.qnodes.device)

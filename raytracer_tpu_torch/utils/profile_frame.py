@@ -3,6 +3,7 @@
 torch.profiler, by kernel and by top-level operation.
 
     python3 -m raytracer_tpu_torch.utils.profile_frame [--warm 2] [--top 20]
+        [--accel bvh]
 
 Bakes the atrium, renders `--warm` frames, then profiles one frame
 (CPU and CUDA activities) between two device synchronisations. Prints the

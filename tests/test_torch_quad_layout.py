@@ -10,7 +10,8 @@ baked arrays and in their wrappers, on the CPU at small sizes:
   - the counts are cached per ptris tensor for as long as it lives, and
     each launch gets a ray counter of its own;
   - the variant lab (lab/quad_variant_lab.py) edits the kernels' two
-    tuning constants and nothing else.
+    tuning constants and nothing else, builds another tree's kernels for
+    --against, and digests SASS without names, addresses or encodings.
 
 The scenes are the Cornell box and a ~4k-triangle atrium, each baked at
 leaf 8 and 16 with the numpy BVH builder."""
@@ -214,3 +215,63 @@ def test_ray_count_is_bounded():
     qt._check_n(qt.MAX_RAYS)
     with pytest.raises(ValueError, match="rays"):
         qt._check_n(qt.MAX_RAYS + 1)
+
+
+SASS = """
+        Function : _ZN49_GLOBAL__N__{tag}_16_quad_traverse_cu_{tag}16occlusion_kernelEPKf
+        .headerflags    @"EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe40000000800 */
+        /*{addr}*/              @!P0 BRA 0x4a0 ;             /* 0x{enc} */
+        Function : _ZN49_GLOBAL__N__{tag}_16_quad_traverse_cu_{tag}14closest_kernelEPKf
+        /*0000*/                   {op} ;                   /* 0x00000a00ff017b82 */
+"""
+
+
+def test_sass_digest_ignores_names_addresses_and_encodings():
+    """Two builds of the same code from two trees differ in the anonymous
+    namespace's hash, and the digest leaves it out with the addresses and
+    encodings; another instruction changes it."""
+    a = SASS.format(tag="ef699a84", addr="0010", enc="0000000000007919",
+                    op="EXIT")
+    b = SASS.format(tag="2a483309", addr="0010", enc="1111111111117919",
+                    op="EXIT")
+    c = SASS.format(tag="ef699a84", addr="0010", enc="0000000000007919",
+                    op="RET.REL.NODEC R20 0x0")
+    assert qvl.sass_digest(a, "occlusion_kernel")[0] == 2
+    for k in ("occlusion_kernel", "closest_kernel"):
+        assert qvl.sass_digest(a, k) == qvl.sass_digest(b, k)
+    assert qvl.sass_digest(a, "closest_kernel") != \
+        qvl.sass_digest(c, "closest_kernel")
+    assert qvl.sass_digest(a, "occlusion_kernel") == \
+        qvl.sass_digest(c, "occlusion_kernel")
+
+
+def test_against_builds_another_trees_kernels(monkeypatch, tmp_path):
+    """--against DIR compiles DIR/quad_traverse.cu with DIR on the include
+    path and DIR's headers in the library's hash, and reads its G and
+    refill threshold."""
+    seen = {}
+
+    def compile_library(argv, src, stem, headers=()):
+        seen.update(argv=argv, src=src, stem=stem, headers=headers)
+        qvl._build.build_info[stem] = {"seconds": 0.0, "log": "log"}
+        return str(tmp_path / f"{stem}.so")
+
+    other = tmp_path / "csrc"
+    other.mkdir()
+    (other / "quad_traverse.cu").write_text(
+        qvl.variant_source(_kernel_source(), 2, 8))
+    (other / "traverse_common.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(qvl._build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(qvl._build, "compile_library", compile_library)
+    monkeypatch.setattr(qvl.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(qvl._build, "bind", lambda lib, sigs: lib)
+    lib, log, path, values = qvl.build_against(str(other))
+    assert values == {"group": 2, "refill_at": 8}
+    assert seen["src"] == str(other / "quad_traverse.cu")
+    assert seen["headers"] == [str(other / "traverse_common.cuh")]
+    i = seen["argv"].index("-I")
+    assert seen["argv"][i + 1] == str(other)
+    assert lib == path == str(tmp_path / "libquad_traverse_against.so")
+    assert log == "log"
