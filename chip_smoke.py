@@ -89,6 +89,27 @@ Phases (any failure exits non-zero and prints no result line):
      within 1 ulp, the differing elements counted); the identities (L11b
      slice = base and sliceilp = ilp, L10 smem = L11b base, L12 bf16 =
      bf16_mul on the ones input); each variant's bound at the card size.
+ 10. The render modes on the 1080p 300k atrium at the bench camera, through
+     ProgressiveRenderer, with K1/K2's launch counts set to 0 before and
+     read after each part, and each part required to launch them: (a) one
+     spp_batch=4 step against 4 sequential steps of a fresh renderer
+     (bit-equal, else within PIXEL_ATOL / MAX_FLIPPED), with ms per step
+     and per sample against phase 3's ms/frame and the peak device memory
+     of each; (b) adaptive sampling at tol 0.15, min frames 8, over 24
+     frames, with ms and rays traced per frame and the converged fraction
+     at frames 8, 16 and 24; retired pixels unchanged by one more step, and
+     tol 0 at 64x64 bit-equal to the plain accumulation on the card; (c)
+     image(denoise=True) after 4 frames (one K1 launch for the G-buffer),
+     the G-buffer pass and the filter timed apart, the accumulation
+     unchanged, and the card's filter against the CPU's on the same 1080p
+     buffers within rtol 1e-5 (atol 1e-6); (d) preview_image(4) with and
+     without denoise, upscaled or not, and aovs(). In (a), (b), (c) and
+     (d), one K1 launch of the path (and one K2 launch, but in (c)) is
+     captured at its 1080p (or preview) shape, masks included, and held
+     bit for bit against the plain walk on the card on the same rays.
+     (e) (a), (b) and (d) at 32x32, card against CPU, within PIXEL_ATOL /
+     MAX_FLIPPED (adaptive counts equal on all but MAX_FLIPPED of the
+     pixels).
 
 Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
@@ -102,8 +123,10 @@ chain. The line before the last is {"kernels": [...]}; the last line is
 fixed seeds; nothing is downloaded.
 """
 
+import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -742,7 +765,7 @@ def main_path(scene_fn, device, label, accel):
     """ProgressiveRenderer with `accel` on the atrium at 1920x1080: 2 warm
     and 4 timed frames, with every launch count set to 0 just before and
     read just after; then the atrium at 64x64, 2 frames, on the card
-    against the CPU. Returns (launch counts, the 1080p image)."""
+    against the CPU. Returns (launch counts, the 1080p image, ms/frame)."""
     import numpy as np
     import torch
 
@@ -805,20 +828,20 @@ def main_path(scene_fn, device, label, accel):
     if flipped.mean() > MAX_FLIPPED:
         raise RuntimeError(f"{label}: card and CPU renders differ beyond "
                            "tolerance")
-    return launches, img
+    return launches, img, ms
 
 
 def phase3(scene_fn, device):
-    launches, img = main_path(scene_fn, device, "phase 3", "auto")
+    launches, img, ms = main_path(scene_fn, device, "phase 3", "auto")
     if not (launches["quad_closest"] > 0 and launches["quad_occlusion"] > 0):
         raise RuntimeError(f"a kernel was not launched: {launches}")
-    return launches, img
+    return launches, img, ms
 
 
 def phase5(scene_fn, device, cuda_img):
     import numpy as np
 
-    launches, img = main_path(scene_fn, device, "phase 5", "bvh")
+    launches, img, _ = main_path(scene_fn, device, "phase 5", "bvh")
     if not (launches["binary_closest"] > 0
             and launches["binary_occlusion"] > 0):
         raise RuntimeError(f"a binary kernel was not launched: {launches}")
@@ -1458,6 +1481,422 @@ CORNELL_JSON = {
 }
 
 
+# Phase 10's small card-against-CPU size: the CPU's plain walks take about
+# 12 s for one 4096-lane launch on the 300k atrium (2.8 s for 1024 lanes),
+# so 64x64 would not fit the phase in its minute. The 1080p launches are
+# held against the plain walks on the card instead (check_captured).
+MODES_SMALL = 32
+MODES_SPP = 4  # (a)'s spp_batch at 1080p (MODES_SMALL: 2)
+MODES_TOL, MODES_MIN_FRAMES, MODES_FRAMES = 0.15, 8, 24  # (b)
+PREVIEW_SCALE = 4  # (d)
+FILTER_RTOL, FILTER_ATOL = 1e-5, 1e-6  # (c)
+
+
+def timed(fn):
+    """(fn(), its ms on the host clock between two device syncs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def timed_runs(fn, runs):
+    """The ms of `runs` calls of fn (timed()), each with the device
+    allocator's cudaMalloc calls during it: [(ms, mallocs), ...]."""
+    import torch
+
+    out = []
+    for _ in range(runs):
+        before = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        _, ms = timed(fn)
+        out.append((ms, torch.cuda.memory_stats().get("num_device_alloc", 0)
+                    - before))
+    return out
+
+
+def modes_renderer(scene_fn, device, size, **cfg):
+    """A ProgressiveRenderer at the bench camera, depth 3: (width, height)
+    `size` (or size x size) with RenderConfig(**cfg)."""
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    w, h = size if isinstance(size, tuple) else (size, size)
+    cam, _ = bench_camera_ubo(device, w, h)
+    return ProgressiveRenderer(
+        scene_fn(), cam, RenderConfig(width=w, height=h, max_depth=3, **cfg),
+        device=device)
+
+
+def quad_launches(part, closest=True, occlusion=True):
+    """K1's and K2's launches since the last reset_all_launch_counts();
+    raises unless each one asked for launched."""
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    counts = {"quad_closest": qt.closest_launches,
+              "quad_occlusion": qt.occlusion_launches}
+    if ((closest and not counts["quad_closest"])
+            or (occlusion and not counts["quad_occlusion"])):
+        raise RuntimeError(f"phase 10 {part}: a kernel was not launched: "
+                           f"{counts}")
+    return counts
+
+
+def gate_pixels(what, a, b):
+    """Raise unless images (or buffers [..., C]) `a` and `b` agree within
+    PIXEL_ATOL except at most MAX_FLIPPED of the pixels."""
+    import numpy as np
+
+    diff = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    flipped = diff.reshape(-1, diff.shape[-1]).max(axis=-1) > PIXEL_ATOL
+    log(f"phase 10 {what}: {int(flipped.sum())} flipped pixels of "
+        f"{flipped.size}, max |diff| {float(diff.max()):.3g}")
+    if flipped.mean() > MAX_FLIPPED:
+        raise RuntimeError(f"phase 10 {what}: beyond tolerance")
+
+
+@contextlib.contextmanager
+def capture_launches(closest_at, occlusion_at=None):
+    """Keeps the rays and the results of K1's launch number `closest_at`
+    and K2's number `occlusion_at` (None: none), counted from 0 within the
+    block, as the main path launches them: the wrappers' launch functions
+    are wrapped, so the launches and their counts are the path's own.
+    Yields a dict that check_captured() reads."""
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    kept = {"at": {"closest": closest_at, "occlusion": occlusion_at}}
+    seen = {"closest": 0, "occlusion": 0}
+    k1, k2 = qt._intersect_quad_cuda, qt._occlusion_quad_cuda
+
+    def keep(kind, inputs, out):
+        if seen[kind] == kept["at"][kind]:
+            kept[kind] = (tuple(x.clone() for x in inputs),
+                          tuple(x.clone() for x in out))
+        seen[kind] += 1
+
+    def closest(o, d, tm, scene, *args, **kw):
+        out = k1(o, d, tm, scene, *args, **kw)
+        keep("closest", (o, d, tm), out)
+        kept["scene"] = scene
+        return out
+
+    def occlusion(o, d, tm, skip, scene, *args, **kw):
+        out = k2(o, d, tm, skip, scene, *args, **kw)
+        keep("occlusion", (o, d, tm, skip), (out,))
+        return out
+
+    qt._intersect_quad_cuda, qt._occlusion_quad_cuda = closest, occlusion
+    try:
+        yield kept
+    finally:
+        qt._intersect_quad_cuda, qt._occlusion_quad_cuda = k1, k2
+
+
+def check_captured(part, kept):
+    """Raise unless the launches capture_launches() kept equal their plain
+    versions, run on the card on the same rays, bit for bit (phase 2's
+    gate)."""
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    t0 = time.perf_counter()
+    closest_at, occlusion_at = kept["at"]["closest"], kept["at"]["occlusion"]
+    scene = kept["scene"]
+    arrays = (scene.root, scene.qmeta, scene.qnodes, scene.ptris)
+    (o, d, tm), got = kept["closest"]
+    gate_closest(f"phase 10 {part} K1 launch {closest_at}", got,
+                 qt._intersect_quad_plain(o, d, tm, *arrays))
+    said = (f"K1 launch {closest_at} ({o.shape[0]} rays, "
+            f"{inactive_share(tm):.4f} of the lanes inactive)")
+    if occlusion_at is not None:
+        (o, d, tm, skip), (got,) = kept["occlusion"]
+        mism = int((got != qt._occlusion_quad_plain(o, d, tm, skip,
+                                                    *arrays)).sum())
+        if mism:
+            raise RuntimeError(f"phase 10 {part}: K2 launch {occlusion_at} "
+                               f"!= plain version on {mism} rays")
+        said += (f" and K2 launch {occlusion_at} ({o.shape[0]} rays, "
+                 f"{inactive_share(tm):.4f} inactive)")
+    log(f"phase 10 {part}: {said} of the path equal to the plain versions "
+        f"on the card, every ray ({time.perf_counter() - t0:.2f} s)")
+
+
+def phase10_spp(scene_fn, device, phase3_ms):
+    """(a) One spp_batch=MODES_SPP step against MODES_SPP sequential steps
+    of a fresh renderer at 1080p; ms per step and per sample, peak memory
+    of each."""
+    import numpy as np
+    import torch
+
+    s_count = MODES_SPP
+    bat = modes_renderer(scene_fn, device, (WIDTH, HEIGHT),
+                         spp_batch=s_count)
+    seq = modes_renderer(scene_fn, device, (WIDTH, HEIGHT))
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    _, ms_first = timed(bat.step)
+    counts = quad_launches("(a) spp batching")
+    bat_peak = torch.cuda.max_memory_allocated()
+    img_bat = bat.image()
+    torch.cuda.reset_peak_memory_stats()
+    seq_ms = [timed(seq.step)[1] for _ in range(s_count)]
+    seq_peak = torch.cuda.max_memory_allocated()
+    img_seq = seq.image()
+    # Warm steps, frames s_count .. 4 s_count - 1; the median is the figure.
+    warm = timed_runs(bat.step, 3)
+    ms_step = statistics.median(ms for ms, _ in warm)
+    equal = bool(np.array_equal(img_bat, img_seq))
+    # The bounce-1 launches of one more step: every (pixel, sample) lane.
+    with capture_launches(1, 1) as kept:
+        bat.step()
+    check_captured("(a)", kept)
+    log(f"phase 10 (a): spp_batch={s_count}: first step {ms_first:.1f} ms, "
+        f"warm steps {', '.join(f'{ms:.1f}' for ms, _ in warm)} ms "
+        f"(cudaMalloc calls {[m for _, m in warm]}), median {ms_step:.1f} "
+        f"= {ms_step / s_count:.1f} ms a sample "
+        f"(phase 3: {phase3_ms:.1f} ms/frame; {s_count} sequential steps "
+        f"here: {', '.join(f'{t:.1f}' for t in seq_ms)} ms); peak device "
+        f"memory {bat_peak} B batched, {seq_peak} B sequential "
+        f"({bat_peak / seq_peak:.2f}x); launches of the first step {counts}; "
+        f"batched vs sequential bit-equal: {equal}")
+    if not equal:
+        gate_pixels("(a) batched vs sequential", img_bat, img_seq)
+    return {"ms_step": ms_step, "ms_sample": ms_step / s_count,
+            "peak": bat_peak, "seq_peak": seq_peak, "equal": equal}
+
+
+def phase10_adaptive(scene_fn, device):
+    """(b) Adaptive sampling at 1080p, tol MODES_TOL, min frames
+    MODES_MIN_FRAMES, MODES_FRAMES frames: ms/frame, rays traced per frame,
+    the converged fraction at frames 8, 16, 24; retired pixels unchanged
+    by one more step; then tol 0 at 64x64 on the card bit-equal to the
+    plain accumulation on the card."""
+    import torch
+
+    from raytracer_tpu_torch.integrator import adaptive
+    from raytracer_tpu_torch.integrator.wavefront import render_frame
+
+    r = modes_renderer(scene_fn, device, (WIDTH, HEIGHT),
+                       adaptive_tol=MODES_TOL,
+                       adaptive_min_frames=MODES_MIN_FRAMES)
+    reset_all_launch_counts()
+    rows = []
+    for f in range(MODES_FRAMES):
+        _, ms = timed(r.step)
+        frac = (r.adaptive_converged_fraction()
+                if (f + 1) % 8 == 0 else None)
+        rows.append((ms, int(r.last_stats["rays_traced"]),
+                     int(r.last_stats["shadow_rays"]), frac))
+    counts = quad_launches("(b) adaptive sampling")
+    for f, (ms, traced, shadow, frac) in enumerate(rows):
+        log(f"  adaptive frame {f}: {ms:.1f} ms, {traced} traced + {shadow} "
+            f"shadow rays" + ("" if frac is None else
+                              f", converged {frac:.6f}"))
+    log(f"phase 10 (b): tol {MODES_TOL}, min frames {MODES_MIN_FRAMES}: "
+        f"{sum(row[0] for row in rows[:8]) / 8:.1f} ms/frame over frames "
+        f"0-7, {sum(row[0] for row in rows[16:]) / 8:.1f} over 16-23; "
+        f"converged {[row[3] for row in rows if row[3] is not None]} at "
+        f"frames 8, 16, 24; launches {counts}")
+
+    active = adaptive.active_mask(r.adaptive, r.config)
+    before = r.adaptive
+    # The camera launch (retired pixels inactive) and the first NEE launch.
+    with capture_launches(0, 0) as kept:
+        r.step()
+    check_captured("(b)", kept)
+    retired = ~active
+    if not (torch.equal(r.adaptive.mean[retired], before.mean[retired])
+            and torch.equal(r.adaptive.count[retired],
+                            before.count[retired])
+            and torch.equal(r.adaptive.count[active],
+                            before.count[active] + 1)):
+        raise RuntimeError("phase 10 (b): a retired pixel changed, or an "
+                           "active one did not count")
+    log(f"phase 10 (b): {int(retired.sum())} retired pixels unchanged by "
+        "one more step")
+
+    small = modes_renderer(scene_fn, device, 64)
+    small.begin_frame()
+    cfg = small.config.replace(adaptive_tol=0.0)
+    accum = torch.zeros((cfg.num_pixels, 3), device=device)
+    st = adaptive.AdaptiveState.empty(cfg.num_pixels, device)
+    for f in range(4):
+        accum = render_frame(small.device_scene, small._camera_ubo_dev,
+                             accum, f, cfg)
+        st = adaptive.render_frame_adaptive(
+            small.device_scene, small._camera_ubo_dev, st, cfg)
+    if not (torch.equal(accum, st.mean) and bool((st.count == 4).all())):
+        raise RuntimeError("phase 10 (b): tol 0 differs from the plain "
+                           "accumulation on the card")
+    log("phase 10 (b): 64x64 x4 frames, tol 0 bit-equal to the plain "
+        "accumulation on the card")
+    return {"rows": rows}
+
+
+def phase10_denoise_preview(scene_fn, device):
+    """(c) image(denoise=True) after 4 frames at 1080p, with the G-buffer
+    pass (one K1 launch) and the filter timed apart; the card's filter
+    against the CPU's on the same 1080p buffers, within rtol FILTER_RTOL
+    (atol FILTER_ATOL). (d) preview_image at scale PREVIEW_SCALE with and
+    without denoise, upscaled or not, and aovs()."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.integrator.denoise import (
+        MISS_DEPTH, atrous_denoise, gbuffer_pass,
+    )
+
+    r = modes_renderer(scene_fn, device, (WIDTH, HEIGHT))
+    for _ in range(4):
+        r.step()
+    accum = r.accum.clone()
+    reset_all_launch_counts()
+    img, ms_image = timed(lambda: r.image(denoise=True))
+    counts = quad_launches("(c) denoise", occlusion=False)
+    if counts != {"quad_closest": 1, "quad_occlusion": 0}:
+        raise RuntimeError(f"phase 10 (c): the G-buffer pass launched "
+                           f"{counts}, not one K1")
+    if not torch.equal(r.accum, accum):
+        raise RuntimeError("phase 10 (c): the denoiser changed the "
+                           "accumulation")
+    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all():
+        raise RuntimeError("phase 10 (c): the denoised image is not finite "
+                           "and full size")
+    gbuf, ms_gbuf = timed(lambda: gbuffer_pass(
+        r.device_scene, r._camera_ubo_dev, r.config))
+    card_filter, ms_filter = timed(lambda: atrous_denoise(
+        r.accum, *gbuf, HEIGHT, WIDTH,
+        iterations=r.config.denoise_iterations))
+    with capture_launches(0) as kept:
+        gbuffer_pass(r.device_scene, r._camera_ubo_dev, r.config)
+    check_captured("(c) G-buffer", kept)
+    t0 = time.perf_counter()
+    want = atrous_denoise(*(b.cpu() for b in (r.accum, *gbuf)), HEIGHT,
+                          WIDTH, iterations=r.config.denoise_iterations)
+    cpu_s = time.perf_counter() - t0
+    card_filter = card_filter.cpu().numpy()
+    np.testing.assert_allclose(card_filter, want.numpy(), rtol=FILTER_RTOL,
+                               atol=FILTER_ATOL)
+    log(f"phase 10 (c): the card's filter against the CPU's ({cpu_s:.2f} s) "
+        f"on the same {WIDTH}x{HEIGHT} buffers: max |diff| "
+        f"{float(np.abs(card_filter - want.numpy()).max()):.3g} (rtol "
+        f"{FILTER_RTOL}, atol {FILTER_ATOL})")
+    log(f"phase 10 (c): image(denoise=True) {ms_image:.1f} ms (G-buffer, "
+        f"filter, readback); warm: G-buffer pass {ms_gbuf:.2f} ms (one K1 "
+        f"launch of {WIDTH * HEIGHT} rays), filter {ms_filter:.2f} ms "
+        f"({r.config.denoise_iterations} iterations); launches {counts}")
+
+    # The preview's bounce-1 launches, on its 1/PREVIEW_SCALE lanes.
+    with capture_launches(1, 1) as kept:
+        r.preview_image(PREVIEW_SCALE, denoise=False, upscale=False)
+    check_captured("(d) preview", kept)
+    ms_preview = {}
+    for denoise in (False, True):
+        for upscale in (True, False):
+            reset_all_launch_counts()
+
+            def preview():
+                return r.preview_image(PREVIEW_SCALE, denoise=denoise,
+                                       upscale=upscale)
+
+            # The first denoised call builds the G-buffer.
+            out, first = timed(preview)
+            warm = [ms for ms, _ in timed_runs(preview, 3)]
+            counts = quad_launches(f"(d) preview denoise={denoise}")
+            shape = ((HEIGHT, WIDTH, 3) if upscale else
+                     (HEIGHT // PREVIEW_SCALE, WIDTH // PREVIEW_SCALE, 3))
+            if out.shape != shape or not np.isfinite(out).all():
+                raise RuntimeError(f"phase 10 (d): preview {out.shape}, "
+                                   f"not a finite {shape}")
+            ms = ms_preview[(denoise, upscale)] = statistics.median(warm)
+            log(f"phase 10 (d): preview_image({PREVIEW_SCALE}, denoise="
+                f"{denoise}, upscale={upscale}) {first:.1f} ms, then "
+                f"{', '.join(f'{t:.1f}' for t in warm)} ms (median "
+                f"{ms:.1f}); launches in the four {counts}")
+    aov, ms_aov = timed(r.aovs)
+    hit = aov["depth"] < MISS_DEPTH
+    if (aov["normal"].shape != (HEIGHT, WIDTH, 3)
+            or aov["depth"].shape != (HEIGHT, WIDTH)
+            or aov["albedo"].shape != (HEIGHT, WIDTH, 3)
+            or not hit.any() or not np.isfinite(aov["depth"][hit]).all()):
+        raise RuntimeError("phase 10 (d): AOVs of the wrong shape, or no "
+                           "finite depth on hits")
+    log(f"phase 10 (d): aovs() {ms_aov:.1f} ms (cached G-buffer, readback), "
+        f"{float(hit.mean()):.4f} of the pixels hit")
+    return {"ms_image": ms_image, "ms_gbuf": ms_gbuf,
+            "ms_filter": ms_filter, "ms_preview": ms_preview}
+
+
+def phase10_small(scene_fn, device):
+    """(e) Modes (a), (b) and (d) end to end at MODES_SMALL x MODES_SMALL,
+    card against CPU: spp_batch 2, adaptive sampling, the preview and the
+    AOVs within PIXEL_ATOL / MAX_FLIPPED."""
+    import numpy as np
+
+    from raytracer_tpu_torch.integrator.denoise import MISS_DEPTH
+
+    n = MODES_SMALL
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        reset_all_launch_counts()
+        spp = modes_renderer(scene_fn, dev, n, spp_batch=2)
+        spp.step()
+        ada = modes_renderer(scene_fn, dev, n, adaptive_tol=MODES_TOL,
+                             adaptive_min_frames=2)
+        for _ in range(4):
+            ada.step()
+        plain = modes_renderer(scene_fn, dev, n)
+        plain.render(2)
+        out[str(dev)] = {
+            "spp": spp.image(), "mean": ada.adaptive.mean.cpu().numpy(),
+            "count": ada.adaptive.count.cpu().numpy(),
+            "preview": plain.preview_image(PREVIEW_SCALE, denoise=False,
+                                           upscale=False),
+            "aovs": plain.aovs()}
+        if dev != "cpu":
+            quad_launches("(e)")
+        log(f"phase 10 (e): {n}x{n} modes on {dev} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    card, cpu = out[str(device)], out["cpu"]
+    gate_pixels(f"(e) {n}x{n} spp_batch=2", card["spp"], cpu["spp"])
+    gate_pixels(f"(e) {n}x{n} adaptive mean", card["mean"], cpu["mean"])
+    count_diff = float((card["count"] != cpu["count"]).mean())
+    log(f"phase 10 (e): adaptive counts differ on {count_diff:.4f} of the "
+        f"pixels (converged {float((card['count'] < 4).mean()):.4f})")
+    if count_diff > MAX_FLIPPED:
+        raise RuntimeError("phase 10 (e): adaptive counts differ")
+    gate_pixels(f"(e) {n}x{n} preview", card["preview"], cpu["preview"])
+    hit = (card["aovs"]["depth"] < MISS_DEPTH,
+           cpu["aovs"]["depth"] < MISS_DEPTH)
+    both = hit[0] & hit[1]
+    gate_pixels(f"(e) {n}x{n} AOV normal, albedo",
+                np.concatenate([card["aovs"]["normal"],
+                                card["aovs"]["albedo"]], -1)[both],
+                np.concatenate([cpu["aovs"]["normal"],
+                                cpu["aovs"]["albedo"]], -1)[both])
+    rel = (np.abs(card["aovs"]["depth"] - cpu["aovs"]["depth"])[both]
+           / cpu["aovs"]["depth"][both])
+    flips = float((hit[0] != hit[1]).mean())
+    log(f"phase 10 (e): AOV hit flips {flips:.4f}, max relative depth "
+        f"difference {float(rel.max()):.3g}")
+    if flips > MAX_FLIPPED or float((rel > PIXEL_ATOL).mean()) > MAX_FLIPPED:
+        raise RuntimeError("phase 10 (e): AOV depth beyond tolerance")
+
+
+def phase10(scene_fn, device, phase3_ms):
+    """The render modes on the 1080p 300k atrium at the bench camera, with
+    K1/K2's launch counts set to 0 before and read after each part."""
+    t0 = time.perf_counter()
+    spp = phase10_spp(scene_fn, device, phase3_ms)
+    ada = phase10_adaptive(scene_fn, device)
+    den = phase10_denoise_preview(scene_fn, device)
+    phase10_small(scene_fn, device)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return {"spp": spp, "adaptive": ada, "denoise": den}
+
+
 def phase4():
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.utils.image import read_png
@@ -1498,13 +1937,14 @@ def main():
     k = phase2(ds, device)
     del ds
     atrium = lambda: create_benchmark_atrium(TARGET_TRIS)  # noqa: E731
-    cuda_launches, cuda_img = phase3(atrium, device)
+    cuda_launches, cuda_img, cuda_ms = phase3(atrium, device)
     phase4()
     bvh_launches = phase5(atrium, device, cuda_img)
     lab = phase6(device)
     lab2 = phase7(device)
     lab3 = phase8(device)
     lab4 = phase9(device)
+    phase10(atrium, device, cuda_ms)
 
     def entry(name, source, replaces, launches, shown, *others):
         """A kernel's entry of the kernels line: the ms, plain ms and bound

@@ -6,16 +6,22 @@ ProgressiveRenderer is the analog of Raytracing_Renderer
 torch device, the camera, the accumulation buffer and the frame counter.
 `begin_frame()` replays the scene's change journal (any change re-bakes)
 and resets accumulation; a dirty camera also resets it. `step()` runs one
-progressive sample unless the accumulation limit is reached. Checkpoints
-use the JAX package's .npz format, so one moves between the two packages.
+progressive step (cfg.spp_batch samples in one launch) unless the
+accumulation limit is reached; with cfg.adaptive_tol > 0 it samples only
+the pixels that have not converged (integrator/adaptive.py). `image()`
+can run the a-trous denoiser on the way out, `aovs()` reads the
+denoiser's G-buffer and `preview_image()` renders a throwaway sample at a
+lower resolution (integrator/denoise.py). Checkpoints use the JAX
+package's .npz format, adaptive state included, so one moves between the
+two packages.
 
 As in the JAX package, accel="cuda" falls back to accel="bvh" (the binary
 tree's kernels), with a logged warning, for a t_min other than 1e-3 and for
 a 4-wide tree whose stack need exceeds the kernels' stack.
 
-Not ported yet, each raising with its ROADMAP.md port queue item: ReSTIR,
-adaptive sampling, spp_batch > 1, denoise/preview/AOVs, multi-device
-meshes, and the refit / material-only fast paths of the journal replay.
+Not ported yet, each raising with its ROADMAP.md port queue item: ReSTIR
+and multi-device meshes; the journal replay re-bakes on every change (the
+refit and material-only fast paths are item P3).
 """
 
 from __future__ import annotations
@@ -26,7 +32,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.integrator.wavefront import render_frame
+from raytracer_tpu_torch.integrator.adaptive import (
+    AdaptiveState,
+    active_mask,
+    render_frame_adaptive,
+)
+from raytracer_tpu_torch.integrator.denoise import (
+    atrous_denoise,
+    gbuffer_pass,
+    upscale_bilinear,
+)
+from raytracer_tpu_torch.integrator.wavefront import (
+    render_frame,
+    render_wavefront,
+)
 from raytracer_tpu_torch.ops import binary_traverse
 from raytracer_tpu_torch.ops.camera import Camera
 from raytracer_tpu_torch.ops.quad_traverse import CAP, T_MIN
@@ -44,14 +63,11 @@ def _not_ported(what: str, item: str):
 
 def _check_ported(cfg: RenderConfig):
     """Raise for configuration modes the port does not run yet."""
+    if cfg.adaptive_tol > 0 and cfg.use_restir:
+        raise ValueError("adaptive_tol and use_restir are mutually exclusive "
+                         "(ReSTIR carries its own temporal state)")
     if cfg.use_restir:
         raise _not_ported("ReSTIR DI (use_restir)", "P10")
-    if cfg.adaptive_tol > 0:
-        raise _not_ported("adaptive sampling (adaptive_tol)", "P8")
-    if cfg.spp_batch > 1:
-        raise _not_ported("spp batching (spp_batch > 1)", "P9")
-    if cfg.denoise_preview:
-        raise _not_ported("the preview denoiser (denoise_preview)", "P7")
 
 
 class ProgressiveRenderer:
@@ -88,9 +104,16 @@ class ProgressiveRenderer:
         self.accum = self._zeros()
         self.frame = 0
         self._camera_ubo_dev = None
+        # Denoiser G-buffers by (width, height): the full resolution's and
+        # each preview resolution's, dropped on a camera or scene change.
+        self._gbuffers = {}
         # The last step's ray counts (i64[] device tensors: rays_traced,
         # shadow_rays, total_rays), read without a sync until asked for.
         self.last_stats = None
+        self.adaptive = None
+        if self.config.adaptive_tol > 0:
+            self.adaptive = AdaptiveState.empty(
+                self.config.num_pixels, self.device)
 
     def _bake(self):
         self.device_scene, self._host_bvh = bake_scene(
@@ -134,30 +157,68 @@ class ProgressiveRenderer:
         scene_changed = self._replay_changes()
         if scene_changed or self.camera.dirty:
             self.reset_accumulation()
+        if scene_changed:
+            # Edits can move geometry or change albedo.
+            self._drop_gbuffers()
         if self.camera.dirty or self._camera_ubo_dev is None:
             self._refresh_camera_ubo()
             self.camera.clear_dirty()
+            self._drop_gbuffers()
+
+    def _drop_gbuffers(self):
+        self._gbuffers = {}
+
+    def _gbuffer_for(self, cfg: RenderConfig):
+        """The G-buffer at cfg's resolution with the current camera."""
+        key = (cfg.width, cfg.height)
+        if key not in self._gbuffers:
+            self._gbuffers[key] = gbuffer_pass(
+                self.device_scene, self._ensure_camera_ubo(), cfg)
+        return self._gbuffers[key]
 
     def reset_accumulation(self):
         self.accum = self._zeros()
         self.frame = 0
+        if self.adaptive is not None:
+            # Stale variance would freeze pixels against the old image.
+            self.adaptive = AdaptiveState.empty(
+                self.config.num_pixels, self.device)
 
     # -- the hot loop ---------------------------------------------------
     def step(self) -> bool:
-        """One progressive sample. Returns False when the accumulation
-        limit has been reached (frame skipped)."""
+        """One progressive step: cfg.spp_batch samples (default 1) in one
+        launch. Returns False when the accumulation limit has been reached
+        (frame skipped). `self.frame` counts samples accumulated, not
+        launches."""
         self.begin_frame()
         limit = self.config.accumulation_limit
         if limit is not None and self.frame >= limit:
             return False
-        self.accum, self.last_stats = render_frame(
-            self.device_scene, self._camera_ubo_dev, self.accum, self.frame,
-            self.config, with_stats=True)
-        self.frame += 1
+        if self.adaptive is not None:
+            self.adaptive, self.last_stats = render_frame_adaptive(
+                self.device_scene, self._camera_ubo_dev, self.adaptive,
+                self.config, with_stats=True)
+            # self.accum mirrors the image (checkpoints, the denoiser).
+            self.accum = self.adaptive.mean
+        else:
+            self.accum, self.last_stats = render_frame(
+                self.device_scene, self._camera_ubo_dev, self.accum,
+                self.frame, self.config, with_stats=True)
+        self.frame += self.config.spp_batch
         return True
 
+    def adaptive_converged_fraction(self) -> float:
+        """Fraction of pixels that have stopped sampling (0.0 when adaptive
+        sampling is off). One device readback."""
+        if self.adaptive is None:
+            return 0.0
+        active = active_mask(self.adaptive, self.config)
+        return float(1.0 - active.to(torch.float32).mean())
+
     def render(self, num_frames: int) -> np.ndarray:
-        """Accumulate `num_frames` more samples and return the image."""
+        """Accumulate `num_frames` more samples and return the image. Each
+        step takes cfg.spp_batch samples, so a count that is not a multiple
+        of it ends past the target, as the JAX renderer does."""
         target = self.frame + num_frames
         while self.frame < target:
             if not self.step():
@@ -165,17 +226,71 @@ class ProgressiveRenderer:
         return self.image()
 
     def image(self, denoise: Optional[bool] = None) -> np.ndarray:
-        """Accumulated linear radiance f32[H,W,3] on the host."""
-        if denoise:
-            raise _not_ported("the preview denoiser", "P7")
-        arr = self.accum.detach().cpu().numpy()
+        """Accumulated linear radiance f32[H,W,3] on the host.
+
+        `denoise` (default cfg.denoise_preview) runs the a-trous filter
+        (integrator/denoise.py) on the device-resident accumulation; only
+        the filtered result crosses to the host, and the accumulation is
+        never modified."""
+        use = self.config.denoise_preview if denoise is None else denoise
+        out = self.accum
+        if use:
+            out = atrous_denoise(
+                self.accum, *self._gbuffer_for(self.config),
+                self.config.height,
+                self.config.width,
+                iterations=self.config.denoise_iterations)
+        arr = out.detach().cpu().numpy()
         return arr.reshape(self.config.height, self.config.width, 3)
 
-    def preview_image(self, *args, **kwargs):
-        raise _not_ported("preview_image", "P7")
+    def aovs(self) -> dict:
+        """Arbitrary-output-variable images from one primary trace (the
+        denoiser's G-buffer, cached until the camera or scene changes):
+        {"normal": f32[H,W,3], "depth": f32[H,W], "albedo": f32[H,W,3]};
+        miss pixels have normal 0, depth denoise.MISS_DEPTH, albedo 1."""
+        self.begin_frame()
+        nrm, depth, albedo = (a.detach().cpu().numpy()
+                              for a in self._gbuffer_for(self.config))
+        h, w = self.config.height, self.config.width
+        return {"normal": nrm.reshape(h, w, 3), "depth": depth.reshape(h, w),
+                "albedo": albedo.reshape(h, w, 3)}
 
-    def aovs(self):
-        raise _not_ported("aovs", "P7")
+    def preview_image(self, scale: int = 4, denoise: Optional[bool] = None,
+                      upscale: bool = True) -> np.ndarray:
+        """A low-latency preview f32[H,W,3]: one fresh sample at 1/scale
+        resolution with the current camera and scene, optionally filtered
+        by the a-trous denoiser at that resolution, then bilinearly
+        upscaled to (height, width); `upscale=False` returns it at its
+        native f32[H//scale, W//scale, 3].
+
+        Pending scene edits and camera changes are applied first (the
+        begin_frame a step() would run). Beyond that the preview is a side
+        channel: the accumulation, the frame counter and the adaptive state
+        are untouched. The sample uses the current frame index's RNG
+        streams, so repeated calls between steps give the same image and
+        successive frames decorrelate."""
+        self.begin_frame()
+        use_denoise = (self.config.denoise_preview if denoise is None
+                       else denoise)
+        s = max(int(scale), 1)
+        pw = max(self.config.width // s, 1)
+        ph = max(self.config.height // s, 1)
+        # A plain sample: adaptive (and ReSTIR) state belongs to the
+        # accumulation, not to a throwaway sample.
+        cfg_p = self.config.replace(width=pw, height=ph, use_restir=False,
+                                    adaptive_tol=0.0)
+        rad = render_wavefront(self.device_scene, self._ensure_camera_ubo(),
+                               self.frame, cfg_p)
+        if use_denoise:
+            rad = atrous_denoise(rad, *self._gbuffer_for(cfg_p), ph, pw,
+                                 iterations=self.config.denoise_iterations)
+        if not upscale:
+            return rad.detach().cpu().numpy().reshape(ph, pw, 3)
+        if (pw, ph) != (self.config.width, self.config.height):
+            rad = upscale_bilinear(rad, ph, pw, self.config.height,
+                                   self.config.width)
+        return rad.detach().cpu().numpy().reshape(
+            self.config.height, self.config.width, 3)
 
     def _refresh_camera_ubo(self):
         """The one place the device camera UBO is built from the camera."""
@@ -186,11 +301,26 @@ class ProgressiveRenderer:
         }
         return self._camera_ubo_dev
 
+    def _ensure_camera_ubo(self):
+        if self._camera_ubo_dev is None:
+            self._refresh_camera_ubo()
+        return self._camera_ubo_dev
+
     # -- checkpoint / resume ---------------------------------------------
     def save_checkpoint(self, path: str):
+        extra = {}
+        if self.adaptive is not None:
+            # The mean is the accumulation (saved as accum); m2 and count
+            # resume the convergence decisions exactly. count is written as
+            # uint32, as the JAX package writes it.
+            extra = {
+                "adaptive_m2": self.adaptive.m2.detach().cpu().numpy(),
+                "adaptive_count": self.adaptive.count.detach().cpu().numpy(
+                ).astype(np.uint32),
+            }
         np.savez_compressed(
             path, accum=self.accum.detach().cpu().numpy(), frame=self.frame,
-            width=self.config.width, height=self.config.height,
+            width=self.config.width, height=self.config.height, **extra,
         )
 
     def load_checkpoint(self, path: str):
@@ -203,6 +333,26 @@ class ProgressiveRenderer:
         self.accum = torch.from_numpy(
             np.asarray(data["accum"], np.float32)).to(self.device)
         self.frame = int(data["frame"])
+        if self.adaptive is not None:
+            n = self.config.num_pixels
+            if "adaptive_m2" in data:
+                m2 = torch.from_numpy(np.asarray(data["adaptive_m2"],
+                                                 np.float32))
+                count = torch.from_numpy(np.asarray(data["adaptive_count"],
+                                                    np.int64))
+            else:
+                # A plain checkpoint has no variance history: m2 = 0 would
+                # retire every pixel at once and freeze the render, so m2 =
+                # +inf keeps every pixel sampling, like a plain render.
+                log.warning(
+                    "resuming a non-adaptive checkpoint with adaptive "
+                    "sampling: no variance history, convergence detection "
+                    "disabled for this render")
+                m2 = torch.full((n,), float("inf"), dtype=torch.float32)
+                count = torch.full((n,), self.frame, dtype=torch.int64)
+            self.adaptive = AdaptiveState(
+                mean=self.accum, m2=m2.to(self.device),
+                count=count.to(self.device))
         # The caller asserts the camera/scene match the checkpointed render:
         # materialize the UBO and clear the dirty flag so the next
         # begin_frame() keeps the restored accumulation.

@@ -7,9 +7,8 @@ Usage:
 
 The parser is the JAX package's, plus --device; --accel takes every JAX
 value (auto, pallas, bvh, brute) plus cuda, the port's name for pallas.
-Flags of modes the port does not run yet (--restir, --adaptive,
---denoise, --preview, --preview-scale, --aovs, --spp-batch > 1) exit with
-an error naming their ROADMAP.md port queue item.
+--restir, whose mode the port does not run yet, exits with an error naming
+its ROADMAP.md port queue item.
 """
 
 from __future__ import annotations
@@ -19,7 +18,10 @@ import logging
 import os
 import time
 
+import numpy as np
+
 from raytracer_tpu_torch.api import ProgressiveRenderer
+from raytracer_tpu_torch.integrator.denoise import MISS_DEPTH
 from raytracer_tpu_torch.ops.camera import Camera
 from raytracer_tpu_torch.scene.loaders import load_scene
 from raytracer_tpu_torch.utils.config import RenderConfig
@@ -55,20 +57,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--restir", action="store_true",
                    help="ReSTIR DI (not ported yet)")
     p.add_argument("--adaptive", type=float, default=0.0, metavar="TOL",
-                   help="adaptive sampling tolerance (not ported yet; 0 = "
-                        "off)")
+                   help="adaptive sampling: a pixel stops once the relative "
+                        "standard error of its mean luminance drops under "
+                        "TOL (0 = off); the render stops early once 99.9%% "
+                        "of the pixels have")
     p.add_argument("--denoise", action="store_true",
-                   help="a-trous denoise of the output (not ported yet)")
+                   help="edge-aware a-trous denoise of the output (and "
+                        "previews); the accumulation itself is untouched")
     p.add_argument("--checkpoint", default=None,
                    help="save/resume accumulation state at this .npz path")
     p.add_argument("--preview", type=int, default=0, metavar="N",
-                   help="rewrite --out every N frames (not ported yet)")
+                   help="live preview: rewrite --out (plus a stats table) "
+                        "every N frames while accumulating")
     p.add_argument("--aovs", default=None, metavar="PREFIX",
-                   help="write AOV images (not ported yet)")
+                   help="also write AOV images from one primary trace: "
+                        "PREFIX_albedo/_normal/_depth.png (normal encoded "
+                        "n*0.5+0.5; depth over the farthest hit)")
     p.add_argument("--preview-scale", type=int, default=1, metavar="K",
-                   help="preview at 1/K resolution (not ported yet)")
+                   help="with --preview: write previews from a fresh 1/K-"
+                        "resolution sample (denoised per --denoise, "
+                        "bilinearly upscaled to the output size) instead of "
+                        "reading back the full accumulation")
     p.add_argument("--spp-batch", type=int, default=1, metavar="S",
-                   help="samples per launch (only 1 is ported)")
+                   help="render S progressive samples per launch (one "
+                        "wavefront of S x pixels lanes); latency per step "
+                        "rises about S-fold. --spp must divide by S")
     p.add_argument("--stats-every", type=int, default=0, metavar="N",
                    help="print the stats table every N frames")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -78,18 +91,34 @@ def build_parser() -> argparse.ArgumentParser:
 _UNPORTED = (
     # (flag, is set, ROADMAP.md port queue item)
     ("--restir", lambda a: a.restir, "P10"),
-    ("--adaptive", lambda a: a.adaptive > 0, "P8"),
-    ("--denoise", lambda a: a.denoise, "P7"),
-    ("--preview", lambda a: a.preview > 0, "P7"),
-    ("--preview-scale", lambda a: a.preview_scale > 1, "P7"),
-    ("--aovs", lambda a: a.aovs is not None, "P7"),
-    ("--spp-batch", lambda a: a.spp_batch > 1, "P9"),
 )
+
+
+def write_aovs(prefix, aov):
+    """PREFIX_albedo.png, PREFIX_normal.png (n*0.5+0.5) and
+    PREFIX_depth.png (depth over the farthest hit, misses white)."""
+    write_image(f"{prefix}_albedo.png", aov["albedo"])
+    write_image(f"{prefix}_normal.png", aov["normal"] * 0.5 + 0.5)
+    d = aov["depth"]
+    hit = d < MISS_DEPTH
+    dmax = float(d[hit].max()) if hit.any() else 1.0
+    depth_img = np.where(hit, d / max(dmax, 1e-6), 1.0)
+    write_image(f"{prefix}_depth.png",
+                np.repeat(depth_img[..., None], 3, axis=-1))
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.restir and args.adaptive > 0:
+        parser.error("--restir and --adaptive are mutually exclusive "
+                     "(ReSTIR carries its own temporal state)")
+    if args.spp_batch > 1:
+        if args.restir or args.adaptive > 0:
+            parser.error("--spp-batch requires the plain progressive path "
+                         "(no --restir / --adaptive)")
+        if args.spp % args.spp_batch != 0:
+            parser.error("--spp must be a multiple of --spp-batch")
     for flag, is_set, item in _UNPORTED:
         if is_set(args):
             parser.error(f"{flag} is not ported yet (ROADMAP.md port queue "
@@ -109,6 +138,9 @@ def main(argv=None) -> int:
         accel=args.accel,
         enable_transmission=not args.no_transmission,
         use_light_sampling_only=args.light_sampling_only,
+        adaptive_tol=args.adaptive,
+        denoise_preview=args.denoise,
+        spp_batch=args.spp_batch,
     )
     camera = Camera.create(
         position=tuple(args.camera),
@@ -138,9 +170,27 @@ def main(argv=None) -> int:
         first_launch = False
         if args.stats_every and (i + 1) % args.stats_every == 0:
             print(stats.format_table())
+        if args.preview and (i + 1) % args.preview == 0:
+            if args.preview_scale > 1:
+                write_image(args.out,
+                            renderer.preview_image(args.preview_scale))
+            else:
+                write_image(args.out, renderer.image())
+            print(stats.format_table())
+            log.info("preview updated: %s (%d spp)", args.out,
+                     renderer.frame)
+        if args.adaptive > 0 and (i + 1) % 8 == 0:
+            frac = renderer.adaptive_converged_fraction()
+            if frac >= 0.999:
+                log.info("adaptive: %.1f%% of pixels converged, stopping "
+                         "at %d/%d frames", frac * 100, i + 1, args.spp)
+                break
     elapsed = time.perf_counter() - start
 
     write_image(args.out, renderer.image())
+    if args.aovs:
+        write_aovs(args.aovs, renderer.aovs())
+        log.info("wrote AOVs: %s_{albedo,normal,depth}.png", args.aovs)
     log.info(
         "wrote %s: %d spp in %.2f s (%.2f spp/s, %d triangles)",
         args.out, renderer.frame, elapsed,

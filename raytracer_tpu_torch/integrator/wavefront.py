@@ -38,18 +38,22 @@ i here, and whether the sort pays for one-thread-per-ray traversal is
 ROADMAP.md port queue item P1. The traversal lab (lab/rays.py) uses it to
 build the sorted wavefront the JAX labs measure.
 
+`render_wavefront` is lane-general, as the JAX one: an arbitrary (a range,
+strided, repeated) set of pixel ids, a per-lane frame vector and
+an `active` lane mask. spp batching (`render_tile_spp_batched`), adaptive
+sampling (integrator/adaptive.py), the denoiser's G-buffer and the preview
+stand on it.
+
 Not ported in this module yet (ROADMAP.md port queue): the renderer's use
 of the Morton sorts of lanes and of shadow rays (pure lane permutations, so
-the image does not depend on them), deep-bounce compaction (every bounce
-runs full-size, the same image), per-pixel frame vectors (adaptive
-sampling) and spp batching.
+the image does not depend on them) and deep-bounce compaction (every bounce
+runs full-size, the same image).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops import brdf, rng
@@ -643,22 +647,52 @@ def _sample_dielectric(ray_dir, normal, front_facing, albedo, ior,
     return new_dir, tp, ok, channel, seed
 
 
-def render_wavefront(scene, camera_ubo, frame_number: int, cfg: RenderConfig,
-                     with_stats: bool = False):
-    """One progressive sample of every pixel: radiance f32[N,3] (and, when
-    with_stats=True, a dict of i64[] ray counts on the device: alive rays
-    traced per bounce, shadow rays, their total). The body of
-    simple.rgen:70-125 (everything but accumulation)."""
+_M32 = 0xFFFFFFFF
+
+
+def _lane_frames(frame_number, n, dev):
+    """The frame of each of `n` lanes as i64[n] in [0, 2^32) on `dev`
+    (ops/rng.py's uint32 convention), from an int or a per-lane tensor.
+    An int is filled on the device, not copied there, so no step waits on
+    a host-to-device copy."""
+    if torch.is_tensor(frame_number):
+        frame = frame_number.to(device=dev, dtype=torch.int64).expand(n)
+    else:
+        frame = torch.full((n,), int(frame_number), dtype=torch.int64,
+                           device=dev)
+    return frame & _M32
+
+
+def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
+                     with_stats: bool = False, active=None,
+                     pixel_indices=None):
+    """One progressive sample of a set of pixels: radiance f32[N,3] (and,
+    when with_stats=True, a dict of i64[] ray counts on the device: alive
+    rays traced per bounce, shadow rays, their total). The body of
+    simple.rgen:70-125 (everything but accumulation).
+
+    The lanes are every pixel by default, or `pixel_indices` (i64[N] global
+    pixel ids: a range, strided or repeated). Seeds and camera rays use the
+    global ids, so each lane's radiance is bit-identical to the same
+    (pixel, frame) lane of any other launch shape. `frame_number` is an int
+    or a per-lane tensor [N] (adaptive sampling: each pixel at its own
+    count; spp batching: repeated ids at successive frames). `active`
+    (bool[N]) masks lanes out of the whole sample: they trace nothing and
+    their radiance is not a sample, so the caller must not accumulate it."""
     cfg = cfg.resolve_accel()
     dev = scene.device
-    n = cfg.num_pixels
-    frame = int(frame_number)
-    pixel_idx = torch.arange(n, dtype=torch.int64, device=dev)
+    if pixel_indices is not None:
+        pixel_idx = torch.as_tensor(pixel_indices, device=dev).to(torch.int64)
+    else:
+        pixel_idx = torch.arange(cfg.num_pixels, dtype=torch.int64,
+                                 device=dev)
+    n = pixel_idx.shape[0]
+    frame = _lane_frames(frame_number, n, dev)
     seed0 = rng.seed_pixels(pixel_idx, frame)
 
     # Jitter (getSampleOffset, simple.rgen:25-38): centered on frame 0,
-    # else 0.4-amplitude. Two masked draws keep stream alignment.
-    jitter_mask = torch.full((n,), frame > 0, dtype=torch.bool, device=dev)
+    # else 0.4-amplitude, per lane. Two masked draws keep stream alignment.
+    jitter_mask = frame > 0
     r1, seed_rgen = rng.rnd_masked(seed0, jitter_mask)
     r2, seed_rgen = rng.rnd_masked(seed_rgen, jitter_mask)
     jitter = torch.where(
@@ -672,6 +706,15 @@ def render_wavefront(scene, camera_ubo, frame_number: int, cfg: RenderConfig,
         cfg.width, cfg.height, jitter, pixel_idx,
     )
 
+    # Inactive lanes start dead. The JAX renderer sorts them to the back of
+    # the wavefront from depth 0 so that its kernel groups retire in one
+    # pop; the port has no lane sort (P1) and needs none for this: the
+    # traversal wrappers give a dead lane t_max = t_min, and K1-K4's
+    # persistent warps fetch only live rays.
+    if active is None:
+        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    else:
+        alive = torch.as_tensor(active, device=dev).to(torch.bool)
     f32 = dict(dtype=torch.float32, device=dev)
     state = WavefrontState(
         origin=origin,
@@ -680,7 +723,7 @@ def render_wavefront(scene, camera_ubo, frame_number: int, cfg: RenderConfig,
         throughput=torch.ones((n, 3), **f32),
         seed_rgen=seed_rgen,
         seed=seed_rgen,
-        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        alive=alive,
         first_bounce=torch.ones((n,), dtype=torch.bool, device=dev),
         is_specular=torch.zeros((n,), dtype=torch.bool, device=dev),
         prev_brdf_pdf=torch.ones((n,), **f32),
@@ -739,22 +782,54 @@ def render_wavefront(scene, camera_ubo, frame_number: int, cfg: RenderConfig,
     return radiance
 
 
-def accumulate(accum, radiance, frame_number: int):
+def accumulate(accum, radiance, frame_number):
     """The progressive running mean (simple.rgen:127-136): frame 0 stores,
-    later frames blend with weight 1/(frame+1), computed in f32."""
-    if frame_number == 0:
-        return radiance.clone()
-    a = float(np.float32(1.0) / (np.float32(frame_number) + np.float32(1.0)))
-    return accum + (radiance - accum) * a
+    later frames blend with weight 1/(frame+1), computed in f32.
+
+    `frame_number` is an int or a per-pixel frame tensor [N] (adaptive
+    sampling: each pixel blends at its own count)."""
+    frame = _lane_frames(frame_number, radiance.shape[0], radiance.device)
+    a = 1.0 / (frame.to(torch.float32) + 1.0)
+    blended = accum + (radiance - accum) * a[:, None]
+    return torch.where((frame == 0)[:, None], radiance, blended)
+
+
+def render_tile_spp_batched(scene, camera_ubo, accum, frame_number: int,
+                            cfg: RenderConfig, with_stats: bool = False):
+    """cfg.spp_batch progressive samples of every pixel in one wavefront:
+    the pixel ids tiled S times with the per-lane frames frame_number +
+    [0..S), folded into the accumulation in order by the sequential formula
+    (`accumulate`). Each lane's radiance is that of the same (pixel, frame)
+    lane of a 1-spp launch, so the result equals S sequential steps.
+    Returns the new accumulation (and, with with_stats=True, the launch's
+    ray counts). The JAX version's tile arguments serve its multi-device
+    path (ROADMAP.md port queue item P12)."""
+    s_count = cfg.spp_batch
+    n = cfg.num_pixels
+    dev = scene.device
+    frame = int(frame_number)
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    frames = frame + torch.arange(
+        s_count, dtype=torch.int64, device=dev).repeat_interleave(n)
+    out = render_wavefront(scene, camera_ubo, frames, cfg,
+                           pixel_indices=pix.repeat(s_count),
+                           with_stats=with_stats)
+    radiance = (out[0] if with_stats else out).reshape(s_count, n, 3)
+    for s in range(s_count):
+        accum = accumulate(accum, radiance[s], frame + s)
+    return (accum, out[1]) if with_stats else accum
 
 
 def render_frame(scene, camera_ubo, accum, frame_number: int,
                  cfg: RenderConfig, with_stats: bool = False):
     """One progressive step: returns the new accumulation f32[N,3] (and
-    render_wavefront's ray counts when with_stats=True)."""
+    render_wavefront's ray counts when with_stats=True). With
+    cfg.spp_batch = S > 1 the step renders S samples in one launch and
+    advances the accumulation by S counts."""
     if cfg.spp_batch > 1:
-        raise NotImplementedError(
-            "spp_batch > 1 is not ported yet: ROADMAP.md port queue item P9")
+        return render_tile_spp_batched(scene, camera_ubo, accum,
+                                       frame_number, cfg,
+                                       with_stats=with_stats)
     if with_stats:
         radiance, stats = render_wavefront(scene, camera_ubo, frame_number,
                                            cfg, with_stats=True)

@@ -24,7 +24,7 @@ from raytracer_tpu.ops.traverse import intersect_bvh, occlusion_bvh
 from raytracer_tpu_torch.ops import binary_traverse as bt
 from tests.conftest import make_traversal_scene
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 DT = 1e-5
 

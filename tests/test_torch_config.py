@@ -15,7 +15,7 @@ from raytracer_tpu_torch.api import render
 from raytracer_tpu_torch.integrator import wavefront
 from raytracer_tpu_torch.utils.config import RenderConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 JAX_ACCELS = ("auto", "pallas", "bvh", "brute")
 

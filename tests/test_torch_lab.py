@@ -40,7 +40,7 @@ from tools import bvh4_lab as jbvh4
 from tools import kernel_lab as jkl
 from tools import occl_lab as jol
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 DT = 1e-5
 ONE_RAY_TILES = 10

@@ -43,7 +43,7 @@ from tools import bf16_lab as jbf
 from tools import smem_lab as jsm
 from tools import visit_cost_lab as jvc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 RANDOM_TILES = 5  # L11a's one-ray tiles
 K_NODES = 64  # L11a's visits in the tests

@@ -52,7 +52,7 @@ from tests.conftest import make_traversal_scene
 from tools import r3_occl3_lab as jl8
 from tools import r3_oct_lab as jl7
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 DT = 1e-5
 UV = 1e-4

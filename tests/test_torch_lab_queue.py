@@ -43,7 +43,7 @@ from tools import v2_kernel_lab as jv2
 from tools import v3_kernel_lab as jv3
 from tools import v4_interleave_lab as jv4
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 DT = 1e-5
 UV = 1e-4

@@ -16,7 +16,15 @@ from raytracer_tpu_torch.ops import intersect as tint
 from raytracer_tpu_torch.ops import math3d as tm
 from raytracer_tpu_torch.ops import rng as trng
 
-torch.set_num_threads(2)
+# One thread in every port test file (each sets it at import, so the last
+# one imported sets it for a whole xdist worker): with two, torch's first
+# parallel call of sqrt in a process now and then returns ~11-bit results
+# for one thread's half of the array (3 of 145 processes here, up to 3,817
+# ulps off; 0 of 148 with one thread). That, not rounding, failed
+# test_math3d[length], [normalize] and [basis] in 5 of 30 runs under -n 6;
+# in the other runs JAX and torch `length` differ by at most 1 ulp, on 25
+# of the 4,096 vectors, well inside the tolerance below.
+torch.set_num_threads(1)
 
 ATOL = 1e-6  # f32 elementwise math: a few ulps of O(1) values
 

@@ -32,7 +32,7 @@ from raytracer_tpu_torch.api import ProgressiveRenderer
 from raytracer_tpu_torch.ops import binary_traverse
 from raytracer_tpu_torch.utils.config import RenderConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 PIXEL_ATOL = 1e-4
 MAX_FLIPPED = 0.01
@@ -263,9 +263,8 @@ def test_cli_renders_with_accel(tmp_path, accel):
     assert img.std() > 0
 
 
-@pytest.mark.parametrize("flag", [["--restir"], ["--adaptive", "0.1"],
-                                  ["--denoise"], ["--spp-batch", "2"],
-                                  ["--aovs", "x"]])
+@pytest.mark.parametrize("flag", [["--restir"],
+                                  ["--restir", "--adaptive", "0.1"]])
 def test_cli_refuses_unported_modes(tmp_path, flag):
     from raytracer_tpu_torch import cli
 
@@ -277,15 +276,56 @@ def test_cli_refuses_unported_modes(tmp_path, flag):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("field", [dict(use_restir=True),
-                                   dict(adaptive_tol=0.1),
-                                   dict(spp_batch=2),
-                                   dict(denoise_preview=True)])
+@pytest.mark.parametrize("flag,files", [
+    (["--adaptive", "0.1"], []),
+    (["--denoise"], []),
+    (["--spp-batch", "2"], []),
+    (["--aovs", "AOV"], ["AOV_albedo.png", "AOV_normal.png",
+                         "AOV_depth.png"]),
+    (["--preview", "1", "--preview-scale", "2"], []),
+], ids=["adaptive", "denoise", "spp_batch", "aovs", "preview"])
+def test_cli_runs_ported_modes(tmp_path, flag, files, capsys):
+    """The modes of ROADMAP items P7-P9 run on the in-repo Cornell JSON,
+    exit 0 and write the full-resolution image (and the AOV PNGs)."""
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.utils.image import read_png
+
+    scene = tmp_path / "box.json"
+    scene.write_text(CORNELL_JSON)
+    out = tmp_path / "o.png"
+    flag = [str(tmp_path / f) if f == "AOV" else f for f in flag]
+    assert cli.main([str(scene), "--width", "16", "--height", "12", "--spp",
+                     "2", "--device", "cpu", "--out", str(out),
+                     *flag]) == 0
+    img = read_png(str(out))
+    assert img.shape == (12, 16, 3) and img.std() > 0
+    for name in files:
+        aov = read_png(str(tmp_path / name))
+        assert aov.shape == (12, 16, 3)
+    if "--preview" in flag:
+        # The preview cadence prints the stats table every frame.
+        assert capsys.readouterr().out.count("ms/frame") == 2
+
+
+@pytest.mark.parametrize("field", [dict(use_restir=True)])
 def test_renderer_refuses_unported_modes(field):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ProgressiveRenderer(tmodel.create_cornell_box(), None,
                             RenderConfig(width=8, height=8, **field),
                             device="cpu")
+
+
+@pytest.mark.parametrize("field", [dict(adaptive_tol=0.1),
+                                   dict(spp_batch=2),
+                                   dict(denoise_preview=True)])
+def test_renderer_runs_ported_modes(field):
+    r = ProgressiveRenderer(tmodel.create_cornell_box(), None,
+                            RenderConfig(width=8, height=8, **field),
+                            device="cpu")
+    img = r.render(2)
+    assert r.frame == 2
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0
 
 
 def test_port_never_imports_jax():
@@ -336,6 +376,12 @@ def test_port_never_imports_jax():
         "x, y = bf16_lab.inputs('f32_fma', 1)\n"
         "bf16_lab.run_bf16('f32_fma', x, y, 8)\n"
         "bf16_lab.run_bf16('bf16', *bf16_lab.inputs('bf16', 1), 8)\n"
+        "from raytracer_tpu_torch.integrator import adaptive, denoise\n"
+        "r = __import__('raytracer_tpu_torch.api', fromlist=['x'])."
+        "ProgressiveRenderer(create_cornell_box(), None, RenderConfig("
+        "width=8, height=8, adaptive_tol=0.1, denoise_preview=True), "
+        "device='cpu')\n"
+        "r.step(); r.image(); r.aovs(); r.preview_image(2)\n"
         "from raytracer_tpu_torch.ops import quad_traverse\n"
         "assert quad_traverse.leaf_counts(ds8).min() > 0\n"
         "from raytracer_tpu_torch.utils import profile_frame\n"

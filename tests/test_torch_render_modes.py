@@ -20,7 +20,7 @@ from raytracer_tpu.utils.config import RenderConfig as JaxConfig
 from raytracer_tpu_torch.api import ProgressiveRenderer
 from raytracer_tpu_torch.utils.config import RenderConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see test_torch_ops.py
 
 WIDTH, HEIGHT, FRAMES = 20, 14, 2
 
