@@ -110,6 +110,22 @@ Phases (any failure exits non-zero and prints no result line):
      (e) (a), (b) and (d) at 32x32, card against CPU, within PIXEL_ATOL /
      MAX_FLIPPED (adaptive counts equal on all but MAX_FLIPPED of the
      pixels).
+ 11. ReSTIR DI (RenderConfig(use_restir=True)) through ProgressiveRenderer,
+     with every launch count set to 0 before and read after each run:
+     (a) the 1080p atrium at the bench camera, accel auto, 2 warm and 4
+     timed frames, with ms/frame beside phase 3's, Mrays/s (shadow rays
+     included) and peak device memory; K1 3 and K2 4 launches a frame and
+     no K3/K4; a finite, non-black image and M > 0 on every pixel that
+     hits; (b) the same with accel="bvh": K3 3 and K4 4 a frame, no K1/K2,
+     the image within PIXEL_ATOL / MAX_FLIPPED of (a)'s; (c) one more step
+     of (a) with its primary K1 launch and K2 launch 1 (step 6's final
+     visibility, each ray skipping its sample's light object) captured and
+     held bit for bit against the plain walks on the card; (d) the 64-light
+     grid at 1080p (the JAX ReSTIR lab's camera), ReSTIR against plain
+     NEE, 4 timed frames each; (e) the atrium at 32x32 and the lightgrid at
+     24x24, 3 frames each, card against CPU within PIXEL_ATOL /
+     MAX_FLIPPED, the reservoir's light_index equal on all but MAX_FLIPPED
+     of the pixels.
 
 Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
@@ -1530,7 +1546,7 @@ def modes_renderer(scene_fn, device, size, **cfg):
         device=device)
 
 
-def quad_launches(part, closest=True, occlusion=True):
+def quad_launches(part, closest=True, occlusion=True, phase="phase 10"):
     """K1's and K2's launches since the last reset_all_launch_counts();
     raises unless each one asked for launched."""
     from raytracer_tpu_torch.ops import quad_traverse as qt
@@ -1539,22 +1555,22 @@ def quad_launches(part, closest=True, occlusion=True):
               "quad_occlusion": qt.occlusion_launches}
     if ((closest and not counts["quad_closest"])
             or (occlusion and not counts["quad_occlusion"])):
-        raise RuntimeError(f"phase 10 {part}: a kernel was not launched: "
+        raise RuntimeError(f"{phase} {part}: a kernel was not launched: "
                            f"{counts}")
     return counts
 
 
-def gate_pixels(what, a, b):
+def gate_pixels(what, a, b, phase="phase 10"):
     """Raise unless images (or buffers [..., C]) `a` and `b` agree within
     PIXEL_ATOL except at most MAX_FLIPPED of the pixels."""
     import numpy as np
 
     diff = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
     flipped = diff.reshape(-1, diff.shape[-1]).max(axis=-1) > PIXEL_ATOL
-    log(f"phase 10 {what}: {int(flipped.sum())} flipped pixels of "
+    log(f"{phase} {what}: {int(flipped.sum())} flipped pixels of "
         f"{flipped.size}, max |diff| {float(diff.max()):.3g}")
     if flipped.mean() > MAX_FLIPPED:
-        raise RuntimeError(f"phase 10 {what}: beyond tolerance")
+        raise RuntimeError(f"{phase} {what}: beyond tolerance")
 
 
 @contextlib.contextmanager
@@ -1594,7 +1610,7 @@ def capture_launches(closest_at, occlusion_at=None):
         qt._intersect_quad_cuda, qt._occlusion_quad_cuda = k1, k2
 
 
-def check_captured(part, kept):
+def check_captured(part, kept, phase="phase 10"):
     """Raise unless the launches capture_launches() kept equal their plain
     versions, run on the card on the same rays, bit for bit (phase 2's
     gate)."""
@@ -1605,7 +1621,7 @@ def check_captured(part, kept):
     scene = kept["scene"]
     arrays = (scene.root, scene.qmeta, scene.qnodes, scene.ptris)
     (o, d, tm), got = kept["closest"]
-    gate_closest(f"phase 10 {part} K1 launch {closest_at}", got,
+    gate_closest(f"{phase} {part} K1 launch {closest_at}", got,
                  qt._intersect_quad_plain(o, d, tm, *arrays))
     said = (f"K1 launch {closest_at} ({o.shape[0]} rays, "
             f"{inactive_share(tm):.4f} of the lanes inactive)")
@@ -1614,11 +1630,11 @@ def check_captured(part, kept):
         mism = int((got != qt._occlusion_quad_plain(o, d, tm, skip,
                                                     *arrays)).sum())
         if mism:
-            raise RuntimeError(f"phase 10 {part}: K2 launch {occlusion_at} "
+            raise RuntimeError(f"{phase} {part}: K2 launch {occlusion_at} "
                                f"!= plain version on {mism} rays")
         said += (f" and K2 launch {occlusion_at} ({o.shape[0]} rays, "
                  f"{inactive_share(tm):.4f} inactive)")
-    log(f"phase 10 {part}: {said} of the path equal to the plain versions "
+    log(f"{phase} {part}: {said} of the path equal to the plain versions "
         f"on the card, every ray ({time.perf_counter() - t0:.2f} s)")
 
 
@@ -1897,6 +1913,196 @@ def phase10(scene_fn, device, phase3_ms):
     return {"spp": spp, "adaptive": ada, "denoise": den}
 
 
+# Phase 11: ReSTIR DI. The lightgrid's camera is the JAX package's ReSTIR
+# lab's (tools/r5_restir_equaltime_lab.py:81-83).
+LIGHTGRID_CAM = ((0.0, 4.2, -10.5), (0.0, 1.2, 1.5))
+RESTIR_SMALL = {"atrium": 32, "lightgrid": 24}  # (e), card against CPU
+RESTIR_SMALL_FRAMES = 3
+# K1 (K3) and K2 (K4) launches of a ReSTIR frame at depth 3: the primary
+# trace and two indirect bounces; step 3's and step 6's shadow rays and the
+# two indirect bounces' NEE.
+RESTIR_LAUNCHES = {"closest": 3, "occlusion": 4}
+
+
+def restir_renderer(scene_fn, device, size, cam=(CAM_POS, CAM_TARGET),
+                    **cfg):
+    """A ProgressiveRenderer at `cam` (position, target), depth 3, (width,
+    height) `size`, with RenderConfig(**cfg)."""
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.ops.camera import Camera
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    w, h = size
+    camera = Camera.create(position=cam[0], aspect=w / h, target=cam[1])
+    return ProgressiveRenderer(
+        scene_fn(), camera,
+        RenderConfig(width=w, height=h, max_depth=3, **cfg), device=device)
+
+
+def timed_frames(r, label):
+    """2 warm and 4 timed steps of renderer `r`, with every launch count
+    set to 0 just before and read just after: (ms/frame, Mrays/s, peak
+    device memory, launch counts of the 6 frames)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    times, rays = [], []
+    for f in range(6):
+        _, ms = timed(r.step)
+        if f >= 2:
+            times.append(ms)
+            rays.append(int(r.last_stats["total_rays"]))
+    launches = all_launch_counts()
+    ms = sum(times) / len(times)
+    mrays = sum(rays) / (sum(times) / 1e3) / 1e6
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 11 {label}: timed frames "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms, mean {ms:.1f} ms/frame, {sum(rays) // len(rays)} rays/frame "
+        f"(shadow rays included), {mrays:.2f} Mrays/s, peak device memory "
+        f"{peak} B, launches in 6 frames {launches}")
+    return ms, mrays, peak, launches
+
+
+def phase11_main(scene_fn, device, accel, phase3_ms):
+    """(a)/(b) ReSTIR on the 1080p atrium with `accel`: timed frames, the
+    launches a frame, a finite non-black image, and M > 0 on every pixel
+    that hits. Returns (renderer, image, ms/frame)."""
+    import numpy as np
+
+    from raytracer_tpu_torch.integrator.denoise import MISS_DEPTH
+
+    part = "(a)" if accel == "auto" else "(b)"
+    r = restir_renderer(scene_fn, device, (WIDTH, HEIGHT), use_restir=True,
+                        accel=accel)
+    ms, mrays, peak, launches = timed_frames(r, f"{part} accel={accel}")
+    tree = "quad" if accel == "auto" else "binary"
+    other = "binary" if accel == "auto" else "quad"
+    want = {f"{tree}_{k}": 6 * n for k, n in RESTIR_LAUNCHES.items()}
+    want.update({f"{other}_{k}": 0 for k in RESTIR_LAUNCHES})
+    if launches != want:
+        raise RuntimeError(f"phase 11 {part}: launches {launches}, want "
+                           f"{want} in 6 frames")
+    img = r.image()
+    if not np.isfinite(img).all() or not img.mean() > 0:
+        raise RuntimeError(f"phase 11 {part}: image is not finite and "
+                           "non-black")
+    hit = r.aovs()["depth"].reshape(-1) < MISS_DEPTH
+    m = r.reservoir.m.cpu().numpy()
+    sample = (r.reservoir.light_index.cpu().numpy() >= 0) & (
+        r.reservoir.w.cpu().numpy() > 0)
+    log(f"phase 11 {part}: {ms:.1f} ms/frame against phase 3's "
+        f"{phase3_ms:.1f} ({ms / phase3_ms:.2f}x), {mrays:.2f} Mrays/s, peak "
+        f"{peak} B; K{'1' if accel == 'auto' else '3'}/"
+        f"K{'2' if accel == 'auto' else '4'} launches a frame "
+        f"{launches[f'{tree}_closest'] / 6:g} / "
+        f"{launches[f'{tree}_occlusion'] / 6:g}; image mean "
+        f"{float(img.mean()):.5f}; {int(hit.sum())} pixels hit, M > 0 on "
+        f"{int((m[hit] > 0).sum())}, a sample with W > 0 on "
+        f"{int(sample[hit].sum())}; M max {float(m.max()):g}")
+    if not (m[hit] > 0).all() or not sample[hit].any():
+        raise RuntimeError(f"phase 11 {part}: the reservoir is empty on "
+                           "pixels that hit")
+    return r, img, ms
+
+
+def phase11_capture(r):
+    """(c) One more step of (a)'s renderer, its primary K1 launch and K2
+    launch 1 (step 6's final visibility rays, skipping each sample's light
+    object) kept and held against the plain walks on the card."""
+    import torch
+
+    with capture_launches(0, 1) as kept:
+        r.step()
+    check_captured("(c)", kept, phase="phase 11")
+    # Without the feedback flag the reservoir the step hands on holds the
+    # samples step 6 shaded: each live ray skips its sample's object.
+    (o, d, tm, skip), _ = kept["occlusion"]
+    live = tm > 1e-3
+    ds = kept["scene"]
+    li = torch.clamp(r.reservoir.light_index, 0,
+                     ds.light_tri_object.shape[0] - 1).long()
+    want = ds.light_tri_object[li]
+    if not torch.equal(skip[live], want[live]):
+        raise RuntimeError("phase 11 (c): a step-6 ray does not skip its "
+                           "sample's light object")
+    log(f"phase 11 (c): K2 launch 1 has {int(live.sum())} live rays, each "
+        "skipping its sample's light object")
+
+
+def phase11_lightgrid(device):
+    """(d) The 64-light grid at 1080p: ReSTIR against plain NEE."""
+    from raytracer_tpu_torch.scene.benchmark import (
+        create_benchmark_lightgrid,
+    )
+
+    out = {}
+    for name, restir in (("ReSTIR", True), ("NEE", False)):
+        r = restir_renderer(create_benchmark_lightgrid, device,
+                            (WIDTH, HEIGHT), cam=LIGHTGRID_CAM,
+                            use_restir=restir)
+        out[name] = timed_frames(r, f"(d) lightgrid {name}")
+        quad_launches(f"(d) lightgrid {name}", phase="phase 11")
+        del r
+    ratio = out["ReSTIR"][0] / out["NEE"][0]
+    log(f"phase 11 (d): lightgrid 1080p ReSTIR {out['ReSTIR'][0]:.1f} "
+        f"ms/frame, NEE {out['NEE'][0]:.1f} ({ratio:.2f}x); peak "
+        f"{out['ReSTIR'][2]} / {out['NEE'][2]} B")
+    return {"restir_ms": out["ReSTIR"][0], "nee_ms": out["NEE"][0],
+            "ratio": ratio}
+
+
+def phase11_small(scene_fn, device):
+    """(e) The atrium and the lightgrid at RESTIR_SMALL, card against CPU:
+    images within PIXEL_ATOL / MAX_FLIPPED, the reservoir's light_index
+    equal on all but MAX_FLIPPED of the pixels."""
+    import numpy as np
+
+    from raytracer_tpu_torch.scene.benchmark import (
+        create_benchmark_lightgrid,
+    )
+
+    cases = (("atrium", scene_fn, (CAM_POS, CAM_TARGET)),
+             ("lightgrid", create_benchmark_lightgrid, LIGHTGRID_CAM))
+    for name, make, cam in cases:
+        n = RESTIR_SMALL[name]
+        out = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            reset_all_launch_counts()
+            r = restir_renderer(make, dev, (n, n), cam=cam, use_restir=True)
+            img = r.render(RESTIR_SMALL_FRAMES)
+            if dev != "cpu":
+                quad_launches(f"(e) {name}", phase="phase 11")
+            out[str(dev)] = (img, r.reservoir.light_index.cpu().numpy())
+            log(f"phase 11 (e): {name} {n}x{n} x{RESTIR_SMALL_FRAMES} "
+                f"frames on {dev} in {time.perf_counter() - t0:.2f} s")
+        (card, card_li), (cpu, cpu_li) = out[str(device)], out["cpu"]
+        gate_pixels(f"(e) {name} {n}x{n}", card, cpu, phase="phase 11")
+        same = float((card_li == cpu_li).mean())
+        log(f"phase 11 (e): {name} light_index equal on {same:.4f} of the "
+            "pixels")
+        if same < 1 - MAX_FLIPPED:
+            raise RuntimeError(f"phase 11 (e): {name} reservoirs differ")
+
+
+def phase11(scene_fn, device, phase3_ms):
+    """ReSTIR DI (use_restir=True) on the 1080p atrium with accel auto and
+    bvh, the captured launches, the 1080p lightgrid, and card against CPU
+    at small sizes."""
+    t0 = time.perf_counter()
+    r, img, ms = phase11_main(scene_fn, device, "auto", phase3_ms)
+    phase11_capture(r)
+    del r
+    _, bvh_img, bvh_ms = phase11_main(scene_fn, device, "bvh", phase3_ms)
+    gate_pixels("(b) 1080p accel=bvh vs accel=auto after the same frames",
+                bvh_img, img, phase="phase 11")
+    grid = phase11_lightgrid(device)
+    phase11_small(scene_fn, device)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return {"ms": ms, "bvh_ms": bvh_ms, **grid}
+
+
 def phase4():
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.utils.image import read_png
@@ -1945,6 +2151,7 @@ def main():
     lab3 = phase8(device)
     lab4 = phase9(device)
     phase10(atrium, device, cuda_ms)
+    phase11(atrium, device, cuda_ms)
 
     def entry(name, source, replaces, launches, shown, *others):
         """A kernel's entry of the kernels line: the ms, plain ms and bound

@@ -11,16 +11,18 @@ accumulation limit is reached; with cfg.adaptive_tol > 0 it samples only
 the pixels that have not converged (integrator/adaptive.py). `image()`
 can run the a-trous denoiser on the way out, `aovs()` reads the
 denoiser's G-buffer and `preview_image()` renders a throwaway sample at a
-lower resolution (integrator/denoise.py). Checkpoints use the JAX
-package's .npz format, adaptive state included, so one moves between the
-two packages.
+lower resolution (integrator/denoise.py). With cfg.use_restir the step
+runs ReSTIR DI (integrator/restir.py) and carries its reservoir from frame
+to frame; a camera move or a scene edit empties it with the accumulation.
+Checkpoints use the JAX package's .npz format, adaptive and ReSTIR state
+included, so one moves between the two packages.
 
 As in the JAX package, accel="cuda" falls back to accel="bvh" (the binary
 tree's kernels), with a logged warning, for a t_min other than 1e-3 and for
 a 4-wide tree whose stack need exceeds the kernels' stack.
 
-Not ported yet, each raising with its ROADMAP.md port queue item: ReSTIR
-and multi-device meshes; the journal replay re-bakes on every change (the
+Not ported yet, each raising with its ROADMAP.md port queue item:
+multi-device meshes (P12); the journal replay re-bakes on every change (the
 refit and material-only fast paths are item P3).
 """
 
@@ -42,6 +44,10 @@ from raytracer_tpu_torch.integrator.denoise import (
     gbuffer_pass,
     upscale_bilinear,
 )
+from raytracer_tpu_torch.integrator.restir import (
+    Reservoir,
+    render_frame_restir,
+)
 from raytracer_tpu_torch.integrator.wavefront import (
     render_frame,
     render_wavefront,
@@ -61,13 +67,11 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported yet: ROADMAP.md port queue item {item}")
 
 
-def _check_ported(cfg: RenderConfig):
-    """Raise for configuration modes the port does not run yet."""
+def _check_modes(cfg: RenderConfig):
+    """Raise for a combination of modes that cannot run together."""
     if cfg.adaptive_tol > 0 and cfg.use_restir:
         raise ValueError("adaptive_tol and use_restir are mutually exclusive "
                          "(ReSTIR carries its own temporal state)")
-    if cfg.use_restir:
-        raise _not_ported("ReSTIR DI (use_restir)", "P10")
 
 
 class ProgressiveRenderer:
@@ -82,7 +86,7 @@ class ProgressiveRenderer:
         self.scene = scene
         self.device = torch.device(device)
         self.config = (config or RenderConfig()).resolve_accel()
-        _check_ported(self.config)
+        _check_modes(self.config)
         if (self.config.accel == "cuda"
                 and abs(self.config.t_min - T_MIN) > 1e-9):
             # The 4-wide kernels fix the reference's traceRayEXT t_min of
@@ -110,6 +114,10 @@ class ProgressiveRenderer:
         # The last step's ray counts (i64[] device tensors: rays_traced,
         # shadow_rays, total_rays), read without a sync until asked for.
         self.last_stats = None
+        self.reservoir = None
+        if self.config.use_restir:
+            self.reservoir = Reservoir.empty(self.config.num_pixels,
+                                             self.device)
         self.adaptive = None
         if self.config.adaptive_tol > 0:
             self.adaptive = AdaptiveState.empty(
@@ -179,6 +187,10 @@ class ProgressiveRenderer:
     def reset_accumulation(self):
         self.accum = self._zeros()
         self.frame = 0
+        if self.reservoir is not None:
+            # Temporal reuse is valid only while the accumulation is.
+            self.reservoir = Reservoir.empty(self.config.num_pixels,
+                                             self.device)
         if self.adaptive is not None:
             # Stale variance would freeze pixels against the old image.
             self.adaptive = AdaptiveState.empty(
@@ -200,6 +212,10 @@ class ProgressiveRenderer:
                 self.config, with_stats=True)
             # self.accum mirrors the image (checkpoints, the denoiser).
             self.accum = self.adaptive.mean
+        elif self.reservoir is not None:
+            self.accum, self.reservoir, self.last_stats = render_frame_restir(
+                self.device_scene, self._camera_ubo_dev, self.accum,
+                self.reservoir, self.frame, self.config, with_stats=True)
         else:
             self.accum, self.last_stats = render_frame(
                 self.device_scene, self._camera_ubo_dev, self.accum,
@@ -309,15 +325,19 @@ class ProgressiveRenderer:
     # -- checkpoint / resume ---------------------------------------------
     def save_checkpoint(self, path: str):
         extra = {}
+        if self.reservoir is not None:
+            # The temporal history is part of the render state.
+            extra = {f"reservoir_{k}": v.detach().cpu().numpy()
+                     for k, v in self.reservoir._asdict().items()}
         if self.adaptive is not None:
             # The mean is the accumulation (saved as accum); m2 and count
             # resume the convergence decisions exactly. count is written as
             # uint32, as the JAX package writes it.
-            extra = {
+            extra.update({
                 "adaptive_m2": self.adaptive.m2.detach().cpu().numpy(),
                 "adaptive_count": self.adaptive.count.detach().cpu().numpy(
                 ).astype(np.uint32),
-            }
+            })
         np.savez_compressed(
             path, accum=self.accum.detach().cpu().numpy(), frame=self.frame,
             width=self.config.width, height=self.config.height, **extra,
@@ -333,6 +353,16 @@ class ProgressiveRenderer:
         self.accum = torch.from_numpy(
             np.asarray(data["accum"], np.float32)).to(self.device)
         self.frame = int(data["frame"])
+        if self.reservoir is not None:
+            if "reservoir_weight_sum" in data:
+                self.reservoir = Reservoir(**{
+                    k: torch.from_numpy(np.array(data[f"reservoir_{k}"])).to(
+                        self.device) for k in Reservoir._fields})
+            else:
+                # No reservoir in the checkpoint: the accumulation resumes
+                # and temporal reuse restarts.
+                self.reservoir = Reservoir.empty(self.config.num_pixels,
+                                                 self.device)
         if self.adaptive is not None:
             n = self.config.num_pixels
             if "adaptive_m2" in data:

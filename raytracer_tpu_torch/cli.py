@@ -7,8 +7,8 @@ Usage:
 
 The parser is the JAX package's, plus --device; --accel takes every JAX
 value (auto, pallas, bvh, brute) plus cuda, the port's name for pallas.
---restir, whose mode the port does not run yet, exits with an error naming
-its ROADMAP.md port queue item.
+--restir renders the direct light with ReSTIR DI; it excludes --adaptive
+and --spp-batch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="direct light via NEE only (USE_LIGHT_SAMPLING_ONLY,"
                         " simple.rchit:10)")
     p.add_argument("--restir", action="store_true",
-                   help="ReSTIR DI (not ported yet)")
+                   help="use ReSTIR DI for direct lighting")
     p.add_argument("--adaptive", type=float, default=0.0, metavar="TOL",
                    help="adaptive sampling: a pixel stops once the relative "
                         "standard error of its mean luminance drops under "
@@ -88,12 +88,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_UNPORTED = (
-    # (flag, is set, ROADMAP.md port queue item)
-    ("--restir", lambda a: a.restir, "P10"),
-)
-
-
 def write_aovs(prefix, aov):
     """PREFIX_albedo.png, PREFIX_normal.png (n*0.5+0.5) and
     PREFIX_depth.png (depth over the farthest hit, misses white)."""
@@ -119,10 +113,6 @@ def main(argv=None) -> int:
                          "(no --restir / --adaptive)")
         if args.spp % args.spp_batch != 0:
             parser.error("--spp must be a multiple of --spp-batch")
-    for flag, is_set, item in _UNPORTED:
-        if is_set(args):
-            parser.error(f"{flag} is not ported yet (ROADMAP.md port queue "
-                         f"item {item})")
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(levelname)s %(name)s: %(message)s",
@@ -138,6 +128,7 @@ def main(argv=None) -> int:
         accel=args.accel,
         enable_transmission=not args.no_transmission,
         use_light_sampling_only=args.light_sampling_only,
+        use_restir=args.restir,
         adaptive_tol=args.adaptive,
         denoise_preview=args.denoise,
         spp_batch=args.spp_batch,

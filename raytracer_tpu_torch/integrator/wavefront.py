@@ -347,9 +347,15 @@ def fetch_surface(scene, hit, ray_dir, lane) -> SurfaceHit:
     )
 
 
-def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig):
+def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
+           suppress_nee: bool = False):
     """The simple.rchit port. Lanes where `state.alive & hit.hit` shade;
     every other lane is left as it was.
+
+    `suppress_nee=True` skips the NEE lottery and its draws and marks the
+    shaded surface lanes did_direct, so the next bounce's emissive-hit MIS
+    stays off: ReSTIR (integrator/restir.py) supplies the direct light at
+    this vertex.
 
     Returns (new_state, payload_hit bool[N], shadow_ray_count i64[])."""
     lane = state.alive & hit.hit
@@ -393,7 +399,10 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig):
     else:
         w_base = None
     mis_nee = cfg.use_mis and not cfg.use_light_sampling_only
-    if cfg.use_direct_lighting and scene.num_lights > 0:
+    if suppress_nee:
+        did_direct = surface_lane
+        shadow_rays = zero_count
+    elif cfg.use_direct_lighting and scene.num_lights > 0:
         if mis_nee:
             # Stochastic NEE lottery (simple.rchit:621-623).
             p_draw, seed = rng.rnd_masked(seed, surface_lane)
@@ -680,6 +689,29 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
     (bool[N]) masks lanes out of the whole sample: they trace nothing and
     their radiance is not a sample, so the caller must not accumulate it."""
     cfg = cfg.resolve_accel()
+    state = start_wavefront(scene, camera_ubo, frame_number, cfg,
+                            active=active, pixel_indices=pixel_indices)
+    clear_color = torch.tensor(cfg.background, dtype=torch.float32,
+                               device=scene.device)
+    rays_traced = torch.zeros((), dtype=torch.int64, device=scene.device)
+    shadow_total = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for depth in range(cfg.max_depth):
+        state, rays, shadow_rays = path_bounce(scene, state, depth, cfg,
+                                               clear_color)
+        rays_traced = rays_traced + rays
+        shadow_total = shadow_total + shadow_rays
+    radiance = final_radiance(state, cfg)
+    if with_stats:
+        return radiance, {"rays_traced": rays_traced,
+                          "shadow_rays": shadow_total,
+                          "total_rays": rays_traced + shadow_total}
+    return radiance
+
+
+def start_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
+                    active=None, pixel_indices=None) -> WavefrontState:
+    """The camera rays and the seeded streams of render_wavefront's lanes
+    (its arguments): the state before the first bounce."""
     dev = scene.device
     if pixel_indices is not None:
         pixel_idx = torch.as_tensor(pixel_indices, device=dev).to(torch.int64)
@@ -716,7 +748,7 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
     else:
         alive = torch.as_tensor(active, device=dev).to(torch.bool)
     f32 = dict(dtype=torch.float32, device=dev)
-    state = WavefrontState(
+    return WavefrontState(
         origin=origin,
         direction=direction,
         color=torch.zeros((n, 3), **f32),
@@ -732,54 +764,54 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
         did_direct=torch.zeros((n,), dtype=torch.bool, device=dev),
         channel=torch.full((n,), -1, dtype=torch.int32, device=dev),
     )
-    clear_color = torch.tensor(cfg.background, **f32)
-    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
-    shadow_total = torch.zeros((), dtype=torch.int64, device=dev)
 
-    for depth in range(cfg.max_depth):
-        # Russian roulette (simple.rgen:55-68,88-90).
-        if depth >= cfg.rr_start_depth:
-            rr_lane = state.alive
-            lum = luminance_rec709(state.throughput)
-            p = torch.clamp(lum, 0.05, 0.95)
-            r, seed_rgen = rng.rnd_masked(state.seed_rgen, rr_lane)
-            rr_kill = rr_lane & (r > p)
-            throughput = torch.where(
-                (rr_lane & ~rr_kill)[:, None],
-                state.throughput / p[:, None], state.throughput)
-            state = state._replace(seed_rgen=seed_rgen, throughput=throughput,
-                                   alive=state.alive & ~rr_kill)
 
-        rays_traced = rays_traced + state.alive.sum()
-        hit = _trace(scene, state.origin, state.direction, cfg, state.alive)
-        state, payload_hit, shadow_rays = _shade(scene, state, hit, cfg)
-        shadow_total = shadow_total + shadow_rays
+def path_bounce(scene, state: WavefrontState, depth: int, cfg: RenderConfig,
+                clear_color):
+    """One bounce of simple.rgen's loop: Russian roulette, the closest-hit
+    trace, `_shade`, then `end_bounce`. Returns (state, rays traced, shadow
+    rays), the counts as i64[] device tensors."""
+    # Russian roulette (simple.rgen:55-68,88-90).
+    if depth >= cfg.rr_start_depth:
+        rr_lane = state.alive
+        lum = luminance_rec709(state.throughput)
+        p = torch.clamp(lum, 0.05, 0.95)
+        r, seed_rgen = rng.rnd_masked(state.seed_rgen, rr_lane)
+        rr_kill = rr_lane & (r > p)
+        throughput = torch.where(
+            (rr_lane & ~rr_kill)[:, None],
+            state.throughput / p[:, None], state.throughput)
+        state = state._replace(seed_rgen=seed_rgen, throughput=throughput,
+                               alive=state.alive & ~rr_kill)
 
-        # Miss branch (simple.rgen:106-109), including the failed-BSDF-
-        # sample quirk (payload.hit=false from rchit).
-        missed = state.alive & ~payload_hit
-        state = state._replace(
-            color=torch.where(missed[:, None],
-                              state.color + state.throughput * clear_color,
-                              state.color),
-            alive=state.alive & payload_hit,
-        )
+    rays = state.alive.sum()
+    hit = _trace(scene, state.origin, state.direction, cfg, state.alive)
+    state, payload_hit, shadow_rays = _shade(scene, state, hit, cfg)
+    return end_bounce(state, payload_hit, clear_color), rays, shadow_rays
 
-        # Throughput validity kill (simple.rgen:115-118).
-        tp = state.throughput
-        bad = ((torch.isnan(tp) | torch.isinf(tp)).any(dim=-1)
-               | (tp < 0.001).all(dim=-1))
-        state = state._replace(alive=state.alive & ~bad)
 
-    # Clamp + NaN scrub (simple.rgen:121-125).
+def end_bounce(state: WavefrontState, payload_hit, clear_color):
+    """The miss branch (simple.rgen:106-109), including the failed-BSDF-
+    sample quirk (payload.hit=false from rchit), then the throughput
+    validity kill (simple.rgen:115-118)."""
+    missed = state.alive & ~payload_hit
+    state = state._replace(
+        color=torch.where(missed[:, None],
+                          state.color + state.throughput * clear_color,
+                          state.color),
+        alive=state.alive & payload_hit,
+    )
+    tp = state.throughput
+    bad = ((torch.isnan(tp) | torch.isinf(tp)).any(dim=-1)
+           | (tp < 0.001).all(dim=-1))
+    return state._replace(alive=state.alive & ~bad)
+
+
+def final_radiance(state: WavefrontState, cfg: RenderConfig):
+    """Clamp + NaN scrub (simple.rgen:121-125)."""
     final = torch.clamp_max(state.color, cfg.radiance_clamp)
     invalid = (torch.isnan(final) | torch.isinf(final)).any(dim=-1)
-    radiance = torch.where(invalid[:, None], 0.0, final)
-    if with_stats:
-        return radiance, {"rays_traced": rays_traced,
-                          "shadow_rays": shadow_total,
-                          "total_rays": rays_traced + shadow_total}
-    return radiance
+    return torch.where(invalid[:, None], 0.0, final)
 
 
 def accumulate(accum, radiance, frame_number):

@@ -52,6 +52,13 @@ def luminance_rec709(color):
         + color[..., 2] * 0.0722
 
 
+def luminance_rec601(color):
+    """Rec.601 luma, the rchit 'luminance' helper (simple.rchit:113-115):
+    ReSTIR's target pdf."""
+    return color[..., 0] * 0.299 + color[..., 1] * 0.587 \
+        + color[..., 2] * 0.114
+
+
 def mis_weight_power(pdf1, pdf2):
     """Guarded power heuristic (simple.rchit:234-237): 0 if either pdf<=0."""
     a2 = pdf1 * pdf1

@@ -14,7 +14,9 @@ shapes, array for array:
   - lights from emissive objects: light_object i32[L], light_power f32[L],
     light_center f32[L,3], light_meta_packed f32[L,8] (first_tri_f,
     num_tris_f, emission rgb, object_f, power, pad), light_tri_packed
-    f32[LT,16] in the original (pre-BVH) triangle order;
+    f32[LT,16] in the original (pre-BVH) triangle order, and each light
+    triangle's object light_tri_object i32[LT] (ReSTIR's shadow rays skip
+    it; column 9 of light_tri_packed holds it as f32);
   - the traversal kernels' arrays: the leaf blocks ptris f32[NB, leaf*12]
     (v0, e1, e2, tri_f, obj_f, pad per triangle), shared by both trees;
     the 4-wide collapsed tree (ops/quad_traverse.py) qnodes f32[N4,32] (4
@@ -63,6 +65,7 @@ class DeviceScene:
     light_center: torch.Tensor  # f32[L,3]
     light_meta_packed: torch.Tensor  # f32[L,8]
     light_tri_packed: torch.Tensor  # f32[LT,16]
+    light_tri_object: torch.Tensor  # i32[LT]
     scene_min: torch.Tensor  # f32[3]
     scene_max: torch.Tensor  # f32[3]
     qnodes: torch.Tensor  # f32[N4,32]
@@ -89,7 +92,8 @@ class DeviceScene:
 ARRAY_FIELDS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_object", "tri_shade", "mat_packed",
     "light_object", "light_power", "light_center", "light_meta_packed",
-    "light_tri_packed", "scene_min", "scene_max", "qnodes", "qmeta", "qroot",
+    "light_tri_packed", "light_tri_object", "scene_min", "scene_max",
+    "qnodes", "qmeta", "qroot",
     "ptris", "pnodes", "root_meta",
 )
 
@@ -309,6 +313,7 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16
             num_lights, 3),
         light_meta_packed=light_meta,
         light_tri_packed=light_tri_packed,
+        light_tri_object=np.ascontiguousarray(tri_object, np.int32),
         scene_min=np.minimum.reduce(
             [v0.min(0), (v0 + e1).min(0), (v0 + e2).min(0)]
         ).astype(np.float32),

@@ -3,7 +3,7 @@
 torch.profiler, by kernel and by top-level operation.
 
     python3 -m raytracer_tpu_torch.utils.profile_frame [--warm 2] [--top 20]
-        [--accel bvh]
+        [--accel bvh] [--restir]
 
 Bakes the atrium, renders `--warm` frames, then profiles one frame
 (CPU and CUDA activities) between two device synchronisations. Prints the
@@ -13,7 +13,10 @@ memsets, copies; one stream, so they do not overlap) and idle share, the
 device activities grouped by name, the top-level operations by the device
 time of the kernels under them, and the traversal kernels' launches and ms
 (names containing closest_kernel or occlusion_kernel: K1/K2, or K3/K4
-under --accel bvh). Needs a CUDA device; exits non-zero without one.
+under --accel bvh). With --restir the frame runs ReSTIR DI, and its
+reservoir passes (integrator/restir.py:restir_direct, shadow rays
+included) show as one top-level operation, `restir_direct`. Needs a CUDA
+device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ from raytracer_tpu_torch.lab.rays import (
 )
 
 TRAVERSAL = ("closest_kernel", "occlusion_kernel")
+# record_function ranges: the profiler also lists them as device
+# activities spanning their kernels (and the gaps between them), so they
+# are kept out of the device busy time.
+SPANS = ("restir_direct",)
 
 
 def _frame_ms(renderer):
@@ -52,6 +59,7 @@ def main(argv=None):
     p.add_argument("--warm", type=int, default=2)
     p.add_argument("--top", type=int, default=20)
     p.add_argument("--accel", default="auto")
+    p.add_argument("--restir", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
@@ -59,6 +67,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.integrator import restir
     from raytracer_tpu_torch.ops.camera import Camera
     from raytracer_tpu_torch.scene.benchmark import create_benchmark_atrium
     from raytracer_tpu_torch.utils.config import RenderConfig
@@ -69,7 +78,15 @@ def main(argv=None):
     r = ProgressiveRenderer(
         create_benchmark_atrium(TRIANGLES), cam,
         RenderConfig(width=WIDTH, height=HEIGHT, max_depth=3,
-                     accel=args.accel), device="cuda")
+                     accel=args.accel, use_restir=args.restir),
+        device="cuda")
+    own = restir.restir_direct
+
+    def restir_direct(*a, **kw):
+        with torch.profiler.record_function(SPANS[0]):
+            return own(*a, **kw)
+
+    restir.restir_direct = restir_direct
     for _ in range(args.warm):
         _frame_ms(r)
     plain_ms = _frame_ms(r)
@@ -80,11 +97,12 @@ def main(argv=None):
     events = prof.events()
     by_name = defaultdict(lambda: [0, 0.0])
     for e in events:
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in SPANS:
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.device_time_total / 1e3
     busy = sum(ms for _, ms in by_name.values())
-    print(f"accel={r.config.accel}: frame {plain_ms:.3f} ms without the "
+    print(f"accel={r.config.accel}, use_restir={args.restir}: frame "
+          f"{plain_ms:.3f} ms without the "
           f"profiler, {wall_ms:.3f} ms with it; device busy {busy:.3f} ms, "
           f"idle {100 * (1 - busy / wall_ms):.1f}% of the profiled frame; "
           f"{sum(c for c, _ in by_name.values())} device activities")

@@ -263,9 +263,10 @@ def test_cli_renders_with_accel(tmp_path, accel):
     assert img.std() > 0
 
 
-@pytest.mark.parametrize("flag", [["--restir"],
-                                  ["--restir", "--adaptive", "0.1"]])
+@pytest.mark.parametrize("flag", [["--restir", "--adaptive", "0.1"],
+                                  ["--restir", "--spp-batch", "2"]])
 def test_cli_refuses_unported_modes(tmp_path, flag):
+    """Modes that cannot run together exit with a parser error."""
     from raytracer_tpu_torch import cli
 
     scene = tmp_path / "box.json"
@@ -283,17 +284,20 @@ def test_cli_refuses_unported_modes(tmp_path, flag):
     (["--aovs", "AOV"], ["AOV_albedo.png", "AOV_normal.png",
                          "AOV_depth.png"]),
     (["--preview", "1", "--preview-scale", "2"], []),
-], ids=["adaptive", "denoise", "spp_batch", "aovs", "preview"])
+    (["--restir", "--checkpoint", "CK"], []),
+], ids=["adaptive", "denoise", "spp_batch", "aovs", "preview", "restir"])
 def test_cli_runs_ported_modes(tmp_path, flag, files, capsys):
-    """The modes of ROADMAP items P7-P9 run on the in-repo Cornell JSON,
-    exit 0 and write the full-resolution image (and the AOV PNGs)."""
+    """The modes of ROADMAP items P7-P10 run on the in-repo Cornell JSON,
+    exit 0 and write the full-resolution image (and the AOV PNGs; with
+    --restir the checkpoint carries the reservoir)."""
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.utils.image import read_png
 
     scene = tmp_path / "box.json"
     scene.write_text(CORNELL_JSON)
     out = tmp_path / "o.png"
-    flag = [str(tmp_path / f) if f == "AOV" else f for f in flag]
+    names = {"AOV": "AOV", "CK": "ck.npz"}
+    flag = [str(tmp_path / names[f]) if f in names else f for f in flag]
     assert cli.main([str(scene), "--width", "16", "--height", "12", "--spp",
                      "2", "--device", "cpu", "--out", str(out),
                      *flag]) == 0
@@ -302,22 +306,26 @@ def test_cli_runs_ported_modes(tmp_path, flag, files, capsys):
     for name in files:
         aov = read_png(str(tmp_path / name))
         assert aov.shape == (12, 16, 3)
+    if "--restir" in flag:
+        ck = np.load(str(tmp_path / "ck.npz"))
+        assert int(ck["frame"]) == 2 and ck["reservoir_m"].max() > 0
     if "--preview" in flag:
         # The preview cadence prints the stats table every frame.
         assert capsys.readouterr().out.count("ms/frame") == 2
 
 
-@pytest.mark.parametrize("field", [dict(use_restir=True)])
-def test_renderer_refuses_unported_modes(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
+def test_renderer_refuses_unported_modes(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*P12"):
         ProgressiveRenderer(tmodel.create_cornell_box(), None,
-                            RenderConfig(width=8, height=8, **field),
-                            device="cpu")
+                            RenderConfig(width=8, height=8), device="cpu",
+                            **kw)
 
 
 @pytest.mark.parametrize("field", [dict(adaptive_tol=0.1),
                                    dict(spp_batch=2),
-                                   dict(denoise_preview=True)])
+                                   dict(denoise_preview=True),
+                                   dict(use_restir=True)])
 def test_renderer_runs_ported_modes(field):
     r = ProgressiveRenderer(tmodel.create_cornell_box(), None,
                             RenderConfig(width=8, height=8, **field),
@@ -382,6 +390,9 @@ def test_port_never_imports_jax():
         "width=8, height=8, adaptive_tol=0.1, denoise_preview=True), "
         "device='cpu')\n"
         "r.step(); r.image(); r.aovs(); r.preview_image(2)\n"
+        "img = render(create_cornell_box(), config=RenderConfig(width=8, "
+        "height=8, use_restir=True), device='cpu')\n"
+        "assert img.shape == (8, 8, 3) and img.mean() > 0\n"
         "from raytracer_tpu_torch.ops import quad_traverse\n"
         "assert quad_traverse.leaf_counts(ds8).min() > 0\n"
         "from raytracer_tpu_torch.utils import profile_frame\n"
