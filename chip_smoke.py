@@ -126,6 +126,27 @@ Phases (any failure exits non-zero and prints no result line):
      24x24, 3 frames each, card against CPU within PIXEL_ATOL /
      MAX_FLIPPED, the reservoir's light_index equal on all but MAX_FLIPPED
      of the pixels.
+ 12. The editor path (scene edits, ROADMAP P3/P11), with the launch counts
+     set to 0 before and read after each part, and each part required to
+     launch its kernels: (a) examples/interactive_session.py's edits on the
+     Cornell box at 1080p (camera move, transform drag, material paint,
+     light brighten, object add through prebake_async), each shown on the
+     4x denoised native preview: each edit's ms to its visible frame and
+     to resumed full-res accumulation, and its replay branch checked (the
+     transform refits the same BVH object, the material edits keep the
+     geometry tensors, the add takes the prebake); (b) on the 1080p atrium
+     with accel auto and bvh, the refit replay after moving the skylight
+     and a column, timed beside a full bake of the same state (and the
+     refit's host part, the tree's refit and repack in it, and the
+     upload apart), and a material-only edit; (c)
+     after the refit, after the material edit, and after a column's
+     collapse to its position and its restore, one captured K1/K2 (K3/K4)
+     launch pair of the path held bit for bit against the plain walks on
+     the card (they test every slot of a leaf row, so they do not read the
+     cached leaf counts), with the leaf counts equal to the row counts of
+     each ptris; (d) the refit scene against a fresh bake of the same state
+     at 1080p, and the session at 32x32, 3 frames an edit, card against
+     CPU, within PIXEL_ATOL / MAX_FLIPPED.
 
 Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
@@ -1574,66 +1595,98 @@ def gate_pixels(what, a, b, phase="phase 10"):
 
 
 @contextlib.contextmanager
-def capture_launches(closest_at, occlusion_at=None):
-    """Keeps the rays and the results of K1's launch number `closest_at`
-    and K2's number `occlusion_at` (None: none), counted from 0 within the
-    block, as the main path launches them: the wrappers' launch functions
-    are wrapped, so the launches and their counts are the path's own.
-    Yields a dict that check_captured() reads."""
+def capture_launches(closest_at, occlusion_at=None, tree="quad"):
+    """Keeps the rays and the results of the closest-hit launch number
+    `closest_at` and the any-hit launch number `occlusion_at` (None: none),
+    counted from 0 within the block, as the main path launches them: K1
+    and K2 (`tree` "quad") or K3 and K4 ("binary"). The wrappers' launch
+    functions are wrapped, so the launches and their counts are the path's
+    own. Yields a dict that check_captured() reads."""
+    import torch
+
+    from raytracer_tpu_torch.ops import binary_traverse as bt
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
-    kept = {"at": {"closest": closest_at, "occlusion": occlusion_at}}
+    # The launch functions' ray arguments before the scene: (origin,
+    # direction, t_max) for K1, with skip_object for K2, then t_min for
+    # K3/K4.
+    mod, names, n_in = {
+        "quad": (qt, ("_intersect_quad_cuda", "_occlusion_quad_cuda"), 3),
+        "binary": (bt, ("_intersect_binary_cuda", "_occlusion_binary_cuda"),
+                   4)}[tree]
+    kept = {"at": {"closest": closest_at, "occlusion": occlusion_at},
+            "tree": tree}
     seen = {"closest": 0, "occlusion": 0}
-    k1, k2 = qt._intersect_quad_cuda, qt._occlusion_quad_cuda
+    k1, k2 = (getattr(mod, name) for name in names)
 
     def keep(kind, inputs, out):
         if seen[kind] == kept["at"][kind]:
-            kept[kind] = (tuple(x.clone() for x in inputs),
+            kept[kind] = (tuple(x.clone() if isinstance(x, torch.Tensor)
+                                else x for x in inputs),
                           tuple(x.clone() for x in out))
         seen[kind] += 1
 
-    def closest(o, d, tm, scene, *args, **kw):
-        out = k1(o, d, tm, scene, *args, **kw)
-        keep("closest", (o, d, tm), out)
-        kept["scene"] = scene
+    def closest(*args, **kw):
+        out = k1(*args, **kw)
+        keep("closest", args[:n_in], out)
+        kept["scene"] = args[n_in]
         return out
 
-    def occlusion(o, d, tm, skip, scene, *args, **kw):
-        out = k2(o, d, tm, skip, scene, *args, **kw)
-        keep("occlusion", (o, d, tm, skip), (out,))
+    def occlusion(*args, **kw):
+        out = k2(*args, **kw)
+        keep("occlusion", args[:n_in + 1], (out,))
         return out
 
-    qt._intersect_quad_cuda, qt._occlusion_quad_cuda = closest, occlusion
+    setattr(mod, names[0], closest)
+    setattr(mod, names[1], occlusion)
     try:
         yield kept
     finally:
-        qt._intersect_quad_cuda, qt._occlusion_quad_cuda = k1, k2
+        setattr(mod, names[0], k1)
+        setattr(mod, names[1], k2)
 
 
 def check_captured(part, kept, phase="phase 10"):
     """Raise unless the launches capture_launches() kept equal their plain
     versions, run on the card on the same rays, bit for bit (phase 2's
-    gate)."""
+    gate). The plain walks test every slot of a leaf row, so they do not
+    read the kernels' leaf counts."""
+    from raytracer_tpu_torch.ops import binary_traverse as bt
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     t0 = time.perf_counter()
     closest_at, occlusion_at = kept["at"]["closest"], kept["at"]["occlusion"]
     scene = kept["scene"]
-    arrays = (scene.root, scene.qmeta, scene.qnodes, scene.ptris)
-    (o, d, tm), got = kept["closest"]
-    gate_closest(f"{phase} {part} K1 launch {closest_at}", got,
-                 qt._intersect_quad_plain(o, d, tm, *arrays))
-    said = (f"K1 launch {closest_at} ({o.shape[0]} rays, "
+    if kept["tree"] == "quad":
+        names = ("K1", "K2")
+        arrays = (scene.root, scene.qmeta, scene.qnodes, scene.ptris)
+        closest_plain = lambda o, d, tm: qt._intersect_quad_plain(  # noqa
+            o, d, tm, *arrays)
+        any_plain = lambda o, d, tm, skip: qt._occlusion_quad_plain(  # noqa
+            o, d, tm, skip, *arrays)
+    else:
+        names = ("K3", "K4")
+        arrays = (scene.binary_root, scene.pnodes, scene.ptris)
+        closest_plain = lambda o, d, tm, t_min: (  # noqa: E731
+            bt._intersect_binary_plain(o, d, tm, t_min, *arrays))
+        any_plain = lambda o, d, tm, skip, t_min: (  # noqa: E731
+            bt._occlusion_binary_plain(o, d, tm, skip, t_min, *arrays))
+    inputs, got = kept["closest"]
+    gate_closest(f"{phase} {part} {names[0]} launch {closest_at}", got,
+                 closest_plain(*inputs))
+    o, tm = inputs[0], inputs[2]
+    said = (f"{names[0]} launch {closest_at} ({o.shape[0]} rays, "
             f"{inactive_share(tm):.4f} of the lanes inactive)")
     if occlusion_at is not None:
-        (o, d, tm, skip), (got,) = kept["occlusion"]
-        mism = int((got != qt._occlusion_quad_plain(o, d, tm, skip,
-                                                    *arrays)).sum())
+        inputs, (got,) = kept["occlusion"]
+        mism = int((got != any_plain(*inputs)).sum())
         if mism:
-            raise RuntimeError(f"{phase} {part}: K2 launch {occlusion_at} "
-                               f"!= plain version on {mism} rays")
-        said += (f" and K2 launch {occlusion_at} ({o.shape[0]} rays, "
-                 f"{inactive_share(tm):.4f} inactive)")
+            raise RuntimeError(f"{phase} {part}: {names[1]} launch "
+                               f"{occlusion_at} != plain version on {mism} "
+                               "rays")
+        o, tm = inputs[0], inputs[2]
+        said += (f" and {names[1]} launch {occlusion_at} ({o.shape[0]} "
+                 f"rays, {inactive_share(tm):.4f} inactive)")
     log(f"{phase} {part}: {said} of the path equal to the plain versions "
         f"on the card, every ray ({time.perf_counter() - t0:.2f} s)")
 
@@ -2103,6 +2156,270 @@ def phase11(scene_fn, device, phase3_ms):
     return {"ms": ms, "bvh_ms": bvh_ms, **grid}
 
 
+# Phase 12: the editor path (P3, P11).
+EDIT_SMALL, EDIT_SMALL_FRAMES = 32, 3  # (d), card against CPU
+# (a)'s branches: the replay each edit of interactive_session must take.
+SESSION_BRANCHES = {"camera_move": None, "transform_drag": "refit",
+                    "material_paint": "materials",
+                    "light_brighten": "materials", "object_add": "prebake"}
+# (b)/(c): the atrium's emissive object and an ordinary column in front of
+# the bench camera, moved; a column collapsed to its position and restored
+# (scale 1e-30: its edges round to exactly 0 in f32, and the scene model
+# inverts the model matrix, so a scale of 0 cannot be set).
+EDIT_LIGHT, EDIT_COLUMN, EDIT_COLLAPSE = "Skylight", "col_1_1_0", "col_2_1_0"
+
+
+def phase12_session(device):
+    """(a) examples/interactive_session.py's edits on the Cornell box at
+    1080p, each shown on the 4x denoised native preview, with full-res
+    accumulation resumed after each: each edit's latency to its visible
+    frame, the resume, and the replay branch it took, checked."""
+    from raytracer_tpu_torch.examples import interactive_session as session
+
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = session.run(session.build_parser().parse_args(
+        ["--1080p", "--size", f"{WIDTH}x{HEIGHT}", "--device", str(device)]))
+    counts = quad_launches("(a) session", phase="phase 12")
+    for tag in session.EDITS:
+        log(f"phase 12 (a): {tag}: {out['latency_ms'][tag]:.1f} ms to the "
+            f"visible frame, {out['resume_ms'][tag]:.1f} ms to resume "
+            f"full-res accumulation, replay {out['branch'][tag]}, same BVH "
+            f"{out['same_bvh'][tag]}, same geometry tensors "
+            f"{out['same_geometry'][tag]}")
+    ok = (out["branch"] == SESSION_BRANCHES
+          and out["same_bvh"]["transform_drag"]
+          and out["same_geometry"]["material_paint"]
+          and out["same_geometry"]["light_brighten"])
+    if not ok:
+        raise RuntimeError(f"phase 12 (a): replay branches {out['branch']}, "
+                           f"want {SESSION_BRANCHES} (same BVH "
+                           f"{out['same_bvh']}, same geometry "
+                           f"{out['same_geometry']})")
+    log(f"phase 12 (a): session {time.perf_counter() - t0:.1f} s, launches "
+        f"{counts}")
+    return out
+
+
+def object_index(scene, name):
+    return next(i for i, o in enumerate(scene.objects) if o.name == name)
+
+
+def timed_replay(r, what, branch):
+    """Time begin_frame() (the journal's replay, between two device
+    syncs) and check the branch it took."""
+    _, ms = timed(r.begin_frame)
+    if r.last_replay != branch:
+        raise RuntimeError(f"phase 12 {what}: replay {r.last_replay}, want "
+                           f"{branch}")
+    return ms
+
+
+def captured_step(r, part, tree):
+    """One step of `r` with its first closest-hit and first any-hit launch
+    (bounce 0's NEE) captured and held against the plain walks."""
+    with capture_launches(0, 0, tree=tree) as kept:
+        r.step()
+    check_captured(part, kept, phase="phase 12")
+
+
+def phase12_refit(scene_fn, device, accel):
+    """(b) on the 1080p atrium with `accel`: the refit replay after moving
+    the emissive object and a column, the full bake of the same state, the
+    refit's host part (and in it the tree's refit and repack) and upload
+    apart, and a material-only edit; (c) one
+    captured launch pair after the refit and after the material edit, and
+    after a column's collapse and restore, each bit-equal to the plain
+    walks. Returns (renderer, times)."""
+    import dataclasses
+
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+    from raytracer_tpu_torch.scene import device_scene
+
+    tree = "quad" if accel == "auto" else "binary"
+    part = f"accel={accel}"
+    r = modes_renderer(scene_fn, device, (WIDTH, HEIGHT), accel=accel)
+    r.step()
+    r.step()
+    scene, bvh = r.scene, r._host_bvh
+    light, column = (object_index(scene, n) for n in (EDIT_LIGHT,
+                                                       EDIT_COLUMN))
+    for idx, dp in ((light, (1.5, 0.0, -0.5)), (column, (0.4, 0.3, -0.6))):
+        pos = np.asarray(scene.objects[idx].transform.position) + dp
+        scene.update_object_position(idx, tuple(pos))
+    reset_all_launch_counts()
+    times = {"refit_ms": timed_replay(r, f"(b) {part} refit", "refit")}
+    if r._host_bvh is not bvh:
+        raise RuntimeError("phase 12 (b): the refit replaced the BVH")
+    captured_step(r, f"(c) {part} after the refit", tree)
+    kw = r._bake_kwargs()
+    _, times["full_bake_ms"] = timed(lambda: device_scene.bake_scene(
+        scene, **kw))
+    arrays, times["refit_host_ms"] = timed(
+        lambda: device_scene._bake_arrays(scene, kw["leaf_size"], bvh)[0])
+    _, times["refit_upload_ms"] = timed(
+        lambda: device_scene._to_device(arrays, device))
+    n = arrays["num_triangles"]  # the refit's part of the host time
+    _, times["refit_tree_ms"] = timed(lambda: device_scene._repack_tree(
+        bvh.refit(*(arrays[k][:n] for k in ("tri_v0", "tri_e1",
+                                            "tri_e2")))))
+    mat = scene.objects[column].material_index
+    scene.update_material(mat, dataclasses.replace(
+        scene.materials[mat], albedo=(0.9, 0.2, 0.1)))
+    li = scene.objects[light].material_index
+    scene.update_material(li, dataclasses.replace(
+        scene.materials[li],
+        emission_power=scene.materials[li].emission_power * 1.5))
+    geometry = r.device_scene.ptris
+    times["material_ms"] = timed_replay(r, f"(b) {part} material",
+                                        "materials")
+    if r.device_scene.ptris is not geometry:
+        raise RuntimeError("phase 12 (b): the material edit replaced ptris")
+    captured_step(r, f"(c) {part} after the material edit", tree)
+    log(f"phase 12 (b) {part}: refit replay {times['refit_ms']:.1f} ms "
+        f"(host {times['refit_host_ms']:.1f}, of it BVH.refit and the node "
+        f"repack {times['refit_tree_ms']:.1f}, + upload "
+        f"{times['refit_upload_ms']:.1f} ms apart), full bake of the same "
+        f"state {times['full_bake_ms']:.1f} ms "
+        f"({times['full_bake_ms'] / times['refit_ms']:.2f}x), material-only "
+        f"edit {times['material_ms']:.1f} ms")
+    # The collapse and the restore: the leaf counts follow ptris.
+    col = object_index(scene, EDIT_COLLAPSE)
+    sums = [int(qt.leaf_counts(r.device_scene).sum())]
+    for scale, what in (((1e-30,) * 3, "collapsed"), ((1.0,) * 3,
+                                                      "restored")):
+        scene.update_object_scale(col, scale)
+        captured_step(r, f"(c) {part} {EDIT_COLLAPSE} {what}", tree)
+        ds = r.device_scene
+        if not bool((qt.leaf_counts(ds) == qt.row_counts(ds.ptris)).all()):
+            raise RuntimeError("phase 12 (c): stale leaf counts")
+        sums.append(int(qt.leaf_counts(ds).sum()))
+    log(f"phase 12 (c) {part}: leaf counts sum {sums[0]} -> {sums[1]} "
+        f"({EDIT_COLLAPSE} collapsed) -> {sums[2]} (restored); each equal "
+        "to the row counts of its ptris")
+    if not sums[1] < sums[0] == sums[2]:
+        raise RuntimeError("phase 12 (c): the collapse did not change the "
+                           "leaf counts, or the restore did not bring them "
+                           "back")
+    counts = all_launch_counts()
+    want = ((counts["quad_closest"], counts["quad_occlusion"])
+            if tree == "quad" else
+            (counts["binary_closest"], counts["binary_occlusion"]))
+    if not all(want):
+        raise RuntimeError(f"phase 12 (b)/(c) {part}: a kernel was not "
+                           f"launched: {counts}")
+    log(f"phase 12 (b)/(c) {part}: launches {counts}")
+    return r, times
+
+
+def phase12_fresh(r, scene_fn, device):
+    """(d) The refit renderer's scene against a fresh bake of the same
+    state: 2 frames each at 1080p, within PIXEL_ATOL / MAX_FLIPPED."""
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+
+    reset_all_launch_counts()
+    r.reset_accumulation()
+    refit = r.render(2)
+    fresh = ProgressiveRenderer(r.scene, r.camera, r.config,
+                                device=device).render(2)
+    quad_launches("(d) refit vs fresh", phase="phase 12")
+    gate_pixels("(d) 1080p refit tree vs a fresh build, 2 frames", refit,
+                fresh, phase="phase 12")
+
+
+def edit_session(device, n, frames):
+    """interactive_session's edits on the Cornell box at n x n, `frames`
+    frames after each (the object add through prebake_async): the images
+    after each edit's frames."""
+    import dataclasses
+
+    import numpy as np
+
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.ops.camera import Camera
+    from raytracer_tpu_torch.scene.model import (
+        Material,
+        create_cornell_box,
+        create_sphere,
+    )
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    scene = create_cornell_box()
+    r = ProgressiveRenderer(scene, None, RenderConfig(width=n, height=n),
+                            device=device)
+    tr = scene.objects[0].transform
+    li = next(i for i, m in enumerate(scene.materials)
+              if m.emission_power > 0)
+
+    def add():
+        mesh = scene.add_mesh(create_sphere(6, 6))
+        mat = scene.add_material(Material(albedo=(0.2, 0.4, 0.9)))
+        scene.add_object("added_sphere", mesh, mat,
+                         position=(0.0, -0.3, 0.2), scale=(0.25, 0.25, 0.25))
+        r.prebake_async()
+
+    edits = (
+        lambda: r.set_camera(Camera.create(position=(0.25, 0.1, -2.8),
+                                           aspect=1.0)),
+        lambda: scene.update_object_position(
+            0, tuple(np.asarray(tr.position) + [0.05, 0.0, 0.0])),
+        lambda: scene.update_material(0, dataclasses.replace(
+            scene.materials[0], albedo=(0.85, 0.15, 0.1))),
+        lambda: scene.update_material(li, dataclasses.replace(
+            scene.materials[li],
+            emission_power=scene.materials[li].emission_power * 2)),
+        add)
+    r.render(frames)
+    images, branches = [], []
+    for edit in edits:
+        edit()
+        r.step()
+        branches.append(r.last_replay)
+        images.append(r.render(frames - 1))
+    return images, branches
+
+
+def phase12_small(device):
+    """(d) The edit session at EDIT_SMALL, card against CPU, image for
+    image within PIXEL_ATOL / MAX_FLIPPED."""
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        reset_all_launch_counts()
+        out[str(dev)] = edit_session(dev, EDIT_SMALL, EDIT_SMALL_FRAMES)
+        if dev != "cpu":
+            quad_launches("(d) small session", phase="phase 12")
+        log(f"phase 12 (d): {EDIT_SMALL}x{EDIT_SMALL} session x"
+            f"{EDIT_SMALL_FRAMES} frames an edit on {dev} in "
+            f"{time.perf_counter() - t0:.2f} s, branches "
+            f"{out[str(dev)][1]}")
+    (card, card_b), (cpu, cpu_b) = out[str(device)], out["cpu"]
+    if card_b != cpu_b or card_b != list(SESSION_BRANCHES.values()):
+        raise RuntimeError(f"phase 12 (d): branches {card_b} (CPU {cpu_b})")
+    for tag, a, b in zip(SESSION_BRANCHES, card, cpu):
+        gate_pixels(f"(d) {EDIT_SMALL}x{EDIT_SMALL} after {tag}", a, b,
+                    phase="phase 12")
+
+
+def phase12(scene_fn, device):
+    """The editor path: (a) the interactive session at 1080p, (b)/(c) the
+    refit and the material edit on the 1080p atrium with accel auto and
+    bvh, each with captured launches, (d) refit against a fresh build and
+    the small session card against CPU; (e) each part must launch its
+    kernels."""
+    t0 = time.perf_counter()
+    session = phase12_session(device)
+    r, times = phase12_refit(scene_fn, device, "auto")
+    phase12_fresh(r, scene_fn, device)
+    del r
+    _, bvh_times = phase12_refit(scene_fn, device, "bvh")
+    phase12_small(device)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return {"session": session, "auto": times, "bvh": bvh_times}
+
+
 def phase4():
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.utils.image import read_png
@@ -2152,6 +2469,7 @@ def main():
     lab4 = phase9(device)
     phase10(atrium, device, cuda_ms)
     phase11(atrium, device, cuda_ms)
+    phase12(atrium, device)
 
     def entry(name, source, replaces, launches, shown, *others):
         """A kernel's entry of the kernels line: the ms, plain ms and bound

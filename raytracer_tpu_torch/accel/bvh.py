@@ -53,16 +53,18 @@ class BVH:
     # Number of distinct input triangles the build saw (refit validity
     # check; tri_order may be longer under reference splitting).
     input_tris: int = -1
+    # The bake's packing of this tree (scene/device_scene.TreeLayout), set
+    # by the bake so that a refit repacks the node boxes by gathers. Not a
+    # dataclass field: a BVH made from another's fields has none.
+    layout = None
 
     @property
     def num_nodes(self) -> int:
         return len(self.nodes_skip)
 
-    def max_depth(self) -> int:
-        """Deepest node's depth (root = 0). Binned SAH can emit highly skewed
-        trees on adversarial (clustered / exponentially spaced) input, so the
-        Pallas packet kernel's fixed traversal stack must be validated against
-        this at bake time, not assumed."""
+    def depths(self) -> np.ndarray:
+        """i64[NN]: each node's depth (root = 0), one vectorized step per
+        level."""
         p = self.parent.astype(np.int64)
         depth = np.zeros(len(p), np.int64)
         anc = p.copy()
@@ -70,30 +72,53 @@ class BVH:
             live = anc >= 0
             depth += live
             anc = np.where(live, p[np.maximum(anc, 0)], -1)
-        return int(depth.max(initial=0))
+        return depth
+
+    def max_depth(self) -> int:
+        """Deepest node's depth (root = 0). Binned SAH can emit highly skewed
+        trees on adversarial (clustered / exponentially spaced) input, so the
+        traversal kernels' fixed stacks must be validated against this at
+        bake time, not assumed."""
+        return int(self.depths().max(initial=0))
 
     def refit(self, v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
         """Recompute AABBs bottom-up for updated (already reordered) triangle
         world positions — the analog of TLAS UPDATE-mode rebuild
         (gpu_scene.odin:457-482). Topology is unchanged, so quality degrades
-        under large motion exactly like a Vulkan UPDATE-mode refit would."""
+        under large motion exactly like a Vulkan UPDATE-mode refit would.
+
+        The JAX package's refit loops over nodes; this one reduces whole
+        arrays and gives the same boxes bit for bit (min and max are exact):
+        each leaf's box is a `reduceat` over its contiguous range of the
+        permuted triangles, then the internal nodes go one level at a time,
+        deepest first, each as min(min(inf, right), left) like the loop."""
         lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
         hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
         nn = self.num_nodes
         new_min = np.full((nn, 3), np.inf, np.float32)
         new_max = np.full((nn, 3), -np.inf, np.float32)
-        # Leaves first.
-        for i in np.nonzero(self.nodes_count > 0)[0]:
-            f, c = self.nodes_first[i], self.nodes_count[i]
-            new_min[i] = lo[f : f + c].min(axis=0)
-            new_max[i] = hi[f : f + c].max(axis=0)
-        # Internal nodes in reverse depth-first order (children have larger
-        # indices than parents in preorder layout).
-        for i in range(nn - 1, -1, -1):
-            p = self.parent[i]
-            if p >= 0:
-                new_min[p] = np.minimum(new_min[p], new_min[i])
-                new_max[p] = np.maximum(new_max[p], new_max[i])
+        leaves = np.nonzero(self.nodes_count > 0)[0]
+        leaves = leaves[np.argsort(self.nodes_first[leaves], kind="stable")]
+        first = self.nodes_first[leaves].astype(np.int64)
+        end = first + self.nodes_count[leaves]
+        if not (first[0] == 0 and (first[1:] == end[:-1]).all()):
+            raise ValueError("refit needs leaves that tile the permuted "
+                             "triangles in order")
+        new_min[leaves] = np.minimum.reduceat(lo[:end[-1]], first, axis=0)
+        new_max[leaves] = np.maximum.reduceat(hi[:end[-1]], first, axis=0)
+        internal = self.nodes_count == 0
+        if nn > 1:
+            depth = self.depths()
+            for d in range(int(depth.max()) - 1, -1, -1):
+                nodes = np.nonzero(internal & (depth == d))[0]
+                left = nodes + 1
+                right = self.nodes_skip[left]  # end of the left subtree
+                new_min[nodes] = np.minimum(
+                    np.minimum(new_min[nodes], new_min[right]),
+                    new_min[left])
+                new_max[nodes] = np.maximum(
+                    np.maximum(new_max[nodes], new_max[right]),
+                    new_max[left])
         self.nodes_min = new_min.astype(np.float32)
         self.nodes_max = new_max.astype(np.float32)
         return self
@@ -358,6 +383,13 @@ def collapse_bvh4(bvh: BVH):
     Reference analog: the Vulkan PREFER_FAST_TRACE BVH build quality knob
     (acceleration_structure.odin:65-143) — wide nodes are the host
     builder's concern here."""
+    return collapse_bvh4_slots(bvh)[:4]
+
+
+def collapse_bvh4_slots(bvh: BVH):
+    """collapse_bvh4, and the binary node of each child slot i64[N4,4]
+    (-1 for an absent child): a refit refills the rows' box lanes 0:24
+    from it (quad_boxes) and keeps their metas."""
     is_leaf = bvh.nodes_count > 0
     skip = bvh.nodes_skip
     if is_leaf[0]:
@@ -367,7 +399,8 @@ def collapse_bvh4(bvh: BVH):
         qnodes = np.full((1, 32), np.nan, np.float32)
         qnodes[:, 28:32] = 0.0
         qmeta = np.zeros((4,), np.int32)
-        return qnodes, qmeta, np.asarray([~0], np.int32), 4
+        slots = np.full((1, 4), -1, np.int64)
+        return qnodes, qmeta, np.asarray([~0], np.int32), 4, slots
 
     leaf_ids = (np.cumsum(is_leaf) - 1).astype(np.int64)
     quad_of = {}
@@ -406,6 +439,7 @@ def collapse_bvh4(bvh: BVH):
     qnodes = np.full((n4, 32), np.nan, np.float32)
     qnodes[:, 28:32] = 0.0
     qmeta = np.zeros((4 * n4,), np.int32)
+    slots = np.full((n4, 4), -1, np.int64)
     for x in order:
         qid = quad_of[x]
         row = qnodes[qid]
@@ -415,7 +449,21 @@ def collapse_bvh4(bvh: BVH):
             meta = ~lid if kind == "leaf" else quad_of[node]
             row[24 + c] = np.float32(meta)
             qmeta[4 * qid + c] = meta
-    return qnodes, qmeta, np.asarray([0], np.int32), 3 * (max_d4 + 1) + 1
+            slots[qid, c] = node
+    return (qnodes, qmeta, np.asarray([0], np.int32), 3 * (max_d4 + 1) + 1,
+            slots)
+
+
+
+
+def quad_boxes(bvh: BVH, slots: np.ndarray) -> np.ndarray:
+    """f32[N4,24]: lanes 0:24 of collapse_bvh4's rows from the tree's
+    current node boxes, by one gather per lane group: each child slot's
+    min.xyz, max.xyz, NaN for an absent child."""
+    node = np.maximum(slots, 0)
+    boxes = np.concatenate([bvh.nodes_min[node], bvh.nodes_max[node]], -1)
+    boxes[slots < 0] = np.nan
+    return boxes.reshape(len(slots), 24).astype(np.float32)
 
 
 def build_bvh_numpy(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,

@@ -4,8 +4,11 @@ raytracer_tpu/api.py, single device).
 ProgressiveRenderer is the analog of Raytracing_Renderer
 (`src/raytracer/raytracing_renderer.odin`): it owns the baked scene on one
 torch device, the camera, the accumulation buffer and the frame counter.
-`begin_frame()` replays the scene's change journal (any change re-bakes)
-and resets accumulation; a dirty camera also resets it. `step()` runs one
+`begin_frame()` replays the scene's change journal into the cheapest
+device update (a prebaked scene, material tables only, a refit of the
+tree, or a full bake) and resets accumulation; a dirty camera also resets
+it. `prebake_async()` bakes a topology edit on a background thread while
+the last frame stays on screen. `step()` runs one
 progressive step (cfg.spp_batch samples in one launch) unless the
 accumulation limit is reached; with cfg.adaptive_tol > 0 it samples only
 the pixels that have not converged (integrator/adaptive.py). `image()`
@@ -21,14 +24,15 @@ As in the JAX package, accel="cuda" falls back to accel="bvh" (the binary
 tree's kernels), with a logged warning, for a t_min other than 1e-3 and for
 a 4-wide tree whose stack need exceeds the kernels' stack.
 
-Not ported yet, each raising with its ROADMAP.md port queue item:
-multi-device meshes (P12); the journal replay re-bakes on every change (the
-refit and material-only fast paths are item P3).
+Not ported yet, raising with its ROADMAP.md port queue item: multi-device
+meshes (P12).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import threading
 from typing import Optional
 
 import numpy as np
@@ -55,8 +59,11 @@ from raytracer_tpu_torch.integrator.wavefront import (
 from raytracer_tpu_torch.ops import binary_traverse
 from raytracer_tpu_torch.ops.camera import Camera
 from raytracer_tpu_torch.ops.quad_traverse import CAP, T_MIN
-from raytracer_tpu_torch.scene.device_scene import bake_scene
-from raytracer_tpu_torch.scene.model import Scene
+from raytracer_tpu_torch.scene.device_scene import (
+    bake_scene,
+    update_materials,
+)
+from raytracer_tpu_torch.scene.model import Scene, SceneChangeType
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 log = logging.getLogger(__name__)
@@ -102,9 +109,13 @@ class ProgressiveRenderer:
             position=(0.0, 0.0, -3.0),
             aspect=self.config.width / self.config.height,
         )
-        self._bake()
+        self._install(*bake_scene(self.scene, **self._bake_kwargs()))
         # The bake consumed the scene's current state.
         scene.drain_changes()
+        self._prebake = None  # in-flight background bake (prebake_async)
+        # How the last begin_frame() replayed the journal: None (nothing to
+        # replay), "prebake", "materials", "refit" or "bake".
+        self.last_replay = None
         self.accum = self._zeros()
         self.frame = 0
         self._camera_ubo_dev = None
@@ -123,11 +134,22 @@ class ProgressiveRenderer:
             self.adaptive = AdaptiveState.empty(
                 self.config.num_pixels, self.device)
 
-    def _bake(self):
-        self.device_scene, self._host_bvh = bake_scene(
-            self.scene, leaf_size=self.config.bvh_leaf_size,
-            device=self.device)
-        ds = self.device_scene
+    def _bake_kwargs(self):
+        """The one set of bake settings for the first bake, the journal
+        replay's bakes and refits, update_materials' fallback and the
+        background prebake."""
+        return dict(leaf_size=self.config.bvh_leaf_size, device=self.device)
+
+    def _install(self, device_scene, host_bvh):
+        """Make (device_scene, host_bvh) the scene that frames render, after
+        the checks every bake passes: a 4-wide tree whose stack need
+        exceeds the kernels' CAP falls back to accel="bvh", and accel="bvh"
+        refuses a tree deeper than its stack. A refit and a material update
+        keep the tree's topology, hence its stack need and depth, so these
+        checks give them the answer the tree's bake got; they run all the
+        same."""
+        self.device_scene, self._host_bvh = device_scene, host_bvh
+        ds = device_scene
         if self.config.accel == "cuda" and ds.q_stack_need > CAP:
             # Binned SAH can emit highly skewed trees on adversarial input;
             # the bake holds the binary tree too, so no second bake.
@@ -152,13 +174,111 @@ class ProgressiveRenderer:
         self.camera = camera
         self.camera.dirty = True
 
+    def prebake_async(self):
+        """Start baking the scene's current state (pending journal
+        included) on a background thread, so a topology edit's bake and
+        upload leave the edit-to-frame path: the frame in flight, or the
+        editor's last preview, stays on screen, and the next begin_frame()
+        takes the prebaked scene instead of baking (the JAX package's
+        prebake_async). The native builder runs through ctypes, which
+        releases the GIL, so the host bake overlaps the frame.
+
+        On CUDA the worker uploads on a stream of its own and records an
+        event after the upload; _take_prebake() makes the render stream
+        wait on it. The prebake is keyed on the journal's length: an edit
+        that lands after it makes it stale, and the replay then bakes
+        synchronously."""
+        key = len(self.scene.changes)
+        holder = {}
+        kwargs = self._bake_kwargs()
+        dev = self.device
+
+        def work():
+            try:
+                if dev.type == "cuda":
+                    with torch.cuda.device(dev):
+                        stream = torch.cuda.Stream(dev)
+                        with torch.cuda.stream(stream):
+                            holder["result"] = bake_scene(self.scene,
+                                                          **kwargs)
+                            holder["event"] = torch.cuda.Event()
+                            holder["event"].record(stream)
+                else:
+                    holder["result"] = bake_scene(self.scene, **kwargs)
+            except Exception as e:  # noqa: BLE001 (surfaced at take time)
+                holder["error"] = e
+
+        t = threading.Thread(target=work, daemon=True,
+                             name="raytracer-prebake")
+        t.start()
+        self._prebake = (key, t, holder)
+
+    def _take_prebake(self):
+        """Join and return a valid prebaked (device_scene, host_bvh), or
+        None: no prebake, a stale one, or one that failed (logged; the
+        replay then bakes synchronously). A CUDA prebake's tensors are
+        handed to the render stream: it waits on the upload's event, and
+        each tensor is recorded on it, so the caching allocator reuses no
+        block of theirs while the render stream may still read it."""
+        pb, self._prebake = self._prebake, None
+        if pb is None:
+            return None
+        key, t, holder = pb
+        if key != len(self.scene.changes):
+            return None  # edits landed after the prebake: stale
+        t.join()
+        if "error" in holder:
+            log.warning("background prebake failed (%s); re-baking "
+                        "synchronously", holder["error"])
+            return None
+        ds, bvh = holder["result"]
+        if "event" in holder:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(holder["event"])
+            for f in dataclasses.fields(ds):
+                value = getattr(ds, f.name)
+                if isinstance(value, torch.Tensor):
+                    value.record_stream(stream)
+        return ds, bvh
+
     def _replay_changes(self) -> bool:
-        """Drain the journal; any change re-bakes the whole scene (the
-        refit and material-only fast paths are port queue item P3)."""
+        """Drain the journal into the cheapest device update (the JAX
+        package's branches, raytracing_renderer.odin:141-187): a valid
+        prebake; material edits alone rewrite the material and light tables
+        (update_materials); transform edits, with or without material edits,
+        refit the tree (bake_scene(reuse_bvh=...)); anything else, which
+        changes the triangles, bakes anew. Records the branch in
+        last_replay."""
         if not self.scene.changes:
+            self._prebake = None  # nothing pending: any prebake is a no-op
+            self.last_replay = None
             return False
-        self.scene.drain_changes()
-        self._bake()
+        prebaked = self._take_prebake()
+        types = {c.type for c in self.scene.drain_changes()}
+        kwargs = self._bake_kwargs()
+        if prebaked is not None:
+            # The background bake consumed exactly this journal state.
+            self.last_replay = "prebake"
+            self._install(*prebaked)
+        elif types == {SceneChangeType.MATERIAL_CHANGED}:
+            old = self.device_scene
+            new = update_materials(old, self.scene, **kwargs)
+            # update_materials bakes anew when the emissive set changed.
+            # The held BVH stays, as in the JAX package: it covers the same
+            # triangles, and a later refit repacks every node array from it.
+            self.last_replay = ("materials" if new.ptris is old.ptris
+                                else "bake")
+            self._install(new, self._host_bvh)
+        elif types <= {SceneChangeType.OBJECT_TRANSFORM_CHANGED,
+                       SceneChangeType.MATERIAL_CHANGED}:
+            # Transform edits keep the triangle count: refit the existing
+            # tree (TLAS UPDATE mode, gpu_scene.odin:457-482).
+            self.last_replay = "refit"
+            self._install(*bake_scene(self.scene, reuse_bvh=self._host_bvh,
+                                      **kwargs))
+        else:
+            self.last_replay = "bake"
+            self._install(*bake_scene(self.scene, **kwargs))
         return True
 
     def begin_frame(self):

@@ -18,7 +18,8 @@ plain version: the launch succeeds or the wrapper raises. The kernels run
 K1/K2's persistent walk (csrc/persistent_walk.cuh): warps that take rays
 from a counter (one int32 allocated with each launch), leaves that stop at
 their last real triangle (the leaf counts of ops/quad_traverse.py, cached
-per ptris and shared with K1/K2) and a shared-memory stack of
+per ptris tensor, which is never written in place, and shared with K1/K2)
+and a shared-memory stack of
 `stack_need(scene)` = bvh_max_depth + 2 entries a thread below the entry
 kept in a register; see the source's head comment.
 

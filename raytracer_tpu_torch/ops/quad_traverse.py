@@ -16,6 +16,15 @@ each launch), stop each leaf at its last real triangle (`leaf_counts`,
 cached per ptris tensor) and read the child metas from the node rows
 (qnodes lanes 24-27), not from qmeta; see the source's head comment.
 
+The rule that keeps the cached leaf counts right: a ptris tensor is never
+written in place. Every bake uploads a new one, a refit
+(scene/device_scene.bake_scene(reuse_bvh=...)) included, and
+update_materials keeps the old one, whose triangles it does not change. So
+a count cached for a ptris tensor holds for as long as that tensor lives,
+and a triangle that a refit makes real again (an object scaled back from
+nothing) is always counted. ops/binary_traverse.py shares the counts and
+the rule.
+
 The algorithm, shared by kernel and plain version (the TPU kernel's 8-row
 sub-packets, SMEM stacks and leaf queues exist because Mosaic has no
 per-lane gathers, and do not carry over):
@@ -454,7 +463,8 @@ def leaf_counts(scene):
     """`row_counts` of `scene.ptris`: the kernels test a row's triangles
     below its count only, as the slots past it are zero triangles (e1 = e2
     = 0, so det = 0), which are never valid. Computed on the scene's device
-    at first use and cached per ptris tensor, for as long as it lives."""
+    at first use and cached per ptris tensor, for as long as it lives: no
+    ptris tensor is written in place (see the module docstring)."""
     ptris = scene.ptris
     key = id(ptris)
     cached = _leaf_counts.get(key)

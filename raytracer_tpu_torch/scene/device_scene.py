@@ -30,9 +30,13 @@ shapes, array for array:
     ptris rows. The binary arrays are always baked (64 B per internal
     node), so a renderer can fall back to them without a second bake.
 
+Scene edits have two fast paths, the JAX package's: a refit
+(`bake_scene(reuse_bvh=...)`) keeps the tree's topology and repacks only
+its node boxes, and `update_materials` rewrites the material and light
+tables and keeps every geometry tensor.
+
 Not ported here: multi-part bakes (they exist for the TPU kernel's VMEM
-ceiling), capacity-padded "stable" bakes, refit and material-only updates;
-ROADMAP.md lists each.
+ceiling) and capacity-padded "stable" bakes; ROADMAP.md lists each.
 """
 
 from __future__ import annotations
@@ -44,7 +48,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.accel.bvh import BVH, build_bvh, collapse_bvh4
+from raytracer_tpu_torch.accel.bvh import (
+    BVH,
+    build_bvh,
+    collapse_bvh4_slots,
+    quad_boxes,
+)
 from raytracer_tpu_torch.scene.model import Scene
 
 log = logging.getLogger(__name__)
@@ -170,7 +179,9 @@ def _pack_binary_nodes(bvh):
     """pnodes f32[NI,16] and root_meta i32[1] of the binary tree: one row
     per internal node in preorder, left.min/max xyz, right.min/max xyz,
     then the left and right child metas as exact f32 (an internal child's
-    row, or ~its leaf block). The JAX `_pack_pallas_arrays` layout."""
+    row, or ~its leaf block). The JAX `_pack_pallas_arrays` layout. Also
+    returns the (left, right) child nodes of the rows, i64[NI',2] (NI' = 0
+    for a tree that is one leaf), for binary_boxes."""
     is_leaf = bvh.nodes_count > 0
     leaf_ids = (np.cumsum(is_leaf) - 1).astype(np.int64)
     internal_ids = (np.cumsum(~is_leaf) - 1).astype(np.int64)
@@ -178,25 +189,83 @@ def _pack_binary_nodes(bvh):
     assert bvh.num_nodes < (1 << 24)
     pnodes = np.zeros((ni, 16), np.float32)
     internal = np.nonzero(~is_leaf)[0]
+    left = internal + 1
+    right = bvh.nodes_skip[left].astype(np.int64)  # end of the left subtree
+    children = np.stack([left, right], axis=1)
     if len(internal):
-        left = internal + 1
-        right = bvh.nodes_skip[left]  # end of the left subtree
-        rows = internal_ids[internal]
-        pnodes[rows, 0:3] = bvh.nodes_min[left]
-        pnodes[rows, 3:6] = bvh.nodes_max[left]
-        pnodes[rows, 6:9] = bvh.nodes_min[right]
-        pnodes[rows, 9:12] = bvh.nodes_max[right]
+        pnodes[:len(internal), 0:12] = binary_boxes(bvh, children)
         for col, child in ((12, left), (13, right)):
-            pnodes[rows, col] = np.where(is_leaf[child], ~leaf_ids[child],
-                                         internal_ids[child])
+            pnodes[internal_ids[internal], col] = np.where(
+                is_leaf[child], ~leaf_ids[child], internal_ids[child])
     root = ~leaf_ids[0] if is_leaf[0] else internal_ids[0]
-    return pnodes, np.asarray([root], np.int32)
+    return pnodes, np.asarray([root], np.int32), children
 
 
-def _bake_arrays(scene: Scene, leaf_size: int = 16
+def binary_boxes(bvh, children):
+    """f32[NI',12]: lanes 0:12 of the pnodes rows whose (left, right)
+    child nodes are `children`, from the tree's current node boxes."""
+    left, right = children[:, 0], children[:, 1]
+    return np.concatenate([bvh.nodes_min[left], bvh.nodes_max[left],
+                           bvh.nodes_min[right], bvh.nodes_max[right]],
+                          axis=1).astype(np.float32)
+
+
+@dataclasses.dataclass
+class TreeLayout:
+    """What a bake packs from a tree's topology, kept on its BVH
+    (`BVH.layout`) so that a refit repacks the node boxes by gathers and
+    keeps the rest: the metas of qnodes lanes 24:28 and pnodes lanes
+    12:14, the stack need and the depth, which a refit cannot change."""
+    leaf_size: int
+    quad_slots: np.ndarray  # i64[N4,4]: binary node of each qnodes slot
+    quad_tail: np.ndarray  # f32[N4,8]: qnodes lanes 24:32 (metas, pad)
+    qmeta: np.ndarray
+    qroot: np.ndarray
+    q_stack_need: int
+    binary_children: np.ndarray  # i64[NI',2]: (left, right) of pnodes rows
+    pnodes_tail: np.ndarray  # f32[NI,4]: pnodes lanes 12:16 (metas, pad)
+    root_meta: np.ndarray
+    max_depth: int
+
+
+def _pack_tree(bvh, leaf_size):
+    """Store the TreeLayout of a freshly built tree on `bvh` and return
+    its node arrays (_repack_tree)."""
+    qnodes, qmeta, qroot, q_stack_need, slots = collapse_bvh4_slots(bvh)
+    pnodes, root_meta, children = _pack_binary_nodes(bvh)
+    bvh.layout = TreeLayout(
+        leaf_size=leaf_size, quad_slots=slots,
+        quad_tail=qnodes[:, 24:32].copy(), qmeta=qmeta, qroot=qroot,
+        q_stack_need=int(q_stack_need), binary_children=children,
+        pnodes_tail=pnodes[:, 12:16].copy(), root_meta=root_meta,
+        max_depth=bvh.max_depth())
+    return _repack_tree(bvh)
+
+
+def _repack_tree(bvh):
+    """The node arrays of a tree from its TreeLayout and its current node
+    boxes, the same after a bake and after a refit (the same topology, new
+    boxes): dict(qnodes, qmeta, qroot, q_stack_need, pnodes, root_meta,
+    bvh_max_depth). The box lanes come by gathers; every meta, pad lane,
+    count and depth is the bake's."""
+    lay = bvh.layout
+    qnodes = np.concatenate([quad_boxes(bvh, lay.quad_slots), lay.quad_tail],
+                            axis=1)
+    pnodes = np.zeros((len(lay.pnodes_tail), 16), np.float32)
+    pnodes[:len(lay.binary_children), 0:12] = binary_boxes(
+        bvh, lay.binary_children)
+    pnodes[:, 12:16] = lay.pnodes_tail
+    return dict(qnodes=qnodes, qmeta=lay.qmeta, qroot=lay.qroot,
+                q_stack_need=lay.q_stack_need, pnodes=pnodes,
+                root_meta=lay.root_meta, bvh_max_depth=lay.max_depth)
+
+
+def _bake_arrays(scene: Scene, leaf_size: int = 16, reuse_bvh: BVH = None
                 ) -> Tuple[Dict[str, np.ndarray], BVH]:
     """The bake on the host: (numpy arrays by DeviceScene field name, with
-    the int fields as ints, and the host BVH)."""
+    the int fields as ints, and the host BVH). With `reuse_bvh` (a BVH of
+    this module's bake) the tree is refit to the scene's triangles, not
+    built (bake_scene)."""
     if not scene.objects:
         raise ValueError("cannot bake an empty scene")
 
@@ -251,9 +320,23 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16
     num_lights = len(light_object)
 
     # --- BVH over world triangles, then permute triangle arrays ---
-    bvh = build_bvh(v0, e1, e2, leaf_size=leaf_size)
-    bvh.input_tris = num_tris
-    perm = bvh.tri_order
+    if reuse_bvh is not None:
+        basis = (reuse_bvh.input_tris if reuse_bvh.input_tris >= 0
+                 else len(reuse_bvh.tri_order))
+        if basis != num_tris:
+            raise ValueError("refit requires an unchanged triangle count "
+                             f"({basis} baked, {num_tris} now)")
+        if reuse_bvh.layout is None or reuse_bvh.layout.leaf_size != \
+                leaf_size:
+            raise ValueError("refit requires a BVH of a bake_scene with "
+                             f"leaf_size={leaf_size}")
+        bvh = reuse_bvh
+        perm = bvh.tri_order
+        bvh.refit(v0[perm], e1[perm], e2[perm])
+    else:
+        bvh = build_bvh(v0, e1, e2, leaf_size=leaf_size)
+        bvh.input_tris = num_tris
+        perm = bvh.tri_order
     num_refs = len(perm)
     v0p, e1p, e2p = v0[perm], e1[perm], e2[perm]
     n0p, n1p, n2p = n0[perm], n1[perm], n2[perm]
@@ -261,8 +344,8 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16
     tri_material_p = obj_material[tri_object_p]
 
     ptris = _pack_leaf_blocks(bvh, v0p, e1p, e2p, tri_object_p, leaf_size)
-    qnodes, qmeta, qroot, q_stack_need = collapse_bvh4(bvh)
-    pnodes, root_meta = _pack_binary_nodes(bvh)
+    tree = (_repack_tree(bvh) if reuse_bvh is not None
+            else _pack_tree(bvh, leaf_size))
 
     t_pad = max(_PAD, ((num_refs + _PAD - 1) // _PAD) * _PAD)
 
@@ -320,16 +403,10 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16
         scene_max=np.maximum.reduce(
             [v0.max(0), (v0 + e1).max(0), (v0 + e2).max(0)]
         ).astype(np.float32),
-        qnodes=qnodes,
-        qmeta=qmeta,
-        qroot=qroot,
         ptris=ptris,
-        pnodes=pnodes,
-        root_meta=root_meta,
         num_triangles=num_tris,
         num_lights=num_lights,
-        q_stack_need=int(q_stack_need),
-        bvh_max_depth=bvh.max_depth(),
+        **tree,
     )
     return arrays, bvh
 
@@ -349,24 +426,104 @@ def _to_device(arrays, device) -> DeviceScene:
     )
 
 
-def bake_scene(scene: Scene, leaf_size: int = 16,
-               device="cuda") -> Tuple[DeviceScene, BVH]:
+def bake_scene(scene: Scene, leaf_size: int = 16, device="cuda",
+               reuse_bvh: BVH = None) -> Tuple[DeviceScene, BVH]:
     """Flatten + world-transform + BVH-build a host Scene and upload it:
     (DeviceScene on `device`, host BVH). The arrays equal the JAX
-    `bake_scene(scene, leaf_size, stable_shapes=False)` fields of the same
-    names."""
-    arrays, bvh = _bake_arrays(scene, leaf_size)
+    `bake_scene(scene, leaf_size, reuse_bvh=..., stable_shapes=False)`
+    fields of the same names.
+
+    `reuse_bvh` is the TLAS UPDATE-mode path (gpu_scene.odin:457-482): the
+    tree of an earlier bake of this module keeps its topology (tri_order,
+    skip links, leaf ranges, the 4-wide and binary metas, the stack need)
+    and is refit in place to the scene's re-transformed triangles
+    (BVH.refit); the node rows get their new boxes by gathers
+    (_repack_tree). The triangle count must not have changed (transform
+    edits). Every tensor is uploaded anew, ptris included, so the kernels'
+    leaf counts, cached per ptris tensor, are never stale
+    (ops/quad_traverse.leaf_counts)."""
+    arrays, bvh = _bake_arrays(scene, leaf_size, reuse_bvh)
     ds = _to_device(arrays, device)
     log.info(
-        "bake: %d triangles, %d lights, qnodes %d x 32 f32 (%d bytes), "
+        "bake%s: %d triangles, %d lights, qnodes %d x 32 f32 (%d bytes), "
         "ptris %d x %d f32 (%d bytes), stack need %d; pnodes %d x 16 f32 "
-        "(%d bytes), depth %d",
+        "(%d bytes), depth %d", " (refit)" if reuse_bvh is not None else "",
         ds.num_triangles, ds.num_lights, ds.qnodes.shape[0],
         ds.qnodes.numel() * 4, ds.ptris.shape[0], ds.ptris.shape[1],
         ds.ptris.numel() * 4, ds.q_stack_need, ds.pnodes.shape[0],
         ds.pnodes.numel() * 4, ds.bvh_max_depth,
     )
     return ds, bvh
+
+
+def _light_rows(scene: Scene, emissive):
+    """(light_emission f32[L,3], light_power f32[L]) of the emissive
+    objects `emissive`, as the bake computes them."""
+    mats = [scene.materials[scene.objects[oi].material_index]
+            for oi in emissive]
+    emission = np.asarray(
+        [np.asarray(m.emission_color, np.float32) * m.emission_power
+         for m in mats], np.float32).reshape(len(mats), 3)
+    power = np.asarray([m.emission_power for m in mats],
+                       np.float32).reshape(len(mats))
+    return emission, power
+
+
+def update_materials(ds: DeviceScene, scene: Scene,
+                     **bake_kwargs) -> DeviceScene:
+    """The material-only update (gpu_scene_update_material,
+    gpu_scene.odin:560-601; the JAX `update_materials`): rewrite the
+    material and light tables without touching geometry or the trees.
+    Returns a `dataclasses.replace` of `ds` whose geometry tensors are the
+    same objects; mat_packed, light_power, light_meta_packed (emission
+    columns 2:5 and power column 6) and light_tri_packed (emission columns
+    12:15) are new. Falls back to a full bake, with `bake_kwargs`
+    (leaf_size, device), when the set of emissive objects changed or the
+    scene has more materials than mat_packed has rows."""
+    mats = scene.materials
+    emissive = [oi for oi, o in enumerate(scene.objects)
+                if mats[o.material_index].emission_power > 0]
+    if (emissive != ds.light_object.tolist()
+            or len(mats) > ds.mat_packed.shape[0]):
+        return bake_scene(scene, **bake_kwargs)[0]
+    dev = ds.device
+    emission, power = _light_rows(scene, emissive)
+    emission_t = torch.from_numpy(emission).to(dev)
+    power_t = torch.from_numpy(power).to(dev)
+    mat_packed = _pad_rows(_pack_materials(mats), ds.mat_packed.shape[0])
+    mat_packed[len(mats):, 10] = 1.0  # a padded row's ior: vacuum
+    return dataclasses.replace(
+        ds,
+        mat_packed=torch.from_numpy(mat_packed).to(dev),
+        light_power=power_t,
+        light_meta_packed=_refresh_light_meta(ds.light_meta_packed,
+                                              emission_t, power_t),
+        light_tri_packed=_refresh_light_tri_emission(ds.light_tri_packed,
+                                                     emission_t),
+    )
+
+
+def _refresh_light_tri_emission(light_tri_packed, light_emission):
+    """light_tri_packed with its owning light's emission (columns 12:15)
+    rewritten on its device: each row's light index is column 10 (-1 for a
+    row of no light, which gets 0)."""
+    if light_emission.shape[0] == 0:
+        return light_tri_packed
+    li = light_tri_packed[:, 10].to(torch.int64)
+    em = light_emission[li.clamp(0, light_emission.shape[0] - 1)]
+    out = light_tri_packed.clone()
+    out[:, 12:15] = torch.where((li >= 0)[:, None], em,
+                                torch.zeros_like(em))
+    return out
+
+
+def _refresh_light_meta(meta, light_emission, light_power):
+    """light_meta_packed with the emission (columns 2:5) and power (column
+    6) of its lights rewritten; the other columns are the bake's."""
+    meta = meta.clone()
+    meta[:, 2:5] = light_emission
+    meta[:, 6] = light_power
+    return meta
 
 
 def from_jax_arrays(d: Dict[str, np.ndarray], device) -> DeviceScene:

@@ -399,6 +399,20 @@ def test_port_never_imports_jax():
         "from raytracer_tpu_torch.lab import quad_variant_lab\n"
         "quad_variant_lab.variants(quad_variant_lab.source_values(open("
         "quad_variant_lab.SOURCE).read()))\n"
+        "import dataclasses, tempfile\n"
+        "from raytracer_tpu_torch.examples import interactive_session, "
+        "live_edit, turntable\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "live_edit.main([tmp + '/le', '--size', '8x8', '--frames', '1', "
+        "'--device', 'cpu'])\n"
+        "turntable.main(['--frames', '1', '--spp', '1', '--size', '8x8', "
+        "'--outdir', tmp, '--device', 'cpu'])\n"
+        "s = r.scene\n"
+        "s.update_object_position(6, (0.5, 1.5, -1.0)); r.step()\n"
+        "s.update_material(0, dataclasses.replace(s.materials[0], "
+        "albedo=(0.9, 0.1, 0.1))); r.step()\n"
+        "s.delete_object(7); r.prebake_async(); r.step()\n"
+        "assert r.last_replay == 'prebake'\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
