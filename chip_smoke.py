@@ -147,6 +147,28 @@ Phases (any failure exits non-zero and prints no result line):
      each ptris; (d) the refit scene against a fresh bake of the same state
      at 1080p, and the session at 32x32, 3 frames an edit, card against
      CPU, within PIXEL_ATOL / MAX_FLIPPED.
+ 13. The sharded renderer (pixel tiles over torch.distributed, ROADMAP
+     P12), every part in ranks the script spawns (parallel/launch.spawn:
+     each rank a process, each group with a timeout, each spawn joined with
+     a deadline), each rank's launch counts set to 0 before its frames and
+     read after each frame: (a) a world of 1 over NCCL,
+     ProgressiveRenderer(mesh=make_pixel_mesh()) on the 1080p atrium at the
+     bench camera, 2 warm and 4 timed frames, ms/frame beside phase 3's, K1
+     3 and K2 3 launches a frame, the image bit-equal to a single-device
+     renderer's after the same frames; (b) a world of 2 over gloo, both
+     ranks on the one card (NCCL refuses two ranks on one device; gloo
+     moves card tensors through host memory), 540 rows a rank: plain NEE
+     and ReSTIR at the defaults (radius 16: a 17-row halo), each with
+     per-rank ms/frame, PhaseTimer spans (tile render, halo, gather), peak
+     device memory and launches by frame (K1 3 / K2 3, ReSTIR K1 3 / K2
+     4), the gathered images bit-equal to (a)'s single-device ones, and
+     one K1 and one K2 launch per rank captured and bit-equal to the plain
+     walks; (c) one accel="bvh" frame in that world: K3/K4 3 each on every
+     rank, no K1/K2, the image bit-equal to (b)'s first frame; (d) the
+     Cornell box at 32x32 on the card's world of 2 against one CPU device:
+     plain, spp_batch=2, adaptive (tol 0.15), preview_image(4) with and
+     without the denoiser, aovs(), image(denoise=True) and ReSTIR (radius
+     2), within PIXEL_ATOL / MAX_FLIPPED.
 
 Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
@@ -1901,10 +1923,6 @@ def phase10_small(scene_fn, device):
     """(e) Modes (a), (b) and (d) end to end at MODES_SMALL x MODES_SMALL,
     card against CPU: spp_batch 2, adaptive sampling, the preview and the
     AOVs within PIXEL_ATOL / MAX_FLIPPED."""
-    import numpy as np
-
-    from raytracer_tpu_torch.integrator.denoise import MISS_DEPTH
-
     n = MODES_SMALL
     out = {}
     for dev in (device, "cpu"):
@@ -1937,21 +1955,30 @@ def phase10_small(scene_fn, device):
     if count_diff > MAX_FLIPPED:
         raise RuntimeError("phase 10 (e): adaptive counts differ")
     gate_pixels(f"(e) {n}x{n} preview", card["preview"], cpu["preview"])
-    hit = (card["aovs"]["depth"] < MISS_DEPTH,
-           cpu["aovs"]["depth"] < MISS_DEPTH)
+    gate_aovs(f"(e) {n}x{n}", card["aovs"], cpu["aovs"])
+
+
+def gate_aovs(what, card, cpu, phase="phase 10"):
+    """Raise unless two aovs() dicts agree: normal and albedo within
+    PIXEL_ATOL / MAX_FLIPPED where both hit, hit flips and depths beyond a
+    relative PIXEL_ATOL on at most MAX_FLIPPED of the pixels."""
+    import numpy as np
+
+    from raytracer_tpu_torch.integrator.denoise import MISS_DEPTH
+
+    hit = (card["depth"] < MISS_DEPTH, cpu["depth"] < MISS_DEPTH)
     both = hit[0] & hit[1]
-    gate_pixels(f"(e) {n}x{n} AOV normal, albedo",
-                np.concatenate([card["aovs"]["normal"],
-                                card["aovs"]["albedo"]], -1)[both],
-                np.concatenate([cpu["aovs"]["normal"],
-                                cpu["aovs"]["albedo"]], -1)[both])
-    rel = (np.abs(card["aovs"]["depth"] - cpu["aovs"]["depth"])[both]
-           / cpu["aovs"]["depth"][both])
+    gate_pixels(f"{what} AOV normal, albedo",
+                np.concatenate([card["normal"], card["albedo"]], -1)[both],
+                np.concatenate([cpu["normal"], cpu["albedo"]], -1)[both],
+                phase=phase)
+    rel = (np.abs(card["depth"] - cpu["depth"])[both]
+           / cpu["depth"][both])
     flips = float((hit[0] != hit[1]).mean())
-    log(f"phase 10 (e): AOV hit flips {flips:.4f}, max relative depth "
+    log(f"{phase} {what}: AOV hit flips {flips:.4f}, max relative depth "
         f"difference {float(rel.max()):.3g}")
     if flips > MAX_FLIPPED or float((rel > PIXEL_ATOL).mean()) > MAX_FLIPPED:
-        raise RuntimeError("phase 10 (e): AOV depth beyond tolerance")
+        raise RuntimeError(f"{phase} {what}: AOV depth beyond tolerance")
 
 
 def phase10(scene_fn, device, phase3_ms):
@@ -2420,6 +2447,245 @@ def phase12(scene_fn, device):
     return {"session": session, "auto": times, "bvh": bvh_times}
 
 
+# Phase 13: the sharded renderer (P12), each part in spawned ranks.
+SHARD_FRAMES = 6  # 2 warm and 4 timed, as phase 3
+SHARD_TIMEOUT_S = 600.0
+# K1 (K3) and K2 (K4) launches a frame on each rank: the plain path
+# (phase 3) and ReSTIR (phase 11).
+SHARD_LAUNCHES = {"plain": (3, 3), "restir": (3, 4)}
+SHARD_SMALL = 32  # (d), card against CPU
+SHARD_SMALL_RESTIR = dict(use_restir=True, restir_spatial_radius=2.0)
+
+
+def shard_renderer(mesh, device, **cfg):
+    """The 1080p atrium at the bench camera, depth 3: on `mesh`, or on one
+    device (mesh None)."""
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.scene.benchmark import create_benchmark_atrium
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    cam, _ = bench_camera_ubo(device, WIDTH, HEIGHT)
+    return ProgressiveRenderer(
+        create_benchmark_atrium(TARGET_TRIS), cam,
+        RenderConfig(width=WIDTH, height=HEIGHT, max_depth=3, **cfg),
+        device=device, mesh=mesh)
+
+
+def shard_frames(r, label, kinds=("quad_closest", "quad_occlusion")):
+    """SHARD_FRAMES steps of this rank's renderer `r` with its PhaseTimer
+    on: each frame's ms (host clock between device syncs) and launch
+    counts of `kinds`, read per frame from 0 set just before. Returns
+    (ms/frame of the timed frames, the image after frame 0, peak device
+    memory, launches by frame)."""
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.utils.profiling import PhaseTimer
+
+    r.timer = PhaseTimer()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    times, per_frame, first = [], [], None
+    for f in range(SHARD_FRAMES):
+        before = all_launch_counts()
+        _, ms = timed(r.step)
+        after = all_launch_counts()
+        per_frame.append(tuple(after[k] - before[k] for k in kinds))
+        if f >= 2:
+            times.append(ms)
+        if f == 0:
+            first = r.image()
+    ms = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 13 {label} rank {dist.get_rank()}: {r._rows} pixels "
+        f"({r._rows // WIDTH} rows) from {r._pixel_start}, timed frames "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms, mean {ms:.1f} "
+        f"ms/frame, peak device memory {peak} B, {kinds} launches by "
+        f"frame {per_frame}; spans:\n{r.timer.report()}")
+    return ms, first, peak, per_frame
+
+
+def shard_gate_launches(label, per_frame, want):
+    if any(tuple(c) != tuple(want) for c in per_frame):
+        raise RuntimeError(f"phase 13 {label}: launches by frame "
+                           f"{per_frame}, want {want} each")
+
+
+def phase13_world1(rank, world):
+    """(a) A world of 1 over NCCL: the sharded 1080p frames against a
+    single-device renderer after the same frames (bit-equal), and the
+    single-device ReSTIR image (b) is held against."""
+    import numpy as np
+
+    from raytracer_tpu_torch.parallel.sharding import (
+        local_device,
+        make_pixel_mesh,
+    )
+
+    mesh = make_pixel_mesh()
+    device = local_device(mesh.device_type)
+    r = shard_renderer(mesh, device)
+    ms, _, peak, per_frame = shard_frames(r, "(a) world 1, nccl")
+    shard_gate_launches("(a)", per_frame, SHARD_LAUNCHES["plain"])
+    img = r.image()
+    del r
+    out = {"ms": ms, "peak": peak, "launches": per_frame[0]}
+    for name, cfg in (("plain", {}), ("restir", {"use_restir": True})):
+        single = shard_renderer(None, device, **cfg)
+        for _ in range(SHARD_FRAMES):
+            single.step()
+        out[f"{name}_single"] = single.image()
+        del single
+    same = bool(np.array_equal(img, out["plain_single"]))
+    log(f"phase 13 (a): world 1 image bit-equal to the single-device "
+        f"renderer's after {SHARD_FRAMES} frames: {same}")
+    if not same:
+        gate_pixels("(a) world 1 vs single", img, out["plain_single"],
+                    phase="phase 13")
+        raise RuntimeError("phase 13 (a): the world-1 image differs")
+    return out
+
+
+def phase13_world2(rank, world, refs):
+    """(b) Plain NEE and ReSTIR at the defaults in a world of 2 over gloo,
+    both ranks on the one card: per-rank ms/frame, spans, peak memory and
+    launches by frame, one captured K1 and K2 launch per rank, the images
+    against `refs` (a)'s single-device ones; (c) one accel="bvh" frame;
+    (d) the Cornell box at SHARD_SMALL, the card's world of 2 against a
+    single-device CPU render."""
+    import numpy as np
+
+    from raytracer_tpu_torch.parallel.sharding import (
+        local_device,
+        make_pixel_mesh,
+    )
+
+    mesh = make_pixel_mesh()
+    device = local_device(mesh.device_type)
+    out = {}
+    imgs = {}
+    for name, cfg in (("plain", {}), ("restir", {"use_restir": True})):
+        r = shard_renderer(mesh, device, **cfg)
+        ms, first, peak, per_frame = shard_frames(
+            r, f"(b) {name} world 2, gloo")
+        shard_gate_launches(f"(b) {name}", per_frame, SHARD_LAUNCHES[name])
+        imgs[name] = r.image()
+        if name == "plain":
+            imgs["first"] = first
+        out[name] = {"ms": ms, "peak": peak, "spans": dict(r.timer.totals),
+                     "calls": dict(r.timer.counts)}
+        with capture_launches(0, 0 if name == "plain" else 1) as kept:
+            r.step()
+        check_captured(f"(b) {name} rank {rank}", kept, phase="phase 13")
+        del r
+    for name in ("plain", "restir"):
+        same = bool(np.array_equal(imgs[name], refs[f"{name}_single"]))
+        log(f"phase 13 (b) rank {rank}: {name} gathered image bit-equal to "
+            f"the single-device one after {SHARD_FRAMES} frames: {same}")
+        if not same:
+            gate_pixels(f"(b) {name} world 2 vs single", imgs[name],
+                        refs[f"{name}_single"], phase="phase 13")
+            raise RuntimeError(f"phase 13 (b): the {name} image differs")
+
+    # (c) accel="bvh": K3/K4 on each rank, not K1/K2.
+    kinds = ("binary_closest", "binary_occlusion", "quad_closest",
+             "quad_occlusion")
+    r = shard_renderer(mesh, device, accel="bvh")
+    reset_all_launch_counts()
+    r.step()
+    counts = tuple(all_launch_counts()[k] for k in kinds)
+    img = r.image()
+    del r
+    same = bool(np.array_equal(img, imgs["first"]))
+    log(f"phase 13 (c) rank {rank}: accel=bvh frame, {kinds} launches "
+        f"{counts}; bit-equal to (b)'s first frame: {same}")
+    if counts != (3, 3, 0, 0) or not same:
+        raise RuntimeError(f"phase 13 (c): launches {counts} or the image "
+                           "differs")
+    out["small"] = phase13_small(mesh, device, rank)
+    return out
+
+
+def phase13_small(mesh, device, rank):
+    """(d) The Cornell box at SHARD_SMALL on the card's world of 2, and
+    (rank 0) on one CPU device: plain, spp_batch=2, adaptive, previews,
+    AOVs, the denoised image and ReSTIR within PIXEL_ATOL / MAX_FLIPPED."""
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.scene.model import create_cornell_box
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    def modes(dev, m):
+        n = SHARD_SMALL
+
+        def make(**cfg):
+            return ProgressiveRenderer(
+                create_cornell_box(), None,
+                RenderConfig(width=n, height=n, **cfg), device=dev, mesh=m)
+
+        reset_all_launch_counts()
+        out = {}
+        r = make()
+        out["plain"] = r.render(2)
+        out["aovs"] = r.aovs()
+        out["denoised"] = r.image(denoise=True)
+        out["preview"] = r.preview_image(PREVIEW_SCALE, denoise=False)
+        out["preview_denoised"] = r.preview_image(PREVIEW_SCALE,
+                                                  denoise=True)
+        out["spp"] = make(spp_batch=2).render(2)
+        ada = make(adaptive_tol=MODES_TOL, adaptive_min_frames=2)
+        out["adaptive"] = ada.render(4)
+        out["restir"] = make(**SHARD_SMALL_RESTIR).render(
+            RESTIR_SMALL_FRAMES)
+        if m is not None:
+            quad_launches(f"(d) rank {rank}", phase="phase 13")
+        return out
+
+    t0 = time.perf_counter()
+    card = modes(device, mesh)
+    log(f"phase 13 (d) rank {rank}: {SHARD_SMALL}x{SHARD_SMALL} modes on "
+        f"the card's world of 2 in {time.perf_counter() - t0:.2f} s")
+    if rank != 0:
+        return None
+    t0 = time.perf_counter()
+    cpu = modes("cpu", None)
+    log(f"phase 13 (d): the same on one CPU device in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for key, a in card.items():
+        if key == "aovs":
+            gate_aovs(f"(d) {SHARD_SMALL}x{SHARD_SMALL}", a, cpu[key],
+                      phase="phase 13")
+        else:
+            gate_pixels(f"(d) {SHARD_SMALL}x{SHARD_SMALL} {key}", a,
+                        cpu[key], phase="phase 13")
+    return True
+
+
+def phase13(phase3_ms):
+    """The sharded renderer in spawned ranks: (a) a world of 1 over NCCL,
+    (b)-(d) a world of 2 over gloo on the one card."""
+    from raytracer_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    (a,) = spawn(phase13_world1, 1, backend="nccl",
+                 timeout_s=SHARD_TIMEOUT_S)
+    log(f"phase 13 (a): world 1 over NCCL {a['ms']:.1f} ms/frame against "
+        f"phase 3's {phase3_ms:.1f} ({a['ms'] / phase3_ms:.3f}x), peak "
+        f"{a['peak']} B, K1/K2 launches a frame {a['launches']}")
+    refs = {k: a[k] for k in ("plain_single", "restir_single")}
+    ranks = spawn(phase13_world2, 2, (refs,), backend="gloo",
+                  timeout_s=SHARD_TIMEOUT_S)
+    for name in ("plain", "restir"):
+        for rank, out in enumerate(ranks):
+            b = out[name]
+            spans = ", ".join(
+                f"{k} {1e3 * v / b['calls'][k]:.1f} ms x{b['calls'][k]}"
+                for k, v in b["spans"].items())
+            log(f"phase 13 (b) {name} rank {rank}: {b['ms']:.1f} ms/frame "
+                f"(phase 3 {phase3_ms:.1f}), peak {b['peak']} B; spans "
+                f"{spans}")
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+
 def phase4():
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.utils.image import read_png
@@ -2470,6 +2736,7 @@ def main():
     phase10(atrium, device, cuda_ms)
     phase11(atrium, device, cuda_ms)
     phase12(atrium, device)
+    phase13(cuda_ms)
 
     def entry(name, source, replaces, launches, shown, *others):
         """A kernel's entry of the kernels line: the ms, plain ms and bound

@@ -13,9 +13,12 @@ imports torch and never jax.
                intersection, and quad_traverse: the CUDA traversal kernels
                (csrc/quad_traverse.cu) with their plain torch versions
   integrator/  the wavefront bounce loop, NEE/MIS, accumulation
-  utils/       RenderConfig, images (PNG/SSIM), stats
+  parallel/    pixel-tile rendering over torch.distributed (one rank per
+               device) and the ranks' launcher
+  utils/       RenderConfig, images (PNG/SSIM), stats, profiling
   api.py       render()/ProgressiveRenderer
   cli.py       python -m raytracer_tpu_torch.cli
+  compare.py   python -m raytracer_tpu_torch.compare (the SSIM gate)
 """
 
 __version__ = "0.1.0"

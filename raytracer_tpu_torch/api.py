@@ -1,5 +1,5 @@
 """Public API: one-shot `render()` and the progressive renderer (port of
-raytracer_tpu/api.py, single device).
+raytracer_tpu/api.py).
 
 ProgressiveRenderer is the analog of Raytracing_Renderer
 (`src/raytracer/raytracing_renderer.odin`): it owns the baked scene on one
@@ -20,16 +20,25 @@ to frame; a camera move or a scene edit empties it with the accumulation.
 Checkpoints use the JAX package's .npz format, adaptive and ReSTIR state
 included, so one moves between the two packages.
 
+With `mesh` (parallel/sharding.py:make_pixel_mesh: one rank per device
+under torch.distributed) the renderer is one rank of a pixel-tile render:
+every rank bakes the same scene and replays the same edits (a digest of
+each bake is compared across the ranks), owns the accumulation, reservoir
+and adaptive rows of its contiguous pixel tile, and renders that tile with
+global pixel ids, so the image is bit-identical to a single-device
+render. image(), aovs(), preview_image() and save_checkpoint() gather the
+tiles (rank 0 writes the checkpoint); every rank must call them together.
+`timer` (utils/profiling.py PhaseTimer, off by default) times each rank's
+tile render, ReSTIR halo exchange and image gather.
+
 As in the JAX package, accel="cuda" falls back to accel="bvh" (the binary
 tree's kernels), with a logged warning, for a t_min other than 1e-3 and for
 a 4-wide tree whose stack need exceeds the kernels' stack.
-
-Not ported yet, raising with its ROADMAP.md port queue item: multi-device
-meshes (P12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -37,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raytracer_tpu_torch.integrator.adaptive import (
     AdaptiveState,
@@ -59,6 +69,7 @@ from raytracer_tpu_torch.integrator.wavefront import (
 from raytracer_tpu_torch.ops import binary_traverse
 from raytracer_tpu_torch.ops.camera import Camera
 from raytracer_tpu_torch.ops.quad_traverse import CAP, T_MIN
+from raytracer_tpu_torch.parallel import sharding
 from raytracer_tpu_torch.scene.device_scene import (
     bake_scene,
     update_materials,
@@ -69,11 +80,6 @@ from raytracer_tpu_torch.utils.config import RenderConfig
 log = logging.getLogger(__name__)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md port queue item {item}")
-
-
 def _check_modes(cfg: RenderConfig):
     """Raise for a combination of modes that cannot run together."""
     if cfg.adaptive_tol > 0 and cfg.use_restir:
@@ -81,17 +87,40 @@ def _check_modes(cfg: RenderConfig):
                          "(ReSTIR carries its own temporal state)")
 
 
+def _mesh_device(mesh, device) -> torch.device:
+    """This rank's device for a render on `mesh`: `device` ("cuda" means
+    the rank's card, cuda:(LOCAL_RANK % device_count)). Raises outside a
+    process group, for anything but a 1-D DeviceMesh, and for a device of
+    another type than the mesh's."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "a mesh renders under a torch.distributed process group: start "
+            "the program under torchrun, or call "
+            "torch.distributed.init_process_group, then pass "
+            "parallel.sharding.make_pixel_mesh()")
+    if not (isinstance(mesh, sharding.DeviceMesh) and mesh.ndim == 1):
+        raise TypeError(f"mesh must be a 1-D DeviceMesh "
+                        f"(parallel.sharding.make_pixel_mesh), not {mesh!r}")
+    device = torch.device(device)
+    if device.type != mesh.device_type:
+        raise ValueError(f"device {device} on a {mesh.device_type} mesh")
+    if device.index is None:
+        device = sharding.local_device(device.type)
+    return device
+
+
 class ProgressiveRenderer:
-    """Single-device progressive renderer on `device` ("cuda" or "cpu";
-    on "cpu" the traversal kernels run as their plain torch versions)."""
+    """Progressive renderer on `device` ("cuda" or "cpu"; on "cpu" the
+    traversal kernels run as their plain torch versions); with `mesh`, one
+    rank of a pixel-tile render (see the module docstring)."""
 
     def __init__(self, scene: Scene, camera: Optional[Camera] = None,
                  config: Optional[RenderConfig] = None, device="cuda",
                  mesh=None):
-        if mesh is not None:
-            raise _not_ported("multi-device rendering (mesh)", "P12")
         self.scene = scene
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = (torch.device(device) if mesh is None
+                       else _mesh_device(mesh, device))
         self.config = (config or RenderConfig()).resolve_accel()
         _check_modes(self.config)
         if (self.config.accel == "cuda"
@@ -109,6 +138,12 @@ class ProgressiveRenderer:
             position=(0.0, 0.0, -3.0),
             aspect=self.config.width / self.config.height,
         )
+        # This rank's pixels [pixel_start, pixel_start + rows): every pixel
+        # on one device.
+        self._pixel_start, self._rows = 0, self.config.num_pixels
+        self.timer = None  # utils/profiling.PhaseTimer: per-rank spans
+        if mesh is not None:
+            self._init_mesh()
         self._install(*bake_scene(self.scene, **self._bake_kwargs()))
         # The bake consumed the scene's current state.
         scene.drain_changes()
@@ -127,12 +162,36 @@ class ProgressiveRenderer:
         self.last_stats = None
         self.reservoir = None
         if self.config.use_restir:
-            self.reservoir = Reservoir.empty(self.config.num_pixels,
-                                             self.device)
+            self.reservoir = Reservoir.empty(self._rows, self.device)
         self.adaptive = None
         if self.config.adaptive_tol > 0:
-            self.adaptive = AdaptiveState.empty(
-                self.config.num_pixels, self.device)
+            self.adaptive = AdaptiveState.empty(self._rows, self.device)
+
+    def _init_mesh(self):
+        """This rank's tile (ValueError when the pixels do not tile), and
+        the warning for ReSTIR tiles shorter than the spatial halo."""
+        cfg = self.config
+        self._pixel_start, self._rows = sharding.tile_of(cfg, self.mesh)
+        if cfg.use_restir:
+            halo_rows = int(cfg.restir_spatial_radius) + 1
+            if self._rows < halo_rows * cfg.width:
+                # Spatial taps past the clamped halo are dropped, so the
+                # image is no longer the single-device one.
+                log.warning(
+                    "ReSTIR tile height %d rows < spatial halo %d rows: "
+                    "cross-tile spatial taps will be clipped (render is no "
+                    "longer bit-identical to single-device)",
+                    self._rows // cfg.width, halo_rows)
+
+    def _group(self):
+        return sharding.mesh_group(self.mesh)
+
+    def _span(self, name, holder):
+        """The timer's phase `name` (ended after a device sync on
+        holder[0]), or nothing when the timer is off."""
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.phase(name, holder)
 
     def _bake_kwargs(self):
         """The one set of bake settings for the first bake, the journal
@@ -150,6 +209,8 @@ class ProgressiveRenderer:
         same."""
         self.device_scene, self._host_bvh = device_scene, host_bvh
         ds = device_scene
+        if self.mesh is not None:
+            sharding.check_replicas(ds, self._group())
         if self.config.accel == "cuda" and ds.q_stack_need > CAP:
             # Binned SAH can emit highly skewed trees on adversarial input;
             # the bake holds the binary tree too, so no second bake.
@@ -166,7 +227,7 @@ class ProgressiveRenderer:
                 "walk for such trees is ROADMAP.md port queue item P2")
 
     def _zeros(self):
-        return torch.zeros((self.config.num_pixels, 3), dtype=torch.float32,
+        return torch.zeros((self._rows, 3), dtype=torch.float32,
                            device=self.device)
 
     # -- scene/camera plumbing ------------------------------------------
@@ -297,24 +358,38 @@ class ProgressiveRenderer:
         self._gbuffers = {}
 
     def _gbuffer_for(self, cfg: RenderConfig):
-        """The G-buffer at cfg's resolution with the current camera."""
+        """The whole G-buffer at cfg's resolution with the current camera
+        (on a mesh, each rank traces its tile and the tiles are gathered:
+        the filter couples neighbouring rows)."""
         key = (cfg.width, cfg.height)
         if key not in self._gbuffers:
-            self._gbuffers[key] = gbuffer_pass(
-                self.device_scene, self._ensure_camera_ubo(), cfg)
+            ubo = self._ensure_camera_ubo()
+            if self.mesh is None:
+                gbuf = gbuffer_pass(self.device_scene, ubo, cfg)
+            else:
+                gbuf = tuple(self._gather(a) for a in sharding.gbuffer_sharded(
+                    self.device_scene, ubo, cfg, self.mesh))
+            self._gbuffers[key] = gbuf
         return self._gbuffers[key]
+
+    def _gather(self, tile):
+        """Every rank's tile of `tile`, gathered in pixel order (the
+        timer's "gather" phase)."""
+        done = []
+        with self._span("gather", done):
+            whole = sharding.gather_rows(tile, self._group())
+            done.append(whole)
+        return whole
 
     def reset_accumulation(self):
         self.accum = self._zeros()
         self.frame = 0
         if self.reservoir is not None:
             # Temporal reuse is valid only while the accumulation is.
-            self.reservoir = Reservoir.empty(self.config.num_pixels,
-                                             self.device)
+            self.reservoir = Reservoir.empty(self._rows, self.device)
         if self.adaptive is not None:
             # Stale variance would freeze pixels against the old image.
-            self.adaptive = AdaptiveState.empty(
-                self.config.num_pixels, self.device)
+            self.adaptive = AdaptiveState.empty(self._rows, self.device)
 
     # -- the hot loop ---------------------------------------------------
     def step(self) -> bool:
@@ -326,7 +401,9 @@ class ProgressiveRenderer:
         limit = self.config.accumulation_limit
         if limit is not None and self.frame >= limit:
             return False
-        if self.adaptive is not None:
+        if self.mesh is not None:
+            self._step_sharded()
+        elif self.adaptive is not None:
             self.adaptive, self.last_stats = render_frame_adaptive(
                 self.device_scene, self._camera_ubo_dev, self.adaptive,
                 self.config, with_stats=True)
@@ -343,13 +420,39 @@ class ProgressiveRenderer:
         self.frame += self.config.spp_batch
         return True
 
+    def _step_sharded(self):
+        """This rank's tile of one step (parallel/sharding.py), timed as
+        the "tile_render" phase."""
+        ds, ubo, cfg = self.device_scene, self._camera_ubo_dev, self.config
+        done = []
+        with self._span("tile_render", done):
+            if self.adaptive is not None:
+                self.adaptive, self.last_stats = (
+                    sharding.render_frame_adaptive_sharded(
+                        ds, ubo, self.adaptive, cfg, self.mesh,
+                        with_stats=True))
+                self.accum = self.adaptive.mean
+            elif self.reservoir is not None:
+                self.accum, self.reservoir, self.last_stats = (
+                    sharding.render_frame_restir_sharded(
+                        ds, ubo, self.accum, self.reservoir, self.frame, cfg,
+                        self.mesh, with_stats=True, timer=self.timer))
+            else:
+                self.accum, self.last_stats = sharding.render_frame_sharded(
+                    ds, ubo, self.accum, self.frame, cfg, self.mesh,
+                    with_stats=True)
+            done.append(self.accum)
+
     def adaptive_converged_fraction(self) -> float:
         """Fraction of pixels that have stopped sampling (0.0 when adaptive
-        sampling is off). One device readback."""
+        sampling is off). One device readback (on a mesh, a sum over the
+        ranks)."""
         if self.adaptive is None:
             return 0.0
-        active = active_mask(self.adaptive, self.config)
-        return float(1.0 - active.to(torch.float32).mean())
+        active = active_mask(self.adaptive, self.config).sum()
+        if self.mesh is not None:
+            active = sharding.all_reduce_sum(active, self._group())
+        return float(1.0 - int(active) / self.config.num_pixels)
 
     def render(self, num_frames: int) -> np.ndarray:
         """Accumulate `num_frames` more samples and return the image. Each
@@ -369,10 +472,10 @@ class ProgressiveRenderer:
         the filtered result crosses to the host, and the accumulation is
         never modified."""
         use = self.config.denoise_preview if denoise is None else denoise
-        out = self.accum
+        out = self.accum if self.mesh is None else self._gather(self.accum)
         if use:
             out = atrous_denoise(
-                self.accum, *self._gbuffer_for(self.config),
+                out, *self._gbuffer_for(self.config),
                 self.config.height,
                 self.config.width,
                 iterations=self.config.denoise_iterations)
@@ -415,8 +518,12 @@ class ProgressiveRenderer:
         # accumulation, not to a throwaway sample.
         cfg_p = self.config.replace(width=pw, height=ph, use_restir=False,
                                     adaptive_tol=0.0)
-        rad = render_wavefront(self.device_scene, self._ensure_camera_ubo(),
-                               self.frame, cfg_p)
+        ubo = self._ensure_camera_ubo()
+        if self.mesh is None:
+            rad = render_wavefront(self.device_scene, ubo, self.frame, cfg_p)
+        else:  # ValueError when the preview's pixels do not tile
+            rad = self._gather(sharding.render_radiance_sharded(
+                self.device_scene, ubo, self.frame, cfg_p, self.mesh))
         if use_denoise:
             rad = atrous_denoise(rad, *self._gbuffer_for(cfg_p), ph, pw,
                                  iterations=self.config.denoise_iterations)
@@ -443,25 +550,41 @@ class ProgressiveRenderer:
         return self._camera_ubo_dev
 
     # -- checkpoint / resume ---------------------------------------------
+    def _whole(self, a):
+        """`a` of every pixel on the host: on a mesh, the ranks' rows
+        gathered."""
+        if self.mesh is not None:
+            a = self._gather(a)
+        return a.detach().cpu().numpy()
+
     def save_checkpoint(self, path: str):
+        """Write the render state as the JAX package's .npz. On a mesh the
+        rows are gathered and rank 0 writes; every rank returns once the
+        file is written."""
         extra = {}
         if self.reservoir is not None:
             # The temporal history is part of the render state.
-            extra = {f"reservoir_{k}": v.detach().cpu().numpy()
+            extra = {f"reservoir_{k}": self._whole(v)
                      for k, v in self.reservoir._asdict().items()}
         if self.adaptive is not None:
             # The mean is the accumulation (saved as accum); m2 and count
             # resume the convergence decisions exactly. count is written as
             # uint32, as the JAX package writes it.
             extra.update({
-                "adaptive_m2": self.adaptive.m2.detach().cpu().numpy(),
-                "adaptive_count": self.adaptive.count.detach().cpu().numpy(
-                ).astype(np.uint32),
+                "adaptive_m2": self._whole(self.adaptive.m2),
+                "adaptive_count": self._whole(self.adaptive.count).astype(
+                    np.uint32),
             })
-        np.savez_compressed(
-            path, accum=self.accum.detach().cpu().numpy(), frame=self.frame,
-            width=self.config.width, height=self.config.height, **extra,
-        )
+        accum = self._whole(self.accum)
+        if self.mesh is None or dist.get_rank(self._group()) == 0:
+            np.savez_compressed(
+                path, accum=accum, frame=self.frame,
+                width=self.config.width, height=self.config.height, **extra,
+            )
+        if self.mesh is not None:
+            # The other ranks return once rank 0 has written the file.
+            sharding.all_reduce_sum(torch.zeros(1, device=self.device),
+                                    self._group())
 
     def load_checkpoint(self, path: str):
         data = np.load(path)
@@ -470,26 +593,28 @@ class ProgressiveRenderer:
             raise ValueError(
                 f"checkpoint is {int(data['width'])}x{int(data['height'])}, "
                 f"renderer is {self.config.width}x{self.config.height}")
+        # This rank's rows of each array (every row on one device).
+        rows = slice(self._pixel_start, self._pixel_start + self._rows)
         self.accum = torch.from_numpy(
-            np.asarray(data["accum"], np.float32)).to(self.device)
+            np.array(data["accum"][rows], np.float32)).to(self.device)
         self.frame = int(data["frame"])
         if self.reservoir is not None:
             if "reservoir_weight_sum" in data:
                 self.reservoir = Reservoir(**{
-                    k: torch.from_numpy(np.array(data[f"reservoir_{k}"])).to(
-                        self.device) for k in Reservoir._fields})
+                    k: torch.from_numpy(np.array(
+                        data[f"reservoir_{k}"][rows])).to(self.device)
+                    for k in Reservoir._fields})
             else:
                 # No reservoir in the checkpoint: the accumulation resumes
                 # and temporal reuse restarts.
-                self.reservoir = Reservoir.empty(self.config.num_pixels,
-                                                 self.device)
+                self.reservoir = Reservoir.empty(self._rows, self.device)
         if self.adaptive is not None:
-            n = self.config.num_pixels
+            n = self._rows
             if "adaptive_m2" in data:
-                m2 = torch.from_numpy(np.asarray(data["adaptive_m2"],
-                                                 np.float32))
-                count = torch.from_numpy(np.asarray(data["adaptive_count"],
-                                                    np.int64))
+                m2 = torch.from_numpy(np.array(data["adaptive_m2"][rows],
+                                               np.float32))
+                count = torch.from_numpy(np.array(
+                    data["adaptive_count"][rows], np.int64))
             else:
                 # A plain checkpoint has no variance history: m2 = 0 would
                 # retire every pixel at once and freeze the render, so m2 =

@@ -63,13 +63,17 @@ def active_mask(state: AdaptiveState, cfg: RenderConfig) -> torch.Tensor:
 
 
 def render_frame_adaptive(scene, camera_ubo, state: AdaptiveState,
-                          cfg: RenderConfig, with_stats: bool = False):
+                          cfg: RenderConfig, pixel_start=0, num_pixels=None,
+                          with_stats: bool = False):
     """One adaptive progressive step: sample only the unconverged pixels,
     each at its own count as its frame, and fold them into the Welford
     state. Returns the new AdaptiveState (and, with with_stats=True, the
-    wavefront's ray counts)."""
+    wavefront's ray counts). On the tile [pixel_start, pixel_start +
+    num_pixels) of a multi-device render `state` holds the tile's rows:
+    convergence is per pixel, so tiles never communicate."""
     active = active_mask(state, cfg)
     out = render_wavefront(scene, camera_ubo, state.count, cfg,
+                           pixel_start=pixel_start, num_pixels=num_pixels,
                            active=active, with_stats=with_stats)
     radiance = out[0] if with_stats else out
 

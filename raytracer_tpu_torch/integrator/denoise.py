@@ -32,19 +32,22 @@ from raytracer_tpu_torch.utils.config import RenderConfig
 MISS_DEPTH = 1e30
 
 
-def gbuffer_pass(scene, camera_ubo, cfg: RenderConfig):
+def gbuffer_pass(scene, camera_ubo, cfg: RenderConfig, pixel_start=0,
+                 num_pixels=None):
     """Primary-hit G-buffer for the denoiser: (normal f32[N,3], depth
     f32[N], albedo f32[N,3]) from centre rays (the frame-0 jitter). Miss
     lanes get normal 0, depth MISS_DEPTH and albedo 1, so demodulation
-    passes the background through the filter unchanged."""
+    passes the background through the filter unchanged.
+    `pixel_start`/`num_pixels` carve out the tile of a multi-device render
+    (parallel/sharding.py:gbuffer_sharded), as in render_wavefront."""
     from raytracer_tpu_torch.integrator.wavefront import (
-        _camera_rays, _trace, fetch_surface,
+        _camera_rays, _trace, fetch_surface, tile_pixels,
     )
 
     cfg = cfg.resolve_accel()
     dev = scene.device
-    n = cfg.num_pixels
-    pixel_idx = torch.arange(n, dtype=torch.int64, device=dev)
+    pixel_idx = tile_pixels(cfg, pixel_start, num_pixels, dev)
+    n = pixel_idx.shape[0]
     jitter = torch.full((n, 2), 0.5, dtype=torch.float32, device=dev)
     origin, direction = _camera_rays(
         camera_ubo["inverse_view"], camera_ubo["inverse_proj"],

@@ -1,5 +1,5 @@
 """ReSTIR DI: reservoir-based direct-light resampling (port of
-raytracer_tpu/integrator/restir.py, single device).
+raytracer_tpu/integrator/restir.py).
 
 Bitterli et al. 2020, "Spatiotemporal reservoir resampling for real-time
 ray tracing with dynamic direct lighting", on the RTXDI reservoir layout:
@@ -34,10 +34,12 @@ The reservoir passes are plain torch: in the JAX package they are
 elementwise ops and gathers outside any Pallas kernel. The rays go through
 the renderer's traversal kernels (K1/K2, or K3/K4 under accel="bvh").
 
-Not ported here (ROADMAP.md port queue item P12): the multi-device tile
-arguments (`pixel_start`, `num_tiles`, `axis_name`) and the halo exchange
-that serves spatial taps across tiles. The port has no lane sort (P1), so
-lane i is pixel i and no scatter back is needed; both are image-neutral.
+On a multi-device render (parallel/sharding.py) each rank runs these
+steps on its contiguous pixel tile, its lanes seeded by their global pixel
+ids, and step 5's taps that cross the tile's edge read halo rows that
+`_exchange_halo` brings from the previous and the next rank, once a frame.
+The port has no lane sort (P1), so lane i is the tile's pixel i and no
+scatter back is needed; both are image-neutral.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from raytracer_tpu_torch.integrator import wavefront as wf
 from raytracer_tpu_torch.ops import brdf, rng
@@ -60,6 +63,7 @@ from raytracer_tpu_torch.ops.math3d import (
     world_to_local,
 )
 from raytracer_tpu_torch.utils.config import RenderConfig
+from raytracer_tpu_torch.utils.profiling import sync
 
 _RESTIR_STREAM = 0x9E3779B9
 
@@ -239,12 +243,62 @@ def _shadow_ray(scene, gbuf: GBuffer, lpos, wi, light_index):
     return offset_from, sr_dir, sr_dist, light_obj
 
 
+def _exchange_halo(rows: dict, h: int, group, num_tiles: int) -> dict:
+    """Extend each [n_local, ...] tensor of `rows` with `h` boundary rows
+    from the previous tile's rank in front and the next one's behind: one
+    exchange with each neighbour, every tensor's rows packed into one
+    message of bytes. Edge tiles get zero rows on their missing side, which
+    read as empty reservoirs and degenerate normals and are masked off by
+    the callers' validity gates (the JAX version's ppermute pair)."""
+    from raytracer_tpu_torch.parallel.sharding import comm_device
+
+    names = list(rows)
+    n = rows[names[0]].shape[0]
+    dev = rows[names[0]].device
+    parts = [rows[k].reshape(n, -1).contiguous().view(torch.uint8)
+             for k in names]
+    packed = torch.cat(parts, dim=1)
+    comm = comm_device(group, dev)
+    from_prev, from_next = (torch.zeros((h, packed.shape[1]),
+                                        dtype=torch.uint8, device=comm)
+                            for _ in range(2))
+    rank = dist.get_rank(group) if num_tiles > 1 else 0
+    ops = []
+    for peer, send, recv in ((rank - 1, packed[:h], from_prev),
+                             (rank + 1, packed[-h:], from_next)):
+        if 0 <= peer < num_tiles:
+            peer = dist.get_global_rank(group, peer)
+            ops += [dist.P2POp(dist.isend, send.to(comm), peer, group),
+                    dist.P2POp(dist.irecv, recv, peer, group)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    ext = torch.cat([from_prev.to(dev), packed, from_next.to(dev)])
+    out, col = {}, 0
+    for k, part in zip(names, parts):
+        width = part.shape[1]
+        out[k] = ext[:, col:col + width].contiguous().view(
+            rows[k].dtype).reshape((n + 2 * h,) + rows[k].shape[1:])
+        col += width
+    return out
+
+
 def restir_direct(scene, gbuf: GBuffer, wo_world, prev_reservoir,
-                  frame_number, cfg: RenderConfig, occlusion_fn):
-    """ReSTIR DI steps 2-6 over every pixel of cfg's image (lane i is pixel
-    i). `occlusion_fn(origin, direction, t_max, skip_object, active)`
+                  frame_number, cfg: RenderConfig, occlusion_fn,
+                  pixel_start=0, num_tiles: int = 1, group=None,
+                  timer=None):
+    """ReSTIR DI steps 2-6 over the pixels [pixel_start, pixel_start + N)
+    of cfg's image (lane i is pixel pixel_start + i; by default every
+    pixel). `occlusion_fn(origin, direction, t_max, skip_object, active)`
     traces the shadow rays. Returns (direct radiance f32[N,3], the
-    reservoir for the next frame, shadow rays traced i64[])."""
+    reservoir for the next frame, shadow rays traced i64[]).
+
+    With `group` (a multi-device render: this rank's tile of `num_tiles`),
+    step 5's taps across the tile's edge read the halo rows of the
+    neighbouring ranks' tiles, so the tile is bit-identical to the same
+    pixels of a single-device pass whenever the halo, min((radius + 1) *
+    width, N) rows, covers the tap radius. `timer` (utils/profiling.py
+    PhaseTimer) times the exchange as its "halo" phase."""
     n = gbuf.position.shape[0]
     dev = gbuf.position.device
     l_used = min(scene.num_lights, cfg.max_lights)
@@ -253,7 +307,9 @@ def restir_direct(scene, gbuf: GBuffer, wo_world, prev_reservoir,
                 Reservoir.empty(n, dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
 
-    pixel_idx = torch.arange(n, dtype=torch.int64, device=dev)
+    start = int(pixel_start)
+    pixel_idx = torch.arange(start, start + n, dtype=torch.int64,
+                             device=dev)
     seed = rng.tea(pixel_idx,
                    wf._lane_frames(frame_number, n, dev) ^ _RESTIR_STREAM)
 
@@ -342,7 +398,33 @@ def restir_direct(scene, gbuf: GBuffer, wo_world, prev_reservoir,
     src = res
     m_canonical = res.m
     unbiased = cfg.restir_unbiased_spatial and cfg.restir_spatial_neighbors > 0
-    taps = []  # (tap pixel, M-mass merged)
+    halo = 0
+    if group is not None:
+        # A tap moves at most `radius` rows plus a partial row in the flat
+        # index, so (radius + 1) * width halo rows cover it; clamping to the
+        # tile keeps short tiles legal (taps past the clamped halo are
+        # dropped by `reach`, the bias case the renderer warns about). The
+        # snapshot is fixed, so one exchange serves every tap.
+        halo = min((int(cfg.restir_spatial_radius) + 1) * width, n)
+        rows = {"normal": gbuf.normal, "m": src.m, "w": src.w,
+                "light_index": src.light_index, "uv": src.uv,
+                "distance": src.distance}
+        if unbiased:
+            # The Z-count evaluates the final sample's p-hat at each tap's
+            # surface, so the taps' surface attributes ride the same halo.
+            rows.update(position=gbuf.position, albedo=gbuf.albedo,
+                        roughness=gbuf.roughness, metallic=gbuf.metallic,
+                        hit=gbuf.hit, object=gbuf.object, wo=wo_world)
+        if timer is None:
+            ext = _exchange_halo(rows, halo, group, num_tiles)
+        else:
+            sync(gbuf.normal)  # the span starts with the rows to send ready
+            done = []
+            with timer.phase("halo", done):
+                ext = _exchange_halo(rows, halo, group, num_tiles)
+                done.append(ext["normal"])
+        zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    taps = []  # (tap gather index, M-mass merged)
     px0 = pixel_idx % width
     py0 = pixel_idx // width
     for _ in range(cfg.restir_spatial_neighbors):
@@ -356,15 +438,27 @@ def restir_direct(scene, gbuf: GBuffer, wo_world, prev_reservoir,
         px = px0 + dx
         py = py0 + dy
         in_bounds = (px >= 0) & (px < width) & (py >= 0) & (py < cfg.height)
-        nbr = torch.clamp(py * width + px, 0, n - 1)
-        nbr_res = Reservoir(*(a[nbr] for a in src))
+        if group is None:
+            nbr = torch.clamp(py * width + px, 0, n - 1)
+            nbr_res = Reservoir(*(a[nbr] for a in src))
+            nbr_normal = gbuf.normal[nbr]
+            reach = in_bounds
+        else:
+            ext_idx = py * width + px - start + halo
+            reach = in_bounds & (ext_idx >= 0) & (ext_idx < n + 2 * halo)
+            nbr = torch.clamp(ext_idx, 0, n + 2 * halo - 1)
+            nbr_res = Reservoir(
+                weight_sum=zeros, target_pdf=zeros,  # not read by merge
+                **{k: ext[k][nbr] for k in ("m", "light_index", "uv",
+                                            "distance", "w")})
+            nbr_normal = ext["normal"][nbr]
         nbr_res = nbr_res._replace(
             m=torch.clamp_max(nbr_res.m, float(cfg.restir_max_m)))
         # Geometric similarity gate.
-        nrm_ok = dot(gbuf.normal[nbr], gbuf.normal) > 0.9
+        nrm_ok = dot(nbr_normal, gbuf.normal) > 0.9
         nbr_rad, _, _, _, nbr_valid = _unshadowed_radiance(
             scene, gbuf, wo_world, nbr_res.light_index, nbr_res.uv)
-        participate = (in_bounds & nrm_ok & nbr_valid & (nbr_res.w > 0.0)
+        participate = (reach & nrm_ok & nbr_valid & (nbr_res.w > 0.0)
                        & gbuf.hit)
         res = _reservoir_merge(res, nbr_res, luminance_rec601(nbr_rad), r_m,
                                participate)
@@ -375,19 +469,17 @@ def restir_direct(scene, gbuf: GBuffer, wo_world, prev_reservoir,
         # own choice; a tap adds its merged M-mass iff the sample's p-hat at
         # the tap's surface is positive.
         z = m_canonical
+        surf = (dict(gbuf._asdict(), wo=wo_world) if group is None
+                else ext)
         for nbr, m_mass in taps:
             tap_gbuf = GBuffer(
-                position=gbuf.position[nbr],
-                normal=gbuf.normal[nbr],
-                albedo=gbuf.albedo[nbr],
-                roughness=gbuf.roughness[nbr],
-                metallic=gbuf.metallic[nbr],
+                **{k: surf[k][nbr] for k in ("position", "normal", "albedo",
+                                             "roughness", "metallic", "hit",
+                                             "object")},
                 emission=gbuf.emission,  # unread by _unshadowed_radiance
-                hit=gbuf.hit[nbr],
-                object=gbuf.object[nbr],
             )
             tap_rad, _, _, _, tap_valid = _unshadowed_radiance(
-                scene, tap_gbuf, wo_world[nbr], res.light_index, res.uv)
+                scene, tap_gbuf, surf["wo"][nbr], res.light_index, res.uv)
             covered = tap_valid & (luminance_rec601(tap_rad) > 0.0)
             z = z + torch.where(covered, m_mass, 0.0)
         res = _finalize(res, z=z)
@@ -416,18 +508,24 @@ def restir_direct(scene, gbuf: GBuffer, wo_world, prev_reservoir,
 
 
 def render_wavefront_restir(scene, camera_ubo, prev_reservoir, frame_number,
-                            cfg: RenderConfig, with_stats: bool = False):
-    """One progressive sample of every pixel with ReSTIR DI at the primary
-    vertex and path-traced indirect bounces. Returns (radiance f32[N,3],
-    reservoir), plus render_wavefront's dict of ray counts with
-    with_stats=True (ReSTIR's shadow rays in shadow_rays).
+                            cfg: RenderConfig, pixel_start=0, num_pixels=None,
+                            num_tiles: int = 1, group=None,
+                            with_stats: bool = False, timer=None):
+    """One progressive sample of every pixel (or of the tile [pixel_start,
+    pixel_start + num_pixels), the rank's of `num_tiles` in `group`; see
+    restir_direct) with ReSTIR DI at the primary vertex and path-traced
+    indirect bounces. Returns (radiance f32[N,3], reservoir), plus
+    render_wavefront's dict of ray counts with with_stats=True (ReSTIR's
+    shadow rays in shadow_rays).
 
     The primary trace doubles as the G-buffer pass; `_shade` runs with
     suppress_nee=True there (directly visible emitters still add, as
     simple.rchit's first-bounce path) and normally afterwards."""
     cfg = cfg.resolve_accel()
     dev = scene.device
-    state = wf.start_wavefront(scene, camera_ubo, frame_number, cfg)
+    state = wf.start_wavefront(
+        scene, camera_ubo, frame_number, cfg,
+        pixel_indices=wf.tile_pixels(cfg, pixel_start, num_pixels, dev))
     clear_color = torch.tensor(cfg.background, dtype=torch.float32,
                                device=dev)
 
@@ -458,7 +556,8 @@ def render_wavefront_restir(scene, camera_ubo, prev_reservoir, frame_number,
 
     direct, reservoir, shadow_total = restir_direct(
         scene, gbuf, state.direction, prev_reservoir, frame_number, cfg,
-        occlusion_fn)
+        occlusion_fn, pixel_start=pixel_start, num_tiles=num_tiles,
+        group=group, timer=timer)
 
     # --- primary shading (BRDF sample + emission, NEE suppressed) ---
     state, payload_hit, _ = wf._shade(scene, state, hit, cfg,
@@ -489,11 +588,15 @@ def render_wavefront_restir(scene, camera_ubo, prev_reservoir, frame_number,
 
 
 def render_frame_restir(scene, camera_ubo, accum, prev_reservoir,
-                        frame_number: int, cfg: RenderConfig,
-                        with_stats: bool = False):
+                        frame_number: int, cfg: RenderConfig, pixel_start=0,
+                        num_pixels=None, num_tiles: int = 1, group=None,
+                        with_stats: bool = False, timer=None):
     """One progressive step with ReSTIR DI: (accum', reservoir), plus the
-    ray counts with with_stats=True."""
-    out = render_wavefront_restir(scene, camera_ubo, prev_reservoir,
-                                  frame_number, cfg, with_stats=with_stats)
+    ray counts with with_stats=True; on a tile (render_wavefront_restir's
+    arguments) `accum` and the reservoirs hold the tile's rows."""
+    out = render_wavefront_restir(
+        scene, camera_ubo, prev_reservoir, frame_number, cfg,
+        pixel_start=pixel_start, num_pixels=num_pixels, num_tiles=num_tiles,
+        group=group, with_stats=with_stats, timer=timer)
     accum = wf.accumulate(accum, out[0], frame_number)
     return (accum, *out[1:])

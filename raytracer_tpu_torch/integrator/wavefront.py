@@ -673,22 +673,27 @@ def _lane_frames(frame_number, n, dev):
 
 
 def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
-                     with_stats: bool = False, active=None,
-                     pixel_indices=None):
+                     pixel_start=0, num_pixels=None, with_stats: bool = False,
+                     active=None, pixel_indices=None):
     """One progressive sample of a set of pixels: radiance f32[N,3] (and,
     when with_stats=True, a dict of i64[] ray counts on the device: alive
     rays traced per bounce, shadow rays, their total). The body of
     simple.rgen:70-125 (everything but accumulation).
 
-    The lanes are every pixel by default, or `pixel_indices` (i64[N] global
-    pixel ids: a range, strided or repeated). Seeds and camera rays use the
-    global ids, so each lane's radiance is bit-identical to the same
-    (pixel, frame) lane of any other launch shape. `frame_number` is an int
+    The lanes are every pixel by default, the contiguous tile
+    [pixel_start, pixel_start + num_pixels) of a multi-device render
+    (parallel/sharding.py), or `pixel_indices` (i64[N] global pixel ids: a
+    range, strided or repeated; it overrides the tile). Seeds and camera
+    rays use the global ids, so each lane's radiance is bit-identical to the
+    same (pixel, frame) lane of any other launch shape. `frame_number` is an int
     or a per-lane tensor [N] (adaptive sampling: each pixel at its own
     count; spp batching: repeated ids at successive frames). `active`
     (bool[N]) masks lanes out of the whole sample: they trace nothing and
     their radiance is not a sample, so the caller must not accumulate it."""
     cfg = cfg.resolve_accel()
+    if pixel_indices is None and (pixel_start or num_pixels is not None):
+        pixel_indices = tile_pixels(cfg, pixel_start, num_pixels,
+                                    scene.device)
     state = start_wavefront(scene, camera_ubo, frame_number, cfg,
                             active=active, pixel_indices=pixel_indices)
     clear_color = torch.tensor(cfg.background, dtype=torch.float32,
@@ -706,6 +711,14 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
                           "shadow_rays": shadow_total,
                           "total_rays": rays_traced + shadow_total}
     return radiance
+
+
+def tile_pixels(cfg: RenderConfig, pixel_start, num_pixels, device):
+    """The global pixel ids i64[n] of the tile [pixel_start, pixel_start +
+    n), n = num_pixels (default: the rest of cfg's image)."""
+    start = int(pixel_start)
+    n = cfg.num_pixels - start if num_pixels is None else int(num_pixels)
+    return torch.arange(start, start + n, dtype=torch.int64, device=device)
 
 
 def start_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
@@ -827,20 +840,21 @@ def accumulate(accum, radiance, frame_number):
 
 
 def render_tile_spp_batched(scene, camera_ubo, accum, frame_number: int,
-                            cfg: RenderConfig, with_stats: bool = False):
-    """cfg.spp_batch progressive samples of every pixel in one wavefront:
-    the pixel ids tiled S times with the per-lane frames frame_number +
-    [0..S), folded into the accumulation in order by the sequential formula
-    (`accumulate`). Each lane's radiance is that of the same (pixel, frame)
-    lane of a 1-spp launch, so the result equals S sequential steps.
-    Returns the new accumulation (and, with with_stats=True, the launch's
-    ray counts). The JAX version's tile arguments serve its multi-device
-    path (ROADMAP.md port queue item P12)."""
+                            cfg: RenderConfig, pixel_start=0, n_local=None,
+                            with_stats: bool = False):
+    """cfg.spp_batch progressive samples of a contiguous pixel tile
+    [pixel_start, pixel_start + n_local) (default: every pixel) in one
+    wavefront: the tile's global pixel ids repeated S times with the
+    per-lane frames frame_number + [0..S), folded into the tile's
+    accumulation in order by the sequential formula (`accumulate`). Each
+    lane's radiance is that of the same (pixel, frame) lane of a 1-spp
+    launch, so the result equals S sequential steps. Returns the new
+    accumulation (and, with with_stats=True, the launch's ray counts)."""
     s_count = cfg.spp_batch
-    n = cfg.num_pixels
     dev = scene.device
     frame = int(frame_number)
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    pix = tile_pixels(cfg, pixel_start, n_local, dev)
+    n = pix.shape[0]
     frames = frame + torch.arange(
         s_count, dtype=torch.int64, device=dev).repeat_interleave(n)
     out = render_wavefront(scene, camera_ubo, frames, cfg,

@@ -316,7 +316,9 @@ def test_cli_runs_ported_modes(tmp_path, flag, files, capsys):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_renderer_refuses_unported_modes(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*P12"):
+    """A mesh outside any process group is refused, with the way to start
+    one (the sharded renderer itself: tests/test_torch_sharding.py)."""
+    with pytest.raises(RuntimeError, match="torchrun.*init_process_group"):
         ProgressiveRenderer(tmodel.create_cornell_box(), None,
                             RenderConfig(width=8, height=8), device="cpu",
                             **kw)
@@ -413,6 +415,15 @@ def test_port_never_imports_jax():
         "albedo=(0.9, 0.1, 0.1))); r.step()\n"
         "s.delete_object(7); r.prebake_async(); r.step()\n"
         "assert r.last_replay == 'prebake'\n"
+        "from raytracer_tpu_torch import compare\n"
+        "from raytracer_tpu_torch.parallel import sharding\n"
+        "from raytracer_tpu_torch.utils import profiling\n"
+        "from raytracer_tpu_torch.examples import multichip\n"
+        "t = profiling.PhaseTimer()\n"
+        "with t.phase('x', [r.accum]): pass\n"
+        "assert 'x' in t.report()\n"
+        "assert multichip.main(['--spawn', '2', '--device', 'cpu', "
+        "'--size', '32x32', '--frames', '1', '--outdir', tmp]) == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"
