@@ -169,6 +169,31 @@ Phases (any failure exits non-zero and prints no result line):
      plain, spp_batch=2, adaptive (tol 0.15), preview_image(4) with and
      without the denoiser, aovs(), image(denoise=True) and ReSTIR (radius
      2), within PIXEL_ATOL / MAX_FLIPPED.
+ 14. The port's last modules (ROADMAP P6, P1, P4, P5, P2), through
+     ProgressiveRenderer, with every launch count set to 0 before and read
+     after each run: (a) the 1080p atrium at depth DEEP_DEPTH with
+     compact_deep on and off, 2 warm and 4 timed frames each, the images
+     bit-equal; one instrumented compacted frame with each bounce's prefix
+     k, live count and lanes run, K1/K2's lanes per launch, the bounce
+     sorts' ms (sort + state permute), one K1 and one K2 launch on a
+     prefix captured and bit-equal to the plain walks; the frame's shadow
+     sets traced unsorted and sorted (_occluded_sorted), masks equal, with
+     the sort's ms against the K2 ms it saves; (b) the 1M atrium baked as
+     one part and in parts at the JAX budget (MULTIPART_BUDGET), bake
+     seconds, ms/frame under accel "cuda" and "bvh" (1 warm, 2 timed),
+     K1/K2 (K3/K4) 3 a part a frame, the images bit-equal to one part's,
+     and the first launch of each kernel on each part captured and
+     bit-equal to the plain walks; (c) phase 3's frame on the exact and
+     the stable bake (accel "cuda" and "bvh"), ms/frame, the tables' rows
+     and K1-K4's launch shape (registers, shared memory, blocks a SM) on
+     each, the images bit-equal, one launch of each kernel on the padded
+     tables captured and bit-equal; (d) one 1080p accel="bvh" frame with
+     binary_traverse.STACK_CAP lowered to WALK_STACK_CAP, so that the
+     atrium's tree takes the skip-link walk (no kernel launches), with its
+     ms and micro-steps a trace, against a K3/K4 frame within PIXEL_ATOL /
+     MAX_FLIPPED; (e) (a)-(d) on the Cornell box (a at 64x32 with
+     compact_decay 0.25, so that a prefix runs; b at the JAX tests' 96 KiB
+     budget), 2 frames, card against CPU within PIXEL_ATOL / MAX_FLIPPED.
 
 Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
@@ -2686,6 +2711,466 @@ def phase13(phase3_ms):
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 14: deep compaction, multi-part and stable bakes, the walk -----
+
+DEEP_DEPTH = 8  # (a)
+MULTIPART_TRIS = 1_000_000  # (b)
+# (b): the JAX package's PALLAS_VMEM_BUDGET (raytracer_tpu/api.py:40).
+MULTIPART_BUDGET = 90 * 1024 * 1024
+WALK_STACK_CAP = 16  # (d): below the atrium's binary depth + 2
+SMALL_BUDGET = 96 * 1024  # (e): the Cornell box in parts, as the JAX tests
+SMALL_DEEP = (64, 32)  # (e): (a) at 2048 lanes, so that a prefix runs
+SMALL_DEEP_DECAY = 0.25  # (e): bounce 4 on a 1024-lane prefix
+
+
+def renderer14(scene_fn, device, size, **cfg):
+    """A ProgressiveRenderer at the bench camera with RenderConfig(width,
+    height, **cfg) (depth 3 unless cfg says otherwise); the bake timed."""
+    import torch
+
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    w, h = size
+    cam, _ = bench_camera_ubo(device, w, h)
+    t0 = time.perf_counter()
+    r = ProgressiveRenderer(scene_fn(), cam, RenderConfig(
+        width=w, height=h, **cfg), device=device)
+    torch.cuda.synchronize()
+    r.bake_s = time.perf_counter() - t0
+    return r
+
+
+def frames14(r, warm, timed_n):
+    """`warm` + `timed_n` steps of `r` from a reset accumulation, every
+    launch count set to 0 just before and read just after: (ms/frame over
+    the timed steps, launches a frame, the image)."""
+    r.reset_accumulation()
+    reset_all_launch_counts()
+    times = []
+    for f in range(warm + timed_n):
+        _, ms = timed(r.step)
+        if f >= warm:
+            times.append(ms)
+    launches = {k: v / (warm + timed_n)
+                for k, v in all_launch_counts().items()}
+    return statistics.mean(times), launches, r.image()
+
+
+# The launch functions of K1-K4 and the count of their ray arguments before
+# the scene (or part) argument.
+LAUNCH_FNS = (("quad", "_intersect_quad_cuda", "K1", 3),
+              ("quad", "_occlusion_quad_cuda", "K2", 4),
+              ("binary", "_intersect_binary_cuda", "K3", 4),
+              ("binary", "_occlusion_binary_cuda", "K4", 5))
+
+
+@contextlib.contextmanager
+def record_launches(keep=None):
+    """Wraps K1-K4's launch functions for the block (the launches and
+    their counts stay the path's): yields rec, rec["launches"] holding
+    (kernel, rays, part) of every launch, rec["kept"][(kernel, id(part))]
+    the rays, results and tables of the first launch of each kernel and
+    part that keep(kernel, rays) accepts (check_kept holds them against the
+    plain walks)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    mods = {"quad": qt, "binary": bt}
+    rec = {"launches": [], "kept": {}}
+    saved = []
+    for tree, name, kernel, n_in in LAUNCH_FNS:
+        fn = getattr(mods[tree], name)
+        saved.append((mods[tree], name, fn))
+
+        def wrapped(*args, _fn=fn, _kernel=kernel, _n_in=n_in, **kw):
+            out = _fn(*args, **kw)
+            part, n = args[_n_in], args[0].shape[0]
+            rec["launches"].append((_kernel, n, part))
+            key = (_kernel, id(part))
+            if (keep is not None and key not in rec["kept"]
+                    and keep(_kernel, n)):
+                outs = out if isinstance(out, tuple) else (out,)
+                rec["kept"][key] = (
+                    _kernel, tuple(x.clone() if torch.is_tensor(x) else x
+                                   for x in args[:_n_in]),
+                    tuple(x.clone() for x in outs), part)
+            return out
+
+        setattr(mods[tree], name, wrapped)
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_kept(what, rec, want_kernels):
+    """Raise unless every launch record_launches kept equals its plain
+    walk, run on the card on the same rays and tables, bit for bit, and a
+    launch of each of `want_kernels` was kept."""
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    t0 = time.perf_counter()
+    said = []
+    for kernel, inputs, got, p in rec["kept"].values():
+        if kernel == "K1":
+            ref = qt._intersect_quad_plain(*inputs, p.root, p.qmeta,
+                                           p.qnodes, p.ptris)
+        elif kernel == "K2":
+            ref = (qt._occlusion_quad_plain(*inputs, p.root, p.qmeta,
+                                            p.qnodes, p.ptris),)
+        elif kernel == "K3":
+            ref = bt._intersect_binary_plain(*inputs, p.binary_root,
+                                             p.pnodes, p.ptris)
+        else:
+            ref = (bt._occlusion_binary_plain(*inputs, p.binary_root,
+                                              p.pnodes, p.ptris),)
+        if kernel in ("K1", "K3"):
+            gate_closest(f"phase 14 {what} {kernel}", got, ref)
+        else:
+            mism = int((got[0] != ref[0]).sum())
+            if mism:
+                raise RuntimeError(f"phase 14 {what}: {kernel} != plain "
+                                   f"version on {mism} rays")
+        said.append((kernel, inputs[0].shape[0],
+                     inactive_share(inputs[2])))
+    missing = set(want_kernels) - {k for k, _, _ in said}
+    if missing:
+        raise RuntimeError(f"phase 14 {what}: no launch of {missing} kept")
+    summary = "; ".join(
+        f"{k} x{len(rows)} on {sorted({n for n, _ in rows})} rays, "
+        f"{min(i for _, i in rows):.4f}-{max(i for _, i in rows):.4f} of "
+        "the lanes inactive"
+        for k in sorted({k for k, _, _ in said})
+        for rows in [[(n, i) for kk, n, i in said if kk == k]])
+    log(f"phase 14 {what}: {len(said)} captured launches equal to the "
+        f"plain walks on the card, every ray: {summary} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def phase14_deep(scene_fn, device):
+    """(a) The 1080p atrium at depth DEEP_DEPTH, compact_deep on and off."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    r = renderer14(scene_fn, device, (WIDTH, HEIGHT), max_depth=DEEP_DEPTH)
+    n = WIDTH * HEIGHT
+    out = {}
+    for compact in (True, False):
+        r.config = r.config.replace(compact_deep=compact)
+        ms, launches, img = frames14(r, 2, 4)
+        out[compact] = (ms, img)
+        log(f"phase 14 (a) depth {DEEP_DEPTH} compact_deep={compact}: "
+            f"{ms:.1f} ms/frame, launches a frame {launches}, image mean "
+            f"{float(img.mean()):.5f}")
+        if not (launches["quad_closest"] and launches["quad_occlusion"]):
+            raise RuntimeError(f"phase 14 (a): K1/K2 not launched: "
+                               f"{launches}")
+        if not np.isfinite(img).all() or not img.mean() > 0:
+            raise RuntimeError("phase 14 (a): image not finite, non-black")
+    if not np.array_equal(out[True][1], out[False][1]):
+        d = np.abs(out[True][1] - out[False][1])
+        raise RuntimeError(f"phase 14 (a): compacted image != uncompacted "
+                           f"({int((d.max(-1) > 0).sum())} pixels differ)")
+    log(f"phase 14 (a): compacted and uncompacted images bit-equal after 6 "
+        f"frames; {out[True][0]:.1f} against {out[False][0]:.1f} ms/frame "
+        f"({out[True][0] / out[False][0]:.3f}x)")
+
+    # One instrumented compacted frame: each bounce's lanes and live
+    # count, the sorts' ms, the shadow sets, K1/K2's lanes; one K1 and one
+    # K2 launch on a prefix kept.
+    r.config = r.config.replace(compact_deep=True)
+    bounces, sorts, shadow_sets = [], [], []
+    bounce, sort, occluded = wf.path_bounce, wf._sort_wavefront, wf._occluded
+
+    def counted_bounce(scene, state, depth, cfg, clear_color):
+        bounces.append((depth, state.alive.shape[0],
+                        int(state.alive.sum())))
+        return bounce(scene, state, depth, cfg, clear_color)
+
+    def timed_sort(state, scene):
+        out, ms = timed(lambda: sort(state, scene))
+        sorts.append(ms)
+        return out
+
+    def kept_occluded(*args):
+        shadow_sets.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                 for a in args))
+        return occluded(*args)
+
+    wf.path_bounce, wf._sort_wavefront = counted_bounce, timed_sort
+    wf._occluded = kept_occluded
+    try:
+        with record_launches(keep=lambda kernel, rays: rays < n) as rec:
+            r.step()
+    finally:
+        wf.path_bounce, wf._sort_wavefront = bounce, sort
+        wf._occluded = occluded
+    for depth, lanes, live in bounces:
+        k = wf._compact_prefix(n, depth, r.config)
+        log(f"phase 14 (a) bounce {depth}: prefix k {k}, live {live}, run "
+            f"on {lanes} lanes")
+    log(f"phase 14 (a) launches and lanes: "
+        f"{[(kernel, rays) for kernel, rays, _ in rec['launches']]}")
+    if not any(lanes < n for _, lanes, _ in bounces):
+        raise RuntimeError("phase 14 (a): no bounce ran on a prefix")
+    log(f"phase 14 (a): {len(sorts)} bounce sorts (sort + state permute), "
+        f"{sum(sorts):.2f} ms a frame, "
+        f"{', '.join(f'{ms:.2f}' for ms in sorts)} ms each")
+    check_kept("(a) compacted", rec, ("K1", "K2"))
+
+    # The shadow-ray sort against the K2 time it saves, on the frame's
+    # shadow sets: each set 3 times unsorted and sorted, K2 timed inside.
+    k2_ms = []
+    k2 = qt._occlusion_quad_cuda
+
+    def timed_k2(*args, **kw):
+        res, ms = timed(lambda: k2(*args, **kw))
+        k2_ms.append(ms)
+        return res
+
+    qt._occlusion_quad_cuda = timed_k2
+    totals = {"unsorted": [0.0, 0.0], "sorted": [0.0, 0.0]}
+    try:
+        for args in shadow_sets:
+            masks = {}
+            for label, fn in (("unsorted", occluded),
+                              ("sorted", wf._occluded_sorted)):
+                for _ in range(3):
+                    k2_ms.clear()
+                    masks[label], ms = timed(lambda: fn(*args))
+                    totals[label][0] += ms / 3
+                    totals[label][1] += sum(k2_ms) / 3
+            if not torch.equal(masks["unsorted"], masks["sorted"]):
+                raise RuntimeError("phase 14 (a): the sorted shadow rays' "
+                                   "mask != the unsorted one")
+    finally:
+        qt._occlusion_quad_cuda = k2
+    (u_all, u_k2), (s_all, s_k2) = totals["unsorted"], totals["sorted"]
+    log(f"phase 14 (a) shadow sort over the frame's {len(shadow_sets)} "
+        f"shadow sets: unsorted {u_all:.2f} ms (K2 {u_k2:.2f}), sorted "
+        f"{s_all:.2f} ms (K2 {s_k2:.2f}, sort and scatter "
+        f"{s_all - s_k2:.2f}); K2 saves {u_k2 - s_k2:.2f} ms for "
+        f"{s_all - s_k2:.2f} ms of sorting")
+
+
+def phase14_parts(device):
+    """(b) The 1M atrium baked as one part and in parts at the JAX budget,
+    each rendered with accel "cuda" and "bvh"."""
+    import numpy as np
+
+    import raytracer_tpu_torch.api as tapi
+    from raytracer_tpu_torch.scene.benchmark import create_benchmark_atrium
+
+    imgs = {}
+    for label, budget in (("one part", None), ("parts", MULTIPART_BUDGET)):
+        tapi.PALLAS_VMEM_BUDGET = budget
+        try:
+            r = renderer14(lambda: create_benchmark_atrium(MULTIPART_TRIS),
+                           device, (WIDTH, HEIGHT), accel="cuda")
+        finally:
+            tapi.PALLAS_VMEM_BUDGET = None
+        ds = r.device_scene
+        p = ds.num_parts
+        log(f"phase 14 (b) {label}: {p} part(s), bake {r.bake_s:.2f} s, "
+            f"{ds.num_triangles} triangles, qnodes {tuple(ds.qnodes.shape)}"
+            f", ptris {tuple(ds.ptris.shape)}, {ds.pallas_vmem_bytes} B a "
+            f"pass at the JAX budget's count")
+        for accel, kinds in (("cuda", ("quad_closest", "quad_occlusion")),
+                             ("bvh", ("binary_closest",
+                                      "binary_occlusion"))):
+            r.config = r.config.replace(accel=accel)
+            ms, launches, img = frames14(r, 1, 2)
+            imgs[(label, accel)] = img
+            log(f"phase 14 (b) {label} accel={accel}: {ms:.1f} ms/frame, "
+                f"launches a frame {launches}")
+            if any(launches[k] != 3 * p for k in kinds):
+                raise RuntimeError(f"phase 14 (b) {label} {accel}: want "
+                                   f"{3 * p} launches a frame of {kinds}")
+            if not np.isfinite(img).all() or not img.mean() > 0:
+                raise RuntimeError("phase 14 (b): image not finite, "
+                                   "non-black")
+        if p > 1:
+            with record_launches(keep=lambda kernel, rays: True) as rec:
+                r.step()
+                r.config = r.config.replace(accel="cuda")
+                r.step()
+            parts = {id(q) for q in ds.parts}
+            kept = {(k, i) for k, i in rec["kept"] if i in parts}
+            if len(kept) != 4 * p:
+                raise RuntimeError(f"phase 14 (b): kept {len(kept)} "
+                                   f"launches, want one per kernel and part")
+            check_kept("(b) per part", rec, ("K1", "K2", "K3", "K4"))
+    if imgs[("parts", "cuda")].shape != imgs[("one part", "cuda")].shape:
+        raise RuntimeError("phase 14 (b): image shapes differ")
+    for accel in ("cuda", "bvh"):
+        a, b = imgs[("parts", accel)], imgs[("one part", accel)]
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"phase 14 (b) accel={accel}: multi-part "
+                               f"image != one-part image "
+                               f"({int((np.abs(a - b).max(-1) > 0).sum())} "
+                               "pixels differ)")
+    log("phase 14 (b): multi-part images bit-equal to the one-part images "
+        "under accel cuda and bvh after 3 frames")
+
+
+def phase14_stable(scene_fn, device):
+    """(c) Phase 3's frame on the exact bake and on the stable bake."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    imgs = {}
+    for stable in (False, True):
+        r = renderer14(scene_fn, device, (WIDTH, HEIGHT), stable_bake=stable)
+        ds = r.device_scene
+        log(f"phase 14 (c) stable_bake={stable}: bake {r.bake_s:.2f} s, "
+            f"{ds.num_triangles} triangle rows, {ds.num_lights} light rows, "
+            f"qnodes {tuple(ds.qnodes.shape)}, pnodes "
+            f"{tuple(ds.pnodes.shape)}, ptris {tuple(ds.ptris.shape)}, "
+            f"stack need {ds.q_stack_need} (K1/K2), {bt.stack_need(ds)} "
+            f"(K3/K4), true counts "
+            f"{None if ds.true_counts is None else ds.true_counts.tolist()}")
+        for label, info in (("K1/K2", qt.launch_info),
+                            ("K3/K4", bt.launch_info)):
+            for kernel in ("closest", "occlusion"):
+                i = info(kernel, ds)
+                log(f"phase 14 (c) stable_bake={stable} {label} {kernel}: "
+                    f"{i['registers']} registers, dynamic shared "
+                    f"{i['smem_bytes']} B a block, {i['blocks_per_sm']} "
+                    f"blocks a SM, grid {i['grid']}")
+        for accel, kinds in (("cuda", ("quad_closest", "quad_occlusion")),
+                             ("bvh", ("binary_closest",
+                                      "binary_occlusion"))):
+            r.config = r.config.replace(accel=accel)
+            ms, launches, img = frames14(r, 2, 4)
+            imgs[(stable, accel)] = img
+            log(f"phase 14 (c) stable_bake={stable} accel={accel}: "
+                f"{ms:.1f} ms/frame, launches a frame {launches}")
+            if any(launches[k] != 3 for k in kinds):
+                raise RuntimeError(f"phase 14 (c): want 3 launches a frame "
+                                   f"of {kinds}: {launches}")
+        if stable:
+            with record_launches(keep=lambda kernel, rays: True) as rec:
+                r.step()
+                r.config = r.config.replace(accel="cuda")
+                r.step()
+            check_kept("(c) stable bake", rec, ("K1", "K2", "K3", "K4"))
+    for accel in ("cuda", "bvh"):
+        if not np.array_equal(imgs[(True, accel)], imgs[(False, accel)]):
+            raise RuntimeError(f"phase 14 (c) accel={accel}: stable image "
+                               "!= exact image")
+    log("phase 14 (c): stable-bake images bit-equal to the exact bake's "
+        "under accel cuda and bvh after 6 frames")
+
+
+def phase14_walk(scene_fn, device):
+    """(d) accel="bvh" with STACK_CAP lowered: the skip-link walk."""
+    import numpy as np
+
+    from raytracer_tpu_torch.integrator import wavefront as wf
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import traverse
+
+    ref = renderer14(scene_fn, device, (WIDTH, HEIGHT), accel="bvh")
+    _, ref_launches, ref_img = frames14(ref, 0, 1)
+    del ref
+    steps = []
+    walks = (wf.intersect_bvh, wf.occlusion_bvh)
+
+    def counted(walk):
+        def run(*args, **kw):
+            before = traverse.steps
+            out = walk(*args, **kw)
+            steps.append((walk.__name__, traverse.steps - before))
+            return out
+        return run
+
+    saved = bt.STACK_CAP
+    bt.STACK_CAP = WALK_STACK_CAP
+    wf.intersect_bvh, wf.occlusion_bvh = (counted(w) for w in walks)
+    try:
+        r = renderer14(scene_fn, device, (WIDTH, HEIGHT), accel="bvh")
+        if bt.stack_fits(r.device_scene.bvh_max_depth):
+            raise RuntimeError("phase 14 (d): the tree still fits")
+        ms, launches, img = frames14(r, 0, 1)
+    finally:
+        bt.STACK_CAP = saved
+        wf.intersect_bvh, wf.occlusion_bvh = walks
+    log(f"phase 14 (d) skip-link walk (STACK_CAP {WALK_STACK_CAP}, depth "
+        f"{r.device_scene.bvh_max_depth}): {ms:.1f} ms for the 1080p "
+        f"frame, bake {r.bake_s:.2f} s, launches {launches}; micro-steps a "
+        f"trace {steps}")
+    if any(launches.values()) or not steps:
+        raise RuntimeError(f"phase 14 (d): the frame did not take the walk "
+                           f"alone: {launches}, {steps}")
+    if not np.isfinite(img).all() or not img.mean() > 0:
+        raise RuntimeError("phase 14 (d): image not finite, non-black")
+    gate_pixels(f"(d) walk vs K3/K4 ({ref_launches} a frame) after 1 frame",
+                img, ref_img, phase="phase 14")
+
+
+def phase14_small(device):
+    """(e) (a)-(d) on the Cornell box, card against CPU."""
+    import raytracer_tpu_torch.api as tapi
+    from raytracer_tpu_torch.api import ProgressiveRenderer
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.scene.model import create_cornell_box
+    from raytracer_tpu_torch.utils.config import RenderConfig
+
+    s = MODES_SMALL
+    cases = (
+        ("(a) deep", SMALL_DEEP, dict(max_depth=DEEP_DEPTH,
+                                      compact_decay=SMALL_DEEP_DECAY), {}),
+        ("(b) parts", (s, s), {}, {"PALLAS_VMEM_BUDGET": SMALL_BUDGET}),
+        ("(c) stable", (s, s), dict(stable_bake=True), {}),
+        ("(d) walk", (s, s), dict(accel="bvh"), {"STACK_CAP": 4}),
+    )
+    mods = {"PALLAS_VMEM_BUDGET": tapi, "STACK_CAP": bt}
+    for what, (w, h), cfg, patch in cases:
+        saved = {k: getattr(mods[k], k) for k in patch}
+        for k, v in patch.items():
+            setattr(mods[k], k, v)
+        try:
+            imgs = {}
+            for dev in (device, "cpu"):
+                reset_all_launch_counts()
+                r = ProgressiveRenderer(create_cornell_box(), None,
+                                        RenderConfig(width=w, height=h,
+                                                     **cfg), device=dev)
+                imgs[str(dev)] = r.render(2)
+                if dev is device:
+                    launches = all_launch_counts()
+                    parts = r.device_scene.num_parts
+        finally:
+            for k, v in saved.items():
+                setattr(mods[k], k, v)
+        walked = what == "(d) walk"
+        if walked == any(launches.values()):
+            raise RuntimeError(f"phase 14 (e) {what}: launches {launches}")
+        gate_pixels(f"(e) {what} Cornell {w}x{h} x2 card vs CPU ({parts} "
+                    f"part(s), launches {launches})", imgs[str(device)],
+                    imgs["cpu"], phase="phase 14")
+
+
+def phase14(scene_fn, device):
+    t0 = time.perf_counter()
+    phase14_deep(scene_fn, device)
+    phase14_parts(device)
+    phase14_stable(scene_fn, device)
+    phase14_walk(scene_fn, device)
+    phase14_small(device)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+
 def phase4():
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.utils.image import read_png
@@ -2737,6 +3222,7 @@ def main():
     phase11(atrium, device, cuda_ms)
     phase12(atrium, device)
     phase13(cuda_ms)
+    phase14(atrium, device)
 
     def entry(name, source, replaces, launches, shown, *others):
         """A kernel's entry of the kernels line: the ms, plain ms and bound

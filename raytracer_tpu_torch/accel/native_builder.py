@@ -3,8 +3,9 @@
 Same builder and same C interface as `raytracer_tpu.accel.native_builder`,
 but the port does not rely on a prebuilt `native/libbvh.so`: at first use
 it compiles the repository's `native/bvh_builder.cpp` with `g++` into the
-port's build directory (`raytracer_tpu_torch/_build/`), keyed by a hash of
-the source, so a fresh checkout builds it without a separate step. A
+port's build directory (utils/compile_cache.py: `raytracer_tpu_torch/_build/`
+or under $RAYTRACER_TPU_CACHE_DIR), keyed by a hash of the source, so a
+fresh checkout builds it without a separate step. A
 300k-triangle numpy build costs minutes of per-node Python; the native one
 seconds.
 

@@ -33,7 +33,12 @@ tile render, ReSTIR halo exchange and image gather.
 
 As in the JAX package, accel="cuda" falls back to accel="bvh" (the binary
 tree's kernels), with a logged warning, for a t_min other than 1e-3 and for
-a 4-wide tree whose stack need exceeds the kernels' stack.
+a 4-wide tree whose stack need exceeds the kernels' stack; accel="bvh"
+traces a binary tree too deep for K3/K4's stack with the JAX package's
+skip-link walk (ops/traverse.py), also with a warning. Bakes are
+stable-shape when cfg.stable_bake (the default, as in the JAX package) and
+cut into parts past PALLAS_VMEM_BUDGET, which is None here
+(scene/device_scene.py).
 """
 
 from __future__ import annotations
@@ -78,6 +83,13 @@ from raytracer_tpu_torch.scene.model import Scene, SceneChangeType
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 log = logging.getLogger(__name__)
+
+# The JAX package's budget for the TPU kernel's scene tables in VMEM, past
+# which accel="pallas" bakes cut the tree into parts. A GPU has no VMEM and
+# the card's 80 GB hold every in-repo scene, so it is None here: every bake
+# is one part. Tests set it, as the JAX tests set theirs, to exercise
+# multi-part bakes.
+PALLAS_VMEM_BUDGET = None
 
 
 def _check_modes(cfg: RenderConfig):
@@ -131,9 +143,6 @@ class ProgressiveRenderer:
                 "t_min=%g unsupported by accel='cuda' (kernel assumes "
                 "1e-3); falling back to accel='bvh'", self.config.t_min)
             self.config = self.config.replace(accel="bvh")
-        if self.config.stable_bake:
-            log.info("stable_bake has no effect yet (ROADMAP.md port queue "
-                     "item P5): bakes are exact-shape, the same image")
         self.camera = camera or Camera.create(
             position=(0.0, 0.0, -3.0),
             aspect=self.config.width / self.config.height,
@@ -196,14 +205,21 @@ class ProgressiveRenderer:
     def _bake_kwargs(self):
         """The one set of bake settings for the first bake, the journal
         replay's bakes and refits, update_materials' fallback and the
-        background prebake."""
-        return dict(leaf_size=self.config.bvh_leaf_size, device=self.device)
+        background prebake, so every re-bake has the same shapes (stable
+        bakes keep small topology edits inside them). The budget applies
+        to the 4-wide tree's kernels only, as the JAX package's to its
+        Pallas kernels."""
+        budget = PALLAS_VMEM_BUDGET if self.config.accel == "cuda" else None
+        return dict(leaf_size=self.config.bvh_leaf_size, device=self.device,
+                    pallas_budget_bytes=budget,
+                    stable_shapes=self.config.stable_bake)
 
     def _install(self, device_scene, host_bvh):
         """Make (device_scene, host_bvh) the scene that frames render, after
         the checks every bake passes: a 4-wide tree whose stack need
         exceeds the kernels' CAP falls back to accel="bvh", and accel="bvh"
-        refuses a tree deeper than its stack. A refit and a material update
+        traces a tree deeper than K3/K4's stack with the skip-link walk,
+        whose tables the bake packed for it. A refit and a material update
         keep the tree's topology, hence its stack need and depth, so these
         checks give them the answer the tree's bake got; they run all the
         same."""
@@ -221,10 +237,10 @@ class ProgressiveRenderer:
             self.config = self.config.replace(accel="bvh")
         if (self.config.accel == "bvh"
                 and not binary_traverse.stack_fits(ds.bvh_max_depth)):
-            raise ValueError(
-                f"BVH depth {ds.bvh_max_depth} exceeds the binary traversal "
-                f"stack (STACK_CAP={binary_traverse.STACK_CAP}); a stackless "
-                "walk for such trees is ROADMAP.md port queue item P2")
+            log.warning(
+                "BVH depth %d exceeds the binary traversal kernels' stack "
+                "(STACK_CAP=%d); tracing with the skip-link walk",
+                ds.bvh_max_depth, binary_traverse.STACK_CAP)
 
     def _zeros(self):
         return torch.zeros((self._rows, 3), dtype=torch.float32,

@@ -24,6 +24,7 @@ from raytracer_tpu_torch.api import ProgressiveRenderer
 from raytracer_tpu_torch.integrator.denoise import MISS_DEPTH
 from raytracer_tpu_torch.ops.camera import Camera
 from raytracer_tpu_torch.scene.loaders import load_scene
+from raytracer_tpu_torch.utils import compile_cache
 from raytracer_tpu_torch.utils.config import RenderConfig
 from raytracer_tpu_torch.utils.image import write_image
 from raytracer_tpu_torch.utils.stats import RenderStats
@@ -118,6 +119,9 @@ def main(argv=None) -> int:
         format="%(levelname)s %(name)s: %(message)s",
     )
     log = logging.getLogger("raytracer_tpu_torch.cli")
+    # The warm-start cache: built kernels and builder, reused across runs
+    # (RAYTRACER_TPU_CACHE_DIR moves it, as the JAX CLI's XLA cache).
+    log.info("native library cache at %s", compile_cache.build_dir())
 
     scene = load_scene(args.scene)
     cfg = RenderConfig(

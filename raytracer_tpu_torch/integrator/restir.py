@@ -38,8 +38,9 @@ On a multi-device render (parallel/sharding.py) each rank runs these
 steps on its contiguous pixel tile, its lanes seeded by their global pixel
 ids, and step 5's taps that cross the tile's edge read halo rows that
 `_exchange_halo` brings from the previous and the next rank, once a frame.
-The port has no lane sort (P1), so lane i is the tile's pixel i and no
-scatter back is needed; both are image-neutral.
+The indirect bounces run unsorted (the JAX package sorts them before each
+bounce; integrator/wavefront.py says why the port does not), so lane i is
+the tile's pixel i and no scatter back is needed; both are image-neutral.
 """
 
 from __future__ import annotations

@@ -32,22 +32,34 @@ Every reference quirk the JAX module reproduces is reproduced here:
     the reference); scenes without transmission take the exact reference
     path.
 
-`_sort_wavefront` ports the JAX lane sort (position Morton under direction
-octant under dead-last), but the renderer does not call it: lane i is pixel
-i here, and whether the sort pays for one-thread-per-ray traversal is
-ROADMAP.md port queue item P1. The traversal lab (lab/rays.py) uses it to
-build the sorted wavefront the JAX labs measure.
-
 `render_wavefront` is lane-general, as the JAX one: an arbitrary (a range,
 strided, repeated) set of pixel ids, a per-lane frame vector and
 an `active` lane mask. spp batching (`render_tile_spp_batched`), adaptive
 sampling (integrator/adaptive.py), the denoiser's G-buffer and the preview
 stand on it.
 
-Not ported in this module yet (ROADMAP.md port queue): the renderer's use
-of the Morton sorts of lanes and of shadow rays (pure lane permutations, so
-the image does not depend on them) and deep-bounce compaction (every bounce
-runs full-size, the same image).
+Deep-bounce compaction (cfg.compact_deep) is the JAX package's: on the
+4-wide tree's kernels ("cuda", "pallas" or "auto") with max_depth >
+rr_start_depth + 1, the bounce loop is unrolled by depth, the lanes are
+sorted before every bounce past the first (`_sort_wavefront`: dead lanes
+last, then direction octant and position Morton, with a part-affinity
+prefix on multi-part bakes; under an `active` mask from depth 0), and each
+bounce past the Russian-roulette onset runs on the prefix of k lanes
+(`_compact_prefix`) when the live count fits, full-size otherwise. JAX's
+`lax.cond` on the count is one read of it to the host per such bounce.
+Every lane's state travels with it (the `pixel` field names its lane of
+the launch), so the radiance is scattered back through `pixel` and the
+image is bit for bit the uncompacted loop's: excluded lanes are dead, and
+no operation on a lane depends on its position.
+
+Where the sort does not run: the default depth-3 path and ReSTIR's
+indirect bounces, which the JAX package sorts before every bounce past the
+first, run unsorted here. The sort is a pure lane permutation, so it cannot
+change the image, and on the H100 sorting and permuting cost more than the
+walks save (PERF.md). `_occluded_sorted` ports the JAX shadow-ray sort
+(`_occluded_pallas_sorted`: origin Morton under dead-last) for the same
+measurement; the renderer does not call it. Whether either pays is a
+question for a later speed PR (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ from raytracer_tpu_torch.ops import brdf, rng
 from raytracer_tpu_torch.ops.binary_traverse import (
     intersect_bvh_binary,
     occlusion_bvh_binary,
+    stack_fits,
 )
 from raytracer_tpu_torch.ops.intersect import intersect_brute, occlusion_brute
 from raytracer_tpu_torch.ops.math3d import (
@@ -79,6 +92,7 @@ from raytracer_tpu_torch.ops.quad_traverse import (
     intersect_quad,
     occlusion_quad,
 )
+from raytracer_tpu_torch.ops.traverse import intersect_bvh, occlusion_bvh
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 
@@ -101,6 +115,10 @@ class WavefrontState(NamedTuple):
     did_direct: torch.Tensor  # bool[N]
     # Spectral channel lock for dispersion (-1 = broadband).
     channel: torch.Tensor  # i32[N]
+    # The lane of the launch this lane serves (its pixel of the tile): the
+    # lane sort permutes lanes, and the radiance is scattered back through
+    # this index.
+    pixel: torch.Tensor  # i32[N]
 
 
 def _morton9(q):
@@ -124,20 +142,85 @@ def position_morton(origin, scene):
             | (_morton9(q[:, 2]) << 2))
 
 
+def _part_affinity(scene, origin, direction, num_bits):
+    """The part of a multi-part bake each ray enters first (the smallest
+    slab t_near over the part roots' boxes, part_aabb), i64[N] clipped to
+    num_bits bits; a ray that misses every part gets the top bucket. The
+    JAX `_part_affinity`, in its f32 operation order; the argmin keeps the
+    first of equal values, as jnp.argmin."""
+    aabb = scene.part_aabb
+    inv = 1.0 / torch.where(torch.abs(direction) < 1e-12,
+                            torch.where(direction >= 0, 1e-12, -1e-12),
+                            direction)
+    t0 = (aabb[None, :, 0:3] - origin[:, None, :]) * inv[:, None, :]
+    t1 = (aabb[None, :, 3:6] - origin[:, None, :]) * inv[:, None, :]
+    tn = torch.clamp_min(torch.minimum(t0, t1), 0.0).amax(dim=2)
+    tf = torch.maximum(t0, t1).amin(dim=2)
+    tn = torch.where(tn <= tf, tn, torch.inf)  # [N,P]
+    top = (1 << num_bits) - 1
+    best = torch.clamp(torch.argmin(tn, dim=1), 0, top)
+    miss_all = torch.isinf(tn.amin(dim=1))
+    return torch.where(miss_all, top, best)
+
+
 def _sort_wavefront(state: WavefrontState, scene):
-    """Sort lanes by (dead last, direction octant, position Morton): the
-    single-part branch of raytracer_tpu/integrator/wavefront.py:125.
-    Returns (the permuted state, perm i64[N]); lane j of the result is lane
-    perm[j] of `state`. The sort is stable, as jnp.argsort, so equal keys
-    keep their order and the permutation equals the JAX one."""
+    """Sort lanes by (dead last, direction octant, position Morton), with a
+    part-affinity prefix below the dead bit on a multi-part bake: the JAX
+    `_sort_wavefront`, its keys in i64. Returns (the permuted state, perm
+    i64[N]); lane j of the result is lane perm[j] of `state`. The sort is
+    stable, as jnp.argsort, so the permutation is the JAX one. Every field
+    moves with its lane (`pixel` records where each came from)."""
+    morton = position_morton(state.origin, scene)
     d = state.direction
     octant = ((d[:, 0] >= 0).to(torch.int64)
               | ((d[:, 1] >= 0).to(torch.int64) << 1)
               | ((d[:, 2] >= 0).to(torch.int64) << 2))
     dead = (~state.alive).to(torch.int64)
-    key = (dead << 31) | (octant << 27) | position_morton(state.origin, scene)
+    p = getattr(scene, "num_parts", 1)
+    if p > 1 and getattr(scene, "part_aabb", None) is not None:
+        # Bit 30 is free; past 2 parts the Morton tail shortens to make
+        # room, and p.bit_length() keeps a bucket for rays missing every
+        # part.
+        pb = max(1, min(3, p.bit_length()))
+        aff = _part_affinity(scene, state.origin, state.direction, pb)
+        shift = pb - 1
+        key = ((dead << 31) | (aff << (31 - pb))
+               | (octant << (27 - shift)) | (morton >> shift))
+    else:
+        key = (dead << 31) | (octant << 27) | morton
     perm = torch.argsort(key, stable=True)
     return WavefrontState(*(field[perm] for field in state)), perm
+
+
+def _occluded_sorted(scene, origin, direction, t_max, skip_object, cfg,
+                     active):
+    """`_occluded` on the 4-wide tree's kernels with the shadow rays
+    sorted by origin Morton under dead-last (part affinity below the dead
+    bit on a multi-part bake), the result scattered back: the JAX
+    `_occluded_pallas_sorted`. A pure permutation of the rays, so the mask
+    is `_occluded`'s; the renderer does not call it (module docstring)."""
+    n = origin.shape[0]
+    morton = position_morton(origin, scene)
+    dead = (~active).to(torch.int64)
+    p = getattr(scene, "num_parts", 1)
+    if p > 1 and getattr(scene, "part_aabb", None) is not None:
+        pb = max(1, min(4, p.bit_length()))
+        aff = _part_affinity(scene, origin, direction, pb)
+        key = (dead << 31) | (aff << 27) | morton
+    else:
+        key = (dead << 31) | morton
+    perm = torch.argsort(key, stable=True)
+    t_max_b = torch.as_tensor(t_max, dtype=torch.float32,
+                              device=origin.device).expand(n)
+    # Inactive lanes get t_max = t_min, so the mask need not be permuted.
+    t_eff = torch.where(active, t_max_b, cfg.t_min)
+    skip = torch.as_tensor(skip_object, device=origin.device).to(
+        torch.int32).expand(n)
+    occ_s = occlusion_quad(origin[perm], direction[perm], cfg.t_min,
+                           t_eff[perm], scene, skip[perm])
+    occ = torch.zeros((n,), dtype=torch.bool, device=origin.device)
+    occ[perm] = occ_s
+    return occ & active
 
 
 def _camera_rays(inverse_view, inverse_proj, width, height, jitter,
@@ -171,6 +254,12 @@ def _camera_rays(inverse_view, inverse_proj, width, height, jitter,
     return origin, normalize(direction)
 
 
+def _skip_link(scene, cfg: RenderConfig):
+    """Whether accel="bvh" traces `scene` with the skip-link walk: its
+    binary tree is too deep for K3/K4's stack (api.py logs it)."""
+    return cfg.accel == "bvh" and not stack_fits(scene.bvh_max_depth)
+
+
 def _trace(scene, origin, direction, cfg: RenderConfig, active):
     if cfg.accel == "brute":
         rec = intersect_brute(
@@ -179,6 +268,9 @@ def _trace(scene, origin, direction, cfg: RenderConfig, active):
         )
         return rec._replace(hit=rec.hit & active,
                             tri=torch.where(active, rec.tri, -1))
+    if _skip_link(scene, cfg):
+        return intersect_bvh(origin, direction, scene, cfg.t_min, cfg.t_max,
+                             active_mask=active)
     if cfg.accel == "bvh":
         return intersect_bvh_binary(origin, direction, scene, cfg.t_min,
                                     cfg.t_max, active_mask=active)
@@ -194,6 +286,9 @@ def _occluded(scene, origin, direction, t_max, skip_object, cfg, active):
             skip_object,
         )
         return occ & active
+    if _skip_link(scene, cfg):
+        return occlusion_bvh(origin, direction, cfg.t_min, t_max, scene,
+                             skip_object, active_mask=active) & active
     if cfg.accel == "bvh":
         return occlusion_bvh_binary(origin, direction, cfg.t_min, t_max,
                                     scene, skip_object,
@@ -596,6 +691,7 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
                                    state.p_sample_light),
         did_direct=torch.where(lane, did_direct, state.did_direct),
         channel=channel,
+        pixel=state.pixel,
     )
     payload_hit = lane & sample_ok
     return new_state, payload_hit, shadow_rays
@@ -700,17 +796,58 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
                                device=scene.device)
     rays_traced = torch.zeros((), dtype=torch.int64, device=scene.device)
     shadow_total = torch.zeros((), dtype=torch.int64, device=scene.device)
+    deep = deep_compacts(cfg)
+    n = state.alive.shape[0]
     for depth in range(cfg.max_depth):
-        state, rays, shadow_rays = path_bounce(scene, state, depth, cfg,
-                                               clear_color)
+        k = None
+        if deep:
+            if depth > 0 or active is not None:
+                state, _ = _sort_wavefront(state, scene)
+            k = _compact_prefix(n, depth, cfg)
+            if k is not None and int(state.alive.sum()) > k:
+                k = None  # the live lanes do not fit: full size
+        if k is None:
+            state, rays, shadow_rays = path_bounce(scene, state, depth, cfg,
+                                                   clear_color)
+        else:
+            sub, rays, shadow_rays = path_bounce(
+                scene, WavefrontState(*(f[:k] for f in state)), depth, cfg,
+                clear_color)
+            state = WavefrontState(*(torch.cat([a, f[k:]])
+                                     for a, f in zip(sub, state)))
         rays_traced = rays_traced + rays
         shadow_total = shadow_total + shadow_rays
     radiance = final_radiance(state, cfg)
+    if deep:
+        # Undo the sort: each lane's radiance back to its lane.
+        radiance = torch.zeros_like(radiance).index_copy_(
+            0, state.pixel.long(), radiance)
     if with_stats:
         return radiance, {"rays_traced": rays_traced,
                           "shadow_rays": shadow_total,
                           "total_rays": rays_traced + shadow_total}
     return radiance
+
+
+def deep_compacts(cfg: RenderConfig) -> bool:
+    """Whether render_wavefront runs cfg's bounces with deep compaction
+    (module docstring): the JAX package's condition, with "cuda" for
+    "pallas"."""
+    cfg = cfg.resolve_accel()
+    return (cfg.accel == "cuda" and cfg.compact_deep
+            and cfg.max_depth > cfg.rr_start_depth + 1)
+
+
+def _compact_prefix(n, depth, cfg: RenderConfig):
+    """The lane prefix of the bounce at `depth` under deep compaction (None:
+    full size), the JAX `_compact_prefix`: n x compact_decay per bounce past
+    the Russian-roulette onset, rounded up to 1024 lanes; render_wavefront
+    runs the bounce full-size when more lanes than that are alive."""
+    if depth <= cfg.rr_start_depth:
+        return None
+    frac = cfg.compact_decay ** (depth - cfg.rr_start_depth)
+    k = max(1024, -(-int(n * frac) // 1024) * 1024)
+    return None if k >= n else k
 
 
 def tile_pixels(cfg: RenderConfig, pixel_start, num_pixels, device):
@@ -753,9 +890,9 @@ def start_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
 
     # Inactive lanes start dead. The JAX renderer sorts them to the back of
     # the wavefront from depth 0 so that its kernel groups retire in one
-    # pop; the port has no lane sort (P1) and needs none for this: the
-    # traversal wrappers give a dead lane t_max = t_min, and K1-K4's
-    # persistent warps fetch only live rays.
+    # pop; the port sorts only where deep compaction needs dead lanes last
+    # (render_wavefront): the traversal wrappers give a dead lane t_max =
+    # t_min, and K1-K4's persistent warps fetch only live rays.
     if active is None:
         alive = torch.ones((n,), dtype=torch.bool, device=dev)
     else:
@@ -776,6 +913,7 @@ def start_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
         p_sample_light=torch.zeros((n,), **f32),
         did_direct=torch.zeros((n,), dtype=torch.bool, device=dev),
         channel=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        pixel=torch.arange(n, dtype=torch.int32, device=dev),
     )
 
 

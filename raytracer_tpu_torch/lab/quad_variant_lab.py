@@ -100,8 +100,8 @@ def _build_lib(src, stem, csrc_dir, headers):
 def build_variant(text, group, refill_at):
     """(the variant's library, its ptxas log, its path)."""
     stem = f"libquad_traverse_g{group}_r{refill_at}"
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    src = os.path.join(_build.BUILD_DIR, f"{stem}.cu")
+    os.makedirs(_build.build_dir(), exist_ok=True)
+    src = os.path.join(_build.build_dir(), f"{stem}.cu")
     with open(src, "w") as f:
         f.write(variant_source(text, group, refill_at))
     return _build_lib(src, stem, _build.CSRC_DIR, _build.CUDA_HEADERS)

@@ -141,7 +141,8 @@ def primary_state(ubo, cfg, device) -> wf.WavefrontState:
         is_specular=~yes, prev_brdf_pdf=torch.ones((n,), **f32),
         prev_hit_pos=torch.zeros((n, 3), **f32),
         p_sample_light=torch.zeros((n,), **f32), did_direct=~yes,
-        channel=torch.full((n,), -1, dtype=torch.int32, device=device))
+        channel=torch.full((n,), -1, dtype=torch.int32, device=device),
+        pixel=torch.arange(n, dtype=torch.int32, device=device))
 
 
 def bounce1_state(ds, state0, cfg) -> wf.WavefrontState:

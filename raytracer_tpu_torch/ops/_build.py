@@ -5,10 +5,11 @@ bf16 throughput lab's bf16_lab) and, for accel/native_builder.py, the C++
 BVH builder.
 
 Each source is compiled into a shared library with a plain C interface, in
-`raytracer_tpu_torch/_build/`, named by a hash of the source, the headers
-it includes and the flags, at first use; later uses in any process load the
-cached library. The CUDA libraries are loaded with ctypes: every pointer
-and the stream are `c_void_p`. Nothing here runs at import time. Each
+the build directory (utils/compile_cache.py: `raytracer_tpu_torch/_build/`,
+or under $RAYTRACER_TPU_CACHE_DIR), named by a hash of the source, the
+headers it includes and the flags, at first use; later uses in any process
+load the cached library. The CUDA libraries are loaded with ctypes: every
+pointer and the stream are `c_void_p`. Nothing here runs at import time. Each
 library has its own lock, so two threads build two libraries at once.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false, which keeps nvcc from
@@ -28,9 +29,12 @@ import tempfile
 import threading
 import time
 
+from raytracer_tpu_torch.utils import compile_cache
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
-BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+# A directory set here overrides compile_cache.build_dir() (tests set it).
+BUILD_DIR = None
 # Device helpers shared by the traversal kernels (#included by each .cu;
 # persistent_walk.cuh by quad_traverse.cu and binary_traverse.cu).
 CUDA_HEADERS = (os.path.join(CSRC_DIR, "traverse_common.cuh"),
@@ -47,6 +51,12 @@ _libs = {}
 # library stem -> {"seconds": build seconds (0 when cached), "log": the
 # compiler's output}
 build_info = {}
+
+
+def build_dir() -> str:
+    """The directory libraries are built into: BUILD_DIR when set, else
+    compile_cache.build_dir()."""
+    return BUILD_DIR or compile_cache.build_dir()
 
 
 def _nvcc() -> str:
@@ -66,7 +76,7 @@ def _nvcc() -> str:
 
 
 def compile_library(argv, src: str, stem: str, headers=()) -> str:
-    """Compile `src` into BUILD_DIR/<stem>_<hash>.so with the compiler
+    """Compile `src` into build_dir()/<stem>_<hash>.so with the compiler
     command `argv` (flags included; the hash covers the source, the files
     in `headers` and argv), unless that library is there already. Returns
     its path; raises with the compiler's output on failure. The library is
@@ -77,12 +87,13 @@ def compile_library(argv, src: str, stem: str, headers=()) -> str:
         with open(path, "rb") as f:
             key.update(f.read())
     key.update(" ".join(argv[1:]).encode())
-    path = os.path.join(BUILD_DIR, f"{stem}_{key.hexdigest()[:16]}.so")
+    out_dir = build_dir()
+    path = os.path.join(out_dir, f"{stem}_{key.hexdigest()[:16]}.so")
     if os.path.exists(path):
         build_info[stem] = {"seconds": 0.0, "log": "cached"}
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run([*argv, "-o", tmp, src], capture_output=True,

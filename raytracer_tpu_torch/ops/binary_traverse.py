@@ -69,6 +69,8 @@ from raytracer_tpu_torch.ops.quad_traverse import (
     _slab_children,
     _stream,
     _walk_args,
+    any_passes,
+    closest_passes,
 )
 
 STACK_CAP = 128  # per-ray stack entries, as the TPU kernels' SMEM stack
@@ -105,36 +107,47 @@ def _check_stack(scene):
     if not stack_fits(scene.bvh_max_depth):
         raise ValueError(
             f"BVH depth {scene.bvh_max_depth} exceeds the binary traversal "
-            f"stack (STACK_CAP={STACK_CAP}); a stackless walk for such "
-            "trees is ROADMAP.md port queue item P2")
+            f"stack (STACK_CAP={STACK_CAP}); the renderer traces such trees "
+            "with the skip-link walk (ops/traverse.py)")
 
 
 def intersect_bvh_binary(origin, direction, scene, t_min, t_max,
                          active_mask=None) -> HitRecord:
     """Closest hit of rays f32[N,3] against `scene` (a DeviceScene);
-    `t_max` scalar or f32[N]; inactive lanes get t_max = t_min."""
+    `t_max` scalar or f32[N]; inactive lanes get t_max = t_min. A
+    multi-part scene takes one pass per part, as K1's
+    (quad_traverse.closest_passes)."""
     _check_stack(scene)
     o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
-    if o.is_cuda:
-        t, tri, u, v = _intersect_binary_cuda(o, d, tm, t_min, scene)
-    else:
-        t, tri, u, v = _intersect_binary_plain(
-            o, d, tm, t_min, scene.binary_root, scene.pnodes, scene.ptris)
+
+    def trace(t_cap, part):
+        if o.is_cuda:
+            return _intersect_binary_cuda(o, d, t_cap, t_min, part)
+        return _intersect_binary_plain(o, d, t_cap, t_min, part.binary_root,
+                                       part.pnodes, part.ptris)
+
+    t, tri, u, v = closest_passes(o, tm, scene, trace)
     return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
 
 
 def occlusion_bvh_binary(origin, direction, t_min, t_max, scene,
                          skip_object, active_mask=None):
     """Any hit in (t_min, t_max) by a triangle whose object is not the
-    ray's `skip_object` (i32[N]); returns bool[N]."""
+    ray's `skip_object` (i32[N]); returns bool[N]. A multi-part scene takes
+    one pass per part (quad_traverse.any_passes)."""
     _check_stack(scene)
     o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
     skip = torch.as_tensor(skip_object, device=o.device).to(
         torch.int32).expand(o.shape[0]).contiguous()
-    if o.is_cuda:
-        return _occlusion_binary_cuda(o, d, tm, skip, t_min, scene)
-    return _occlusion_binary_plain(o, d, tm, skip, t_min, scene.binary_root,
-                                   scene.pnodes, scene.ptris)
+
+    def trace(t_cap, part):
+        if o.is_cuda:
+            return _occlusion_binary_cuda(o, d, t_cap, skip, t_min, part)
+        return _occlusion_binary_plain(o, d, t_cap, skip, t_min,
+                                       part.binary_root, part.pnodes,
+                                       part.ptris)
+
+    return any_passes(o, tm, t_min, scene, trace)
 
 
 # --------------------------------------------------------------------------

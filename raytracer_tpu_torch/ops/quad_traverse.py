@@ -106,31 +106,90 @@ def _ray_inputs(origin, direction, t_max, active_mask, t_min=T_MIN):
 def intersect_quad(origin, direction, scene, t_min, t_max,
                    active_mask=None) -> HitRecord:
     """Closest hit of rays f32[N,3] against `scene` (a DeviceScene);
-    `t_max` scalar or f32[N]; inactive lanes get t_max = 1e-3."""
+    `t_max` scalar or f32[N]; inactive lanes get t_max = 1e-3. A multi-part
+    scene takes one pass per part (closest_passes)."""
     _check_t_min(t_min)
     _check_scene(scene)
     o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
-    if o.is_cuda:
-        t, tri, u, v = _intersect_quad_cuda(o, d, tm, scene)
-    else:
-        t, tri, u, v = _intersect_quad_plain(
-            o, d, tm, scene.root, scene.qmeta, scene.qnodes, scene.ptris)
+
+    def trace(t_cap, part):
+        if o.is_cuda:
+            return _intersect_quad_cuda(o, d, t_cap, part)
+        return _intersect_quad_plain(o, d, t_cap, part.root, part.qmeta,
+                                     part.qnodes, part.ptris)
+
+    t, tri, u, v = closest_passes(o, tm, scene, trace)
     return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
 
 
 def occlusion_quad(origin, direction, t_min, t_max, scene, skip_object,
                    active_mask=None):
     """Any hit in (1e-3, t_max) by a triangle whose object is not the
-    ray's `skip_object` (i32[N]); returns bool[N]."""
+    ray's `skip_object` (i32[N]); returns bool[N]. A multi-part scene takes
+    one pass per part (any_passes)."""
     _check_t_min(t_min)
     _check_scene(scene)
     o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
     skip = torch.as_tensor(skip_object, device=o.device).to(
         torch.int32).expand(o.shape[0]).contiguous()
-    if o.is_cuda:
-        return _occlusion_quad_cuda(o, d, tm, skip, scene)
-    return _occlusion_quad_plain(o, d, tm, skip, scene.root, scene.qmeta,
-                                 scene.qnodes, scene.ptris)
+
+    def trace(t_cap, part):
+        if o.is_cuda:
+            return _occlusion_quad_cuda(o, d, t_cap, skip, part)
+        return _occlusion_quad_plain(o, d, t_cap, skip, part.root,
+                                     part.qmeta, part.qnodes, part.ptris)
+
+    return any_passes(o, tm, T_MIN, scene, trace)
+
+
+# --------------------------------------------------------------------------
+# Multi-part scenes (scene/device_scene.py): one pass per part, the JAX
+# package's `_scene_parts` and per-part loops (ops/pallas_subpacket.py).
+# --------------------------------------------------------------------------
+
+def scene_parts(scene, origin):
+    """The tables to trace `scene` with, one entry per pass: `scene`
+    itself for a single-part scene; else its parts (DeviceScene.parts),
+    near to far from the rays' centroid (the JAX order: distance from the
+    centroid to each part root's box). The order cannot change a hit
+    record, as each pass's cap only tightens; it makes early hits prune
+    later parts. It costs one read of the order to the host a trace."""
+    if getattr(scene, "num_parts", 1) <= 1:
+        return [scene]
+    aabb = scene.part_aabb
+    centroid = origin.mean(dim=0)
+    clamped = torch.clamp(centroid[None, :], aabb[:, 0:3], aabb[:, 3:6])
+    d2 = ((centroid[None, :] - clamped) ** 2).sum(dim=1)
+    order = torch.argsort(d2, stable=True).tolist()
+    return [scene.parts[k] for k in order]
+
+
+def closest_passes(origin, t_max, scene, trace):
+    """Closest hits over every part of `scene`: `trace(t_cap, part)`
+    returns (t, tri, u, v) of one part's walk with per-ray cap `t_cap`;
+    each pass's best t caps the next, and a pass's hit (tri >= 0), being
+    strictly nearer than its cap, replaces the record."""
+    best = None
+    for part in scene_parts(scene, origin):
+        out = trace(t_max if best is None else best[0], part)
+        if best is None:
+            best = out
+        else:
+            take = out[1] >= 0
+            best = tuple(torch.where(take, a, b) for a, b in zip(out, best))
+    return best
+
+
+def any_passes(origin, t_max, t_min, scene, trace):
+    """Any-hit over every part of `scene`: `trace(t_cap, part)` returns
+    one part's bool[N]; a ray occluded in a pass gets t_cap = t_min in the
+    next ones, which ends it before its first node."""
+    occ = None
+    for part in scene_parts(scene, origin):
+        cap = t_max if occ is None else torch.where(occ, t_min, t_max)
+        found = trace(cap.contiguous(), part)
+        occ = found if occ is None else occ | found
+    return occ
 
 
 # --------------------------------------------------------------------------

@@ -35,13 +35,31 @@ Scene edits have two fast paths, the JAX package's: a refit
 its node boxes, and `update_materials` rewrites the material and light
 tables and keeps every geometry tensor.
 
-Not ported here: multi-part bakes (they exist for the TPU kernel's VMEM
-ceiling) and capacity-padded "stable" bakes; ROADMAP.md lists each.
+Three options of the JAX bake are ported as well:
+  - multi-part bakes (`pallas_budget_bytes`): a tree whose 4-wide node
+    rows and leaf blocks exceed the budget is cut into subtree parts
+    (`_cut_parts`, `_slice_bvh`, `_pack_parts`); qnodes, qmeta, qroot,
+    ptris, pnodes and root_meta then carry a leading [P] axis, part_aabb
+    holds each part root's box, and the traversal wrappers run one pass per
+    part (ops/quad_traverse.py, ops/binary_traverse.py). The renderer's
+    budget is None on the card (api.PALLAS_VMEM_BUDGET): the JAX budget is
+    the TPU kernel's VMEM, which a GPU does not have;
+  - stable-shape bakes (`stable_shapes`): every table padded to a capacity
+    bucket (`_bucket`), so a small topology edit re-bakes into the same
+    tensor shapes; padded rows cannot be reached or selected, so the image
+    is the exact bake's; the exact counts ride in `true_counts`;
+  - the skip-link walk's nodes_packed f32[NN,8] and tris_packed
+    f32[NB,LEAF,12] (`_pack_traversal_arrays`; ops/traverse.py), packed
+    only when the binary tree is too deep for K3/K4's stack
+    (binary_traverse.stack_fits): every other tree renders on K3/K4, and
+    the walk's tables would double the leaf blocks' memory and the bake's
+    time for nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Dict, Tuple
 
@@ -77,24 +95,78 @@ class DeviceScene:
     light_tri_object: torch.Tensor  # i32[LT]
     scene_min: torch.Tensor  # f32[3]
     scene_max: torch.Tensor  # f32[3]
-    qnodes: torch.Tensor  # f32[N4,32]
-    qmeta: torch.Tensor  # i32[4*N4]
-    qroot: torch.Tensor  # i32[1]
-    ptris: torch.Tensor  # f32[NB, leaf*12]
-    pnodes: torch.Tensor  # f32[NI,16]
-    root_meta: torch.Tensor  # i32[1]
+    qnodes: torch.Tensor  # f32[N4,32] ([P,N4,32] with parts)
+    qmeta: torch.Tensor  # i32[4*N4] ([P,4*N4])
+    qroot: torch.Tensor  # i32[1] ([P,1])
+    ptris: torch.Tensor  # f32[NB, leaf*12] ([P,NB,leaf*12])
+    pnodes: torch.Tensor  # f32[NI,16] ([P,NI,16])
+    root_meta: torch.Tensor  # i32[1] ([P,1])
     num_triangles: int
     num_lights: int
     q_stack_need: int
     bvh_max_depth: int  # deepest binary node (root = 0)
     # qroot and root_meta as host ints, so a kernel launch needs no device
-    # readback.
+    # readback (part 0's with parts; ScenePart holds each part's).
     root: int
     binary_root: int
+    # The skip-link walk's tables (ops/traverse.py), or None (see the
+    # module docstring).
+    nodes_packed: torch.Tensor = None  # f32[NN,8]
+    tris_packed: torch.Tensor = None  # f32[NB,LEAF,12]
+    num_parts: int = 1
+    part_max_depth: int = -1  # deepest binary node of a part; -1: no parts
+    part_aabb: torch.Tensor = None  # f32[P,6] part root boxes (parts only)
+    # Stable-shape bakes only: i32[4] [true_tris, true_lights,
+    # true_objects, true_refs]; num_triangles and num_lights then hold the
+    # padded table sizes.
+    true_counts: torch.Tensor = None
 
     @property
     def device(self) -> torch.device:
         return self.qnodes.device
+
+    @property
+    def pallas_vmem_bytes(self) -> int:
+        """The JAX kernel's VMEM footprint of one pass's scene arrays (rows
+        padded to 128 lanes), the quantity `pallas_budget_bytes` bounds."""
+        qn_lanes = -(-self.qnodes.shape[-1] // 128) * 128
+        pt_lanes = -(-self.ptris.shape[-1] // 128) * 128
+        return (self.qnodes.shape[-2] * qn_lanes
+                + self.ptris.shape[-2] * pt_lanes) * 4
+
+    @functools.cached_property
+    def parts(self) -> Tuple["ScenePart", ...]:
+        """Each part's tables as a ScenePart, in bake order (one part for
+        a single-part bake). Made once per DeviceScene, so the kernels'
+        leaf counts, cached per ptris tensor, are computed once per part
+        (ops/quad_traverse.leaf_counts)."""
+        if self.num_parts == 1:
+            return (ScenePart(self.qnodes, self.qmeta, self.ptris,
+                              self.pnodes, self.root, self.binary_root,
+                              self.q_stack_need, self.bvh_max_depth),)
+        qroot = self.qroot.reshape(-1).tolist()
+        broot = self.root_meta.reshape(-1).tolist()
+        return tuple(
+            ScenePart(self.qnodes[k], self.qmeta[k], self.ptris[k],
+                      self.pnodes[k], int(qroot[k]), int(broot[k]),
+                      self.q_stack_need, self.part_max_depth)
+            for k in range(self.num_parts))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenePart:
+    """One part's traversal tables, with the DeviceScene names the kernel
+    wrappers read: K1/K2 take qnodes, qmeta, ptris, root and q_stack_need,
+    K3/K4 pnodes, ptris, binary_root and bvh_max_depth (the deepest part's
+    depth, which bounds their stack)."""
+    qnodes: torch.Tensor
+    qmeta: torch.Tensor
+    ptris: torch.Tensor
+    pnodes: torch.Tensor
+    root: int
+    binary_root: int
+    q_stack_need: int
+    bvh_max_depth: int
 
 
 # Array fields shared with the JAX SceneOnDevice, by name.
@@ -105,6 +177,8 @@ ARRAY_FIELDS = (
     "qnodes", "qmeta", "qroot",
     "ptris", "pnodes", "root_meta",
 )
+# Array fields of some bakes only (None otherwise), also by the JAX name.
+OPTIONAL_FIELDS = ("nodes_packed", "tris_packed", "part_aabb", "true_counts")
 
 
 def _pad_rows(a: np.ndarray, total: int, fill=0.0) -> np.ndarray:
@@ -112,6 +186,155 @@ def _pad_rows(a: np.ndarray, total: int, fill=0.0) -> np.ndarray:
         return a
     pad_shape = (total - len(a),) + a.shape[1:]
     return np.concatenate([a, np.full(pad_shape, fill, a.dtype)])
+
+
+def _bucket(n: int, align: int) -> int:
+    """Geometric capacity bucket (the JAX `_bucket`): `n` rounded up to a
+    multiple of max(align, floor_pow2(n) / 8), at most +12.5% rows, and
+    its own bucket, so re-bakes of an edited scene keep their shapes."""
+    n = max(int(n), align)
+    step = max(align, (1 << (n.bit_length() - 1)) // 8)
+    return -(-n // step) * step
+
+
+def _pack_traversal_arrays(bvh, v0, e1, e2, tri_object, leaf_size):
+    """The skip-link walk's tables (the JAX `_pack_traversal_arrays`):
+    nodes_packed f32[NN,8] = min.xyz, max.xyz, bitcast(skip), bitcast(meta)
+    (meta = ~leaf block for a leaf, the right child for an internal node);
+    tris_packed f32[NB,LEAF,12] = leaf-blocked v0, e1, e2, then the global
+    triangle index and the object bitcast into slots 9 and 10; padding rows
+    are zero triangles (never hit) of object -1."""
+    nn = bvh.num_nodes
+    is_leaf = bvh.nodes_count > 0
+    leaf_ids = np.cumsum(is_leaf) - 1
+    nb = max(1, int(is_leaf.sum()))
+    right_child = np.zeros(nn, np.int32)
+    if nn > 1:
+        right_child[:-1] = bvh.nodes_skip[1:]
+    meta = np.where(is_leaf, ~leaf_ids, right_child).astype(np.int32)
+    nodes_packed = np.zeros((nn, 8), np.float32)
+    nodes_packed[:, 0:3] = bvh.nodes_min
+    nodes_packed[:, 3:6] = bvh.nodes_max
+    nodes_packed[:, 6] = bvh.nodes_skip.astype(np.int32).view(np.float32)
+    nodes_packed[:, 7] = meta.view(np.float32)
+
+    tris_packed = np.zeros((nb, leaf_size, 12), np.float32)
+    if is_leaf.any():
+        lf = bvh.nodes_first[is_leaf].astype(np.int64)
+        lc = np.minimum(bvh.nodes_count[is_leaf], leaf_size).astype(np.int64)
+        idx = lf[:, None] + np.arange(leaf_size)
+        valid = np.arange(leaf_size)[None, :] < lc[:, None]
+        idxc = np.clip(idx, 0, len(v0) - 1)
+        vm = valid[..., None]
+        tris_packed[:, :, 0:3] = np.where(vm, v0[idxc], 0.0)
+        tris_packed[:, :, 3:6] = np.where(vm, e1[idxc], 0.0)
+        tris_packed[:, :, 6:9] = np.where(vm, e2[idxc], 0.0)
+        tri_idx = np.where(valid, idxc, 0).astype(np.int32)
+        obj_pad = np.where(valid, tri_object[idxc], -1).astype(np.int32)
+        tris_packed[:, :, 9] = tri_idx.view(np.float32)
+        tris_packed[:, :, 10] = obj_pad.view(np.float32)
+    return nodes_packed, tris_packed
+
+
+def _leaf_row_units(leaf_size):
+    """512-byte VMEM units of one leaf-block row (leaf*12 floats padded up
+    to a multiple of 128 lanes), the JAX budget's unit."""
+    return -(-(leaf_size * 12) // 128)
+
+
+def _cut_parts(bvh, budget_bytes: int, leaf_row_units: int = 1):
+    """The JAX `_cut_parts`: the shallowest set of subtrees whose packed
+    tables each fit `budget_bytes` (a node row 512 B, a leaf row
+    `leaf_row_units` x 512 B), as [(i, j)] preorder node ranges in preorder
+    that cover every leaf once."""
+    is_leaf = bvh.nodes_count > 0
+    leaf_psum = np.concatenate([[0], np.cumsum(is_leaf)])
+    budget_rows = budget_bytes // 512
+    parts = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        j = int(bvh.nodes_skip[i])
+        nb = int(leaf_psum[j] - leaf_psum[i])
+        ni = (j - i) - nb
+        # Quad rows: n4 <= 2*ni/3 + 1 (roots and absorbed nodes alternate).
+        if (max(nb, 1) * leaf_row_units + (2 * max(ni, 1)) // 3 + 2
+                <= budget_rows or is_leaf[i]):
+            parts.append((i, j))
+        else:
+            left = i + 1
+            right = int(bvh.nodes_skip[left])
+            stack.append(right)
+            stack.append(left)
+    parts.sort()
+    covered = sum(int(leaf_psum[j] - leaf_psum[i]) for i, j in parts)
+    assert covered == int(leaf_psum[-1]), (covered, int(leaf_psum[-1]))
+    for (_, b), (c, _) in zip(parts, parts[1:]):
+        assert b <= c, "overlapping parts"
+    return parts
+
+
+def _slice_bvh(bvh, i: int, j: int) -> BVH:
+    """The subtree [i, j) of the preorder arrays as a BVH of its own (the
+    JAX `_slice_bvh`): skip links rebased and clamped to the slice's end;
+    nodes_first keeps indexing the global permuted triangles, so the leaf
+    blocks carry global triangle ids."""
+    size = j - i
+    parent = (bvh.parent[i:j] - i).copy()
+    parent[0] = -1
+    return BVH(
+        nodes_min=bvh.nodes_min[i:j],
+        nodes_max=bvh.nodes_max[i:j],
+        nodes_skip=np.minimum(bvh.nodes_skip[i:j] - i, size).astype(np.int32),
+        nodes_first=bvh.nodes_first[i:j],
+        nodes_count=bvh.nodes_count[i:j],
+        tri_order=bvh.tri_order,
+        parent=parent,
+    )
+
+
+def _pack_parts(bvh, v0p, e1p, e2p, tri_object_p, leaf_size, budget_bytes):
+    """Each part's binary and 4-wide tables and leaf blocks (the JAX
+    `_pack_pallas_parts`), padded to the largest part and stacked with a
+    leading [P] axis: dict(qnodes, qmeta, qroot, q_stack_need, pnodes,
+    root_meta, ptris, part_max_depth, part_aabb). Padding node rows are
+    zero (pnodes) or NaN boxes (qnodes), and no meta names them."""
+    units = _leaf_row_units(leaf_size)
+    packs = []
+    for (i, j) in _cut_parts(bvh, budget_bytes, units):
+        sb = _slice_bvh(bvh, i, j)
+        pn, rm, _ = _pack_binary_nodes(sb)
+        pt = _pack_leaf_blocks(sb, v0p, e1p, e2p, tri_object_p, leaf_size)
+        qn, qm, qr, need, _ = collapse_bvh4_slots(sb)
+        assert (qn.shape[0] + pt.shape[0] * units) * 512 <= budget_bytes, (
+            "part exceeds the budget after collapse: the n4 bound in "
+            "_cut_parts is violated")
+        box = np.concatenate([sb.nodes_min[0], sb.nodes_max[0]])
+        packs.append((pn, rm, pt, qn, qm, qr, int(need), sb.max_depth(), box))
+    p = len(packs)
+    ni = max(pk[0].shape[0] for pk in packs)
+    nb = max(pk[2].shape[0] for pk in packs)
+    n4 = max(pk[3].shape[0] for pk in packs)
+    out = dict(
+        pnodes=np.zeros((p, ni, 16), np.float32),
+        root_meta=np.zeros((p, 1), np.int32),
+        ptris=np.zeros((p, nb, packs[0][2].shape[1]), np.float32),
+        qnodes=np.full((p, n4, 32), np.nan, np.float32),
+        qmeta=np.zeros((p, 4 * n4), np.int32),
+        qroot=np.zeros((p, 1), np.int32),
+    )
+    out["qnodes"][:, :, 28:32] = 0.0
+    for k, (pn, rm, pt, qn, qm, qr, _, _, _) in enumerate(packs):
+        out["pnodes"][k, :pn.shape[0]] = pn
+        out["root_meta"][k] = rm
+        out["ptris"][k, :pt.shape[0]] = pt
+        out["qnodes"][k, :qn.shape[0]] = qn
+        out["qmeta"][k, :qm.shape[0]] = qm
+        out["qroot"][k] = qr
+    out["q_stack_need"] = max(pk[6] for pk in packs)
+    out["part_max_depth"] = max(pk[7] for pk in packs)
+    out["part_aabb"] = np.stack([pk[8] for pk in packs]).astype(np.float32)
+    return out
 
 
 def _pack_tri_shade(v0, e1, e2, n0, n1, n2, obj, mat,
@@ -260,12 +483,13 @@ def _repack_tree(bvh):
                 root_meta=lay.root_meta, bvh_max_depth=lay.max_depth)
 
 
-def _bake_arrays(scene: Scene, leaf_size: int = 16, reuse_bvh: BVH = None
-                ) -> Tuple[Dict[str, np.ndarray], BVH]:
+def _bake_arrays(scene: Scene, leaf_size: int = 16, reuse_bvh: BVH = None,
+                 pallas_budget_bytes: int = None, stable_shapes: bool = False
+                 ) -> Tuple[Dict[str, np.ndarray], BVH]:
     """The bake on the host: (numpy arrays by DeviceScene field name, with
     the int fields as ints, and the host BVH). With `reuse_bvh` (a BVH of
     this module's bake) the tree is refit to the scene's triangles, not
-    built (bake_scene)."""
+    built; the other options are bake_scene's."""
     if not scene.objects:
         raise ValueError("cannot bake an empty scene")
 
@@ -346,8 +570,48 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16, reuse_bvh: BVH = None
     ptris = _pack_leaf_blocks(bvh, v0p, e1p, e2p, tri_object_p, leaf_size)
     tree = (_repack_tree(bvh) if reuse_bvh is not None
             else _pack_tree(bvh, leaf_size))
+    tree["ptris"] = ptris
+    num_parts = 1
+    units = _leaf_row_units(leaf_size)
+    if (pallas_budget_bytes is not None
+            # A degenerate budget bakes one part, as the JAX bake does.
+            and pallas_budget_bytes >= (1 << 16)
+            and (tree["qnodes"].shape[0] + ptris.shape[0] * units) * 512
+            > pallas_budget_bytes):
+        tree.update(_pack_parts(bvh, v0p, e1p, e2p, tri_object_p, leaf_size,
+                                pallas_budget_bytes))
+        num_parts = tree["ptris"].shape[0]
 
-    t_pad = max(_PAD, ((num_refs + _PAD - 1) // _PAD) * _PAD)
+    stable = bool(stable_shapes) and num_parts == 1
+    if stable and pallas_budget_bytes is not None:
+        padded_rows = (_bucket(tree["qnodes"].shape[0], 64)
+                       + _bucket(ptris.shape[0], 64) * units)
+        if padded_rows * 512 > pallas_budget_bytes:
+            log.info("stable_shapes disabled: capacity padding would exceed "
+                     "the budget")
+            stable = False
+    if stable_shapes and num_parts > 1:
+        log.info("stable_shapes disabled: multi-part bake (%d parts)",
+                 num_parts)
+
+    t_pad = (_bucket(num_refs, _PAD) if stable
+             else max(_PAD, ((num_refs + _PAD - 1) // _PAD) * _PAD))
+    depth_tab = tree["bvh_max_depth"]
+    if stable:
+        depth_tab = -(-depth_tab // 8) * 8
+    # The walk serves exactly the trees K3/K4 cannot (api._install).
+    from raytracer_tpu_torch.ops.binary_traverse import stack_fits
+    walk = {}
+    if not stack_fits(depth_tab):
+        walk = dict(zip(("nodes_packed", "tris_packed"),
+                        _pack_traversal_arrays(bvh, v0p, e1p, e2p,
+                                               tri_object_p, leaf_size)))
+    if stable:
+        # Padded node rows are unreachable: every exit past the tree (a
+        # skip link equal to the node count) is rewritten past the padding,
+        # and padding rows of the 4-wide and binary tables are NaN boxes
+        # that no meta names.
+        tree.update(_pad_tree(tree, bvh.num_nodes, walk))
 
     light_emission_arr = np.asarray(light_emission, np.float32).reshape(
         num_lights, 3)
@@ -403,18 +667,93 @@ def _bake_arrays(scene: Scene, leaf_size: int = 16, reuse_bvh: BVH = None
         scene_max=np.maximum.reduce(
             [v0.max(0), (v0 + e1).max(0), (v0 + e2).max(0)]
         ).astype(np.float32),
-        ptris=ptris,
         num_triangles=num_tris,
         num_lights=num_lights,
+        num_parts=num_parts,
+        **walk,
         **tree,
     )
+    arrays["bvh_max_depth"] = depth_tab
+    if stable:
+        _pad_tables(arrays, len(scene.objects), len(scene.materials),
+                    num_refs)
     return arrays, bvh
+
+
+def _pad_tree(tree, nn_real, walk):
+    """The stable bake's tree tables (JAX `bake_scene(stable_shapes=True)`):
+    each padded to its capacity bucket, the stack need rounded up to a
+    multiple of 8; `walk`'s tables are padded in place."""
+    out = {}
+    if walk:
+        nn_cap = _bucket(nn_real, 64)
+        npk = walk["nodes_packed"]
+        skip = npk[:, 6].view(np.int32)
+        skip_rw = np.where(skip >= nn_real, nn_cap, skip).astype(np.int32)
+        npk = npk.copy()
+        npk[:, 6] = skip_rw.view(np.float32)
+        np_pad = np.zeros((nn_cap - nn_real, 8), np.float32)
+        np_pad[:, 0:3] = np.inf
+        np_pad[:, 3:6] = -np.inf
+        np_pad[:, 6] = np.asarray([nn_cap], np.int32).view(np.float32)[0]
+        walk["nodes_packed"] = np.concatenate([npk, np_pad])
+        walk["tris_packed"] = _pad_rows(
+            walk["tris_packed"], _bucket(walk["tris_packed"].shape[0], 64))
+    pnodes = tree["pnodes"]
+    pn_pad = np.full((_bucket(pnodes.shape[0], 64) - pnodes.shape[0], 16),
+                     np.nan, np.float32)
+    pn_pad[:, 12:16] = 0.0
+    out["pnodes"] = np.concatenate([pnodes, pn_pad])
+    out["ptris"] = _pad_rows(tree["ptris"], _bucket(tree["ptris"].shape[0],
+                                                    64))
+    qnodes = tree["qnodes"]
+    n4_cap = _bucket(qnodes.shape[0], 64)
+    q_pad = np.full((n4_cap - qnodes.shape[0], 32), np.nan, np.float32)
+    q_pad[:, 28:32] = 0.0
+    out["qnodes"] = np.concatenate([qnodes, q_pad])
+    out["qmeta"] = _pad_rows(tree["qmeta"], 4 * n4_cap)
+    out["q_stack_need"] = -(-tree["q_stack_need"] // 8) * 8
+    return out
+
+
+def _pad_tables(arrays, num_objects, num_materials, num_refs):
+    """Pad the light, light-triangle and material tables of `arrays` to
+    their capacity buckets in place (JAX `bake_scene(stable_shapes=True)`):
+    padded lights have zero power and triangles and light_object -1, so no
+    draw selects them; padded light triangles belong to no light; padded
+    materials have ior 1. num_triangles and num_lights become the table
+    sizes, and true_counts holds the exact ones."""
+    num_tris, num_lights = arrays["num_triangles"], arrays["num_lights"]
+    l_tab = _bucket(num_lights, 4) if num_lights else 0
+    t_tab = _bucket(num_tris, _PAD)
+    m_tab = _bucket(num_materials, 8)
+    for k in ("light_power", "light_center", "light_meta_packed"):
+        arrays[k] = _pad_rows(arrays[k], l_tab)
+    arrays["light_object"] = _pad_rows(arrays["light_object"], l_tab, fill=-1)
+    ltp = arrays["light_tri_packed"]
+    ltp_pad = np.zeros((t_tab - len(ltp), 16), np.float32)
+    ltp_pad[:, 10] = -1.0  # no owning light
+    arrays["light_tri_packed"] = np.concatenate([ltp, ltp_pad])
+    arrays["light_tri_object"] = _pad_rows(arrays["light_tri_object"], t_tab,
+                                           fill=-1)
+    mat = _pad_rows(arrays["mat_packed"], m_tab)
+    mat[num_materials:, 10] = 1.0  # a padded material's ior: vacuum
+    arrays["mat_packed"] = mat
+    arrays["true_counts"] = np.asarray(
+        [num_tris, num_lights, num_objects, num_refs], np.int32)
+    arrays["num_triangles"] = t_tab
+    arrays["num_lights"] = l_tab
 
 
 def _to_device(arrays, device) -> DeviceScene:
     dev = torch.device(device)
-    tensors = {k: torch.from_numpy(np.array(arrays[k], copy=True)).to(dev)
-               for k in ARRAY_FIELDS}
+
+    def upload(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    tensors = {k: upload(arrays[k]) for k in ARRAY_FIELDS}
+    tensors.update({k: upload(arrays[k]) for k in OPTIONAL_FIELDS
+                    if arrays.get(k) is not None})
     return DeviceScene(
         **tensors,
         num_triangles=int(arrays["num_triangles"]),
@@ -423,15 +762,18 @@ def _to_device(arrays, device) -> DeviceScene:
         bvh_max_depth=int(arrays["bvh_max_depth"]),
         root=int(np.asarray(arrays["qroot"]).reshape(-1)[0]),
         binary_root=int(np.asarray(arrays["root_meta"]).reshape(-1)[0]),
+        num_parts=int(arrays.get("num_parts", 1)),
+        part_max_depth=int(arrays.get("part_max_depth", -1)),
     )
 
 
 def bake_scene(scene: Scene, leaf_size: int = 16, device="cuda",
-               reuse_bvh: BVH = None) -> Tuple[DeviceScene, BVH]:
+               reuse_bvh: BVH = None, pallas_budget_bytes: int = None,
+               stable_shapes: bool = False) -> Tuple[DeviceScene, BVH]:
     """Flatten + world-transform + BVH-build a host Scene and upload it:
     (DeviceScene on `device`, host BVH). The arrays equal the JAX
-    `bake_scene(scene, leaf_size, reuse_bvh=..., stable_shapes=False)`
-    fields of the same names.
+    `bake_scene(scene, leaf_size, reuse_bvh=..., pallas_budget_bytes=...,
+    stable_shapes=...)` fields of the same names.
 
     `reuse_bvh` is the TLAS UPDATE-mode path (gpu_scene.odin:457-482): the
     tree of an earlier bake of this module keeps its topology (tri_order,
@@ -441,17 +783,25 @@ def bake_scene(scene: Scene, leaf_size: int = 16, device="cuda",
     (_repack_tree). The triangle count must not have changed (transform
     edits). Every tensor is uploaded anew, ptris included, so the kernels'
     leaf counts, cached per ptris tensor, are never stale
-    (ops/quad_traverse.leaf_counts)."""
-    arrays, bvh = _bake_arrays(scene, leaf_size, reuse_bvh)
+    (ops/quad_traverse.leaf_counts).
+
+    `pallas_budget_bytes` cuts a tree whose tables exceed it into parts;
+    `stable_shapes` pads every table to a capacity bucket (not under
+    parts). A binary tree too deep for K3/K4's stack also gets the
+    skip-link walk's tables. See the module docstring."""
+    arrays, bvh = _bake_arrays(scene, leaf_size, reuse_bvh,
+                               pallas_budget_bytes, stable_shapes)
     ds = _to_device(arrays, device)
     log.info(
-        "bake%s: %d triangles, %d lights, qnodes %d x 32 f32 (%d bytes), "
-        "ptris %d x %d f32 (%d bytes), stack need %d; pnodes %d x 16 f32 "
-        "(%d bytes), depth %d", " (refit)" if reuse_bvh is not None else "",
-        ds.num_triangles, ds.num_lights, ds.qnodes.shape[0],
-        ds.qnodes.numel() * 4, ds.ptris.shape[0], ds.ptris.shape[1],
-        ds.ptris.numel() * 4, ds.q_stack_need, ds.pnodes.shape[0],
+        "bake%s: %d triangles, %d lights, %d part(s), qnodes %s f32 (%d "
+        "bytes), ptris %s f32 (%d bytes), stack need %d; pnodes %s f32 (%d "
+        "bytes), depth %d%s%s", " (refit)" if reuse_bvh is not None else "",
+        ds.num_triangles, ds.num_lights, ds.num_parts,
+        tuple(ds.qnodes.shape), ds.qnodes.numel() * 4, tuple(ds.ptris.shape),
+        ds.ptris.numel() * 4, ds.q_stack_need, tuple(ds.pnodes.shape),
         ds.pnodes.numel() * 4, ds.bvh_max_depth,
+        ", stable shapes" if ds.true_counts is not None else "",
+        ", skip-link tables" if ds.nodes_packed is not None else "",
     )
     return ds, bvh
 
@@ -477,19 +827,22 @@ def update_materials(ds: DeviceScene, scene: Scene,
     Returns a `dataclasses.replace` of `ds` whose geometry tensors are the
     same objects; mat_packed, light_power, light_meta_packed (emission
     columns 2:5 and power column 6) and light_tri_packed (emission columns
-    12:15) are new. Falls back to a full bake, with `bake_kwargs`
-    (leaf_size, device), when the set of emissive objects changed or the
-    scene has more materials than mat_packed has rows."""
+    12:15) are new, each of the baked shape (a stable bake's padded rows
+    stay padding). Falls back to a full bake, with `bake_kwargs`
+    (bake_scene's), when the set of emissive objects changed or the scene
+    has more materials than mat_packed has rows."""
     mats = scene.materials
     emissive = [oi for oi, o in enumerate(scene.objects)
                 if mats[o.material_index].emission_power > 0]
-    if (emissive != ds.light_object.tolist()
+    baked = ds.light_object.tolist()
+    if (emissive != [oi for oi in baked if oi >= 0]
             or len(mats) > ds.mat_packed.shape[0]):
         return bake_scene(scene, **bake_kwargs)[0]
     dev = ds.device
     emission, power = _light_rows(scene, emissive)
+    l_tab = ds.light_power.shape[0]
     emission_t = torch.from_numpy(emission).to(dev)
-    power_t = torch.from_numpy(power).to(dev)
+    power_t = torch.from_numpy(_pad_rows(power, l_tab)).to(dev)
     mat_packed = _pad_rows(_pack_materials(mats), ds.mat_packed.shape[0])
     mat_packed[len(mats):, 10] = 1.0  # a padded row's ior: vacuum
     return dataclasses.replace(
@@ -519,18 +872,18 @@ def _refresh_light_tri_emission(light_tri_packed, light_emission):
 
 def _refresh_light_meta(meta, light_emission, light_power):
     """light_meta_packed with the emission (columns 2:5) and power (column
-    6) of its lights rewritten; the other columns are the bake's."""
+    6) of its lights rewritten; the other columns, and a stable bake's
+    padded rows, are the bake's (`light_power` has the table's rows, their
+    padding zero)."""
     meta = meta.clone()
-    meta[:, 2:5] = light_emission
+    meta[:light_emission.shape[0], 2:5] = light_emission
     meta[:, 6] = light_power
     return meta
 
 
 def from_jax_arrays(d: Dict[str, np.ndarray], device) -> DeviceScene:
     """Build a DeviceScene from a JAX SceneOnDevice's fields after
-    `np.asarray` (a single-part bake, including pnodes, root_meta and
-    bvh_max_depth), so both packages trace one tree."""
-    if int(np.asarray(d.get("num_parts", 1))) != 1:
-        raise ValueError("multi-part bakes are not ported "
-                         "(ROADMAP.md port queue item P4)")
+    `np.asarray` (with the static ints: bvh_max_depth, num_parts,
+    part_max_depth), so both packages trace one tree: a single-part or a
+    multi-part bake, exact or stable, with the skip-link walk's tables."""
     return _to_device(d, device)

@@ -47,18 +47,15 @@ class RenderConfig:
     # Russian roulette starts at this bounce depth (simple.rgen:55-68).
     rr_start_depth: int = 3
 
-    # Port: compaction is not ported yet (ROADMAP.md port queue item P6);
-    # the port runs every bounce full-size, which renders the same image.
-    # Deep-bounce wavefront compaction (pallas accel, max_depth >
-    # rr_start_depth + 1 only): after the dead-last sort, bounces past the
-    # RR onset run on a static prefix of the lane arrays sized by
-    # compact_decay^(depth - rr_start_depth) when the live count fits
-    # (checked at runtime; oversized frames take the full-size path).
-    # Excluded lanes are dead and bit-untouched, so compaction itself is
-    # exact; images differ from the uncompacted path only at the ULP level
-    # (XLA fuses the unrolled+cond loop structure differently than the
-    # fori_loop). Trades extra compile shapes for shrinking per-bounce
-    # traversal/shading cost on depth-8+ configs.
+    # Deep-bounce wavefront compaction ("cuda"/"pallas"/"auto" accel,
+    # max_depth > rr_start_depth + 1 only): after the dead-last sort,
+    # bounces past the RR onset run on a prefix of the lane arrays sized by
+    # compact_decay^(depth - rr_start_depth) when the live count fits (one
+    # read of the count to the host per such bounce; oversized frames take
+    # the full-size path). Excluded lanes are dead and untouched, and the
+    # port runs eagerly, so the image is bit for bit the uncompacted one
+    # (integrator/wavefront.py). Trades a sort per bounce for shrinking
+    # per-bounce traversal/shading cost on depth-8+ configs.
     compact_deep: bool = True
     compact_decay: float = 0.75
 
@@ -102,14 +99,12 @@ class RenderConfig:
     # +4.9% end-to-end at 1080p/300k tris, image byte-identical
     # (tools/r3_leaf16_frame_lab.py; sweep in tools/leafsweep_lab.py).
     bvh_leaf_size: int = 16
-    # Port: accepted and logged as having no effect yet (ROADMAP.md port
-    # queue item P5); bakes are exact-shape, which renders the same image.
     # Capacity-padded (stable-shape) bakes for interactive editing: small
-    # topology edits (object add/remove) re-bake into the SAME jit
-    # signature, so the editor path costs bake+upload instead of an XLA
-    # re-compile. Image-neutral (tests/test_stable_bake.py); costs ≤ +12.5%
+    # topology edits (object add/remove) re-bake into the SAME tensor
+    # shapes (in the JAX package, the same jit signature: no re-compile).
+    # Image-neutral (tests/test_torch_stable_bake.py); costs ≤ +12.5%
     # scene-table memory. Auto-skipped for multi-part bakes and when the
-    # padding would overflow the kernel VMEM budget.
+    # padding would overflow the bake's budget (scene/device_scene.py).
     stable_bake: bool = True
 
     # Preview denoising (BEYOND-REFERENCE; integrator/denoise.py): apply an

@@ -76,12 +76,21 @@ def test_from_jax_arrays_round_trip():
                                       getattr(tds, k).numpy(), err_msg=k)
 
 
-def test_from_jax_arrays_refuses_multi_part():
+def test_from_jax_arrays_loads_multi_part():
+    """A multi-part JAX bake loads with every part table, its part boxes
+    and its part count and depth (it was refused before multi-part bakes
+    were ported)."""
     jds, _ = jbake(jmodel.create_cornell_box(), stable_shapes=False,
                    pallas_budget_bytes=96 * 1024)
     assert jds.num_parts > 1
-    with pytest.raises(ValueError, match="multi-part"):
-        from_jax_arrays(_jax_fields(jds), "cpu")
+    fields = _jax_fields(jds)
+    conv = from_jax_arrays(fields, "cpu")
+    _assert_same(conv, fields)
+    assert conv.num_parts == jds.num_parts
+    assert conv.part_max_depth == jds.part_max_depth
+    np.testing.assert_array_equal(conv.part_aabb.numpy(), fields["part_aabb"])
+    assert len(conv.parts) == jds.num_parts
+    assert [p.root for p in conv.parts] == fields["qroot"][:, 0].tolist()
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

@@ -130,14 +130,25 @@ def test_stack_need_falls_back_to_bvh(monkeypatch, caplog):
     np.testing.assert_array_equal(got, want)
 
 
-def test_bvh_refuses_a_tree_deeper_than_its_stack(monkeypatch):
-    """The one tree JAX accel="bvh" renders and the port refuses: deeper
-    than STACK_CAP - 2 (a stackless walk is ROADMAP item P2)."""
+def test_bvh_walks_a_tree_deeper_than_its_stack(monkeypatch, caplog):
+    """A tree deeper than STACK_CAP - 2, which K3/K4 refuse, renders with
+    the skip-link walk (a warning says so), against JAX accel="bvh" (the
+    same walk) within tolerance; it was refused before the walk was
+    ported."""
     monkeypatch.setattr(binary_traverse, "STACK_CAP", 3)
-    with pytest.raises(ValueError, match="stack"):
-        ProgressiveRenderer(tmodel.create_cornell_box(), None,
-                            RenderConfig(width=8, height=8, accel="bvh"),
-                            device="cpu")
+    with caplog.at_level(logging.WARNING, logger=tapi.__name__):
+        r = ProgressiveRenderer(tmodel.create_cornell_box(), None,
+                                RenderConfig(width=16, height=16,
+                                             accel="bvh"),
+                                device="cpu")
+    assert "skip-link walk" in caplog.text
+    assert r.device_scene.nodes_packed is not None
+    got = r.render(2)
+    want = _jax(jmodel.create_cornell_box, 16, 16, 2, "bvh")
+    flipped = _flipped(got, want)
+    print(f"skip-link walk cornell 16x16 x2: {int(flipped.sum())} flipped "
+          f"of {flipped.size}")
+    assert flipped.mean() <= MAX_FLIPPED
 
 
 def test_render_matches_jax_pallas_kernels():
@@ -424,6 +435,21 @@ def test_port_never_imports_jax():
         "assert 'x' in t.report()\n"
         "assert multichip.main(['--spawn', '2', '--device', 'cpu', "
         "'--size', '32x32', '--frames', '1', '--outdir', tmp]) == 0\n"
+        "from raytracer_tpu_torch.ops import traverse\n"
+        "from raytracer_tpu_torch.utils import compile_cache\n"
+        "assert compile_cache.build_dir()\n"
+        "from raytracer_tpu_torch.ops import binary_traverse\n"
+        "binary_traverse.STACK_CAP = 3\n"
+        "ds, _ = bake_scene(create_cornell_box(), device='cpu', "
+        "stable_shapes=True)\n"
+        "binary_traverse.STACK_CAP = 128\n"
+        "o, d, tm = rays.closest_sets(ds, 8, 8)['primary']\n"
+        "assert traverse.intersect_bvh(o, d, ds, 1e-3, tm).hit.any()\n"
+        "ds, _ = bake_scene(create_cornell_box(), device='cpu', "
+        "pallas_budget_bytes=96 * 1024)\n"
+        "assert ds.num_parts > 1\n"
+        "img = render(create_cornell_box(), config=RenderConfig(width=8, "
+        "height=8, max_depth=5), device='cpu')\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'raytracer_tpu' not in sys.modules\n"
         "print('NO_JAX_OK')\n"

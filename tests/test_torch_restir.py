@@ -385,7 +385,7 @@ def test_shade_suppress_nee_matches_jax(name):
                                 pixel=jnp.arange(n, dtype=jnp.int32))
     tstate = twf.WavefrontState(**{
         k: _t(v.astype(np.int64) if k.startswith("seed") else v)
-        for k, v in fields.items()})
+        for k, v in fields.items()}, pixel=_t(np.arange(n, dtype=np.int32)))
     thit = _to_port(hit, HitRecord)
     want, j_hit, j_sh = jwf._shade(jds, jstate, hit, cfg, suppress_nee=True)
     got, t_hit, t_sh = twf._shade(tds, tstate, thit,

@@ -68,6 +68,7 @@ CHECKPOINTED = ("plain", "restir", "adaptive")
 JAX_CK_FRAMES = 2
 PREVIEW = (64, 2)  # renderer size, scale: a 32x32 preview
 HALO_ROWS, HALO_H = 6, 4
+MULTIPART_BUDGET = 256 * 1024
 
 
 def _config(**kw):
@@ -269,7 +270,23 @@ def _world2_cases(rank, mesh, ck_dir):
         loaded["next_light_index"] = (None if r.reservoir is None else
                                       r._whole(r.reservoir.light_index))
         out["resumed"][name] = loaded
+    out["multipart"] = _multipart(mesh)
     return out
+
+
+def _multipart(mesh):
+    """A multi-part bake's render (the budget as the JAX sharding test
+    sets it): the part count and the image after one frame, on `mesh` or
+    on one device (None)."""
+    import raytracer_tpu_torch.api as tapi
+
+    saved = tapi.PALLAS_VMEM_BUDGET
+    tapi.PALLAS_VMEM_BUDGET = MULTIPART_BUDGET
+    try:
+        r = _renderer(mesh, size=16)
+        return r.device_scene.num_parts, r.render(1)
+    finally:
+        tapi.PALLAS_VMEM_BUDGET = saved
 
 
 # --- the pytest process ------------------------------------------------------
@@ -425,6 +442,19 @@ def test_sharded_world2_modes_match_single(worlds, mode):
         if "reservoir" in want:
             _assert_tree_equal(got["reservoir"], want["reservoir"],
                                "reservoir")
+
+
+def test_sharded_multipart_matches_single(worlds):
+    """A multi-part bake composes with pixel tiles: every rank bakes the
+    parts (their digest compared) and runs the per-part passes on its
+    tile, bit for bit the one-device multi-part render (the JAX package's
+    test_sharded_multipart_matches_single)."""
+    parts, want = _multipart(None)
+    assert parts > 1
+    for out in worlds(2):
+        got_parts, got = out["multipart"]
+        assert got_parts == parts
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("world", WORLDS)
