@@ -75,6 +75,11 @@ Phases (any failure exits non-zero and prints no result line):
      equality), L7 against K1 (hit flips and triangle differences at most
      TREE_AGREEMENT of the rays) and L8, both orders, against K2 (the same
      mask on every ray: any-hit does not depend on the visiting order).
+     Then L7's and L8's launch shapes (registers, ptxas spills, local
+     memory, which must be 0 with no spills, dynamic shared memory, blocks
+     a SM, grid), and their bounds on every set, counted on the triangles
+     they test (walk_bound), each beside bound() (every slot of each leaf
+     row visited) and beside the kernel's ms.
   9. The fixed-sequence labs on the leaf-8 atrium, through the functions
      their entry points run, with their launch counts set to 0 just before
      and read just after: visit_cost_lab (L11a, its six variants; L11b, its
@@ -199,10 +204,10 @@ Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
 FP32 operations over the card's FP32 rate (L12: its results over the
 card's instruction rate for their type), counted on the run whose ms it
-shows (bound(), walk_bound() for K1-K4, which count only the triangles
-they test, fixed_seq_bound(), chain_bound()); library_ms is null, as
-no PyTorch call computes a BVH walk, a fixed-sequence walk or a K-step
-chain. The line before the last is {"kernels": [...]}; the last line is
+shows (bound(); walk_bound() for K1-K4, L7 and L8, which count only the
+triangles they test; fixed_seq_bound(), chain_bound()); library_ms is
+null, as no PyTorch call computes a BVH walk, a fixed-sequence walk or a
+K-step chain. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
 fixed seeds; nothing is downloaded.
 """
@@ -262,6 +267,12 @@ TRI_OPS = {
 }
 CLOSEST_RAY_BYTES = 28 + 16  # origin, direction, t_max in; t, tri, u, v out
 ANY_RAY_BYTES = 32 + 1  # + skip_object in; the bool mask out
+# What a persistent kernel moves for an inactive ray: t_max in, the outputs.
+INACTIVE_RAY_BYTES = {"closest": 4 + 16, "any": 4 + 1}
+# The bytes of a node row that a persistent kernel's node step reads: the
+# whole 64-byte binary row; 7 float4 (boxes and metas) of the 128-byte
+# quad row; 14 float4 of the 256-byte oct row.
+ROW_READ_BYTES = {"binary": 64, "quad": 112, "quad_fixed": 112, "oct": 224}
 COUNTER_BYTES = 8  # nvisit/nit and nleaf out (L1, L4, L9)
 # The fixed-sequence labs (phase 9): FP32 operations per iteration of
 # csrc/lab3_traverse.cu, counted as above. A warp's min of 32 values is 31
@@ -333,19 +344,24 @@ def bound(n_rays, ray_bytes, arrays, counts, node, tri):
 
 
 def walk_bound(ds, nodes, n_rays, ray_bytes, counts, tests, node, tri):
-    """The bound of K1-K4, which test only the triangles below each leaf
-    row's count: as bound(), for what they read and test. Bytes: each ray's
-    inputs and outputs, the tree's node rows `nodes` (qnodes, whose rows
-    hold the child metas, or pnodes), the leaf counts and the real
-    triangles of each leaf row, once. Operations: the internal visits of
-    `counts` times NODE_OPS[node] and `tests` (leaf_tests(): the triangles
+    """The bound of K1-K4, L7 and L8, which test only the triangles below
+    each leaf row's count: as bound(), for what they read and test. Bytes:
+    each live ray's inputs and outputs (ray_bytes; a live ray takes at
+    least one step of `counts`), each inactive ray's t_max and outputs
+    (INACTIVE_RAY_BYTES), what a node step reads of each of the tree's
+    node rows `nodes` (qnodes, onodes, whose rows hold the child metas, or
+    pnodes; ROW_READ_BYTES), the leaf counts and the real triangles of each
+    leaf row, once. Operations: the internal visits or steps of `counts`
+    times NODE_OPS[node] and `tests` (counting_leaf_tests(): the triangles
     they test, not every slot of each row visited) times TRI_OPS[tri]."""
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     lc = qt.leaf_counts(ds)
     visits, leaves = (int(c.sum()) for c in counts)
     ops = (visits - leaves) * NODE_OPS[node] + tests * TRI_OPS[tri]
-    nbytes = (n_rays * ray_bytes + nodes.numel() * 4 + lc.numel() * 4
+    live = int((counts[0] > 0).sum())
+    nbytes = (live * ray_bytes + (n_rays - live) * INACTIVE_RAY_BYTES[tri]
+              + nodes.shape[0] * ROW_READ_BYTES[node] + lc.numel() * 4
               + int(lc.sum()) * qt.TRI_STRIDE * 4)
     return bound_of(nbytes, ops)
 
@@ -369,14 +385,13 @@ def binary_walk(ds, origin, direction, t_min):
                                              ds.pnodes, t_min), bt.STACK_CAP)
 
 
-def leaf_tests(ds, walk, origin, direction, t_max, skip_object=None,
-               t_min=1e-3):
-    """The triangle tests a kernel of the persistent walk makes on these
-    rays, closest hit (skip_object None) or any-hit: those of the plain
-    walk `walk` (quad_walk() or binary_walk()), counting in each leaf row
-    it visits the slots below the row's count (quad_traverse.row_counts),
-    and for any-hit those up to the first accepted hit only. Returns an
-    int."""
+def counting_leaf_tests():
+    """(closest, any_hit, total): leaf hooks for the plain walks, called as
+    quad_traverse._serial_leaf and _any_leaf, that test as those do and add
+    to total[0] the triangle tests a kernel of the persistent walk makes:
+    in each leaf row the slots below the row's count
+    (quad_traverse.row_counts), and for any-hit those up to the first
+    accepted hit only."""
     import torch
 
     from raytracer_tpu_torch.ops import quad_traverse as qt
@@ -402,6 +417,18 @@ def leaf_tests(ds, walk, origin, direction, t_max, skip_object=None,
         total[0] += int(tests.sum())
         return found
 
+    return closest, any_hit, total
+
+
+def leaf_tests(ds, walk, origin, direction, t_max, skip_object=None,
+               t_min=1e-3):
+    """The triangle tests a kernel of the persistent walk makes on these
+    rays, closest hit (skip_object None) or any-hit: those of the plain
+    walk `walk` (quad_walk() or binary_walk()), counted by
+    counting_leaf_tests(). Returns an int."""
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    closest, any_hit, total = counting_leaf_tests()
     root, visit, cap = walk
     if skip_object is None:
         qt._closest_walk(origin, direction, t_max, root, ds.ptris, visit,
@@ -652,14 +679,14 @@ def phase2(ds, device):
     return report
 
 
-def log_walk_bound(what, r, arrays, counts, node, tri):
+def log_walk_bound(what, r, arrays, counts, node, tri, phase="phase 2"):
     """A persistent kernel's bound on one set, beside bound() of the same
     walk, which counts every slot of each leaf row visited and reads the
-    tree's `arrays` whole (qmeta too for K1/K2): the bound given for the
+    tree's `arrays` whole (qmeta or ometa too): the bound given for the
     one-thread-per-ray design."""
     whole = bound(WIDTH * HEIGHT, CLOSEST_RAY_BYTES if tri == "closest"
                   else ANY_RAY_BYTES, arrays, counts, node, tri)
-    log(f"phase 2: bound {what}: {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+    log(f"{phase}: bound {what}: {r['bound_ms']:.4f} ms ({r['bound_by']}: "
         f"{r['bytes']} B, {r['ops']} FP32 operations); every slot of each "
         f"row visited: {whole['bound_ms']:.4f} ms ({whole['ops']} "
         f"operations)")
@@ -1287,8 +1314,8 @@ def phase8(device):
 
     l7.reset_launch_counts()
     l8.reset_launch_counts()
-    res7 = l7.run(ds, tree, closest, log=plog)
-    res8 = l8.run(ds, shadow, log=plog)
+    res7 = l7.run(ds, tree, closest, log=plog, leaf_hooks=counting_leaf_tests)
+    res8 = l8.run(ds, shadow, log=plog, leaf_hooks=counting_leaf_tests)
     launches = {"lab_closest8_queued": l7.closest_launches,
                 "lab_occlusion4_queued": l8.occlusion_launches}
     plog(f"lab launch counts {launches}")
@@ -1318,20 +1345,70 @@ def phase8(device):
         if r["mism"]:
             raise RuntimeError(f"L8 {order} and K2 differ ({label})")
 
+    phase8_launch_shapes(ds, tree)
+    bounds = phase8_bounds(ds, tree, res7, res8)
+    for key, b in bounds.items():
+        label, kind = key
+        r = (res7 if kind == "oct" else res8)[key]
+        plog(f"{'L7' if kind == 'oct' else 'L8 ' + kind} {label}: "
+             f"{r['ms']:.3f} ms against a bound of {b['bound_ms']:.4f} "
+             f"ms, {100 * b['bound_ms'] / r['ms']:.2f}% of the bound")
     oct_run = res7[("bounce1", "oct")]
     occl_run = res8[("shadow_b1", "ordered")]
     return {
         "lab_closest8_queued": dict(
             launches=launches["lab_closest8_queued"], max_abs_err=err7,
             ms=oct_run["ms"], plain_ms=oct_run["plain_ms"],
-            **bound(n, CLOSEST_RAY_BYTES, (tree.nodes, tree.meta, ds.ptris),
-                    oct_run["counts"], "oct", "closest")),
+            **bounds[("bounce1", "oct")]),
         "lab_occlusion4_queued": dict(
             launches=launches["lab_occlusion4_queued"], max_abs_err=err8,
             ms=occl_run["ms"], plain_ms=occl_run["plain_ms"],
-            **bound(n, ANY_RAY_BYTES, (ds.qnodes, ds.qmeta, ds.ptris),
-                    occl_run["counts"], "quad", "any")),
+            **bounds[("shadow_b1", "ordered")]),
     }
+
+
+def phase8_launch_shapes(ds, tree):
+    """L7 and L8 (both orders) run without local memory and without ptxas
+    spills (their lab runs print each launch shape)."""
+    from raytracer_tpu_torch.lab import queue_walk as qw
+
+    for kernel, need in (("closest8", tree.stack_need),
+                         ("occlusion_ordered", ds.q_stack_need),
+                         ("occlusion_fixed", ds.q_stack_need)):
+        i = qw.launch_info(kernel, need, ds.ptris.device)
+        if i["local_bytes"] or i["spills"] not in ((0, 0), ("?", "?")):
+            raise RuntimeError(f"{kernel}: {i['local_bytes']} B of local "
+                               f"memory a thread, spills {i['spills']}")
+
+
+def phase8_bounds(ds, tree, res7, res8):
+    """L7's bound on each closest-hit set and L8's (each order) on each
+    shadow set, the resorted one included, counted on the triangles they
+    test (walk_bound) from the steps and tests of the plain runs in `res7`
+    and `res8` (l7.run and l8.run with counting_leaf_tests), each logged
+    beside bound(), every slot of each leaf row visited and ometa or qmeta
+    read. Returns {(set, "oct" or order): bound}."""
+    from raytracer_tpu_torch.lab import r3_occl3_lab as l8
+
+    n = WIDTH * HEIGHT
+    bounds = {}
+    for (label, kind), r in (*res7.items(), *res8.items()):
+        if kind == "oct":
+            node, tri, nodes = "oct", "closest", tree.nodes
+            name, arrays = "lab_closest8_queued", (tree.nodes, tree.meta)
+        elif kind in l8.ORDERS:
+            node = "quad" if l8.ORDERS[kind] else "quad_fixed"
+            tri, nodes = "any", ds.qnodes
+            name, arrays = "lab_occlusion4_queued", (ds.qnodes, ds.qmeta)
+        else:
+            continue
+        b = bounds[(label, kind)] = walk_bound(
+            ds, nodes, n, CLOSEST_RAY_BYTES if tri == "closest"
+            else ANY_RAY_BYTES, r["counts"], r["tests"], node, tri)
+        log_walk_bound(f"{name} {label}{'' if kind == 'oct' else ' ' + kind}",
+                       b, (*arrays, ds.ptris), r["counts"], node, tri,
+                       phase="phase 8")
+    return bounds
 
 
 def aimed_rays(ptris, n, rows, seed, device):

@@ -1,5 +1,6 @@
-// The traversal lab's deferred-leaf and component-major kernels, one thread
-// per ray (two for lab_closest_pair), for Hopper (sm_90a).
+// The traversal lab's deferred-leaf and component-major kernels for Hopper
+// (sm_90a): L3-L6 one thread per ray (two for lab_closest_pair), L7 and L8
+// on persistent warps.
 //
 // Replaces the TPU lab kernels
 //   - tools/v2_kernel_lab.py:174 (run_closest_v2, L3): K3's walk over
@@ -20,7 +21,7 @@
 //     comparison with K2, in child order).
 // The TPU kernels walk one tree per 8-row sub-packet (a row per ray path)
 // out of SMEM stacks and queues, because Mosaic has no per-lane gathers.
-// Here each thread walks its own ray with the same state in local memory:
+// Here each lane walks its own ray:
 //
 //   - the deferred-leaf walk (lab/queue_walk.py): only internal nodes go on
 //     the stack (CAP = 64); a hit leaf child goes into the leaf queue (LQ =
@@ -28,7 +29,7 @@
 //     top block and testing it, when ln >= drain_at or (no node pending and
 //     ln > 0); else an internal step, popping one node (with descent, the
 //     near child kept in `cur` instead, if any) and pushing its hit
-//     children far first, near last. The push policy QueuePush routes them
+//     children far first, near last. The push policy routes them
 //     (traverse_common.cuh's node steps take it in place of the stack);
 //   - lab_closest_queued (L4) counts per ray what the TPU kernel counts per
 //     packet: nit, every step, and nleaf, the leaf steps. `nocond` drops
@@ -48,18 +49,18 @@
 //     det-scaled space, best t carried as num/den through the step, one
 //     divide at its end) or ILP (leaf 8);
 //   - lab_closest8_queued (L7): the 8-wide walk (oct_visit of
-//     traverse_common.cuh): a node reads the 48 box floats of its 256-byte
-//     onodes row (12 float4; the row's f32 metas and padding are not read)
-//     and its 8 metas from ometa (2 int4), slab-tests the 8 children, and
-//     pushes the hit ones in child order but the near one (the 3-bit
-//     tournament), which goes last. A step queues up to 8 leaves, so
-//     drain_at is in 1..LQ-8; the stack holds up to 7 children per oct
-//     level, and the wrapper refuses a tree whose stack need exceeds CAP;
-//   - lab_occlusion4_queued (L8): the 4-wide walk with the any-hit leaf
-//     step (occluded_leaf against t_max, skip_object as f32): an occluded
-//     ray stops at once, as the TPU kernel's per-row exit; the internal
-//     step caps its slab tests at t_max and pushes the near child last
-//     (ordered) or every child in child order (the production K2's order);
+//     traverse_common.cuh): a node step reads its 256-byte onodes row, the
+//     boxes of children 0-3, then of 4-7 (the tournament's first level of
+//     each half kept between them), and the 8 metas from the row's columns
+//     48:56 (exact f32); it pushes the hit children in child order but the
+//     near one (the 3-bit tournament), which goes last. A step queues up
+//     to 8 leaves, so drain_at is in 1..LQ-8;
+//   - lab_occlusion4_queued (L8): the 4-wide walk (quad_visit, the metas
+//     from the qnodes row's float4 6) with the any-hit leaf step
+//     against t_max (skip_object as f32): an occluded ray stops at once, as
+//     the TPU kernel's per-row exit; the node step caps its slab tests at
+//     t_max and pushes the near child last (ordered) or every child in
+//     child order (the production K2's order);
 //   - lab_closest_cm (L3): K3's stack walk (leaves on the stack, STACK_CAP
 //     128); a leaf reads each of its 10 used components as leaf/4 float4
 //     (component c of triangle k at lane leaf*c + k), tests every triangle
@@ -70,23 +71,45 @@
 // plain torch versions, and the library is built with -fmad=false, so each
 // kernel equals its plain version bit for bit, counts included.
 //
-// What bounds them on the card: dependent node and leaf loads, as for K1-K4.
-// The deferred leaf changes when a leaf row is read, not how many: the
-// queue holds up to drain_at blocks while the walk descends, which delays
-// the best t and can only add visits. Stack and queue sit in local memory
-// (320 B a ray, 640 B for the pair kernel), cached in L1. The wrappers
-// refuse trees whose stack bound exceeds CAP and drain_at above LQ less a
-// node's width, so neither overflows.
+// What bounds them on the card: the latency of dependent node and leaf
+// loads, as for K1-K4, not bytes or arithmetic. The deferred leaf changes
+// when a leaf row is read, not how many: the queue holds up to drain_at
+// blocks while the walk descends, which delays the best t and can only add
+// visits.
 //
-// L7 and L8 are first versions, simple and right, not tuned. Per ray, L7
-// reads 224 B an oct node (192 B of boxes, 32 B of metas) against the
-// 4-wide walk's 112 B, for fewer internal steps; each step does 8 slab
-// tests (25 FP32 operations each) and the 3-bit tournament (13). L8 reads
-// what the 4-wide queued walk reads, until its ray is occluded. Both, like
-// L4-L6, are bounded by their dependent node and leaf loads, not by their
-// arithmetic (PERF.md gives each kernel's byte and operation bound).
+// L3-L6 keep their one-thread-per-ray design: a warp waits for its slowest
+// ray, and stack and queue sit in local memory (320 B a ray, 640 B for the
+// pair kernel). L7 and L8 run K1-K4's machinery (persistent_walk.cuh's
+// fetch, Stack, grouped leaves and launch) in one walk, queued_walk, for a
+// closest-hit or an any-hit ray:
+//
+//   1. persistent warps: the occupancy calculator's grid, each warp taking
+//      rays from a per-launch counter (one atomicAdd per refill of its
+//      idle lanes, once kRefillAt are idle); an inactive ray is answered at
+//      fetch time, and L8's occluded ray frees its lane at once;
+//   2. the stack and the leaf queue in dynamic shared memory, laid out
+//      [entry][thread]: the tree's stack need (OctTree.stack_need,
+//      q_stack_need; at most CAP) plus LQ entries a thread, the stack's top
+//      in a register (RegisterPush: the last internal child a step pushes
+//      is the node the plain walk pops next, and is never written);
+//   3. while-while over the drain rule: node steps while a lane's next step
+//      is a node step, then leaf steps while a lane's next step is a leaf
+//      step; each lane's next step is still decided by its own state, so
+//      its sequence of steps is the plain walk's;
+//   4. one row per node: the metas come from the node row, not from
+//      ometa/qmeta;
+//   5. leaves stop at their last real triangle (ops/quad_traverse
+//      leaf_counts), their loads issued kGroup triangles at a time
+//      (closest_leaf_grouped, occluded_leaf_grouped). The slots past the
+//      count hold zero triangles, never accepted, so results and steps do
+//      not change.
+// Per ray, an L7 node step reads 224 B of its 256-byte row (two 128-byte
+// lines) where the 4-wide walk reads 112 B of one line, for fewer node
+// steps; each does 8 slab tests (25 FP32 operations each) and the 3-bit
+// tournament (13). PERF.md gives each kernel's byte and operation bound
+// and its time against it.
 
-#include "traverse_common.cuh"
+#include "persistent_walk.cuh"
 
 using namespace traverse;
 
@@ -242,10 +265,9 @@ __device__ __forceinline__ void binary_step(QueuedRay& q,
                      QueuePush<false, kVariant == kNocond>{q});
 }
 
-// The 4-wide internal step, its slab tests capped at the best t (t_max for
-// any-hit, which never shrinks); the near child last (kOrdered) or child
-// order.
-template <bool kDescent, bool kOrdered = true>
+// The 4-wide internal step, its slab tests capped at the best t; the near
+// child last.
+template <bool kDescent>
 __device__ __forceinline__ void quad_step(QueuedRay& q,
                                           const int4* __restrict__ qmeta,
                                           const float4* __restrict__ qnodes) {
@@ -256,29 +278,8 @@ __device__ __forceinline__ void quad_step(QueuedRay& q,
   } else {
     node = q.stack[--q.sp];
   }
-  quad_visit<kOrdered>(q.r, qnodes + (int64_t)node * 8, __ldg(qmeta + node),
-                       kTMin, q.bt, QueuePush<kDescent, false>{q});
-}
-
-// The 8-wide internal step: onodes rows are 16 float4, ometa 2 int4 a node.
-__device__ __forceinline__ void oct_step(QueuedRay& q,
-                                         const int4* __restrict__ ometa,
-                                         const float4* __restrict__ onodes) {
-  const int node = q.stack[--q.sp];
-  oct_visit(q.r, onodes + (int64_t)node * 16, __ldg(ometa + 2 * node),
-            __ldg(ometa + 2 * node + 1), kTMin, q.bt,
-            QueuePush<false, false>{q});
-}
-
-// The any-hit leaf step: pop the queue's top block and test it against
-// t_max (q.bt) with occluded_leaf; whether a triangle not of object `skip`
-// hits.
-__device__ __forceinline__ bool any_leaf_step(QueuedRay& q,
-                                              const float4* __restrict__ ptris,
-                                              int leaf, float skip) {
-  const int blk = q.lq[--q.ln];
-  return occluded_leaf(q.r, ptris + (int64_t)blk * (leaf * kTriStride / 4),
-                       leaf, kTMin, q.bt, skip);
+  quad_visit<true>(q.r, qnodes + (int64_t)node * 8, __ldg(qmeta + node),
+                   kTMin, q.bt, QueuePush<kDescent, false>{q});
 }
 
 __device__ __forceinline__ void store_hit(const QueuedRay& q, int64_t i,
@@ -390,57 +391,6 @@ closest4_queued_kernel(const float* __restrict__ origin,
 }
 
 __global__ void __launch_bounds__(kThreads)
-closest8_queued_kernel(const float* __restrict__ origin,
-                       const float* __restrict__ direction,
-                       const float* __restrict__ t_max, int64_t n, int root,
-                       const int4* __restrict__ ometa,
-                       const float4* __restrict__ onodes,
-                       const float4* __restrict__ ptris, int leaf,
-                       int drain_at, float* __restrict__ out_t,
-                       int* __restrict__ out_tri, float* __restrict__ out_u,
-                       float* __restrict__ out_v) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  QueuedRay q;
-  init_ray(q, load_ray(origin, direction, i), t_max[i], root, false);
-  while (alive(q)) {
-    if (wants_leaf(q, drain_at)) {
-      leaf_step<kSerialLeaf>(q, ptris, leaf);
-    } else {
-      oct_step(q, ometa, onodes);
-    }
-  }
-  store_hit(q, i, out_t, out_tri, out_u, out_v);
-}
-
-// The best t of a QueuedRay is t_max throughout: any-hit never shrinks it.
-template <bool kOrdered>
-__global__ void __launch_bounds__(kThreads)
-occlusion4_queued_kernel(const float* __restrict__ origin,
-                         const float* __restrict__ direction,
-                         const float* __restrict__ t_max,
-                         const int* __restrict__ skip_object, int64_t n,
-                         int root, const int4* __restrict__ qmeta,
-                         const float4* __restrict__ qnodes,
-                         const float4* __restrict__ ptris, int leaf,
-                         int drain_at, bool* __restrict__ out_occ) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  QueuedRay q;
-  init_ray(q, load_ray(origin, direction, i), t_max[i], root, false);
-  const float skip = (float)skip_object[i];
-  bool occ = false;
-  while (!occ && alive(q)) {
-    if (wants_leaf(q, drain_at)) {
-      occ = any_leaf_step(q, ptris, leaf, skip);
-    } else {
-      quad_step<false, kOrdered>(q, qmeta, qnodes);
-    }
-  }
-  out_occ[i] = occ;
-}
-
-__global__ void __launch_bounds__(kThreads)
 closest_cm_kernel(const float* __restrict__ origin,
                   const float* __restrict__ direction,
                   const float* __restrict__ t_max, int64_t n, int root,
@@ -469,6 +419,228 @@ closest_cm_kernel(const float* __restrict__ origin,
   }
   out_t[i] = bt;
   out_tri[i] = btri;
+}
+
+// ---------------------------------------------------------------------------
+// L7 and L8: the queued walk on persistent warps (persistent_walk.cuh's
+// fetch, Stack, grouped leaves and launch).
+// ---------------------------------------------------------------------------
+
+constexpr int kGroup = 4;      // triangles of a leaf loaded together (K1's)
+constexpr int kRefillAt = 16;  // idle lanes of 32 at which a warp fetches
+
+// The queued walk's state of one lane: the internal node it visits next in
+// a register (`cur`, kNone when none; the plain walk's stack top), the
+// internal nodes below it and the leaf queue in the block's dynamic shared
+// memory, `need` stack entries then kLQ queue entries a thread, each laid
+// out [entry][thread]. lq.sp is the plain walk's ln.
+struct LaneQueue {
+  Stack st;
+  Stack lq;
+  int cur = kNone;
+  __device__ LaneQueue(int* smem, int need)
+      : st(smem), lq(smem + need * kThreads) {}
+  __device__ __forceinline__ void start(int root) {
+    st.clear();
+    lq.clear();
+    cur = root >= 0 ? root : kNone;
+    if (root < 0) lq.push(~root);
+  }
+  __device__ __forceinline__ void clear() {
+    cur = kNone;
+    st.clear();
+    lq.clear();
+  }
+  // The drain rule: a leaf step when ln >= drain_at, or when no node is
+  // pending and ln > 0; else a node step while a node is pending.
+  __device__ __forceinline__ bool wants_leaf(int drain_at) const {
+    return lq.sp >= drain_at || (cur == kNone && lq.sp > 0);
+  }
+  __device__ __forceinline__ bool wants_node(int drain_at) const {
+    return cur != kNone && lq.sp < drain_at;
+  }
+  __device__ __forceinline__ bool alive() const {
+    return cur != kNone || lq.sp > 0;
+  }
+};
+
+// The push policy of a persistent node step: a hit internal child goes on
+// the stack, but the last one pushed stays in `top` (the node the plain
+// walk pops next, so it is never written); a hit leaf child goes into the
+// leaf queue.
+struct RegisterPush {
+  int& top;
+  Stack& st;
+  Stack& lq;
+  __device__ __forceinline__ void operator()(int meta) const {
+    if (meta >= 0) {
+      if (top != kNone) st.push(top);
+      top = meta;
+    } else {
+      lq.push(~meta);
+    }
+  }
+  __device__ __forceinline__ void near(int meta) const { (*this)(meta); }
+};
+
+// A closest-hit ray (L7): its best hit, its leaf step (the row's triangles
+// up to its count, closest_leaf_grouped) and its outputs.
+struct ClosestRay {
+  const float4* __restrict__ ptris;
+  const int* __restrict__ counts;
+  int leaf;
+  float* __restrict__ out_t;
+  int* __restrict__ out_tri;
+  float* __restrict__ out_u;
+  float* __restrict__ out_v;
+  float bt = 0.0f, bu = 0.0f, bv = 0.0f;
+  int btri = -1;
+  __device__ __forceinline__ void start(int, float tm) {
+    bt = tm;
+    btri = -1;
+    bu = bv = 0.0f;
+  }
+  __device__ __forceinline__ void skip(int i, float tm) const {
+    out_t[i] = tm;
+    out_tri[i] = -1;
+    out_u[i] = 0.0f;
+    out_v[i] = 0.0f;
+  }
+  __device__ __forceinline__ float bound() const { return bt; }
+  // Returns whether the ray ends here: never before its queue is empty.
+  __device__ __forceinline__ bool leaf_step(const Ray& r, int block,
+                                            int leaf_f4) {
+    closest_leaf_grouped<kGroup>(r, ptris + (int64_t)block * leaf_f4,
+                                 __ldg(counts + block), leaf, kTMin, bt,
+                                 btri, bu, bv);
+    return false;
+  }
+  __device__ __forceinline__ void finish(int i) const {
+    out_t[i] = bt;
+    out_tri[i] = btri;
+    out_u[i] = bu;
+    out_v[i] = bv;
+  }
+};
+
+// An any-hit ray (L8): t_max as the slab cap, its skip_object as f32, and
+// a leaf step that ends the ray at its first occluder.
+struct AnyRay {
+  const int* __restrict__ skip_object;
+  const float4* __restrict__ ptris;
+  const int* __restrict__ counts;
+  int leaf;
+  bool* __restrict__ out_occ;
+  float tm = 0.0f, skip_f = 0.0f;
+  bool occ = false;
+  __device__ __forceinline__ void start(int i, float t) {
+    tm = t;
+    skip_f = (float)skip_object[i];
+    occ = false;
+  }
+  __device__ __forceinline__ void skip(int i, float) const {
+    out_occ[i] = false;
+  }
+  __device__ __forceinline__ float bound() const { return tm; }
+  __device__ __forceinline__ bool leaf_step(const Ray& r, int block,
+                                            int leaf_f4) {
+    occ = occluded_leaf_grouped<kGroup>(r, ptris + (int64_t)block * leaf_f4,
+                                        __ldg(counts + block), leaf, kTMin,
+                                        tm, skip_f);
+    return occ;
+  }
+  __device__ __forceinline__ void finish(int i) const { out_occ[i] = occ; }
+};
+
+// The queued walk of a persistent block, for a ray kind `ray_kind`
+// (ClosestRay, AnyRay): persistent_walk.cuh's fetch, then while-while over
+// the drain rule, node steps (`visit(r, node, bound, push)`, then the last
+// internal child pushed, or a pop) until no lane's next step is a node
+// step, then leaf steps (the queue's top block) until none is a leaf step.
+template <class RayKind, class Visit>
+__device__ __forceinline__ void queued_walk(
+    int* smem, int need, const float* __restrict__ origin,
+    const float* __restrict__ direction, const float* __restrict__ t_max,
+    int n, int root, int drain_at, int* __restrict__ next_ray,
+    RayKind ray_kind, const Visit& visit) {
+  LaneQueue q(smem, need);
+  const int leaf_f4 = ray_kind.leaf * kTriStride / 4;
+  int ray = -1;
+  bool drained = false;
+  Ray r{};
+  auto start = [&](int i, float tm) {
+    r = load_ray(origin, direction, i);
+    ray_kind.start(i, tm);
+    q.start(root);
+  };
+  auto skip = [&](int i, float tm) { ray_kind.skip(i, tm); };
+  for (;;) {
+    if (fetch<kRefillAt>(ray, drained, n, next_ray, t_max, kTMin, start,
+                         skip) == kFull) {
+      return;
+    }
+    while (__any_sync(kFull, q.wants_node(drain_at))) {
+      if (q.wants_node(drain_at)) {
+        int top = kNone;
+        visit(r, q.cur, ray_kind.bound(), RegisterPush{top, q.st, q.lq});
+        q.cur = top != kNone ? top : q.st.pop();
+      }
+    }
+    while (__any_sync(kFull, q.wants_leaf(drain_at))) {
+      if (q.wants_leaf(drain_at) &&
+          ray_kind.leaf_step(r, q.lq.pop(), leaf_f4)) {
+        q.clear();
+      }
+    }
+    if (ray >= 0 && !q.alive()) {
+      ray_kind.finish(ray);
+      ray = -1;
+    }
+  }
+}
+
+// L7: the 8-wide walk, one 256-byte onodes row a node step.
+__global__ void __launch_bounds__(kThreads)
+closest8_queued_kernel(const float* __restrict__ origin,
+                       const float* __restrict__ direction,
+                       const float* __restrict__ t_max, int n, int root,
+                       const float4* __restrict__ onodes,
+                       const float4* __restrict__ ptris,
+                       const int* __restrict__ counts, int leaf, int need,
+                       int drain_at, int* __restrict__ next_ray,
+                       float* __restrict__ out_t, int* __restrict__ out_tri,
+                       float* __restrict__ out_u, float* __restrict__ out_v) {
+  extern __shared__ int smem[];
+  queued_walk(
+      smem, need, origin, direction, t_max, n, root, drain_at, next_ray,
+      ClosestRay{ptris, counts, leaf, out_t, out_tri, out_u, out_v},
+      [&](const Ray& r, int node, float bt, const RegisterPush& push) {
+        oct_visit(r, onodes + (int64_t)node * 16, kTMin, bt, push);
+      });
+}
+
+// L8: the 4-wide any-hit walk, one 128-byte qnodes row a node step (the
+// metas from its float4 6); the near child last (kOrdered) or child order.
+template <bool kOrdered>
+__global__ void __launch_bounds__(kThreads)
+occlusion4_queued_kernel(const float* __restrict__ origin,
+                         const float* __restrict__ direction,
+                         const float* __restrict__ t_max,
+                         const int* __restrict__ skip_object, int n, int root,
+                         const float4* __restrict__ qnodes,
+                         const float4* __restrict__ ptris,
+                         const int* __restrict__ counts, int leaf, int need,
+                         int drain_at, int* __restrict__ next_ray,
+                         bool* __restrict__ out_occ) {
+  extern __shared__ int smem[];
+  queued_walk(
+      smem, need, origin, direction, t_max, n, root, drain_at, next_ray,
+      AnyRay{skip_object, ptris, counts, leaf, out_occ},
+      [&](const Ray& r, int node, float tm, const RegisterPush& push) {
+        const float4* row = qnodes + (int64_t)node * 8;
+        quad_visit<kOrdered>(r, row, row_metas(__ldg(row + 6)), kTMin, tm,
+                             push);
+      });
 }
 
 }  // namespace
@@ -593,22 +765,27 @@ extern "C" int lab_closest4_queued(const float* origin, const float* direction,
   return (int)cudaGetLastError();
 }
 
-// onodes f32[N8,64], ometa i32[8*N8]; drain_at in 1..LQ-8 (an 8-wide step
-// queues up to 8 leaves).
+// The persistent queued walks (L7, L8). After the rays: root, node rows
+// (onodes f32[N8,64] or qnodes f32[N4,32], the metas in the rows), ptris,
+// leaf counts, leaf, the tree's stack need `need` (1..kCap: the shared
+// memory holds need + kLQ entries a thread) and the ray counter
+// `next_ray` (one int32, zeroed here on `stream`); then drain_at.
+
+// drain_at in 1..LQ-8 (an 8-wide step queues up to 8 leaves).
 extern "C" int lab_closest8_queued(const float* origin, const float* direction,
                                    const float* t_max, int64_t n, int root,
-                                   const int* ometa, const float* onodes,
-                                   const float* ptris, int leaf, int drain_at,
+                                   const float* onodes, const float* ptris,
+                                   const int* leaf_counts, int leaf,
+                                   int need, int* next_ray, int drain_at,
                                    float* out_t, int* out_tri, float* out_u,
                                    float* out_v, void* stream) {
   if (drain_at < 1 || drain_at > kLQ - 8) return (int)cudaErrorInvalidValue;
-  closest8_queued_kernel<<<blocks_for(n), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      origin, direction, t_max, n, root, reinterpret_cast<const int4*>(ometa),
-      reinterpret_cast<const float4*>(onodes),
-      reinterpret_cast<const float4*>(ptris), leaf, drain_at, out_t, out_tri,
-      out_u, out_v);
-  return (int)cudaGetLastError();
+  if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
+  return launch(closest8_queued_kernel, n, need + kLQ, kCap + kLQ, next_ray,
+                stream, origin, direction, t_max, (int)n, root,
+                reinterpret_cast<const float4*>(onodes),
+                reinterpret_cast<const float4*>(ptris), leaf_counts, leaf,
+                need, drain_at, next_ray, out_t, out_tri, out_u, out_v);
 }
 
 // ordered: 1 the near child last, 0 child order; drain_at in 1..LQ-4.
@@ -616,23 +793,44 @@ extern "C" int lab_occlusion4_queued(const float* origin,
                                      const float* direction,
                                      const float* t_max,
                                      const int* skip_object, int64_t n,
-                                     int root, const int* qmeta,
-                                     const float* qnodes, const float* ptris,
-                                     int leaf, int drain_at, int ordered,
-                                     bool* out_occ, void* stream) {
+                                     int root, const float* qnodes,
+                                     const float* ptris,
+                                     const int* leaf_counts, int leaf,
+                                     int need, int* next_ray, int drain_at,
+                                     int ordered, bool* out_occ,
+                                     void* stream) {
   if (drain_at < 1 || drain_at > kLQ - 4) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  auto m4 = reinterpret_cast<const int4*>(qmeta);
+  if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
   auto q4 = reinterpret_cast<const float4*>(qnodes);
   auto t4 = reinterpret_cast<const float4*>(ptris);
   if (ordered) {
-    occlusion4_queued_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
-        origin, direction, t_max, skip_object, n, root, m4, q4, t4, leaf,
-        drain_at, out_occ);
-  } else {
-    occlusion4_queued_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-        origin, direction, t_max, skip_object, n, root, m4, q4, t4, leaf,
-        drain_at, out_occ);
+    return launch(occlusion4_queued_kernel<true>, n, need + kLQ, kCap + kLQ,
+                  next_ray, stream, origin, direction, t_max, skip_object,
+                  (int)n, root, q4, t4, leaf_counts, leaf, need, drain_at,
+                  next_ray, out_occ);
   }
-  return (int)cudaGetLastError();
+  return launch(occlusion4_queued_kernel<false>, n, need + kLQ, kCap + kLQ,
+                next_ray, stream, origin, direction, t_max, skip_object,
+                (int)n, root, q4, t4, leaf_counts, leaf, need, drain_at,
+                next_ray, out_occ);
+}
+
+// What a launch of `kernel` (0 L7, 1 L8 ordered, 2 L8 child order) at
+// stack need `need` looks like on the current device: out[0..7] as
+// persistent_walk.cuh's info(), the shared memory holding the queue too.
+extern "C" int lab2_launch_info(int kernel, int need, int* out) {
+  if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
+  switch (kernel) {
+    case 0:
+      return info<kGroup, kRefillAt>(closest8_queued_kernel, need + kLQ,
+                                     kCap + kLQ, out);
+    case 1:
+      return info<kGroup, kRefillAt>(occlusion4_queued_kernel<true>,
+                                     need + kLQ, kCap + kLQ, out);
+    case 2:
+      return info<kGroup, kRefillAt>(occlusion4_queued_kernel<false>,
+                                     need + kLQ, kCap + kLQ, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

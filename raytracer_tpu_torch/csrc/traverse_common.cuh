@@ -196,16 +196,17 @@ __device__ __forceinline__ void binary_visit(const Ray& r,
   binary_visit<kOrdered>(r, p, t_min, t_cap, StackPush{stack, sp});
 }
 
-// 4-wide node step: slab-test the 4 children of quad row `q` (6 float4: 4
-// boxes) against [t_min, t_cap] with NaN-propagating min/max (absent
-// children are NaN boxes and never hit), and push the hit ones of metas `m`
-// in child order; with kOrdered the nearest (the TPU kernel's 2-bit argmin
-// of t_near) goes last instead, through push.near.
-template <bool kOrdered, class Push>
-__device__ __forceinline__ void quad_visit(const Ray& r,
+// Slab tests of the 4 boxes in float4 q[0..5] (min.xyz, max.xyz each)
+// against [t_min, t_cap] with NaN-propagating min/max (an absent child's
+// NaN box is never hit), and the first level of a tournament of their
+// t_near (a missed child counting as kBig): the pair minima m01 = min(t0,
+// t1) and m23, and whether the second of each pair is strictly nearer
+// (b01, b23).
+__device__ __forceinline__ void four_slabs(const Ray& r,
                                            const float4* __restrict__ q,
-                                           int4 m, float t_min, float t_cap,
-                                           const Push& push) {
+                                           float t_min, float t_cap,
+                                           bool (&hit)[4], float& m01,
+                                           float& m23, int& b01, int& b23) {
   float b[24];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
@@ -215,33 +216,53 @@ __device__ __forceinline__ void quad_visit(const Ray& r,
     b[4 * j + 2] = f.z;
     b[4 * j + 3] = f.w;
   }
-  bool hit[4];
   float tn[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const float* x = b + 6 * c;
     hit[c] = slab(r, x[0], x[1], x[2], x[3], x[4], x[5], t_min, t_cap,
                   &tn[c]);
+    tn[c] = hit[c] ? tn[c] : kBig;
   }
-  int kids[4] = {m.x, m.y, m.z, m.w};
-  if (kOrdered) {
+  b01 = tn[1] < tn[0];
+  b23 = tn[3] < tn[2];
+  m01 = nmin(tn[0], tn[1]);
+  m23 = nmin(tn[2], tn[3]);
+}
+
+// Push the hit children of `hit`/`kids` in child order, but child `near`
+// (-1: none) last, through push.near. The near child is picked by
+// comparison, not by a dynamic index, so the arrays stay in registers.
+template <int kW, class Push>
+__device__ __forceinline__ void push_near_last(const bool (&hit)[kW],
+                                               const int (&kids)[kW],
+                                               int near, const Push& push) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) tn[c] = hit[c] ? tn[c] : kBig;
-    int b0 = tn[1] < tn[0];
-    int b1 = tn[3] < tn[2];
-    bool use_hi = nmin(tn[2], tn[3]) < nmin(tn[0], tn[1]);
-    int near = use_hi ? 2 + b1 : b0;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (hit[c] && c != near) push(kids[c]);
-    }
-    if (hit[near]) push.near(kids[near]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (hit[c]) push(kids[c]);
-    }
+  for (int c = 0; c < kW; ++c) {
+    if (hit[c] && c != near) push(kids[c]);
   }
+#pragma unroll
+  for (int c = 0; c < kW; ++c) {
+    if (c == near && hit[c]) push.near(kids[c]);
+  }
+}
+
+// 4-wide node step: slab-test the 4 children of quad row `q` (6 float4: 4
+// boxes) against [t_min, t_cap] and push the hit ones of metas `m` in
+// child order; with kOrdered the nearest (the TPU kernel's 2-bit argmin
+// of t_near) goes last instead, through push.near.
+template <bool kOrdered, class Push>
+__device__ __forceinline__ void quad_visit(const Ray& r,
+                                           const float4* __restrict__ q,
+                                           int4 m, float t_min, float t_cap,
+                                           const Push& push) {
+  bool hit[4];
+  float m01, m23;
+  int b01, b23;
+  four_slabs(r, q, t_min, t_cap, hit, m01, m23, b01, b23);
+  const int near = kOrdered ? (m23 < m01 ? 2 + b23 : b01) : -1;
+  const int kids[4] = {m.x, m.y, m.z, m.w};
+  push_near_last(hit, kids, near, push);
 }
 
 template <bool kOrdered>
@@ -252,58 +273,39 @@ __device__ __forceinline__ void quad_visit(const Ray& r,
   quad_visit<kOrdered>(r, q, m, t_min, t_cap, StackPush{stack, sp});
 }
 
-// 8-wide node step (tools/r3_oct_lab.py:154-234 per ray): slab-test the 8
-// children of oct row `o` (the 48 box floats of the row's 64, 12 float4)
-// against [t_min, t_cap] with NaN-propagating min/max (absent children are
-// NaN boxes and never hit), pick the near child by the TPU kernel's 3-bit
-// tournament of t_near (a missed child counts as kBig; each level compares
-// with a strict <, so a tie keeps the lower index), and push the hit ones
-// of metas `m` (two int4) in child order but the near one, which goes last
-// through push.near.
+// The child metas a node row holds as exact f32 (float4 `f`), as int4; an
+// absent child's NaN becomes 0.
+__device__ __forceinline__ int4 row_metas(float4 f) {
+  return make_int4(__float2int_rz(f.x), __float2int_rz(f.y),
+                   __float2int_rz(f.z), __float2int_rz(f.w));
+}
+
+// 8-wide node step (tools/r3_oct_lab.py:154-234 per ray) on oct row `o`
+// (16 float4: the 8 boxes in float4 0-11, the 8 child metas as exact f32
+// in float4 12-13): slab-test the children against [t_min, t_cap],
+// children 0-3 and then 4-7, so that 24 box floats are live at a time, not
+// 48; pick the near child by the TPU kernel's 3-bit tournament of t_near
+// (a missed child counts as kBig; each level compares with a strict <, so
+// a tie keeps the lower index), and push the hit ones in child order but
+// the near one, which goes last through push.near.
 template <class Push>
 __device__ __forceinline__ void oct_visit(const Ray& r,
                                           const float4* __restrict__ o,
-                                          int4 m_lo, int4 m_hi, float t_min,
-                                          float t_cap, const Push& push) {
-  float b[48];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    float4 f = __ldg(o + j);
-    b[4 * j + 0] = f.x;
-    b[4 * j + 1] = f.y;
-    b[4 * j + 2] = f.z;
-    b[4 * j + 3] = f.w;
-  }
-  bool hit[8];
-  float tn[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float* x = b + 6 * c;
-    hit[c] = slab(r, x[0], x[1], x[2], x[3], x[4], x[5], t_min, t_cap,
-                  &tn[c]);
-    tn[c] = hit[c] ? tn[c] : kBig;
-  }
-  int b01 = tn[1] < tn[0];
-  int b23 = tn[3] < tn[2];
-  int b45 = tn[5] < tn[4];
-  int b67 = tn[7] < tn[6];
-  float m01 = nmin(tn[0], tn[1]);
-  float m23 = nmin(tn[2], tn[3]);
-  float m45 = nmin(tn[4], tn[5]);
-  float m67 = nmin(tn[6], tn[7]);
+                                          float t_min, float t_cap,
+                                          const Push& push) {
+  bool lo[4], hi[4];
+  float m01, m23, m45, m67;
+  int b01, b23, b45, b67;
+  four_slabs(r, o, t_min, t_cap, lo, m01, m23, b01, b23);
+  four_slabs(r, o + 6, t_min, t_cap, hi, m45, m67, b45, b67);
   int near_lo = m23 < m01 ? 2 + b23 : b01;
   int near_hi = m67 < m45 ? 6 + b67 : 4 + b45;
   int near = nmin(m45, m67) < nmin(m01, m23) ? near_hi : near_lo;
-  int kids[8] = {m_lo.x, m_lo.y, m_lo.z, m_lo.w,
-                 m_hi.x, m_hi.y, m_hi.z, m_hi.w};
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    if (hit[c] && c != near) push(kids[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    if (c == near && hit[c]) push.near(kids[c]);
-  }
+  const int4 k0 = row_metas(__ldg(o + 12));
+  const int4 k1 = row_metas(__ldg(o + 13));
+  const bool hit[8] = {lo[0], lo[1], lo[2], lo[3], hi[0], hi[1], hi[2], hi[3]};
+  const int kids[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+  push_near_last(hit, kids, near, push);
 }
 
 // One level of the pairwise min tree: pair (2a, 2a+1) -> slot a for a <

@@ -220,15 +220,15 @@ def _count(counts, leaf_rays, node_rays):
 
 
 def queued_any_walk(origin, direction, t_max, skip_object, root, ptris, step,
-                    drain_at=DRAIN_AT, counts=None):
+                    drain_at=DRAIN_AT, counts=None, leaf_test=_any_leaf):
     """Any hit of every ray by the deferred-leaf walk from `root` (the
     any-hit kernels of tools/r3_occl3_lab.py:36 and
     pallas_subpacket.py:423, per ray): a leaf step tests its block against
-    t_max, a triangle of the ray's `skip_object` (i32[N], compared as f32)
-    not counting, and an occluded ray stops (the row exit of
-    r3_occl3_lab.py:68-78, per ray); an internal step slab-tests against
-    [1e-3, t_max] and pushes as `step` (quad_step) says. `counts` as in
-    queued_walk. Returns occ bool[N]."""
+    t_max with `leaf_test` (called as _any_leaf), a triangle of the ray's
+    `skip_object` (i32[N], compared as f32) not counting, and an occluded
+    ray stops (the row exit of r3_occl3_lab.py:68-78, per ray); an internal
+    step slab-tests against [1e-3, t_max] and pushes as `step` (quad_step)
+    says. `counts` as in queued_walk. Returns occ bool[N]."""
     skip_f = skip_object.to(torch.float32)
     occ = torch.zeros(t_max.shape, dtype=torch.bool, device=t_max.device)
     stack, sp, lq, ln, _ = _init_walk(t_max, root, False)
@@ -244,7 +244,7 @@ def queued_any_walk(origin, direction, t_max, skip_object, root, ptris, step,
         if leaf_rays.numel():
             ln[leaf_rays] -= 1
             blk = lq[leaf_rays, ln[leaf_rays].long()]
-            found = _any_leaf(origin[leaf_rays], direction[leaf_rays],
+            found = leaf_test(origin[leaf_rays], direction[leaf_rays],
                               ptris[blk.long()], t_max[leaf_rays],
                               skip_f[leaf_rays], T_MIN)
             occ[leaf_rays] |= found
@@ -284,6 +284,15 @@ def check_binary(scene):
             f"stack (CAP={CAP})")
 
 
+def check_need(need, what):
+    """The persistent queued walks (L7, L8) place `need` stack entries a
+    thread, and the queue's LQ, in shared memory: a `what` tree's need must
+    be in 1..CAP, the plain walk's stack."""
+    if not 1 <= need <= CAP:
+        raise ValueError(f"{what} stack need {need} is outside 1..{CAP} "
+                         f"(the queued walk's stack, CAP={CAP})")
+
+
 def check_drain_at(drain_at, width=2):
     """drain_at in 1..LQ - width: an internal step of a `width`-wide tree,
     taken while ln < drain_at, queues at most `width` leaves, so the queue
@@ -307,6 +316,47 @@ def hit_outputs(n, device, counters=False):
     if counters:
         out += (torch.empty((n,), **i32), torch.empty((n,), **i32))
     return out
+
+
+LAUNCH_KERNELS = {"closest8": ("closest8_queued_kernel", 0),
+                  "occlusion_ordered": ("occlusion4_queued_kernelILb1E", 1),
+                  "occlusion_fixed": ("occlusion4_queued_kernelILb0E", 2)}
+
+
+def launch_info(kernel, need, device):
+    """What a launch of L7 ("closest8") or L8 ("occlusion_ordered",
+    "occlusion_fixed") at stack need `need` looks like on `device`:
+    quad_traverse.launch_info's keys (its shared memory holds the leaf
+    queue too), and "spills", the ptxas spill stores and loads in bytes
+    ("?" when the library was loaded from the build directory's cache)."""
+    import ctypes
+
+    from raytracer_tpu_torch.ops import _build
+    from raytracer_tpu_torch.ops.quad_traverse import LAUNCH_INFO_KEYS
+
+    name, index = LAUNCH_KERNELS[kernel]
+    out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    with torch.cuda.device(device):
+        rc = _build.lab2_traverse_lib().lab2_launch_info(index, need, out)
+    if rc != 0:
+        raise RuntimeError(f"lab2_launch_info failed: cudaError {rc}")
+    info = dict(zip(LAUNCH_INFO_KEYS, out))
+    log = _build.build_info.get("liblab2_traverse", {}).get("log", "")
+    info["spills"] = _build.ptxas_spills(log, name)
+    return info
+
+
+def launch_line(label, kernel, need, device):
+    """One line of launch_info(kernel, need, device), labelled `label`."""
+    i = launch_info(kernel, need, device)
+    st, ld = i["spills"]
+    return (f"{label} launch: {i['registers']} registers, spill stores {st} "
+            f"B, spill loads {ld} B, local {i['local_bytes']} B a thread, "
+            f"dynamic shared {i['smem_bytes']} B a block (stack need {need} "
+            f"+ LQ {LQ}), {i['blocks_per_sm']} blocks of 128 a SM "
+            f"({4 * i['blocks_per_sm']} warps), grid {i['grid']} blocks on "
+            f"{i['sms']} SMs; G = {i['group']}, refill at {i['refill_at']} "
+            "idle lanes")
 
 
 def launch(entry, device, *args):

@@ -13,8 +13,9 @@ origin (the JAX lab's order, tools/r3_occl3_lab.py:207-213:
 lab.rays.resort_key; the sort timed apart, as occl_lab's resort), times K2
 (ops/quad_traverse.occlusion_quad, the production any-hit kernel) and both
 orders of L8 (CUDA events, mean of 5), runs each order's plain version
-once (host clock) for its steps, and prints the speed-up over K2, the rays
-whose mask differs from K2's, and the steps and leaf steps per live ray.
+once (host clock) for its steps, and prints each order's launch shape, the
+speed-up over K2, the rays whose mask differs from K2's, and the steps and
+leaf steps per live ray.
 
 Orders:
   ordered  the JAX lab's: the 2-bit argmin of t_near (:95-98) picks the
@@ -32,7 +33,10 @@ order: both orders equal K2's mask on every ray, and only the steps and
 the time move.
 
 On CUDA tensors the wrapper launches csrc/lab2_traverse.cu:
-lab_occlusion4_queued; on CPU tensors it runs the plain torch version,
+lab_occlusion4_queued, persistent warps with the stack (the 4-wide tree's
+q_stack_need) and the leaf queue in shared memory, reading each node's
+metas from its qnodes row and each leaf up to its count; an occluded ray
+frees its lane at once. On CPU tensors it runs the plain torch version,
 which the kernel equals bit for bit.
 """
 
@@ -49,7 +53,6 @@ from raytracer_tpu_torch.lab.occl_lab import resort_perm
 from raytracer_tpu_torch.ops import quad_traverse as qt
 from raytracer_tpu_torch.ops.quad_traverse import (
     T_MIN,
-    TRI_STRIDE,
     _check_rays,
     _inv_dir,
     _ptr,
@@ -77,45 +80,53 @@ def run_occl_ordered(origin, direction, t_max, skip_object, scene,
     tree of `scene`, the near child pushed last (`ordered`) or every child
     in child order; a ray with t_max <= 1e-3 is inactive. Returns occ
     bool[N]."""
-    global occlusion_launches
     if not isinstance(ordered, bool):
         raise ValueError(f"unknown order {ordered!r}: ordered is True (near "
                          "child last) or False (child order)")
-    qt._check_scene(scene)
+    qw.check_need(scene.q_stack_need, "quad-BVH")
     qw.check_drain_at(qw.DRAIN_AT, 4)
     o, d, tm = _ray_inputs(origin, direction, t_max, None)
     skip = torch.as_tensor(skip_object, device=o.device).to(
         torch.int32).expand(o.shape[0]).contiguous()
     if o.is_cuda:
-        out = _occl_ordered_cuda(o, d, tm, skip, scene, ordered)
-        occlusion_launches += 1
-        return out
+        return _occl_ordered_cuda(o, d, tm, skip, scene, ordered)
     return occl_ordered_plain(o, d, tm, skip, scene.root, scene.qmeta,
                               scene.qnodes, scene.ptris, ordered)
 
 
 def occl_ordered_plain(origin, direction, t_max, skip_object, root, qmeta,
-                       qnodes, ptris, ordered, counts=None):
+                       qnodes, ptris, ordered, counts=None,
+                       leaf_test=qt._any_leaf):
     """Plain torch version of lab_occlusion4_queued. Returns occ bool[N].
     `counts` (nit, nleaf), i32[N] each, adds up each ray's steps and leaf
-    steps: the kernel has no counters, but takes the same steps."""
+    steps: the kernel has no counters, but takes the same steps.
+    `leaf_test` is queue_walk.queued_any_walk's leaf hook."""
     step = qw.quad_step(origin, _inv_dir(direction), qmeta, qnodes, ordered)
     return qw.queued_any_walk(origin, direction, t_max, skip_object, root,
-                              ptris, step, counts=counts)
+                              ptris, step, counts=counts, leaf_test=leaf_test)
 
 
 def _occl_ordered_cuda(origin, direction, t_max, skip_object, scene,
                        ordered):
+    """L8 on the card: the qnodes rows (their metas in float4 6; qmeta is
+    not read), ptris and its leaf counts, the tree's stack need and a ray
+    counter of its own."""
+    global occlusion_launches
     n, dev = _check_rays(origin, direction, t_max)
+    qt._check_n(n)
     _require("skip_object", skip_object, torch.int32, (n,), dev)
-    qt._check_scene_arrays(scene, dev)
+    qw.check_need(scene.q_stack_need, "quad-BVH")
+    _require("qnodes", scene.qnodes, torch.float32,
+             (scene.qnodes.shape[0], 32), dev, vec=True)
+    qt._check_ptris(scene.ptris, dev)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
+        args, _counter = qt._walk_args(scene.ptris, dev, scene.root,
+                                       scene.qnodes, scene.q_stack_need)
         qw.launch("lab_occlusion4_queued", dev, _ptr(origin),
-                  _ptr(direction), _ptr(t_max), _ptr(skip_object), n,
-                  scene.root, _ptr(scene.qmeta), _ptr(scene.qnodes),
-                  _ptr(scene.ptris), scene.ptris.shape[1] // TRI_STRIDE,
+                  _ptr(direction), _ptr(t_max), _ptr(skip_object), n, *args,
                   qw.DRAIN_AT, int(ordered), _ptr(occ))
+        occlusion_launches += 1
     return occ
 
 
@@ -135,14 +146,19 @@ def resorted(sets, scene, reps=REPS):
     return out, lab_rays.cuda_ms(sort, reps)
 
 
-def run(scene, sets, reps=REPS, log=print):
+def run(scene, sets, reps=REPS, log=print, leaf_hooks=None):
     """K2 and both orders on every shadow set and on the resorted bounce-1
     batch, and each order's plain version once for its steps; prints one
     line each. Returns {(set, "k2"): stats, (set, order): stats} with the
     kernels' outputs under "out" and the plain versions' under "plain"
     (host ms "plain_ms", counts "counts"); the resorted set's K2 stats hold
-    the sort's ms ("sort_ms")."""
+    the sort's ms ("sort_ms"). `leaf_hooks`, as r3_oct_lab.run's, makes
+    each plain run test its leaves through a new any-hit hook and puts the
+    hook's total under "tests"."""
     sets, sort_ms = resorted(sets, scene, reps)
+    for order in ORDERS if scene.ptris.is_cuda else ():
+        log(qw.launch_line(f"L8 {order}", f"occlusion_{order}",
+                           scene.q_stack_need, scene.ptris.device))
     results = {}
     for label, (o, d, tm, skip, _active) in sets.items():
         k2 = qt.occlusion_quad(o, d, T_MIN, tm, scene, skip)
@@ -163,15 +179,18 @@ def run(scene, sets, reps=REPS, log=print):
                 reps)
             counts = tuple(torch.zeros_like(tm, dtype=torch.int32)
                            for _ in range(2))
+            _, leaf_test, total = (leaf_hooks() if leaf_hooks
+                                   else (None, qt._any_leaf, None))
             plain, plain_ms = lab_rays.host_ms(
                 lambda: occl_ordered_plain(o, d, tm, skip, scene.root,
                                            scene.qmeta, scene.qnodes,
-                                           scene.ptris, ordered, counts))
+                                           scene.ptris, ordered, counts,
+                                           leaf_test))
             mism = int((out != k2).sum())
             steps, p90, leaf_steps = qw.step_stats(counts, tm)
             results[(label, order)] = dict(
                 ms=ms, mism=mism, out=out, plain=plain, plain_ms=plain_ms,
-                counts=counts)
+                counts=counts, tests=total[0] if total else None)
             log(f"occl3 {label:17s} {order:8s} {ms:8.3f} ms "
                 f"({k2_ms / ms:.3f}x K2)  mask mism vs K2 {mism}; "
                 f"steps/ray mean {steps:.3f} p90 {p90:.0f}, leaf steps "

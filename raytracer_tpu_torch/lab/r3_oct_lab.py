@@ -10,8 +10,9 @@ into the oct tree, and on each ray set of lab.rays.closest_sets (primary,
 bounce 1, bounce 1 sorted; the JAX lab times only the last) times K1
 (ops/quad_traverse.intersect_quad, the production 4-wide kernel) and L7
 (CUDA events, mean of 5), runs L7's plain version once (host clock) for
-its steps, and prints the speed-up over K1, the hit flips and triangle
-differences against K1, and the steps and leaf steps per live ray.
+its steps, and prints L7's launch shape, the speed-up over K1, the hit
+flips and triangle differences against K1, and the steps and leaf steps
+per live ray.
 
 The oct tree (collapse_bvh8): each oct node's children are its binary
 great-grandchildren, with leaves absorbed wherever they appear. A row of
@@ -29,8 +30,10 @@ level: a tree whose stack need exceeds queue_walk.CAP is refused (the JAX
 lab asserts; its kernel would clamp its writes at CAP - 1).
 
 On CUDA tensors the wrapper launches csrc/lab2_traverse.cu:
-lab_closest8_queued; on CPU tensors it runs the plain torch version, which
-the kernel equals bit for bit.
+lab_closest8_queued, persistent warps with the stack (the tree's stack
+need) and the leaf queue in shared memory, reading each node's metas from
+its onodes row and each leaf up to its count; on CPU tensors it runs the
+plain torch version, which the kernel equals bit for bit.
 """
 
 from __future__ import annotations
@@ -49,7 +52,6 @@ from raytracer_tpu_torch.lab.bvh4_lab import against
 from raytracer_tpu_torch.ops import quad_traverse as qt
 from raytracer_tpu_torch.ops.quad_traverse import (
     T_MIN,
-    TRI_STRIDE,
     _check_ptris,
     _check_rays,
     _inv_dir,
@@ -152,9 +154,7 @@ def oct_tree(bvh, device):
 
 
 def _check(tree):
-    if tree.stack_need > qw.CAP:
-        raise ValueError(f"oct-tree stack need {tree.stack_need} exceeds the "
-                         f"queued walk's stack (CAP={qw.CAP})")
+    qw.check_need(tree.stack_need, "oct-tree")
     qw.check_drain_at(qw.DRAIN_AT, WIDTH)
 
 
@@ -163,50 +163,62 @@ def run_closest8(origin, direction, t_max, tree, ptris):
     over the leaf rows `ptris` of the BVH it was collapsed from (t_min
     1e-3, t_max scalar or f32[N]; a ray with t_max <= 1e-3 is not walked).
     Returns (t f32[N], tri i32[N], u f32[N], v f32[N])."""
-    global closest_launches
     _check(tree)
     o, d, tm = _ray_inputs(origin, direction, t_max, None)
     if o.is_cuda:
-        out = _closest8_cuda(o, d, tm, tree, ptris)
-        closest_launches += 1
-        return out
+        return _closest8_cuda(o, d, tm, tree, ptris)
     return closest8_plain(o, d, tm, tree, ptris)
 
 
-def closest8_plain(origin, direction, t_max, tree, ptris, counts=None):
+def closest8_plain(origin, direction, t_max, tree, ptris, counts=None,
+                   leaf_test=qt._serial_leaf):
     """Plain torch version of lab_closest8_queued. Returns (t, tri, u, v).
     `counts` (nit, nleaf), i32[N] each, adds up each ray's steps and leaf
-    steps: the kernel has no counters, but takes the same steps."""
+    steps: the kernel has no counters, but takes the same steps.
+    `leaf_test` is queue_walk.queued_walk's leaf hook."""
     step = qw.oct_step(origin, _inv_dir(direction), tree.meta, tree.nodes)
     return qw.queued_walk(origin, direction, t_max, tree.root, ptris, step,
-                          counts=counts)
+                          leaf_test=leaf_test, counts=counts)
 
 
 def _closest8_cuda(origin, direction, t_max, tree, ptris):
+    """L7 on the card: the oct rows (their metas at columns 48:56; ometa is
+    not read), ptris and its leaf counts, the tree's stack need and a ray
+    counter of its own."""
+    global closest_launches
     n, dev = _check_rays(origin, direction, t_max)
+    qt._check_n(n)
+    qw.check_need(tree.stack_need, "oct-tree")
     n8 = tree.nodes.shape[0]
     _require("onodes", tree.nodes, torch.float32, (n8, 64), dev, vec=True)
-    _require("ometa", tree.meta, torch.int32, (WIDTH * n8,), dev, vec=True)
     _check_ptris(ptris, dev)
     out = qw.hit_outputs(n, dev)
     if n:
+        args, _counter = qt._walk_args(ptris, dev, tree.root, tree.nodes,
+                                       tree.stack_need)
         qw.launch("lab_closest8_queued", dev, _ptr(origin), _ptr(direction),
-                  _ptr(t_max), n, tree.root, _ptr(tree.meta),
-                  _ptr(tree.nodes), _ptr(ptris),
-                  ptris.shape[1] // TRI_STRIDE, qw.DRAIN_AT,
+                  _ptr(t_max), n, *args, qw.DRAIN_AT,
                   *(_ptr(t) for t in out))
+        closest_launches += 1
     return out
 
 
-def run(scene, tree, sets, reps=REPS, log=print):
+def run(scene, tree, sets, reps=REPS, log=print, leaf_hooks=None):
     """K1 and L7 on every closest-hit set, and L7's plain version once for
     its steps; prints one line each. Returns {(set, "k1"): stats,
     (set, "oct"): stats} with the kernels' outputs under "out" and the
     plain version's under "plain" (its host ms under "plain_ms", its
-    counts under "counts")."""
+    counts under "counts"). `leaf_hooks`, a callable that returns
+    (closest-hit leaf hook, any-hit leaf hook, total) as
+    chip_smoke.counting_leaf_tests does, makes the plain version test its
+    leaves through a new closest-hit hook on each set (its host ms with
+    it) and puts the hook's total under "tests"."""
     log(f"oct tree: {tree.nodes.shape[0]} oct nodes (quad "
         f"{scene.qnodes.shape[0]}), collapse {tree.collapse_s:.2f} s, stack "
         f"need {tree.stack_need} (CAP {qw.CAP})")
+    if scene.ptris.is_cuda:
+        log(qw.launch_line("L7", "closest8", tree.stack_need,
+                           scene.ptris.device))
     results = {}
     for label, (o, d, tm) in sets.items():
         k1 = qt.intersect_quad(o, d, scene, T_MIN, tm)
@@ -218,13 +230,17 @@ def run(scene, tree, sets, reps=REPS, log=print):
             lambda: run_closest8(o, d, tm, tree, scene.ptris), reps)
         counts = tuple(torch.zeros_like(tm, dtype=torch.int32)
                        for _ in range(2))
+        leaf_test, _, total = (leaf_hooks() if leaf_hooks
+                               else (qt._serial_leaf, None, None))
         plain, plain_ms = lab_rays.host_ms(
-            lambda: closest8_plain(o, d, tm, tree, scene.ptris, counts))
+            lambda: closest8_plain(o, d, tm, tree, scene.ptris, counts,
+                                   leaf_test))
         flips, tri_diff, max_dt = against(out, k1)
         steps, p90, leaf_steps = qw.step_stats(counts, tm)
         results[(label, "oct")] = dict(
             ms=ms, flips=flips, tri_diff=tri_diff, max_dt=max_dt, out=out,
-            plain=plain, plain_ms=plain_ms, counts=counts)
+            plain=plain, plain_ms=plain_ms, counts=counts,
+            tests=total[0] if total else None)
         log(f"oct {label:15s} K1 {k1_ms:8.3f} ms, oct closest {ms:8.3f} ms "
             f"({k1_ms / ms:.3f}x)  hit flips {flips}  tri diff {tri_diff}  "
             f"max|dt| {max_dt:.2e}; steps/ray mean {steps:.3f} p90 {p90:.0f}, "

@@ -36,7 +36,8 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 # A directory set here overrides compile_cache.build_dir() (tests set it).
 BUILD_DIR = None
 # Device helpers shared by the traversal kernels (#included by each .cu;
-# persistent_walk.cuh by quad_traverse.cu and binary_traverse.cu).
+# persistent_walk.cuh by quad_traverse.cu, binary_traverse.cu and
+# lab2_traverse.cu).
 CUDA_HEADERS = (os.path.join(CSRC_DIR, "traverse_common.cuh"),
                 os.path.join(CSRC_DIR, "persistent_walk.cuh"))
 
@@ -201,7 +202,8 @@ def lab_traverse_lib() -> ctypes.CDLL:
 
 def lab2_traverse_lib() -> ctypes.CDLL:
     """The traversal lab's deferred-leaf (binary, 4-wide, 8-wide, any-hit)
-    and component-major kernels (csrc/lab2_traverse.cu)."""
+    and component-major kernels (csrc/lab2_traverse.cu; L7 and L8 take the
+    persistent walks' scene arguments)."""
     return _cuda_lib("lab2_traverse", {
         "lab_closest_cm": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _P, _P, _P],
         "lab_closest_queued": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
@@ -210,10 +212,11 @@ def lab2_traverse_lib() -> ctypes.CDLL:
                              _I32, _P, _P, _P, _P, _P],
         "lab_closest4_queued": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
                                 _I32, _I32, _I32, _P, _P, _P, _P, _P],
-        "lab_closest8_queued": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
-                                _I32, _P, _P, _P, _P, _P],
-        "lab_occlusion4_queued": [_P, _P, _P, _P, _I64, _I32, _P, _P, _P,
-                                  _I32, _I32, _I32, _P, _P],
+        "lab_closest8_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _P, _P,
+                                _P, _P, _P],
+        "lab_occlusion4_queued": [_P, _P, _P, _P, _I64, *_SCENE, _I32, _I32,
+                                  _P, _P],
+        "lab2_launch_info": [_I32, _I32, _P],
     })
 
 

@@ -225,7 +225,8 @@ def _launch_args(scene, dev, need=None):
     if not 1 <= need <= STACK_CAP:
         raise ValueError(f"stack need {need} is outside 1..{STACK_CAP}")
     _check_scene_arrays(scene, dev)
-    return _walk_args(scene, dev, scene.binary_root, scene.pnodes, need)
+    return _walk_args(scene.ptris, dev, scene.binary_root, scene.pnodes,
+                      need)
 
 
 def _intersect_binary_cuda(origin, direction, t_max, t_min, scene,

@@ -519,12 +519,16 @@ def row_counts(rows):
 
 
 def leaf_counts(scene):
-    """`row_counts` of `scene.ptris`: the kernels test a row's triangles
-    below its count only, as the slots past it are zero triangles (e1 = e2
-    = 0, so det = 0), which are never valid. Computed on the scene's device
-    at first use and cached per ptris tensor, for as long as it lives: no
-    ptris tensor is written in place (see the module docstring)."""
-    ptris = scene.ptris
+    """`row_counts` of `scene.ptris` (ptris_leaf_counts)."""
+    return ptris_leaf_counts(scene.ptris)
+
+
+def ptris_leaf_counts(ptris):
+    """`row_counts` of `ptris`: the kernels test a row's triangles below
+    its count only, as the slots past it are zero triangles (e1 = e2 = 0,
+    so det = 0), which are never valid. Computed on ptris's device at first
+    use and cached per ptris tensor, for as long as it lives: no ptris
+    tensor is written in place (see the module docstring)."""
     key = id(ptris)
     cached = _leaf_counts.get(key)
     if cached is not None and cached[0]() is ptris:
@@ -535,25 +539,25 @@ def leaf_counts(scene):
     return counts
 
 
-def _walk_args(scene, dev, root, nodes, need):
+def _walk_args(ptris, dev, root, nodes, need):
     """The scene and launch arguments the persistent walks
-    (csrc/persistent_walk.cuh) take after the rays: root, node rows, ptris,
-    leaf counts, leaf size, stack need and the ray counter, one int32 for
-    this launch (the C entry zeroes it on the launch's stream, and the
-    caching allocator hands it to no other stream's work before this launch
-    ends). Returns (the arguments, the counter)."""
-    counts = leaf_counts(scene)  # on ptris's device, i32[NB], contiguous
+    (csrc/persistent_walk.cuh) take after the rays: root, node rows, the
+    leaf rows `ptris`, their leaf counts, leaf size, stack need and the ray
+    counter, one int32 for this launch (the C entry zeroes it on the
+    launch's stream, and the caching allocator hands it to no other
+    stream's work before this launch ends). Returns (the arguments, the
+    counter)."""
+    counts = ptris_leaf_counts(ptris)  # on ptris's device, i32[NB]
     counter = torch.empty((1,), dtype=torch.int32, device=dev)
-    return ((root, _ptr(nodes), _ptr(scene.ptris), _ptr(counts),
-             scene.ptris.shape[1] // TRI_STRIDE, need, _ptr(counter)),
-            counter)
+    return ((root, _ptr(nodes), _ptr(ptris), _ptr(counts),
+             ptris.shape[1] // TRI_STRIDE, need, _ptr(counter)), counter)
 
 
 def _launch_args(scene, dev):
     """K1's and K2's `_walk_args`: the 4-wide tree's root and node rows,
     and its stack need."""
     _check_scene_arrays(scene, dev)
-    return _walk_args(scene, dev, scene.root, scene.qnodes,
+    return _walk_args(scene.ptris, dev, scene.root, scene.qnodes,
                       scene.q_stack_need)
 
 

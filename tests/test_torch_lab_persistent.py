@@ -1,0 +1,463 @@
+"""What the persistent L7 and L8 kernels (csrc/lab2_traverse.cu
+lab_closest8_queued, lab_occlusion4_queued) rely on in the trees and in
+their wrappers, on the CPU at small sizes:
+
+  - each onodes row carries its 8 child metas at columns 48:56 as exact
+    f32 integers equal to ometa, so L7 reads one row per node; an absent
+    child's box is NaN and never hit;
+  - the plain queued walks with each leaf row tested up to its count
+    (ops/quad_traverse.row_counts) equal the every-slot walks, results and
+    (nit, nleaf) step counts both, for L7 and for L8 in both orders: the
+    kernels stop their leaves there;
+  - the plain walks' stack never holds more than the need the wrappers
+    size shared memory by (OctTree.stack_need, q_stack_need), and the leaf
+    queue never more than LQ;
+  - with a fake library, the wrappers pass the node rows (not ometa or
+    qmeta), ptris's leaf counts, the tree's stack need and a ray counter of
+    each launch's own; they refuse a stack need outside 1..CAP and more
+    rays than the counter takes, and raise on a failed launch, which is not
+    counted; the launch-shape query finds each kernel's ptxas spills.
+
+The scenes are the Cornell box and a ~4k-triangle atrium, baked at leaf 8
+(the labs' leaf size) with the numpy BVH builder. The JAX lab kernels
+themselves are held against the port in tests/test_torch_lab_oct.py."""
+
+import contextlib
+import ctypes
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu_torch.accel.native_builder as tnative
+import raytracer_tpu_torch.scene.benchmark as tbench
+import raytracer_tpu_torch.scene.model as tmodel
+from raytracer_tpu_torch.lab import queue_walk as qw
+from raytracer_tpu_torch.lab import r3_occl3_lab as l8
+from raytracer_tpu_torch.lab import r3_oct_lab as l7
+from raytracer_tpu_torch.ops import _build
+from raytracer_tpu_torch.ops import quad_traverse as qt
+from raytracer_tpu_torch.scene.device_scene import bake_scene
+
+torch.set_num_threads(1)  # see test_torch_ops.py
+
+SCENES = {"cornell": tmodel.create_cornell_box,
+          "atrium4k": lambda: tbench.create_benchmark_atrium(4_000)}
+KINDS = ("closest8", "ordered", "fixed")
+RAYS = 2048
+_bakes = {}
+
+
+@pytest.fixture(autouse=True)
+def numpy_builder(monkeypatch):
+    monkeypatch.setattr(tnative, "available", lambda: False)
+
+
+def _bake(name):
+    """(DeviceScene on the CPU at leaf 8, its OctTree), once per module."""
+    if name not in _bakes:
+        ds, bvh = bake_scene(SCENES[name](), leaf_size=l7.LEAF_SIZE,
+                             device="cpu")
+        _bakes[name] = (ds, l7.oct_tree(bvh, "cpu"))
+    return _bakes[name]
+
+
+def _rays(ds, seed=3):
+    """Rays from inside the scene's bounds in random directions (a
+    sixteenth along an axis), a quarter inactive (t_max = 1e-3), and a skip
+    object each."""
+    rng = np.random.default_rng(seed)
+    v0 = ds.ptris.view(ds.ptris.shape[0], -1, qt.TRI_STRIDE)[:, :, 0:3]
+    v0 = v0.reshape(-1, 3).numpy()
+    lo, hi = v0.min(0), v0.max(0)
+    o = rng.uniform(lo, hi, (RAYS, 3)).astype(np.float32)
+    d = rng.normal(size=(RAYS, 3)).astype(np.float32)
+    d[:RAYS // 16, 1:] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = rng.uniform(0.1, 2.0, RAYS).astype(np.float32)
+    t_max *= np.float32(np.linalg.norm(hi - lo))
+    t_max[rng.uniform(size=RAYS) < 0.25] = np.float32(qt.T_MIN)
+    skip = rng.integers(-1, 6, RAYS).astype(np.int32)
+    return (torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(t_max), torch.from_numpy(skip))
+
+
+def _counted_closest(origin, direction, rows, bt, btri, bu, bv, t_min):
+    """The closest-hit leaf test up to each row's count only, as the
+    kernels run it."""
+    count = qt.row_counts(rows)
+    ox, oy, oz = origin.unbind(1)
+    dx, dy, dz = direction.unbind(1)
+    for k in range(rows.shape[1] // qt.TRI_STRIDE):
+        tri = rows[:, k * qt.TRI_STRIDE:(k + 1) * qt.TRI_STRIDE]
+        t, u, v, valid = qt._moller(ox, oy, oz, dx, dy, dz, tri, bt, t_min)
+        valid &= k < count
+        bt = torch.where(valid, t, bt)
+        btri = torch.where(valid, tri[:, 9].to(torch.int32), btri)
+        bu = torch.where(valid, u, bu)
+        bv = torch.where(valid, v, bv)
+    return bt, btri, bu, bv
+
+
+def _counted_any(origin, direction, rows, t_max, skip_f, t_min):
+    """The any-hit leaf test up to each row's count only."""
+    count = qt.row_counts(rows)
+    ox, oy, oz = origin.unbind(1)
+    dx, dy, dz = direction.unbind(1)
+    found = torch.zeros_like(t_max, dtype=torch.bool)
+    for k in range(rows.shape[1] // qt.TRI_STRIDE):
+        tri = rows[:, k * qt.TRI_STRIDE:(k + 1) * qt.TRI_STRIDE]
+        _, _, _, valid = qt._moller(ox, oy, oz, dx, dy, dz, tri, t_max,
+                                    t_min)
+        found |= valid & (tri[:, 10] != skip_f) & (k < count)
+    return found
+
+
+def _walk(kind, ds, tree, rays, counted=False, counts=None):
+    """The plain walk of L7 ("closest8") or L8 ("ordered", "fixed") on
+    `rays`, every slot of each leaf row tested or (`counted`) up to its
+    count."""
+    o, d, tm, skip = rays
+    if kind == "closest8":
+        step = qw.oct_step(o, qt._inv_dir(d), tree.meta, tree.nodes)
+        leaf = _counted_closest if counted else qt._serial_leaf
+        return qw.queued_walk(o, d, tm, tree.root, ds.ptris, step,
+                              leaf_test=leaf, counts=counts)
+    step = qw.quad_step(o, qt._inv_dir(d), ds.qmeta, ds.qnodes,
+                        kind == "ordered")
+    leaf = _counted_any if counted else qt._any_leaf
+    return (qw.queued_any_walk(o, d, tm, skip, ds.root, ds.ptris, step,
+                               counts=counts, leaf_test=leaf),)
+
+
+def _new_counts():
+    return tuple(torch.zeros(RAYS, dtype=torch.int32) for _ in range(2))
+
+
+# --------------------------------------------------------------------------
+# The oct rows.
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_oct_rows_hold_exact_child_metas(name):
+    """onodes[:, 48:56] equals ometa wherever a child is present, as exact
+    integers below 2**24 in magnitude (internal rows >= 0, leaf blocks ~m <
+    0); an absent child has a NaN box, a NaN meta column and ometa 0, and
+    columns 56:64 are 0. Every leaf block is some row's child once."""
+    ds, tree = _bake(name)
+    onodes, ometa = tree.nodes, tree.meta.view(-1, 8)
+    metas = onodes[:, 48:56]
+    absent = torch.isnan(metas)
+    boxes = onodes[:, :48].view(-1, 8, 6)
+    assert torch.equal(absent, torch.isnan(boxes).all(dim=2))
+    assert not torch.isnan(boxes[~absent]).any()
+    assert (onodes[:, 56:] == 0).all()
+    assert (ometa[absent] == 0).all()
+    present = metas[~absent]
+    assert (present.abs() < 2 ** 24).all()
+    assert torch.equal(present, present.trunc())
+    assert torch.equal(present.to(torch.int32), ometa[~absent])
+    inner = ometa[~absent & (ometa >= 0)]
+    leaves = ~ometa[~absent & (ometa < 0)]
+    assert (inner > 0).all() and (inner < onodes.shape[0]).all()
+    assert sorted(leaves.tolist()) == list(range(ds.ptris.shape[0]))
+    assert tree.root == 0 and onodes.shape[0] > 1
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_absent_children_are_never_hit(name):
+    """The slab test of every NaN box of the oct rows misses every ray,
+    whatever its t cap."""
+    ds, tree = _bake(name)
+    o, d, tm, _ = _rays(ds)
+    rows = tree.nodes[torch.isnan(tree.nodes[:, 48:56]).any(dim=1)]
+    assert rows.shape[0] > 0
+    pick = torch.arange(RAYS) % rows.shape[0]
+    hit, _ = qt._slab_children(o, qt._inv_dir(d), rows[pick, :48],
+                               torch.full_like(tm, 1e30), qt.T_MIN)
+    absent = torch.isnan(rows[pick, 48:56])
+    assert absent.any()
+    assert not hit[absent].any()
+    assert hit[~absent].any()
+
+
+# --------------------------------------------------------------------------
+# The plain queued walks stopped at the leaf counts.
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_queued_walks_stop_at_leaf_counts(name, kind):
+    """Each leaf row tested up to its count: the same results and the same
+    (nit, nleaf) of every ray as every slot tested."""
+    ds, tree = _bake(name)
+    rays = _rays(ds)
+    c_all, c_counted = _new_counts(), _new_counts()
+    want = _walk(kind, ds, tree, rays, counts=c_all)
+    got = _walk(kind, ds, tree, rays, counted=True, counts=c_counted)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    for g, w in zip(c_counted, c_all):
+        assert torch.equal(g, w)
+    live = rays[2] > qt.T_MIN
+    assert (c_all[0][~live] == 0).all() and (c_all[0][live] > 0).all()
+    assert int(c_all[1].sum()) > 0
+    if kind == "closest8":
+        assert int((want[1] >= 0).sum()) > RAYS // 4
+    else:
+        assert 0 < int(want[0].sum()) < int(live.sum())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
+    """After every push of the plain walks, the stack holds at most the
+    need the wrapper sizes shared memory by (OctTree.stack_need for L7,
+    q_stack_need for L8; at most CAP), and the leaf queue at most LQ."""
+    ds, tree = _bake(name)
+    need = tree.stack_need if kind == "closest8" else ds.q_stack_need
+    deepest = {qw.CAP: 0, qw.LQ: 0}
+    push = qw._push
+
+    def watched(stack, sp, rays, meta, mask):
+        push(stack, sp, rays, meta, mask)
+        if rays.numel():
+            cap = stack.shape[1]
+            deepest[cap] = max(deepest[cap], int(sp[rays].max()))
+
+    monkeypatch.setattr(qw, "_push", watched)
+    _walk(kind, ds, tree, _rays(ds))
+    assert 2 <= deepest[qw.CAP] <= need <= qw.CAP
+    assert 1 <= deepest[qw.LQ] <= qw.LQ
+    print(f"{name} {kind}: need {need}, deepest stack {deepest[qw.CAP]}, "
+          f"deepest queue {deepest[qw.LQ]}")
+
+
+@pytest.mark.parametrize("lab", ("l7", "l8"))
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_lab_runs_count_through_the_leaf_hooks(name, lab, monkeypatch):
+    """run(..., leaf_hooks=...) tests the plain walks' leaves through a
+    new hook on each set and reports its total under "tests", with the
+    same results and steps as the default run: here a hook that counts
+    the leaf rows it tests, which is the leaf steps."""
+    from raytracer_tpu_torch.lab import rays as lab_rays
+
+    monkeypatch.setattr(lab_rays, "cuda_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(lab_rays, "host_ms", lambda fn: (fn(), 1.0))
+    ds, tree = _bake(name)
+    o, d, tm, skip = _rays(ds)
+
+    def hooks():
+        total = [0]
+
+        def closest(o, d, rows, *rest):
+            total[0] += rows.shape[0]
+            return qt._serial_leaf(o, d, rows, *rest)
+
+        def any_hit(o, d, rows, *rest):
+            total[0] += rows.shape[0]
+            return qt._any_leaf(o, d, rows, *rest)
+
+        return closest, any_hit, total
+
+    if lab == "l7":
+        sets = {"set": (o, d, tm)}
+        runs = [l7.run(ds, tree, sets, reps=1, log=lambda m: None,
+                       leaf_hooks=h) for h in (None, hooks)]
+        keys = [("set", "oct")]
+    else:
+        sets = {"shadow_b1_sorted": (o, d, tm, skip, tm > qt.T_MIN)}
+        runs = [l8.run(ds, sets, reps=1, log=lambda m: None, leaf_hooks=h)
+                for h in (None, hooks)]
+        keys = [(s, order) for s in ("shadow_b1_sorted", "shadow_b1_resort")
+                for order in l8.ORDERS]
+    for key in keys:
+        plain, hooked = runs[0][key], runs[1][key]
+        assert plain["tests"] is None
+        for g, w in zip((*hooked["counts"], *hooked["plain"]),
+                        (*plain["counts"], *plain["plain"]), strict=True):
+            assert torch.equal(g, w)
+        assert hooked["tests"] == int(hooked["counts"][1].sum()) > 0
+
+
+# --------------------------------------------------------------------------
+# The wrappers against a fake library.
+# --------------------------------------------------------------------------
+
+class _FakeLib:
+    """A stand-in for the built lab2 library: records each launch's
+    arguments and returns `rc`; lab2_launch_info fills its output with
+    1..8."""
+
+    def __init__(self, rc=0):
+        self.rc = rc
+        self.calls = []
+
+    def lab_closest8_queued(self, *args):
+        self.calls.append(("closest8", args))
+        return self.rc
+
+    def lab_occlusion4_queued(self, *args):
+        self.calls.append(("occlusion", args))
+        return self.rc
+
+    def lab2_launch_info(self, kernel, need, out):
+        self.calls.append(("info", (kernel, need)))
+        for i in range(len(qt.LAUNCH_INFO_KEYS)):
+            out[i] = i + 1
+        return self.rc
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """L7's and L8's CUDA wrappers on CPU tensors against a _FakeLib, with
+    the device context and the stream stubbed; the counters the launches
+    got are kept alive in `lib.counters`."""
+    lib = _FakeLib()
+    lib.counters = []
+    walk_args = qt._walk_args
+
+    def spy(*a, **kw):
+        args, counter = walk_args(*a, **kw)
+        lib.counters.append(counter)
+        return args, counter
+
+    monkeypatch.setattr(_build, "lab2_traverse_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(qt, "_stream", lambda dev: ctypes.c_void_p(0))
+    monkeypatch.setattr(qt, "_walk_args", spy)
+    l7.reset_launch_counts()
+    l8.reset_launch_counts()
+    return lib
+
+
+def _launch_all(ds, tree, rays):
+    """L7 once and L8 in both orders on the fake library."""
+    o, d, tm, skip = rays
+    l7._closest8_cuda(o, d, tm, tree, ds.ptris)
+    for ordered in (True, False):
+        l8._occl_ordered_cuda(o, d, tm, skip, ds, ordered)
+
+
+def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
+        fake_lib):
+    """L7 passes root, the onodes rows, ptris, ptris's leaf counts, the
+    leaf size, OctTree.stack_need, its counter and drain_at; L8 the same
+    with the qnodes rows and q_stack_need, then its order. Neither passes
+    ometa or qmeta; each launch has its own counter and adds one to its
+    kernel's count."""
+    ds, tree = _bake("atrium4k")
+    _launch_all(ds, tree, _rays(ds))
+    assert (l7.closest_launches, l8.occlusion_launches) == (1, 2)
+    ptrs = [c.data_ptr() for c in fake_lib.counters]
+    assert len(set(ptrs)) == 3
+    counts = qt.ptris_leaf_counts(ds.ptris).data_ptr()
+    (k7, a7), (ko, ao), (kf, af) = fake_lib.calls
+    assert (k7, ko, kf) == ("closest8", "occlusion", "occlusion")
+    assert a7[3] == RAYS and a7[4] == tree.root
+    assert [a.value for a in (a7[5], a7[6], a7[7])] == [
+        tree.nodes.data_ptr(), ds.ptris.data_ptr(), counts]
+    assert a7[8:10] == (l7.LEAF_SIZE, tree.stack_need)
+    assert (a7[10].value, a7[11]) == (ptrs[0], qw.DRAIN_AT)
+    assert len(a7) == 17 and a7[-1].value is None  # the stream last
+    for a, ordered, ptr in ((ao, 1, ptrs[1]), (af, 0, ptrs[2])):
+        assert a[4] == RAYS and a[5] == ds.root
+        assert [x.value for x in (a[6], a[7], a[8])] == [
+            ds.qnodes.data_ptr(), ds.ptris.data_ptr(), counts]
+        assert a[9:11] == (l8.LEAF_SIZE, ds.q_stack_need)
+        assert (a[11].value, a[12], a[13]) == (ptr, qw.DRAIN_AT, ordered)
+        assert len(a) == 16 and a[-1].value is None
+    sent = {a.value for _, args in fake_lib.calls for a in args
+            if isinstance(a, ctypes.c_void_p)}
+    assert tree.meta.data_ptr() not in sent
+    assert ds.qmeta.data_ptr() not in sent
+
+
+def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
+    ds, tree = _bake("cornell")
+    o, d, tm, skip = _rays(ds)
+    fake_lib.rc = 2
+    with pytest.raises(RuntimeError, match="lab_closest8_queued"):
+        l7._closest8_cuda(o, d, tm, tree, ds.ptris)
+    for ordered in (True, False):
+        with pytest.raises(RuntimeError, match="lab_occlusion4_queued"):
+            l8._occl_ordered_cuda(o, d, tm, skip, ds, ordered)
+    assert (l7.closest_launches, l8.occlusion_launches) == (0, 0)
+    assert len(fake_lib.calls) == 3
+
+
+@pytest.mark.parametrize("need", [0, qw.CAP + 1])
+def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
+    """A stack need outside 1..CAP raises before the library is called, in
+    the CUDA wrappers and in the public entry points."""
+    ds, tree = _bake("cornell")
+    o, d, tm, skip = _rays(ds)
+    deep_tree = tree._replace(stack_need=need)
+    deep_scene = dataclasses.replace(ds, q_stack_need=need)
+    with pytest.raises(ValueError, match="stack need"):
+        l7._closest8_cuda(o, d, tm, deep_tree, ds.ptris)
+    with pytest.raises(ValueError, match="stack need"):
+        l7.run_closest8(o, d, tm, deep_tree, ds.ptris)
+    for ordered in (True, False):
+        with pytest.raises(ValueError, match="stack need"):
+            l8._occl_ordered_cuda(o, d, tm, skip, deep_scene, ordered)
+        with pytest.raises(ValueError, match="stack need"):
+            l8.run_occl_ordered(o, d, tm, skip, deep_scene, ordered)
+    assert fake_lib.calls == []
+
+
+def test_wrappers_refuse_more_rays_than_the_counter_takes(fake_lib,
+                                                          monkeypatch):
+    """More than MAX_RAYS rays raise before the library is called
+    (MAX_RAYS lowered to 100 here)."""
+    ds, tree = _bake("cornell")
+    monkeypatch.setattr(qt, "MAX_RAYS", 100)
+    with pytest.raises(ValueError, match="rays"):
+        _launch_all(ds, tree, _rays(ds))
+    o, d, tm, skip = _rays(ds)
+    with pytest.raises(ValueError, match="rays"):
+        l8._occl_ordered_cuda(o, d, tm, skip, ds, False)
+    assert fake_lib.calls == []
+
+
+def test_no_rays_launch_nothing(fake_lib):
+    ds, tree = _bake("cornell")
+    o, d, tm, skip = (a[:0] for a in _rays(ds))
+    assert l7._closest8_cuda(o, d, tm, tree, ds.ptris)[0].shape == (0,)
+    assert l8._occl_ordered_cuda(o, d, tm, skip, ds, True).shape == (0,)
+    assert fake_lib.calls == []
+    assert (l7.closest_launches, l8.occlusion_launches) == (0, 0)
+
+
+MANGLED = {
+    "closest8": "_ZN12_GLOBAL__N_122closest8_queued_kernelEPKfS1_S1_ii",
+    "occlusion_ordered":
+        "_ZN12_GLOBAL__N_124occlusion4_queued_kernelILb1EEEvPKfS2_S2_PKi",
+    "occlusion_fixed":
+        "_ZN12_GLOBAL__N_124occlusion4_queued_kernelILb0EEEvPKfS2_S2_PKi",
+}
+
+
+def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
+                                                         monkeypatch):
+    """launch_info asks the library for kernel 0 (L7), 1 (L8 ordered) or 2
+    (L8 child order) at the need given, and finds that kernel's spills in
+    a -Xptxas=-v log, the two L8 instances apart."""
+    log = []
+    for k, (kernel, mangled) in enumerate(MANGLED.items()):
+        log += [f"ptxas info    : Function properties for {mangled}",
+                f"    0 bytes stack frame, {8 * k} bytes spill stores, "
+                f"{8 * k + 4} bytes spill loads"]
+    monkeypatch.setitem(_build.build_info, "liblab2_traverse",
+                        {"seconds": 0.0, "log": "\n".join(log)})
+    for k, kernel in enumerate(MANGLED):
+        info = qw.launch_info(kernel, 24, torch.device("cpu"))
+        assert fake_lib.calls[-1] == ("info", (k, 24))
+        assert [info[key] for key in qt.LAUNCH_INFO_KEYS] == list(
+            range(1, len(qt.LAUNCH_INFO_KEYS) + 1))
+        assert info["spills"] == (8 * k, 8 * k + 4)
+    fake_lib.rc = 1
+    with pytest.raises(RuntimeError, match="lab2_launch_info"):
+        qw.launch_info("closest8", 24, torch.device("cpu"))
