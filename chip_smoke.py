@@ -51,7 +51,11 @@ Phases (any failure exits non-zero and prints no result line):
      its plain torch version on every ray of every set (bit equality of
      the hit records, masks and counts; plain timed by host clock, one
      run), and L2 against K1 (hit flips and triangle differences at most
-     TREE_AGREEMENT of the rays).
+     TREE_AGREEMENT of the rays; L2 ordered, K1's walk on K1's machinery,
+     equal to K1 on every ray). Then L2's launch shapes (both orders; no
+     local memory and no spills) and its bounds on every set and order,
+     counted on the triangles it tests (walk_bound), each beside bound()
+     and beside the kernel's ms.
   7. The deferred-leaf and component-major labs at 1920x1080 on the leaf-8
      atrium (its closest-hit sets), through the functions their entry
      points run: v2_kernel_lab (L3), v3_kernel_lab (L4: base, nocond,
@@ -63,7 +67,9 @@ Phases (any failure exits non-zero and prints no result line):
      clock, one run); L4 dblread = base, L5 switch = L4 base, L6 descent =
      no descent; L3/L4 against K3 and L5/L6 against K1 (hit flips and
      triangle differences at most TREE_AGREEMENT of the rays; nocond's
-     results are wrong by design and exempt).
+     results are wrong by design and exempt). Then L6's launch shapes
+     (every combination run; no local memory and no spills) and the
+     bounds of its serial combinations on every set, counted as L2's.
   8. The 8-wide lab L7 and the near-first any-hit lab L8 at 1920x1080 on
      the leaf-8 atrium, through the functions their entry points run:
      r3_oct_lab (the oct collapse of the bake's BVH, timed; K1 and L7 on
@@ -204,8 +210,8 @@ Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
 FP32 operations over the card's FP32 rate (L12: its results over the
 card's instruction rate for their type), counted on the run whose ms it
-shows (bound(); walk_bound() for K1-K4, L7 and L8, which count only the
-triangles they test; fixed_seq_bound(), chain_bound()); library_ms is
+shows (bound(); walk_bound() for K1-K4, L2, L6, L7 and L8, which count
+only the triangles they test; fixed_seq_bound(), chain_bound()); library_ms is
 null, as no PyTorch call computes a BVH walk, a fixed-sequence walk or a
 K-step chain. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
@@ -1088,14 +1094,15 @@ def phase6(device):
         live = max(int((tm > 1e-3).sum()), 1)
         for order in bvh4_lab.ORDERS:
             # The kernel has no counters; its plain version counts the
-            # same walk's pops.
-            counts = tuple(torch.zeros((o.shape[0],), dtype=torch.int32,
-                                       device=device) for _ in range(2))
+            # same walk's pops, and the triangles it tests.
+            counts = new_counts(o)
+            leaf_test, _, total = counting_leaf_tests()
             ref, plain_ms = lab_rays.host_ms(
                 bvh4_lab.closest4_plain, o, d, tm, ds8.root, ds8.qmeta,
-                ds8.qnodes, ds8.ptris, order == "ordered", counts)
+                ds8.qnodes, ds8.ptris, order == "ordered", counts,
+                leaf_test)
             r = bres[(label, order)]
-            r["counts"] = counts
+            r["counts"], r["tests"] = counts, total[0]
             err = gate_equal(f"lab_closest4 {label} {order}", r["out"], ref)
             keep("lab_closest4", err, plain_ms
                  if (label, order) == ("bounce1", "ordered") else None)
@@ -1110,6 +1117,11 @@ def phase6(device):
                 raise RuntimeError(f"L2 and K1 disagree beyond "
                                    f"{TREE_AGREEMENT} of the rays ({label}, "
                                    f"{order})")
+        # L2 ordered takes K1's steps in K1's order on K1's machinery.
+        gate_equal(f"lab_closest4 {label} ordered vs K1",
+                   bres[(label, "ordered")]["out"], bres[(label, "k1")]["out"])
+        plog(f"lab_closest4 {label} ordered: equal to K1 on all "
+             f"{o.shape[0]} rays (t, tri, u, v)")
         # The binary walk on the same (leaf-8) bake, for the two trees side
         # by side.
         b = kernel_lab.run_closest_lab(o, d, tm, ds8, "base")
@@ -1121,11 +1133,17 @@ def phase6(device):
              f"{bres[(label, 'k1')]['ms']:.3f} ms (counts above)")
     plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
 
+    launch_shapes_gate([(f"closest4_{order}", ds8.q_stack_need)
+                        for order in bvh4_lab.ORDERS], device)
+    l2_bounds = lab4_bounds(ds8, closest8, bres, bvh4_lab.ORDERS,
+                            "lab_closest4", "L2", "phase 6")
+
     # L1's and L9's kernels count their own visits (equal to their plain
-    # versions', gated above); L2's plain version counts for it.
+    # versions', gated above); L2's plain version counts for it (walk_bound,
+    # above).
     n = closest16["bounce1"][0].shape[0]
     base, ts = kres[("bounce1", "base")], kres[("bounce1", "ts128")]
-    lean, l2 = ores[("shadow_b1", "lean")], bres[("bounce1", "ordered")]
+    lean = ores[("shadow_b1", "lean")]
     for name, r, ray_bytes, arrays, counts, node, tri in (
             ("lab_closest", base, CLOSEST_RAY_BYTES + COUNTER_BYTES,
              (ds16.pnodes, ds16.ptris), base["out"][4:], "binary",
@@ -1133,13 +1151,59 @@ def phase6(device):
             ("lab_closest_ts", ts, CLOSEST_RAY_BYTES + COUNTER_BYTES,
              (ds16.pnodes, ds16.ptris), ts["out"][4:], "binary", "closest"),
             ("lab_occlusion", lean, ANY_RAY_BYTES + COUNTER_BYTES,
-             (ds8.pnodes, ds8.ptris), lean["out"][1:], "binary", "any"),
-            ("lab_closest4", l2, CLOSEST_RAY_BYTES,
-             (ds8.qnodes, ds8.qmeta, ds8.ptris), l2["counts"], "quad",
-             "closest")):
+             (ds8.pnodes, ds8.ptris), lean["out"][1:], "binary", "any")):
         report[name].update(ms=r["ms"], launches=launches[name],
                             **bound(n, ray_bytes, arrays, counts, node, tri))
+    report["lab_closest4"].update(
+        ms=bres[("bounce1", "ordered")]["ms"],
+        launches=launches["lab_closest4"],
+        **l2_bounds[("bounce1", "ordered")])
     return report
+
+
+def lab4_bounds(ds, sets, res, variants, name, label, phase):
+    """The bound of L2 (`variants` its orders) or L6 (its (descent, divfree,
+    leafpar) combinations) on each closest-hit set of `sets`, counted on
+    the triangles they test and on live rays' bytes (walk_bound, 112 B a
+    qnodes row) from the steps and tests the runs `res` hold ("counts",
+    "tests"), each logged beside bound() (every slot of each leaf row
+    visited, qmeta read) and beside the run's ms. Returns {(set, variant):
+    bound}."""
+    from raytracer_tpu_torch.lab import r3_kernel_lab
+
+    bounds = {}
+    for set_label in sets:
+        for variant in variants:
+            r = res[(set_label, variant)]
+            if r.get("tests") is None:
+                continue
+            ordered = variant == "ordered" or isinstance(variant, tuple)
+            node = "quad" if ordered else "quad_fixed"
+            b = bounds[(set_label, variant)] = walk_bound(
+                ds, ds.qnodes, WIDTH * HEIGHT, CLOSEST_RAY_BYTES,
+                r["counts"], r["tests"], node, "closest")
+            what = (f"{set_label} {variant}" if isinstance(variant, str)
+                    else f"{set_label} {r3_kernel_lab.name(*variant)}")
+            log_walk_bound(f"{name} {what}", b,
+                           (ds.qnodes, ds.qmeta, ds.ptris), r["counts"],
+                           node, "closest", phase=phase)
+            log(f"{phase}: {label} {what}: {r['ms']:.3f} ms against a bound "
+                f"of {b['bound_ms']:.4f} ms, "
+                f"{100 * b['bound_ms'] / r['ms']:.2f}% of the bound")
+    return bounds
+
+
+def launch_shapes_gate(kernels, device):
+    """Each persistent lab kernel of `kernels` ((queue_walk.launch_info
+    key, stack need) pairs) runs on `device` without local memory and
+    without ptxas spills (the lab runs print each launch shape)."""
+    from raytracer_tpu_torch.lab import queue_walk as qw
+
+    for kernel, need in kernels:
+        i = qw.launch_info(kernel, need, device)
+        if i["local_bytes"] or i["spills"] not in ((0, 0), ("?", "?")):
+            raise RuntimeError(f"{kernel}: {i['local_bytes']} B of local "
+                               f"memory a thread, spills {i['spills']}")
 
 
 def lab2_modules():
@@ -1211,12 +1275,16 @@ def phase7(device):
                 counts=c))
             for var in v4.VARIANTS],
         "lab_closest4_queued": [
-            (combo, lambda o, d, tm, c, combo=combo: r3.closest_variant_plain(
-                o, d, tm, ds.root, ds.qmeta, ds.qnodes, ds.ptris, *combo,
-                counts=c))
+            (combo, lambda o, d, tm, c, lt=None, combo=combo:
+             r3.closest_variant_plain(o, d, tm, ds.root, ds.qmeta, ds.qnodes,
+                                      ds.ptris, *combo, counts=c,
+                                      leaf_test=lt))
             for combo in combos],
     }
-    # The walk each kernel's bound counts: its first variant on bounce 1.
+    # L6's serial combinations count the triangles they test (lab4_bounds).
+    serial = [c for c in combos if not (c[1] or c[2])]
+    # The walk each one-thread-per-ray kernel's bound counts: its first
+    # variant on bounce 1 (L6's: lab4_bounds).
     bounds = {
         "lab_closest_cm": (CLOSEST_RAY_BYTES - 8, (ds.pnodes, ptris_cm),
                            "binary", "cm"),
@@ -1224,9 +1292,6 @@ def phase7(device):
                                (ds.pnodes, ds.ptris), "binary", "closest"),
         "lab_closest_pair": (CLOSEST_RAY_BYTES, (ds.pnodes, ds.ptris),
                              "binary", "closest"),
-        "lab_closest4_queued": (CLOSEST_RAY_BYTES,
-                                (ds.qnodes, ds.qmeta, ds.ptris), "quad",
-                                "closest"),
     }
 
     report = {name: dict(max_abs_err=0.0) for name in mods}
@@ -1235,18 +1300,25 @@ def phase7(device):
         for name, variants in plain.items():
             for variant, fn in variants:
                 counts = new_counts(o)
-                ref, plain_ms = lab_rays.host_ms(fn, o, d, tm, counts)
+                r = res[name][(label, variant)]
+                if variant in serial:
+                    leaf_test, _, total = counting_leaf_tests()
+                    ref, plain_ms = lab_rays.host_ms(fn, o, d, tm, counts,
+                                                     leaf_test)
+                    r["counts"], r["tests"] = counts, total[0]
+                else:
+                    ref, plain_ms = lab_rays.host_ms(fn, o, d, tm, counts)
                 if name == "lab_closest_queued":
                     counts = ref[4:]
-                r = res[name][(label, variant)]
                 err = gate_equal(f"{name} {label} {variant}", r["out"], ref)
                 entry = report[name]
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if label == "bounce1" and variant == variants[0][0]:
                     entry["plain_ms"] = plain_ms
-                    ray_bytes, arrays, node, tri = bounds[name]
-                    entry.update(bound(o.shape[0], ray_bytes, arrays, counts,
-                                       node, tri))
+                    if name in bounds:
+                        ray_bytes, arrays, node, tri = bounds[name]
+                        entry.update(bound(o.shape[0], ray_bytes, arrays,
+                                           counts, node, tri))
                 vname = (r3.name(*variant) if isinstance(variant, tuple)
                          else variant)
                 plog(f"{name} {label} {vname}: equal to the plain version "
@@ -1279,6 +1351,12 @@ def phase7(device):
              f"base, L6 descent = no descent, on all {o.shape[0]} rays")
     plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
 
+    launch_shapes_gate([(r3.launch_kernel(*combo), ds.q_stack_need)
+                        for combo in combos], device)
+    l6_bounds = lab4_bounds(ds, sets, res["lab_closest4_queued"], serial,
+                            "lab_closest4_queued", "L6", "phase 7")
+    report["lab_closest4_queued"].update(
+        l6_bounds[("bounce1", (False, False, False))])
     for name, key in (("lab_closest_cm", "v2"), ("lab_closest_queued", "base"),
                       ("lab_closest_pair", "shared"),
                       ("lab_closest4_queued", (False, False, False))):
@@ -1370,15 +1448,10 @@ def phase8(device):
 def phase8_launch_shapes(ds, tree):
     """L7 and L8 (both orders) run without local memory and without ptxas
     spills (their lab runs print each launch shape)."""
-    from raytracer_tpu_torch.lab import queue_walk as qw
-
-    for kernel, need in (("closest8", tree.stack_need),
-                         ("occlusion_ordered", ds.q_stack_need),
-                         ("occlusion_fixed", ds.q_stack_need)):
-        i = qw.launch_info(kernel, need, ds.ptris.device)
-        if i["local_bytes"] or i["spills"] not in ((0, 0), ("?", "?")):
-            raise RuntimeError(f"{kernel}: {i['local_bytes']} B of local "
-                               f"memory a thread, spills {i['spills']}")
+    launch_shapes_gate((("closest8", tree.stack_need),
+                        ("occlusion_ordered", ds.q_stack_need),
+                        ("occlusion_fixed", ds.q_stack_need)),
+                       ds.ptris.device)
 
 
 def phase8_bounds(ds, tree, res7, res8):

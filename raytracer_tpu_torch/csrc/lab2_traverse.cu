@@ -1,6 +1,6 @@
 // The traversal lab's deferred-leaf and component-major kernels for Hopper
-// (sm_90a): L3-L6 one thread per ray (two for lab_closest_pair), L7 and L8
-// on persistent warps.
+// (sm_90a): L3-L5 one thread per ray (two for lab_closest_pair), L6, L7 and
+// L8 on persistent warps.
 //
 // Replaces the TPU lab kernels
 //   - tools/v2_kernel_lab.py:174 (run_closest_v2, L3): K3's walk over
@@ -28,7 +28,7 @@
 //     16) when it is pushed. Each step is a leaf step, popping the queue's
 //     top block and testing it, when ln >= drain_at or (no node pending and
 //     ln > 0); else an internal step, popping one node (with descent, the
-//     near child kept in `cur` instead, if any) and pushing its hit
+//     near child kept in a register instead, if any) and pushing its hit
 //     children far first, near last. The push policy routes them
 //     (traverse_common.cuh's node steps take it in place of the stack);
 //   - lab_closest_queued (L4) counts per ray what the TPU kernel counts per
@@ -43,11 +43,17 @@
 //     holds, else both an internal step; a ray with nothing of that kind
 //     sits the step out. `switch`: each ray its own kind, so per ray it is
 //     L4 base;
-//   - lab_closest4_queued (L6): the 4-wide walk; the near child (the 2-bit
-//     argmin) is pushed last or, with descent, kept in `cur` (a near leaf
-//     goes to the queue); leaf kinds serial, division-free (accepts in
-//     det-scaled space, best t carried as num/den through the step, one
-//     divide at its end) or ILP (leaf 8);
+//   - lab_closest4_queued (L6): the 4-wide walk (quad_visit<true>, the
+//     metas from the qnodes row's float4 6); the near child (the 2-bit
+//     argmin) is pushed last. `descent` keeps the stack's top in a register
+//     (RegisterPush); without it every internal child is written to the
+//     shared-memory stack and the next node popped from it (SharedPush).
+//     Both pop the same nodes in the same order, so they are equal; their
+//     times differ by what the register saves. Leaf kinds: serial, division-
+//     free (accepts in det-scaled space, best t carried as num/den through
+//     the step, one divide at its end), both to the row's count, or ILP
+//     (ilp_leaf<8>: every slot of the row against the entry best t, then a
+//     min tree);
 //   - lab_closest8_queued (L7): the 8-wide walk (oct_visit of
 //     traverse_common.cuh): a node step reads its 256-byte onodes row, the
 //     boxes of children 0-3, then of 4-7 (the tournament's first level of
@@ -77,11 +83,12 @@
 // blocks while the walk descends, which delays the best t and can only add
 // visits.
 //
-// L3-L6 keep their one-thread-per-ray design: a warp waits for its slowest
+// L3-L5 keep their one-thread-per-ray design: a warp waits for its slowest
 // ray, and stack and queue sit in local memory (320 B a ray, 640 B for the
-// pair kernel). L7 and L8 run K1-K4's machinery (persistent_walk.cuh's
+// pair kernel). L6, L7 and L8 run K1-K4's machinery (persistent_walk.cuh's
 // fetch, Stack, grouped leaves and launch) in one walk, queued_walk, for a
-// closest-hit or an any-hit ray:
+// closest-hit or an any-hit ray (ClosestRay with its leaf kind, AnyRay) and
+// a push policy (RegisterPush, or L6's SharedPush):
 //
 //   1. persistent warps: the occupancy calculator's grid, each warp taking
 //      rays from a per-launch counter (one atomicAdd per refill of its
@@ -91,7 +98,8 @@
 //      [entry][thread]: the tree's stack need (OctTree.stack_need,
 //      q_stack_need; at most CAP) plus LQ entries a thread, the stack's top
 //      in a register (RegisterPush: the last internal child a step pushes
-//      is the node the plain walk pops next, and is never written);
+//      is the node the plain walk pops next, and is never written; L6
+//      without descent writes it and pops it back);
 //   3. while-while over the drain rule: node steps while a lane's next step
 //      is a node step, then leaf steps while a lane's next step is a leaf
 //      step; each lane's next step is still decided by its own state, so
@@ -100,14 +108,17 @@
 //      ometa/qmeta;
 //   5. leaves stop at their last real triangle (ops/quad_traverse
 //      leaf_counts), their loads issued kGroup triangles at a time
-//      (closest_leaf_grouped, occluded_leaf_grouped). The slots past the
-//      count hold zero triangles, never accepted, so results and steps do
-//      not change.
+//      (closest_leaf_grouped, divfree_leaf_grouped, occluded_leaf_grouped).
+//      The slots past the count hold zero triangles, never accepted, so
+//      results and steps do not change. L6's ILP leaf loads the whole row
+//      at once.
 // Per ray, an L7 node step reads 224 B of its 256-byte row (two 128-byte
 // lines) where the 4-wide walk reads 112 B of one line, for fewer node
 // steps; each does 8 slab tests (25 FP32 operations each) and the 3-bit
 // tournament (13). PERF.md gives each kernel's byte and operation bound
 // and its time against it.
+
+#include <type_traits>
 
 #include "persistent_walk.cuh"
 
@@ -123,8 +134,8 @@ constexpr float kTMin = 1e-3f;  // the lab kernels' fixed t_min
 enum BinaryVariant { kBase = 0, kNocond = 1, kDblread = 2 };
 enum LeafKind { kSerialLeaf = 0, kDivfreeLeaf = 1, kIlpLeaf = 2 };
 
-// One ray of a queued walk: the ray, its best hit, its stack, queue and
-// descent register.
+// One ray of a one-thread-per-ray queued walk (L4, L5): the ray, its best
+// hit, its stack and its queue.
 struct QueuedRay {
   Ray r;
   float bt, bu, bv;
@@ -133,12 +144,10 @@ struct QueuedRay {
   int sp;
   int lq[kLQ];
   int ln;
-  int cur;  // the node kept by descent, or -1
 };
 
 __device__ __forceinline__ void init_ray(QueuedRay& q, const Ray& r,
-                                         float t_max, int root,
-                                         bool descent) {
+                                         float t_max, int root) {
   q.r = r;
   q.bt = t_max;
   q.btri = -1;
@@ -146,19 +155,16 @@ __device__ __forceinline__ void init_ray(QueuedRay& q, const Ray& r,
   q.bv = 0.0f;
   q.sp = 0;
   q.ln = 0;
-  q.cur = -1;
   if (!(t_max > kTMin)) return;  // cannot accept a hit: not walked
   if (root < 0) {
     q.lq[q.ln++] = ~root;
-  } else if (descent) {
-    q.cur = root;
   } else {
     q.stack[q.sp++] = root;
   }
 }
 
 __device__ __forceinline__ bool has_node(const QueuedRay& q) {
-  return q.cur >= 0 || q.sp > 0;
+  return q.sp > 0;
 }
 
 __device__ __forceinline__ bool alive(const QueuedRay& q) {
@@ -170,10 +176,9 @@ __device__ __forceinline__ bool wants_leaf(const QueuedRay& q,
   return q.ln >= drain_at || (!has_node(q) && q.ln > 0);
 }
 
-// Routes the hit children of a node step: internal ones to the stack (the
-// near one, with kDescent, to `cur`), leaf ones to the queue (or nowhere,
-// with kDropLeaves).
-template <bool kDescent, bool kDropLeaves>
+// Routes the hit children of a node step: internal ones to the stack, leaf
+// ones to the queue (or nowhere, with kDropLeaves).
+template <bool kDropLeaves>
 struct QueuePush {
   QueuedRay& q;
   __device__ __forceinline__ void operator()(int meta) const {
@@ -183,72 +188,16 @@ struct QueuePush {
       q.lq[q.ln++] = ~meta;
     }
   }
-  __device__ __forceinline__ void near(int meta) const {
-    if (kDescent && meta >= 0) {
-      q.cur = meta;
-    } else {
-      (*this)(meta);
-    }
-  }
+  __device__ __forceinline__ void near(int meta) const { (*this)(meta); }
 };
 
-// tools/r3_kernel_lab.py:47 _leaf_step_divfree, per ray: the accept test in
-// det-scaled space, (num, den) = (entry best t, 1), one divide at the end.
-__device__ __forceinline__ void divfree_leaf(const Ray& r,
-                                             const float4* __restrict__ row,
-                                             int leaf, float& bt, int& btri,
-                                             float& bu, float& bv) {
-  float num = bt, den = 1.0f, su = bu, sv = bv;
-  for (int k = 0; k < leaf; ++k) {
-    float4 f0 = __ldg(row + 3 * k);
-    float4 f1 = __ldg(row + 3 * k + 1);
-    float4 f2 = __ldg(row + 3 * k + 2);
-    float v0x = f0.x, v0y = f0.y, v0z = f0.z;
-    float e1x = f0.w, e1y = f1.x, e1z = f1.y;
-    float e2x = f1.z, e2y = f1.w, e2z = f2.x;
-    float px = r.dy * e2z - r.dz * e2y;
-    float py = r.dz * e2x - r.dx * e2z;
-    float pz = r.dx * e2y - r.dy * e2x;
-    float det = e1x * px + e1y * py + e1z * pz;
-    float s = det >= 0.0f ? 1.0f : -1.0f;
-    float a = det * s;
-    float tx = r.ox - v0x;
-    float ty = r.oy - v0y;
-    float tz = r.oz - v0z;
-    float up = (tx * px + ty * py + tz * pz) * s;
-    float qx = ty * e1z - tz * e1y;
-    float qy = tz * e1x - tx * e1z;
-    float qz = tx * e1y - ty * e1x;
-    float vp = (r.dx * qx + r.dy * qy + r.dz * qz) * s;
-    float tp = (e2x * qx + e2y * qy + e2z * qz) * s;
-    if (a > 1e-10f && up >= 0.0f && vp >= 0.0f && up + vp <= a &&
-        tp > kTMin * a && tp * den < num * a) {
-      num = tp;
-      den = a;
-      btri = (int)f2.y;
-      su = up;
-      sv = vp;
-    }
-  }
-  float inv = 1.0f / den;
-  bt = num * inv;
-  bu = su * inv;
-  bv = sv * inv;
-}
-
-template <int kLeafKind>
+// A leaf step of L4/L5: the queue's top block, every slot of its row.
 __device__ __forceinline__ void leaf_step(QueuedRay& q,
                                           const float4* __restrict__ ptris,
                                           int leaf) {
   const int blk = q.lq[--q.ln];
-  const float4* row = ptris + (int64_t)blk * (leaf * kTriStride / 4);
-  if constexpr (kLeafKind == kIlpLeaf) {
-    ilp_leaf<8>(q.r, row, kTMin, q.bt, q.btri, q.bu, q.bv);
-  } else if constexpr (kLeafKind == kDivfreeLeaf) {
-    divfree_leaf(q.r, row, leaf, q.bt, q.btri, q.bu, q.bv);
-  } else {
-    closest_leaf(q.r, row, leaf, kTMin, q.bt, q.btri, q.bu, q.bv);
-  }
+  closest_leaf(q.r, ptris + (int64_t)blk * (leaf * kTriStride / 4), leaf,
+               kTMin, q.bt, q.btri, q.bu, q.bv);
 }
 
 template <int kVariant>
@@ -262,24 +211,7 @@ __device__ __forceinline__ void binary_step(QueuedRay& q,
     t_cap = q.bt * (1.0f + 0.0f * x);
   }
   binary_visit<true>(q.r, pnodes + (int64_t)node * 4, kTMin, t_cap,
-                     QueuePush<false, kVariant == kNocond>{q});
-}
-
-// The 4-wide internal step, its slab tests capped at the best t; the near
-// child last.
-template <bool kDescent>
-__device__ __forceinline__ void quad_step(QueuedRay& q,
-                                          const int4* __restrict__ qmeta,
-                                          const float4* __restrict__ qnodes) {
-  int node;
-  if (kDescent && q.cur >= 0) {
-    node = q.cur;
-    q.cur = -1;
-  } else {
-    node = q.stack[--q.sp];
-  }
-  quad_visit<true>(q.r, qnodes + (int64_t)node * 8, __ldg(qmeta + node),
-                   kTMin, q.bt, QueuePush<kDescent, false>{q});
+                     QueuePush<kVariant == kNocond>{q});
 }
 
 __device__ __forceinline__ void store_hit(const QueuedRay& q, int64_t i,
@@ -305,13 +237,13 @@ closest_queued_kernel(const float* __restrict__ origin,
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   QueuedRay q;
-  init_ray(q, load_ray(origin, direction, i), t_max[i], root, false);
+  init_ray(q, load_ray(origin, direction, i), t_max[i], root);
   int nit = 0, nleaf = 0;
   while (alive(q)) {
     ++nit;
     if (wants_leaf(q, drain_at)) {
       ++nleaf;
-      leaf_step<kSerialLeaf>(q, ptris, leaf);
+      leaf_step(q, ptris, leaf);
     } else {
       binary_step<kVariant>(q, pnodes);
     }
@@ -328,7 +260,7 @@ __device__ __forceinline__ void pair_step(QueuedRay& q, bool leaf_kind,
                                           const float4* __restrict__ ptris,
                                           int leaf) {
   if (leaf_kind) {
-    if (q.ln > 0) leaf_step<kSerialLeaf>(q, ptris, leaf);
+    if (q.ln > 0) leaf_step(q, ptris, leaf);
   } else if (has_node(q)) {
     binary_step<kBase>(q, pnodes);
   }
@@ -349,11 +281,11 @@ closest_pair_kernel(const float* __restrict__ origin,
   const bool has_b = ib < n;
   QueuedRay a, b;
   const Ray ra = load_ray(origin, direction, ia);
-  init_ray(a, ra, t_max[ia], root, false);
+  init_ray(a, ra, t_max[ia], root);
   // An odd ray count leaves the last thread one ray; its partner is never
   // walked.
   init_ray(b, has_b ? load_ray(origin, direction, ib) : ra,
-           has_b ? t_max[ib] : kTMin, root, false);
+           has_b ? t_max[ib] : kTMin, root);
   while (alive(a) || alive(b)) {
     bool leaf_a = wants_leaf(a, drain_at);
     bool leaf_b = wants_leaf(b, drain_at);
@@ -363,31 +295,6 @@ closest_pair_kernel(const float* __restrict__ origin,
   }
   store_hit(a, ia, out_t, out_tri, out_u, out_v);
   if (has_b) store_hit(b, ib, out_t, out_tri, out_u, out_v);
-}
-
-template <bool kDescent, int kLeafKind>
-__global__ void __launch_bounds__(kThreads)
-closest4_queued_kernel(const float* __restrict__ origin,
-                       const float* __restrict__ direction,
-                       const float* __restrict__ t_max, int64_t n, int root,
-                       const int4* __restrict__ qmeta,
-                       const float4* __restrict__ qnodes,
-                       const float4* __restrict__ ptris, int leaf,
-                       int drain_at, float* __restrict__ out_t,
-                       int* __restrict__ out_tri, float* __restrict__ out_u,
-                       float* __restrict__ out_v) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  QueuedRay q;
-  init_ray(q, load_ray(origin, direction, i), t_max[i], root, kDescent);
-  while (alive(q)) {
-    if (wants_leaf(q, drain_at)) {
-      leaf_step<kLeafKind>(q, ptris, leaf);
-    } else {
-      quad_step<kDescent>(q, qmeta, qnodes);
-    }
-  }
-  store_hit(q, i, out_t, out_tri, out_u, out_v);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -422,7 +329,7 @@ closest_cm_kernel(const float* __restrict__ origin,
 }
 
 // ---------------------------------------------------------------------------
-// L7 and L8: the queued walk on persistent warps (persistent_walk.cuh's
+// L6, L7 and L8: the queued walk on persistent warps (persistent_walk.cuh's
 // fetch, Stack, grouped leaves and launch).
 // ---------------------------------------------------------------------------
 
@@ -483,8 +390,94 @@ struct RegisterPush {
   __device__ __forceinline__ void near(int meta) const { (*this)(meta); }
 };
 
-// A closest-hit ray (L7): its best hit, its leaf step (the row's triangles
-// up to its count, closest_leaf_grouped) and its outputs.
+// L6's push policy without descent: a hit internal child goes on the
+// stack, every one of them, and the next node is popped from it (`top` is
+// never set); a hit leaf child goes into the leaf queue. It pops
+// RegisterPush's nodes in RegisterPush's order, so the two walks are
+// equal; their times differ by what the register top entry saves.
+struct SharedPush {
+  int& top;
+  Stack& st;
+  Stack& lq;
+  __device__ __forceinline__ void operator()(int meta) const {
+    if (meta >= 0) {
+      st.push(meta);
+    } else {
+      lq.push(~meta);
+    }
+  }
+  __device__ __forceinline__ void near(int meta) const { (*this)(meta); }
+};
+
+// tools/r3_kernel_lab.py:47 _leaf_step_divfree, one triangle: the accept
+// test in det-scaled space against the best t carried as num / den.
+__device__ __forceinline__ void divfree_test(const Ray& r, float4 f0,
+                                             float4 f1, float4 f2,
+                                             float& num, float& den,
+                                             int& btri, float& su,
+                                             float& sv) {
+  float v0x = f0.x, v0y = f0.y, v0z = f0.z;
+  float e1x = f0.w, e1y = f1.x, e1z = f1.y;
+  float e2x = f1.z, e2y = f1.w, e2z = f2.x;
+  float px = r.dy * e2z - r.dz * e2y;
+  float py = r.dz * e2x - r.dx * e2z;
+  float pz = r.dx * e2y - r.dy * e2x;
+  float det = e1x * px + e1y * py + e1z * pz;
+  float s = det >= 0.0f ? 1.0f : -1.0f;
+  float a = det * s;
+  float tx = r.ox - v0x;
+  float ty = r.oy - v0y;
+  float tz = r.oz - v0z;
+  float up = (tx * px + ty * py + tz * pz) * s;
+  float qx = ty * e1z - tz * e1y;
+  float qy = tz * e1x - tx * e1z;
+  float qz = tx * e1y - ty * e1x;
+  float vp = (r.dx * qx + r.dy * qy + r.dz * qz) * s;
+  float tp = (e2x * qx + e2y * qy + e2z * qz) * s;
+  if (a > 1e-10f && up >= 0.0f && vp >= 0.0f && up + vp <= a &&
+      tp > kTMin * a && tp * den < num * a) {
+    num = tp;
+    den = a;
+    btri = (int)f2.y;
+    su = up;
+    sv = vp;
+  }
+}
+
+// The division-free leaf (_leaf_step_divfree per ray): (num, den) = (entry
+// best t, 1), the row's first `count` triangles in slot order, loaded as in
+// closest_leaf_grouped, and one divide at the end. A zero triangle past
+// the count has a = 0 and is never accepted, so stopping there changes
+// nothing.
+template <int kGroup>
+__device__ __forceinline__ void divfree_leaf_grouped(
+    const Ray& r, const float4* __restrict__ row, int count, int leaf,
+    float& bt, int& btri, float& bu, float& bv) {
+  float num = bt, den = 1.0f, su = bu, sv = bv;
+  float4 a[kGroup], b[kGroup], c[kGroup];
+  load_group<kGroup>(row, 0, leaf, a, b, c);
+  for (int k = 0;;) {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (k + j < count) divfree_test(r, a[j], b[j], c[j], num, den, btri,
+                                      su, sv);
+    }
+    k += kGroup;
+    if (k >= count) break;
+    load_group<kGroup>(row, k, count, a, b, c);
+  }
+  float inv = 1.0f / den;
+  bt = num * inv;
+  bu = su * inv;
+  bv = sv * inv;
+}
+
+// A closest-hit ray (L6, L7): its best hit, its leaf step and its outputs.
+// The leaf step is kLeafKind's: serial (the row's triangles up to its
+// count, closest_leaf_grouped), division-free (divfree_leaf_grouped, to the
+// count) or ILP (ilp_leaf<8>, the whole row: its point is 8 independent
+// tests).
+template <int kLeafKind>
 struct ClosestRay {
   const float4* __restrict__ ptris;
   const int* __restrict__ counts;
@@ -510,9 +503,16 @@ struct ClosestRay {
   // Returns whether the ray ends here: never before its queue is empty.
   __device__ __forceinline__ bool leaf_step(const Ray& r, int block,
                                             int leaf_f4) {
-    closest_leaf_grouped<kGroup>(r, ptris + (int64_t)block * leaf_f4,
-                                 __ldg(counts + block), leaf, kTMin, bt,
-                                 btri, bu, bv);
+    const float4* row = ptris + (int64_t)block * leaf_f4;
+    if constexpr (kLeafKind == kIlpLeaf) {
+      ilp_leaf<8>(r, row, kTMin, bt, btri, bu, bv);
+    } else if constexpr (kLeafKind == kDivfreeLeaf) {
+      divfree_leaf_grouped<kGroup>(r, row, __ldg(counts + block), leaf, bt,
+                                   btri, bu, bv);
+    } else {
+      closest_leaf_grouped<kGroup>(r, row, __ldg(counts + block), leaf,
+                                   kTMin, bt, btri, bu, bv);
+    }
     return false;
   }
   __device__ __forceinline__ void finish(int i) const {
@@ -553,11 +553,12 @@ struct AnyRay {
 };
 
 // The queued walk of a persistent block, for a ray kind `ray_kind`
-// (ClosestRay, AnyRay): persistent_walk.cuh's fetch, then while-while over
-// the drain rule, node steps (`visit(r, node, bound, push)`, then the last
-// internal child pushed, or a pop) until no lane's next step is a node
-// step, then leaf steps (the queue's top block) until none is a leaf step.
-template <class RayKind, class Visit>
+// (ClosestRay, AnyRay) and a push policy `Push` (RegisterPush, SharedPush):
+// persistent_walk.cuh's fetch, then while-while over the drain rule, node
+// steps (`visit(r, node, bound, push)`, then the node the policy kept in
+// `top`, or a pop) until no lane's next step is a node step, then leaf
+// steps (the queue's top block) until none is a leaf step.
+template <class Push = RegisterPush, class RayKind, class Visit>
 __device__ __forceinline__ void queued_walk(
     int* smem, int need, const float* __restrict__ origin,
     const float* __restrict__ direction, const float* __restrict__ t_max,
@@ -582,7 +583,7 @@ __device__ __forceinline__ void queued_walk(
     while (__any_sync(kFull, q.wants_node(drain_at))) {
       if (q.wants_node(drain_at)) {
         int top = kNone;
-        visit(r, q.cur, ray_kind.bound(), RegisterPush{top, q.st, q.lq});
+        visit(r, q.cur, ray_kind.bound(), Push{top, q.st, q.lq});
         q.cur = top != kNone ? top : q.st.pop();
       }
     }
@@ -613,7 +614,8 @@ closest8_queued_kernel(const float* __restrict__ origin,
   extern __shared__ int smem[];
   queued_walk(
       smem, need, origin, direction, t_max, n, root, drain_at, next_ray,
-      ClosestRay{ptris, counts, leaf, out_t, out_tri, out_u, out_v},
+      ClosestRay<kSerialLeaf>{ptris, counts, leaf, out_t, out_tri, out_u,
+                              out_v},
       [&](const Ray& r, int node, float bt, const RegisterPush& push) {
         oct_visit(r, onodes + (int64_t)node * 16, kTMin, bt, push);
       });
@@ -641,6 +643,61 @@ occlusion4_queued_kernel(const float* __restrict__ origin,
         quad_visit<kOrdered>(r, row, row_metas(__ldg(row + 6)), kTMin, tm,
                              push);
       });
+}
+
+// L6: the 4-wide closest-hit walk, one 128-byte qnodes row a node step (the
+// metas from its float4 6), the near child last; the stack's top in a
+// register (kDescent, RegisterPush) or every internal child through shared
+// memory (SharedPush); kLeafKind's leaf step.
+template <bool kDescent, int kLeafKind>
+__global__ void __launch_bounds__(kThreads)
+closest4_queued_persistent_kernel(const float* __restrict__ origin,
+                                  const float* __restrict__ direction,
+                                  const float* __restrict__ t_max, int n,
+                                  int root, const float4* __restrict__ qnodes,
+                                  const float4* __restrict__ ptris,
+                                  const int* __restrict__ counts, int leaf,
+                                  int need, int drain_at,
+                                  int* __restrict__ next_ray,
+                                  float* __restrict__ out_t,
+                                  int* __restrict__ out_tri,
+                                  float* __restrict__ out_u,
+                                  float* __restrict__ out_v) {
+  using Push = std::conditional_t<kDescent, RegisterPush, SharedPush>;
+  extern __shared__ int smem[];
+  queued_walk<Push>(
+      smem, need, origin, direction, t_max, n, root, drain_at, next_ray,
+      ClosestRay<kLeafKind>{ptris, counts, leaf, out_t, out_tri, out_u,
+                            out_v},
+      [&](const Ray& r, int node, float bt, const Push& push) {
+        const float4* row = qnodes + (int64_t)node * 8;
+        quad_visit<true>(r, row, row_metas(__ldg(row + 6)), kTMin, bt, push);
+      });
+}
+
+using Closest4Queued = void (*)(const float*, const float*, const float*,
+                                int, int, const float4*, const float4*,
+                                const int*, int, int, int, int*, float*,
+                                int*, float*, float*);
+
+// L6's kernel for (descent, leaf_kind), or nullptr.
+Closest4Queued closest4_queued(int descent, int leaf_kind) {
+  switch (leaf_kind * 2 + (descent ? 1 : 0)) {
+    case kSerialLeaf * 2:
+      return closest4_queued_persistent_kernel<false, kSerialLeaf>;
+    case kSerialLeaf * 2 + 1:
+      return closest4_queued_persistent_kernel<true, kSerialLeaf>;
+    case kDivfreeLeaf * 2:
+      return closest4_queued_persistent_kernel<false, kDivfreeLeaf>;
+    case kDivfreeLeaf * 2 + 1:
+      return closest4_queued_persistent_kernel<true, kDivfreeLeaf>;
+    case kIlpLeaf * 2:
+      return closest4_queued_persistent_kernel<false, kIlpLeaf>;
+    case kIlpLeaf * 2 + 1:
+      return closest4_queued_persistent_kernel<true, kIlpLeaf>;
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
@@ -720,53 +777,8 @@ extern "C" int lab_closest_pair(const float* origin, const float* direction,
   return (int)cudaGetLastError();
 }
 
-// leaf_kind: 0 serial, 1 division-free, 2 ILP (leaf 8); drain_at in
-// 1..LQ-4 (a 4-wide step queues up to 4 leaves).
-extern "C" int lab_closest4_queued(const float* origin, const float* direction,
-                                   const float* t_max, int64_t n, int root,
-                                   const int* qmeta, const float* qnodes,
-                                   const float* ptris, int leaf, int drain_at,
-                                   int descent, int leaf_kind, float* out_t,
-                                   int* out_tri, float* out_u, float* out_v,
-                                   void* stream) {
-  if (drain_at < 1 || drain_at > kLQ - 4) return (int)cudaErrorInvalidValue;
-  if (leaf_kind == kIlpLeaf && leaf != 8) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  auto m4 = reinterpret_cast<const int4*>(qmeta);
-  auto q4 = reinterpret_cast<const float4*>(qnodes);
-  auto t4 = reinterpret_cast<const float4*>(ptris);
-#define LAB_QUAD_LAUNCH(D, K)                                              \
-  closest4_queued_kernel<D, K><<<blocks_for(n), kThreads, 0, s>>>(         \
-      origin, direction, t_max, n, root, m4, q4, t4, leaf, drain_at, out_t, \
-      out_tri, out_u, out_v)
-  switch (leaf_kind * 2 + (descent ? 1 : 0)) {
-    case kSerialLeaf * 2:
-      LAB_QUAD_LAUNCH(false, kSerialLeaf);
-      break;
-    case kSerialLeaf * 2 + 1:
-      LAB_QUAD_LAUNCH(true, kSerialLeaf);
-      break;
-    case kDivfreeLeaf * 2:
-      LAB_QUAD_LAUNCH(false, kDivfreeLeaf);
-      break;
-    case kDivfreeLeaf * 2 + 1:
-      LAB_QUAD_LAUNCH(true, kDivfreeLeaf);
-      break;
-    case kIlpLeaf * 2:
-      LAB_QUAD_LAUNCH(false, kIlpLeaf);
-      break;
-    case kIlpLeaf * 2 + 1:
-      LAB_QUAD_LAUNCH(true, kIlpLeaf);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LAB_QUAD_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-// The persistent queued walks (L7, L8). After the rays: root, node rows
-// (onodes f32[N8,64] or qnodes f32[N4,32], the metas in the rows), ptris,
+// The persistent queued walks (L6, L7, L8). After the rays: root, node rows
+// (qnodes f32[N4,32] or onodes f32[N8,64], the metas in the rows), ptris,
 // leaf counts, leaf, the tree's stack need `need` (1..kCap: the shared
 // memory holds need + kLQ entries a thread) and the ray counter
 // `next_ray` (one int32, zeroed here on `stream`); then drain_at.
@@ -815,11 +827,40 @@ extern "C" int lab_occlusion4_queued(const float* origin,
                 next_ray, out_occ);
 }
 
-// What a launch of `kernel` (0 L7, 1 L8 ordered, 2 L8 child order) at
-// stack need `need` looks like on the current device: out[0..7] as
-// persistent_walk.cuh's info(), the shared memory holding the queue too.
+// leaf_kind: 0 serial, 1 division-free, 2 ILP (leaf 8); descent: 1 the
+// stack's top in a register, 0 every internal child through shared memory;
+// drain_at in 1..LQ-4 (a 4-wide step queues up to 4 leaves).
+extern "C" int lab_closest4_queued(const float* origin, const float* direction,
+                                   const float* t_max, int64_t n, int root,
+                                   const float* qnodes, const float* ptris,
+                                   const int* leaf_counts, int leaf,
+                                   int need, int* next_ray, int drain_at,
+                                   int descent, int leaf_kind, float* out_t,
+                                   int* out_tri, float* out_u, float* out_v,
+                                   void* stream) {
+  if (drain_at < 1 || drain_at > kLQ - 4) return (int)cudaErrorInvalidValue;
+  if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
+  if (leaf_kind == kIlpLeaf && leaf != 8) return (int)cudaErrorInvalidValue;
+  Closest4Queued kernel = closest4_queued(descent, leaf_kind);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(kernel, n, need + kLQ, kCap + kLQ, next_ray, stream, origin,
+                direction, t_max, (int)n, root,
+                reinterpret_cast<const float4*>(qnodes),
+                reinterpret_cast<const float4*>(ptris), leaf_counts, leaf,
+                need, drain_at, next_ray, out_t, out_tri, out_u, out_v);
+}
+
+// What a launch of `kernel` (0 L7, 1 L8 ordered, 2 L8 child order, 3 +
+// 2 * leaf_kind + descent L6) at stack need `need` looks like on the
+// current device: out[0..7] as persistent_walk.cuh's info(), the shared
+// memory holding the queue too.
 extern "C" int lab2_launch_info(int kernel, int need, int* out) {
   if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
+  if (kernel >= 3) {
+    Closest4Queued l6 = closest4_queued((kernel - 3) % 2, (kernel - 3) / 2);
+    if (l6 == nullptr) return (int)cudaErrorInvalidValue;
+    return info<kGroup, kRefillAt>(l6, need + kLQ, kCap + kLQ, out);
+  }
   switch (kernel) {
     case 0:
       return info<kGroup, kRefillAt>(closest8_queued_kernel, need + kLQ,

@@ -150,8 +150,10 @@ __device__ __forceinline__ bool occluded_leaf(const Ray& r,
 
 // The node steps' push policy: every hit child goes through push(meta), the
 // near one (pushed last) through push.near(meta). StackPush puts both on the
-// ray's stack; the lab's queued walks (lab2_traverse.cu) route leaf children
-// to a leaf queue instead.
+// ray's stack (the one-thread-per-ray binary labs); the persistent walks
+// keep the entry popped next in a register (binary_traverse.cu,
+// lab_traverse.cu), and the queued walks (lab2_traverse.cu) route leaf
+// children to a leaf queue.
 struct StackPush {
   int* stack;
   int& sp;
@@ -263,14 +265,6 @@ __device__ __forceinline__ void quad_visit(const Ray& r,
   const int near = kOrdered ? (m23 < m01 ? 2 + b23 : b01) : -1;
   const int kids[4] = {m.x, m.y, m.z, m.w};
   push_near_last(hit, kids, near, push);
-}
-
-template <bool kOrdered>
-__device__ __forceinline__ void quad_visit(const Ray& r,
-                                           const float4* __restrict__ q,
-                                           int4 m, float t_min, float t_cap,
-                                           int* stack, int& sp) {
-  quad_visit<kOrdered>(r, q, m, t_min, t_cap, StackPush{stack, sp});
 }
 
 // The child metas a node row holds as exact f32 (float4 `f`), as int4; an

@@ -15,11 +15,15 @@ the bake's (raytracer_tpu/accel/bvh.py:334) give the same child boxes and
 metas. The TPU kernel's deferred leaf queue exists because Mosaic has no
 per-lane gathers; here leaves go on the ray's own stack, so against the JAX
 kernel only hits at exactly equal t may name another triangle. `ordered`
-is K1's own walk. No counters: the TPU kernel has none.
+is K1's own walk, and equals K1 on every ray. No counters: the TPU kernel
+has none.
 
-On CUDA tensors the wrapper launches csrc/lab_traverse.cu:lab_closest4; on
-CPU tensors it runs the plain torch version below, which the kernel equals
-bit for bit.
+On CUDA tensors the wrapper launches csrc/lab_traverse.cu:lab_closest4,
+K1's machinery (persistent warps, the stack in shared memory sized by the
+tree's stack need with the entry visited next in a register, each node's
+metas read from its qnodes row, each leaf tested up to its count); on CPU
+tensors it runs the plain torch version below, which the kernel equals bit
+for bit.
 """
 
 from __future__ import annotations
@@ -29,12 +33,12 @@ import sys
 
 import torch
 
+from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import rays as lab_rays
 from raytracer_tpu_torch.ops import quad_traverse as qt
 from raytracer_tpu_torch.ops.quad_traverse import (
     CAP,
     T_MIN,
-    TRI_STRIDE,
     _check_rays,
     _closest_walk,
     _inv_dir,
@@ -42,7 +46,6 @@ from raytracer_tpu_torch.ops.quad_traverse import (
     _quad_fixed_visit,
     _quad_near_last_visit,
     _ray_inputs,
-    _stream,
 )
 
 LEAF_SIZE = 8
@@ -62,49 +65,42 @@ def run_closest4(origin, direction, t_max, scene, ordered=True):
     """Closest hit of rays f32[N,3] against the 4-wide tree of `scene`
     (t_min 1e-3; a ray with t_max <= 1e-3 is not walked). Returns (t
     f32[N], tri i32[N], u f32[N], v f32[N])."""
-    global closest4_launches
-    qt._check_scene(scene)
+    qw.check_need(scene.q_stack_need, "quad-BVH")
     o, d, tm = _ray_inputs(origin, direction, t_max, None)
     if o.is_cuda:
-        out = _closest4_cuda(o, d, tm, scene, ordered)
-        closest4_launches += 1
-        return out
+        return _closest4_cuda(o, d, tm, scene, ordered)
     return closest4_plain(o, d, tm, scene.root, scene.qmeta, scene.qnodes,
                           scene.ptris, ordered)
 
 
 def closest4_plain(origin, direction, t_max, root, qmeta, qnodes, ptris,
-                   ordered, counts=None):
+                   ordered, counts=None, leaf_test=qt._serial_leaf):
     """Plain torch version of lab_closest4. Returns (t, tri, u, v).
     `counts` (nvisit, nleaf), i32[N] each, adds up each ray's pops: the
-    kernel has no counters, but walks the same nodes."""
+    kernel has no counters, but walks the same nodes. `leaf_test` is
+    quad_traverse._closest_walk's leaf hook."""
     step = _quad_near_last_visit if ordered else _quad_fixed_visit
     visit = step(origin, _inv_dir(direction), qmeta, qnodes)
     return _closest_walk(origin, direction, t_max, root, ptris, visit, CAP,
-                         T_MIN, counts=counts)
+                         T_MIN, leaf_test=leaf_test, counts=counts)
 
 
 def _closest4_cuda(origin, direction, t_max, scene, ordered):
-    from raytracer_tpu_torch.ops import _build
-
+    """L2 on the card: the qnodes rows (their metas in float4 6; qmeta is
+    not read), ptris and its leaf counts, the tree's stack need and a ray
+    counter of its own."""
+    global closest4_launches
     n, dev = _check_rays(origin, direction, t_max)
-    qt._check_scene_arrays(scene, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = (torch.empty((n,), **f32),
-           torch.empty((n,), dtype=torch.int32, device=dev),
-           torch.empty((n,), **f32), torch.empty((n,), **f32))
-    if n == 0:
-        return out
-    lib = _build.lab_traverse_lib()
-    with torch.cuda.device(dev):
-        rc = lib.lab_closest4(
-            _ptr(origin), _ptr(direction), _ptr(t_max), n, scene.root,
-            _ptr(scene.qmeta), _ptr(scene.qnodes), _ptr(scene.ptris),
-            scene.ptris.shape[1] // TRI_STRIDE, int(ordered),
-            *(_ptr(t) for t in out), _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"lab_closest4 launch failed: cudaError {rc}")
+    qt._check_n(n)
+    qw.check_quad_rows(scene, dev)
+    out = qw.hit_outputs(n, dev)
+    if n:
+        args, _counter = qt._walk_args(scene.ptris, dev, scene.root,
+                                       scene.qnodes, scene.q_stack_need)
+        qw.launch("lab_closest4", dev, _ptr(origin), _ptr(direction),
+                  _ptr(t_max), n, *args, int(ordered),
+                  *(_ptr(t) for t in out), library="lab_traverse")
+        closest4_launches += 1
     return out
 
 
@@ -123,7 +119,11 @@ def against(out, ref):
 def run(scene, sets, reps=REPS, log=print):
     """K1 and both orders on every closest-hit set; prints one line each.
     Returns {(set, order): stats} (and {(set, "k1"): stats}) with the
-    outputs under "out"."""
+    outputs under "out"; on the card it first prints each order's launch
+    shape."""
+    for order in ORDERS if scene.ptris.is_cuda else ():
+        log(qw.launch_line(f"L2 {order}", f"closest4_{order}",
+                           scene.q_stack_need, scene.ptris.device))
     results = {}
     for label, (o, d, tm) in sets.items():
         k1 = qt.intersect_quad(o, d, scene, T_MIN, tm)

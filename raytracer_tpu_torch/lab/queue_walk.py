@@ -5,6 +5,8 @@ that the traversal lab's L4 (tools/v3_kernel_lab.py), L5
 (tools/r3_oct_lab.py) vary, run per ray and vectorised over rays, and its
 any-hit form (K2, :423, and L8, tools/r3_occl3_lab.py).
 csrc/lab2_traverse.cu is its CUDA version; the two are equal bit for bit.
+The last section launches the persistent lab kernels (L2 of
+csrc/lab_traverse.cu, L6-L8) and reads their launch shapes.
 
 State per ray: an internal-node stack of CAP entries, a leaf queue of LQ
 blocks and, for descent, the node kept in a register (`cur`, -1 when
@@ -285,12 +287,24 @@ def check_binary(scene):
 
 
 def check_need(need, what):
-    """The persistent queued walks (L7, L8) place `need` stack entries a
-    thread, and the queue's LQ, in shared memory: a `what` tree's need must
-    be in 1..CAP, the plain walk's stack."""
+    """The persistent lab walks (L2, L6, L7, L8) place `need` stack entries
+    a thread (and the queued walks the queue's LQ) in shared memory: a
+    `what` tree's need must be in 1..CAP, the plain walks' stack."""
     if not 1 <= need <= CAP:
         raise ValueError(f"{what} stack need {need} is outside 1..{CAP} "
-                         f"(the queued walk's stack, CAP={CAP})")
+                         f"(the lab walks' stack, CAP={CAP})")
+
+
+def check_quad_rows(scene, device):
+    """What the persistent 4-wide lab walks (L2, L6, L8) read of `scene` on
+    `device`: a stack need they take, the qnodes rows (their metas in
+    float4 6; qmeta is not read) and ptris."""
+    from raytracer_tpu_torch.ops.quad_traverse import _check_ptris, _require
+
+    check_need(scene.q_stack_need, "quad-BVH")
+    _require("qnodes", scene.qnodes, torch.float32,
+             (scene.qnodes.shape[0], 32), device, vec=True)
+    _check_ptris(scene.ptris, device)
 
 
 def check_drain_at(drain_at, width=2):
@@ -303,7 +317,8 @@ def check_drain_at(drain_at, width=2):
 
 
 # --------------------------------------------------------------------------
-# Launching csrc/lab2_traverse.cu.
+# Launching the persistent lab kernels (csrc/lab2_traverse.cu, and L2 of
+# csrc/lab_traverse.cu).
 # --------------------------------------------------------------------------
 
 def hit_outputs(n, device, counters=False):
@@ -318,30 +333,60 @@ def hit_outputs(n, device, counters=False):
     return out
 
 
-LAUNCH_KERNELS = {"closest8": ("closest8_queued_kernel", 0),
-                  "occlusion_ordered": ("occlusion4_queued_kernelILb1E", 1),
-                  "occlusion_fixed": ("occlusion4_queued_kernelILb0E", 2)}
+L6_LEAF_KINDS = ("serial", "divfree", "ilp")  # lab_closest4_queued's order
+
+
+def l6_kernel(descent, leaf_kind):
+    """The LAUNCH_KERNELS key of L6 with `descent` and leaf kind
+    `leaf_kind` (an index of L6_LEAF_KINDS)."""
+    return f"closest4_queued_{L6_LEAF_KINDS[leaf_kind]}_d{int(descent)}"
+
+
+# kernel -> (library, its mangled name's distinctive part, the library's
+# launch-info index). The lab_traverse library holds L2, lab2_traverse
+# L6, L7 and L8.
+LAUNCH_KERNELS = {
+    "closest4_ordered": ("lab_traverse", "closest4_persistent_kernelILb1E",
+                         0),
+    "closest4_noorder": ("lab_traverse", "closest4_persistent_kernelILb0E",
+                         1),
+    "closest8": ("lab2_traverse", "closest8_queued_kernel", 0),
+    "occlusion_ordered": ("lab2_traverse", "occlusion4_queued_kernelILb1E",
+                          1),
+    "occlusion_fixed": ("lab2_traverse", "occlusion4_queued_kernelILb0E", 2),
+    **{l6_kernel(descent, kind): (
+        "lab2_traverse",
+        f"closest4_queued_persistent_kernelILb{descent}ELi{kind}EE",
+        3 + 2 * kind + descent)
+       for kind in range(len(L6_LEAF_KINDS)) for descent in (0, 1)},
+}
+_INFO_ENTRY = {"lab_traverse": "lab_launch_info",
+               "lab2_traverse": "lab2_launch_info"}
 
 
 def launch_info(kernel, need, device):
-    """What a launch of L7 ("closest8") or L8 ("occlusion_ordered",
-    "occlusion_fixed") at stack need `need` looks like on `device`:
-    quad_traverse.launch_info's keys (its shared memory holds the leaf
-    queue too), and "spills", the ptxas spill stores and loads in bytes
-    ("?" when the library was loaded from the build directory's cache)."""
+    """What a launch of a persistent lab kernel (a key of LAUNCH_KERNELS:
+    L2 "closest4_ordered" or "closest4_noorder", L6 l6_kernel(...), L7
+    "closest8", L8 "occlusion_ordered" or "occlusion_fixed") at stack need
+    `need` looks like on `device`: quad_traverse.launch_info's keys (the
+    queued walks' shared memory holds the leaf queue too), and "spills",
+    the ptxas spill stores and loads in bytes ("?" when the library was
+    loaded from the build directory's cache)."""
     import ctypes
 
     from raytracer_tpu_torch.ops import _build
     from raytracer_tpu_torch.ops.quad_traverse import LAUNCH_INFO_KEYS
 
-    name, index = LAUNCH_KERNELS[kernel]
+    library, name, index = LAUNCH_KERNELS[kernel]
+    entry = _INFO_ENTRY[library]
     out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
     with torch.cuda.device(device):
-        rc = _build.lab2_traverse_lib().lab2_launch_info(index, need, out)
+        rc = getattr(getattr(_build, f"{library}_lib")(), entry)(index, need,
+                                                               out)
     if rc != 0:
-        raise RuntimeError(f"lab2_launch_info failed: cudaError {rc}")
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
     info = dict(zip(LAUNCH_INFO_KEYS, out))
-    log = _build.build_info.get("liblab2_traverse", {}).get("log", "")
+    log = _build.build_info.get(f"lib{library}", {}).get("log", "")
     info["spills"] = _build.ptxas_spills(log, name)
     return info
 
@@ -350,22 +395,25 @@ def launch_line(label, kernel, need, device):
     """One line of launch_info(kernel, need, device), labelled `label`."""
     i = launch_info(kernel, need, device)
     st, ld = i["spills"]
+    queue = f" + LQ {LQ}" if LAUNCH_KERNELS[kernel][0] == "lab2_traverse" \
+        else ""
     return (f"{label} launch: {i['registers']} registers, spill stores {st} "
             f"B, spill loads {ld} B, local {i['local_bytes']} B a thread, "
-            f"dynamic shared {i['smem_bytes']} B a block (stack need {need} "
-            f"+ LQ {LQ}), {i['blocks_per_sm']} blocks of 128 a SM "
+            f"dynamic shared {i['smem_bytes']} B a block (stack need {need}"
+            f"{queue}), {i['blocks_per_sm']} blocks of 128 a SM "
             f"({4 * i['blocks_per_sm']} warps), grid {i['grid']} blocks on "
             f"{i['sms']} SMs; G = {i['group']}, refill at {i['refill_at']} "
             "idle lanes")
 
 
-def launch(entry, device, *args):
-    """Call csrc/lab2_traverse.cu's `entry` with `args` on `device`'s
-    current stream (appended); raise if the launch failed."""
+def launch(entry, device, *args, library="lab2_traverse"):
+    """Call `entry` of csrc/<library>.cu (lab2_traverse or lab_traverse)
+    with `args` on `device`'s current stream (appended); raise if the
+    launch failed."""
     from raytracer_tpu_torch.ops import _build
     from raytracer_tpu_torch.ops.quad_traverse import _stream
 
-    lib = _build.lab2_traverse_lib()
+    lib = getattr(_build, f"{library}_lib")()
     with torch.cuda.device(device):
         rc = getattr(lib, entry)(*args, _stream(device))
     if rc != 0:

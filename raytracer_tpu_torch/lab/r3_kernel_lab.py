@@ -29,8 +29,13 @@ The walk is lab/queue_walk.py's with the 4-wide node step; the flags:
            precedence over divfree, as in the JAX lab)
 
 On CUDA tensors the wrapper launches
-csrc/lab2_traverse.cu:lab_closest4_queued; on CPU tensors it runs the plain
-torch version, which the kernel equals bit for bit.
+csrc/lab2_traverse.cu:lab_closest4_queued, persistent warps with the stack
+(the 4-wide tree's q_stack_need) and the leaf queue in shared memory,
+reading each node's metas from its qnodes row, the serial and
+division-free leaves tested up to their counts (the ILP leaf takes the
+whole row); descent keeps the stack's top in a register, and without it
+every internal child goes through shared memory. On CPU tensors it runs
+the plain torch version, which the kernel equals bit for bit.
 """
 
 from __future__ import annotations
@@ -52,7 +57,6 @@ from raytracer_tpu_torch.ops.quad_traverse import (
     _inv_dir,
     _ptr,
     _ray_inputs,
-    _serial_leaf,
 )
 
 LEAF_SIZE = 8
@@ -85,17 +89,15 @@ def run_closest_variant(origin, direction, t_max, scene, descent, divfree,
     the deferred-leaf walk with the given flags (t_min 1e-3, t_max scalar
     or f32[N]; a ray with t_max <= 1e-3 is not walked). Returns (t f32[N],
     tri i32[N], u f32[N], v f32[N])."""
-    global closest_launches
-    qt._check_scene(scene)
+    qw.check_need(scene.q_stack_need, "quad-BVH")
+    qw.check_drain_at(qw.DRAIN_AT, 4)
     leaf = scene.ptris.shape[1] // TRI_STRIDE
     if leafpar and leaf not in ILP_LEAVES:
         raise ValueError(f"leafpar takes leaf sizes {ILP_LEAVES}, got {leaf}")
     o, d, tm = _ray_inputs(origin, direction, t_max, None)
     if o.is_cuda:
-        out = _closest_variant_cuda(o, d, tm, scene, descent,
-                                    _leaf_kind(divfree, leafpar))
-        closest_launches += 1
-        return out
+        return _closest_variant_cuda(o, d, tm, scene, descent,
+                                     _leaf_kind(divfree, leafpar))
     return closest_variant_plain(o, d, tm, scene.root, scene.qmeta,
                                  scene.qnodes, scene.ptris, descent, divfree,
                                  leafpar)
@@ -103,6 +105,11 @@ def run_closest_variant(origin, direction, t_max, scene, descent, divfree,
 
 def _leaf_kind(divfree, leafpar):
     return _ILP if leafpar else _DIVFREE if divfree else _SERIAL
+
+
+def launch_kernel(descent, divfree, leafpar=False):
+    """The queue_walk.launch_info key of the combination's kernel."""
+    return qw.l6_kernel(descent, _leaf_kind(divfree, leafpar))
 
 
 def _divfree_leaf(origin, direction, rows, bt_, btri, bu, bv, t_min):
@@ -145,12 +152,14 @@ def _divfree_leaf(origin, direction, rows, bt_, btri, bu, bv, t_min):
 
 def closest_variant_plain(origin, direction, t_max, root, qmeta, qnodes,
                           ptris, descent, divfree, leafpar=False,
-                          counts=None):
+                          counts=None, leaf_test=None):
     """Plain torch version of lab_closest4_queued. Returns (t, tri, u, v).
     `counts` (nit, nleaf), i32[N] each, adds up each ray's steps and leaf
-    steps: the kernel has no counters, but takes the same steps."""
-    leaf_test = (_ilp_leaf if leafpar else _divfree_leaf if divfree
-                 else _serial_leaf)
+    steps: the kernel has no counters, but takes the same steps.
+    `leaf_test`, queue_walk.queued_walk's leaf hook, replaces the flags'
+    leaf test."""
+    leaf_test = leaf_test or (_ilp_leaf if leafpar else _divfree_leaf
+                              if divfree else qt._serial_leaf)
     step = qw.quad_step(origin, _inv_dir(direction), qmeta, qnodes)
     return qw.queued_walk(origin, direction, t_max, root, ptris, step,
                           leaf_test=leaf_test, descent=descent, counts=counts)
@@ -158,22 +167,32 @@ def closest_variant_plain(origin, direction, t_max, root, qmeta, qnodes,
 
 def _closest_variant_cuda(origin, direction, t_max, scene, descent,
                           leaf_kind):
+    """L6 on the card: the qnodes rows (their metas in float4 6; qmeta is
+    not read), ptris and its leaf counts, the tree's stack need and a ray
+    counter of its own; then drain_at, descent and the leaf kind."""
+    global closest_launches
     n, dev = _check_rays(origin, direction, t_max)
-    qt._check_scene_arrays(scene, dev)
+    qt._check_n(n)
+    qw.check_quad_rows(scene, dev)
     out = qw.hit_outputs(n, dev)
     if n:
+        args, _counter = qt._walk_args(scene.ptris, dev, scene.root,
+                                       scene.qnodes, scene.q_stack_need)
         qw.launch("lab_closest4_queued", dev, _ptr(origin), _ptr(direction),
-                  _ptr(t_max), n, scene.root, _ptr(scene.qmeta),
-                  _ptr(scene.qnodes), _ptr(scene.ptris),
-                  scene.ptris.shape[1] // TRI_STRIDE, qw.DRAIN_AT,
-                  int(descent), leaf_kind, *(_ptr(t) for t in out))
+                  _ptr(t_max), n, *args, qw.DRAIN_AT, int(descent),
+                  leaf_kind, *(_ptr(t) for t in out))
+        closest_launches += 1
     return out
 
 
 def run(scene, sets, combos=ALL, reps=REPS, log=print):
     """K1 and every (descent, divfree, leafpar) combination on every
     closest-hit set; prints one line each. Returns {(set, combo): stats}
-    (and {(set, "k1"): stats}) with the outputs under "out"."""
+    (and {(set, "k1"): stats}) with the outputs under "out"; on the card
+    it first prints each combination's launch shape."""
+    for combo in combos if scene.ptris.is_cuda else ():
+        log(qw.launch_line(f"L6 {name(*combo)}", launch_kernel(*combo),
+                           scene.q_stack_need, scene.ptris.device))
     results = {}
     for label, (o, d, tm) in sets.items():
         k1 = qt.intersect_quad(o, d, scene, T_MIN, tm)

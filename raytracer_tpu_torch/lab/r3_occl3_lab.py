@@ -115,10 +115,7 @@ def _occl_ordered_cuda(origin, direction, t_max, skip_object, scene,
     n, dev = _check_rays(origin, direction, t_max)
     qt._check_n(n)
     _require("skip_object", skip_object, torch.int32, (n,), dev)
-    qw.check_need(scene.q_stack_need, "quad-BVH")
-    _require("qnodes", scene.qnodes, torch.float32,
-             (scene.qnodes.shape[0], 32), dev, vec=True)
-    qt._check_ptris(scene.ptris, dev)
+    qw.check_quad_rows(scene, dev)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
         args, _counter = qt._walk_args(scene.ptris, dev, scene.root,

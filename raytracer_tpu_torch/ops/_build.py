@@ -36,8 +36,8 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 # A directory set here overrides compile_cache.build_dir() (tests set it).
 BUILD_DIR = None
 # Device helpers shared by the traversal kernels (#included by each .cu;
-# persistent_walk.cuh by quad_traverse.cu, binary_traverse.cu and
-# lab2_traverse.cu).
+# persistent_walk.cuh by quad_traverse.cu, binary_traverse.cu,
+# lab_traverse.cu and lab2_traverse.cu).
 CUDA_HEADERS = (os.path.join(CSRC_DIR, "traverse_common.cuh"),
                 os.path.join(CSRC_DIR, "persistent_walk.cuh"))
 
@@ -189,29 +189,31 @@ def binary_traverse_lib() -> ctypes.CDLL:
 
 
 def lab_traverse_lib() -> ctypes.CDLL:
-    """The traversal lab's kernels (csrc/lab_traverse.cu)."""
+    """The traversal lab's binary and 4-wide kernels (csrc/lab_traverse.cu;
+    L2 takes the persistent walks' scene arguments)."""
     return _cuda_lib("lab_traverse", {
         "lab_closest": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32, _I32,
                         _P, _P, _P, _P, _P, _P, _P],
         "lab_occlusion": [_P, _P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
                           _P, _P, _P, _P],
-        "lab_closest4": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32, _I32,
-                         _P, _P, _P, _P, _P],
+        "lab_closest4": [_P, _P, _P, _I64, *_SCENE, _I32, _P, _P, _P, _P,
+                         _P],
+        "lab_launch_info": [_I32, _I32, _P],
     })
 
 
 def lab2_traverse_lib() -> ctypes.CDLL:
     """The traversal lab's deferred-leaf (binary, 4-wide, 8-wide, any-hit)
-    and component-major kernels (csrc/lab2_traverse.cu; L7 and L8 take the
-    persistent walks' scene arguments)."""
+    and component-major kernels (csrc/lab2_traverse.cu; L6, L7 and L8 take
+    the persistent walks' scene arguments)."""
     return _cuda_lib("lab2_traverse", {
         "lab_closest_cm": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _P, _P, _P],
         "lab_closest_queued": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
                                _I32, _P, _P, _P, _P, _P, _P, _P],
         "lab_closest_pair": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
                              _I32, _P, _P, _P, _P, _P],
-        "lab_closest4_queued": [_P, _P, _P, _I64, _I32, _P, _P, _P, _I32,
-                                _I32, _I32, _I32, _P, _P, _P, _P, _P],
+        "lab_closest4_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _I32, _I32,
+                                _P, _P, _P, _P, _P],
         "lab_closest8_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _P, _P,
                                 _P, _P, _P],
         "lab_occlusion4_queued": [_P, _P, _P, _P, _I64, *_SCENE, _I32, _I32,

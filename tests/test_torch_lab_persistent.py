@@ -1,26 +1,33 @@
-"""What the persistent L7 and L8 kernels (csrc/lab2_traverse.cu
+"""What the persistent lab kernels L2, L6, L7 and L8 (csrc/lab_traverse.cu
+lab_closest4, csrc/lab2_traverse.cu lab_closest4_queued,
 lab_closest8_queued, lab_occlusion4_queued) rely on in the trees and in
 their wrappers, on the CPU at small sizes:
 
   - each onodes row carries its 8 child metas at columns 48:56 as exact
     f32 integers equal to ometa, so L7 reads one row per node; an absent
     child's box is NaN and never hit;
-  - the plain queued walks with each leaf row tested up to its count
+  - the plain walks with each leaf row tested up to its count
     (ops/quad_traverse.row_counts) equal the every-slot walks, results and
-    (nit, nleaf) step counts both, for L7 and for L8 in both orders: the
-    kernels stop their leaves there;
+    step counts both: L2's stack walk in both orders ((nvisit, nleaf)),
+    L6's queued walk with the serial and the division-free leaf, L7, and
+    L8 in both orders ((nit, nleaf)); the kernels stop their leaves there
+    (L6's ILP leaf takes the whole row);
+  - L6 with and without descent takes the same steps to the same results;
   - the plain walks' stack never holds more than the need the wrappers
-    size shared memory by (OctTree.stack_need, q_stack_need), and the leaf
+    size shared memory by (q_stack_need, OctTree.stack_need), and the leaf
     queue never more than LQ;
   - with a fake library, the wrappers pass the node rows (not ometa or
     qmeta), ptris's leaf counts, the tree's stack need and a ray counter of
     each launch's own; they refuse a stack need outside 1..CAP and more
-    rays than the counter takes, and raise on a failed launch, which is not
-    counted; the launch-shape query finds each kernel's ptxas spills.
+    rays than the counter takes, raise on a failed launch, which is not
+    counted, and launch nothing for zero rays; the launch-shape query finds
+    each kernel's ptxas spills.
 
 The scenes are the Cornell box and a ~4k-triangle atrium, baked at leaf 8
 (the labs' leaf size) with the numpy BVH builder. The JAX lab kernels
-themselves are held against the port in tests/test_torch_lab_oct.py."""
+themselves are held against the port in tests/test_torch_lab.py (L2),
+tests/test_torch_lab_queue.py (L6) and tests/test_torch_lab_oct.py (L7,
+L8)."""
 
 import contextlib
 import ctypes
@@ -33,7 +40,9 @@ import torch
 import raytracer_tpu_torch.accel.native_builder as tnative
 import raytracer_tpu_torch.scene.benchmark as tbench
 import raytracer_tpu_torch.scene.model as tmodel
+from raytracer_tpu_torch.lab import bvh4_lab as l2
 from raytracer_tpu_torch.lab import queue_walk as qw
+from raytracer_tpu_torch.lab import r3_kernel_lab as l6
 from raytracer_tpu_torch.lab import r3_occl3_lab as l8
 from raytracer_tpu_torch.lab import r3_oct_lab as l7
 from raytracer_tpu_torch.ops import _build
@@ -44,7 +53,12 @@ torch.set_num_threads(1)  # see test_torch_ops.py
 
 SCENES = {"cornell": tmodel.create_cornell_box,
           "atrium4k": lambda: tbench.create_benchmark_atrium(4_000)}
-KINDS = ("closest8", "ordered", "fixed")
+# L7, L8 in both orders, L2 in both orders, L6 with the serial and the
+# division-free leaf.
+KINDS = ("closest8", "ordered", "fixed", "closest4_ordered",
+         "closest4_noorder", "queued4_serial", "queued4_divfree")
+CLOSEST = ("closest8", "closest4_ordered", "closest4_noorder",
+           "queued4_serial", "queued4_divfree")
 RAYS = 2048
 _bakes = {}
 
@@ -100,6 +114,42 @@ def _counted_closest(origin, direction, rows, bt, btri, bu, bv, t_min):
     return bt, btri, bu, bv
 
 
+def _counted_divfree(origin, direction, rows, bt_, btri, bu, bv, t_min):
+    """L6's division-free leaf test (r3_kernel_lab._divfree_leaf) up to
+    each row's count only, as the kernel runs it."""
+    count = qt.row_counts(rows)
+    ox, oy, oz = origin.unbind(1)
+    dx, dy, dz = direction.unbind(1)
+    num, den = bt_, torch.ones_like(bt_)
+    for k in range(rows.shape[1] // qt.TRI_STRIDE):
+        tri = rows[:, k * qt.TRI_STRIDE:(k + 1) * qt.TRI_STRIDE]
+        v0x, v0y, v0z = tri[:, 0], tri[:, 1], tri[:, 2]
+        e1x, e1y, e1z = tri[:, 3], tri[:, 4], tri[:, 5]
+        e2x, e2y, e2z = tri[:, 6], tri[:, 7], tri[:, 8]
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        s = torch.where(det >= 0.0, 1.0, -1.0)
+        a = det * s
+        tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+        up = (tx * px + ty * py + tz * pz) * s
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        vp = (dx * qx + dy * qy + dz * qz) * s
+        tp = (e2x * qx + e2y * qy + e2z * qz) * s
+        valid = ((a > 1e-10) & (up >= 0.0) & (vp >= 0.0) & (up + vp <= a)
+                 & (tp > t_min * a) & (tp * den < num * a) & (k < count))
+        num = torch.where(valid, tp, num)
+        den = torch.where(valid, a, den)
+        btri = torch.where(valid, tri[:, 9].to(torch.int32), btri)
+        bu = torch.where(valid, up, bu)
+        bv = torch.where(valid, vp, bv)
+    inv = 1.0 / den
+    return num * inv, btri, bu * inv, bv * inv
+
+
 def _counted_any(origin, direction, rows, t_max, skip_f, t_min):
     """The any-hit leaf test up to each row's count only."""
     count = qt.row_counts(rows)
@@ -114,16 +164,28 @@ def _counted_any(origin, direction, rows, t_max, skip_f, t_min):
     return found
 
 
-def _walk(kind, ds, tree, rays, counted=False, counts=None):
-    """The plain walk of L7 ("closest8") or L8 ("ordered", "fixed") on
-    `rays`, every slot of each leaf row tested or (`counted`) up to its
-    count."""
+def _walk(kind, ds, tree, rays, counted=False, counts=None, descent=False):
+    """The plain walk of `kind` (KINDS) on `rays`, every slot of each leaf
+    row tested or (`counted`) up to its count; L6 with `descent` or not."""
     o, d, tm, skip = rays
     if kind == "closest8":
         step = qw.oct_step(o, qt._inv_dir(d), tree.meta, tree.nodes)
         leaf = _counted_closest if counted else qt._serial_leaf
         return qw.queued_walk(o, d, tm, tree.root, ds.ptris, step,
                               leaf_test=leaf, counts=counts)
+    if kind.startswith("closest4_"):
+        leaf = _counted_closest if counted else qt._serial_leaf
+        return l2.closest4_plain(o, d, tm, ds.root, ds.qmeta, ds.qnodes,
+                                 ds.ptris, kind == "closest4_ordered",
+                                 counts=counts, leaf_test=leaf)
+    if kind.startswith("queued4_"):
+        divfree = kind == "queued4_divfree"
+        leaf = ((_counted_divfree if divfree else _counted_closest)
+                if counted else None)
+        return l6.closest_variant_plain(o, d, tm, ds.root, ds.qmeta,
+                                        ds.qnodes, ds.ptris, descent,
+                                        divfree, counts=counts,
+                                        leaf_test=leaf)
     step = qw.quad_step(o, qt._inv_dir(d), ds.qmeta, ds.qnodes,
                         kind == "ordered")
     leaf = _counted_any if counted else qt._any_leaf
@@ -190,7 +252,8 @@ def test_absent_children_are_never_hit(name):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_queued_walks_stop_at_leaf_counts(name, kind):
     """Each leaf row tested up to its count: the same results and the same
-    (nit, nleaf) of every ray as every slot tested."""
+    step counts ((nit, nleaf); L2's (nvisit, nleaf)) of every ray as every
+    slot tested."""
     ds, tree = _bake(name)
     rays = _rays(ds)
     c_all, c_counted = _new_counts(), _new_counts()
@@ -203,10 +266,28 @@ def test_queued_walks_stop_at_leaf_counts(name, kind):
     live = rays[2] > qt.T_MIN
     assert (c_all[0][~live] == 0).all() and (c_all[0][live] > 0).all()
     assert int(c_all[1].sum()) > 0
-    if kind == "closest8":
+    if kind in CLOSEST:
         assert int((want[1] >= 0).sum()) > RAYS // 4
     else:
         assert 0 < int(want[0].sum()) < int(live.sum())
+
+
+@pytest.mark.parametrize("kind", ("queued4_serial", "queued4_divfree"))
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_descent_takes_the_same_steps(name, kind):
+    """L6 with descent (the stack's top in `cur`) and without it: the same
+    results and the same (nit, nleaf) of every ray, so the kernels' times
+    differ only by what the register top entry saves."""
+    ds, tree = _bake(name)
+    rays = _rays(ds)
+    counts = [_new_counts() for _ in range(2)]
+    got = [_walk(kind, ds, tree, rays, counts=c, descent=descent)
+           for c, descent in zip(counts, (False, True))]
+    for g, w in zip(got[1], got[0], strict=True):
+        assert torch.equal(g, w)
+    for g, w in zip(counts[1], counts[0], strict=True):
+        assert torch.equal(g, w)
+    assert int(counts[0][1].sum()) > 0
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -214,11 +295,13 @@ def test_queued_walks_stop_at_leaf_counts(name, kind):
 def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
     """After every push of the plain walks, the stack holds at most the
     need the wrapper sizes shared memory by (OctTree.stack_need for L7,
-    q_stack_need for L8; at most CAP), and the leaf queue at most LQ."""
+    q_stack_need for L2, L6 and L8; at most CAP), and the leaf queue at
+    most LQ (L2 has none: its leaves go on the stack). L6 is walked
+    without descent, whose stack holds the most: every internal child."""
     ds, tree = _bake(name)
     need = tree.stack_need if kind == "closest8" else ds.q_stack_need
     deepest = {qw.CAP: 0, qw.LQ: 0}
-    push = qw._push
+    push = qt._push
 
     def watched(stack, sp, rays, meta, mask):
         push(stack, sp, rays, meta, mask)
@@ -226,10 +309,15 @@ def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
             cap = stack.shape[1]
             deepest[cap] = max(deepest[cap], int(sp[rays].max()))
 
+    assert qt.CAP == qw.CAP
     monkeypatch.setattr(qw, "_push", watched)
+    monkeypatch.setattr(qt, "_push", watched)
     _walk(kind, ds, tree, _rays(ds))
     assert 2 <= deepest[qw.CAP] <= need <= qw.CAP
-    assert 1 <= deepest[qw.LQ] <= qw.LQ
+    if kind.startswith("closest4_"):
+        assert deepest[qw.LQ] == 0
+    else:
+        assert 1 <= deepest[qw.LQ] <= qw.LQ
     print(f"{name} {kind}: need {need}, deepest stack {deepest[qw.CAP]}, "
           f"deepest queue {deepest[qw.LQ]}")
 
@@ -286,13 +374,21 @@ def test_lab_runs_count_through_the_leaf_hooks(name, lab, monkeypatch):
 # --------------------------------------------------------------------------
 
 class _FakeLib:
-    """A stand-in for the built lab2 library: records each launch's
-    arguments and returns `rc`; lab2_launch_info fills its output with
-    1..8."""
+    """A stand-in for the built lab and lab2 libraries: records each
+    launch's arguments and returns `rc`; the launch-shape queries fill
+    their output with 1..8."""
 
     def __init__(self, rc=0):
         self.rc = rc
         self.calls = []
+
+    def lab_closest4(self, *args):
+        self.calls.append(("closest4", args))
+        return self.rc
+
+    def lab_closest4_queued(self, *args):
+        self.calls.append(("queued4", args))
+        return self.rc
 
     def lab_closest8_queued(self, *args):
         self.calls.append(("closest8", args))
@@ -302,18 +398,24 @@ class _FakeLib:
         self.calls.append(("occlusion", args))
         return self.rc
 
-    def lab2_launch_info(self, kernel, need, out):
-        self.calls.append(("info", (kernel, need)))
+    def _info(self, entry, kernel, need, out):
+        self.calls.append((entry, (kernel, need)))
         for i in range(len(qt.LAUNCH_INFO_KEYS)):
             out[i] = i + 1
         return self.rc
 
+    def lab_launch_info(self, kernel, need, out):
+        return self._info("lab_info", kernel, need, out)
+
+    def lab2_launch_info(self, kernel, need, out):
+        return self._info("info", kernel, need, out)
+
 
 @pytest.fixture
 def fake_lib(monkeypatch):
-    """L7's and L8's CUDA wrappers on CPU tensors against a _FakeLib, with
-    the device context and the stream stubbed; the counters the launches
-    got are kept alive in `lib.counters`."""
+    """L2's, L6's, L7's and L8's CUDA wrappers on CPU tensors against a
+    _FakeLib, with the device context and the stream stubbed; the counters
+    the launches got are kept alive in `lib.counters`."""
     lib = _FakeLib()
     lib.counters = []
     walk_args = qt._walk_args
@@ -323,39 +425,56 @@ def fake_lib(monkeypatch):
         lib.counters.append(counter)
         return args, counter
 
+    monkeypatch.setattr(_build, "lab_traverse_lib", lambda: lib)
     monkeypatch.setattr(_build, "lab2_traverse_lib", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(qt, "_stream", lambda dev: ctypes.c_void_p(0))
     monkeypatch.setattr(qt, "_walk_args", spy)
-    l7.reset_launch_counts()
-    l8.reset_launch_counts()
+    for mod in (l2, l6, l7, l8):
+        mod.reset_launch_counts()
     return lib
 
 
+# L6's (descent, leaf kind) of the wrapper tests: each leaf kind once.
+L6_RUNS = ((False, 0), (True, 1), (False, 2))
+
+
 def _launch_all(ds, tree, rays):
-    """L7 once and L8 in both orders on the fake library."""
+    """L7 once, L8 in both orders, L2 in both orders and L6 as L6_RUNS say
+    on the fake library."""
     o, d, tm, skip = rays
     l7._closest8_cuda(o, d, tm, tree, ds.ptris)
     for ordered in (True, False):
         l8._occl_ordered_cuda(o, d, tm, skip, ds, ordered)
+    for ordered in (True, False):
+        l2._closest4_cuda(o, d, tm, ds, ordered)
+    for descent, kind in L6_RUNS:
+        l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
+
+
+def _launch_counts():
+    return (l7.closest_launches, l8.occlusion_launches,
+            l2.closest4_launches, l6.closest_launches)
 
 
 def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
         fake_lib):
     """L7 passes root, the onodes rows, ptris, ptris's leaf counts, the
     leaf size, OctTree.stack_need, its counter and drain_at; L8 the same
-    with the qnodes rows and q_stack_need, then its order. Neither passes
-    ometa or qmeta; each launch has its own counter and adds one to its
-    kernel's count."""
+    with the qnodes rows and q_stack_need, then its order; L2 the qnodes
+    rows and q_stack_need, then its order; L6 as L8, then descent and its
+    leaf kind. None passes ometa or qmeta; each launch has its own counter
+    and adds one to its kernel's count."""
     ds, tree = _bake("atrium4k")
     _launch_all(ds, tree, _rays(ds))
-    assert (l7.closest_launches, l8.occlusion_launches) == (1, 2)
+    assert _launch_counts() == (1, 2, 2, len(L6_RUNS))
     ptrs = [c.data_ptr() for c in fake_lib.counters]
-    assert len(set(ptrs)) == 3
+    assert len(set(ptrs)) == 5 + len(L6_RUNS)
     counts = qt.ptris_leaf_counts(ds.ptris).data_ptr()
-    (k7, a7), (ko, ao), (kf, af) = fake_lib.calls
-    assert (k7, ko, kf) == ("closest8", "occlusion", "occlusion")
+    (k7, a7), (ko, ao), (kf, af), (k2o, a2o), (k2f, a2f) = fake_lib.calls[:5]
+    assert (k7, ko, kf, k2o, k2f) == ("closest8", "occlusion", "occlusion",
+                                      "closest4", "closest4")
     assert a7[3] == RAYS and a7[4] == tree.root
     assert [a.value for a in (a7[5], a7[6], a7[7])] == [
         tree.nodes.data_ptr(), ds.ptris.data_ptr(), counts]
@@ -369,6 +488,19 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
         assert a[9:11] == (l8.LEAF_SIZE, ds.q_stack_need)
         assert (a[11].value, a[12], a[13]) == (ptr, qw.DRAIN_AT, ordered)
         assert len(a) == 16 and a[-1].value is None
+    quad = [(a2o, ptrs[3], (1,)), (a2f, ptrs[4], (0,))]
+    for (kind, a), (descent, leaf_kind), ptr in zip(
+            fake_lib.calls[5:], L6_RUNS, ptrs[5:], strict=True):
+        assert kind == "queued4"
+        quad.append((a, ptr, (qw.DRAIN_AT, int(descent), leaf_kind)))
+    for a, ptr, tail in quad:
+        assert a[3] == RAYS and a[4] == ds.root
+        assert [x.value for x in (a[5], a[6], a[7])] == [
+            ds.qnodes.data_ptr(), ds.ptris.data_ptr(), counts]
+        assert a[8:10] == (l2.LEAF_SIZE, ds.q_stack_need)
+        assert a[10].value == ptr
+        assert a[11:11 + len(tail)] == tail
+        assert len(a) == 11 + len(tail) + 5 and a[-1].value is None
     sent = {a.value for _, args in fake_lib.calls for a in args
             if isinstance(a, ctypes.c_void_p)}
     assert tree.meta.data_ptr() not in sent
@@ -384,8 +516,13 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
     for ordered in (True, False):
         with pytest.raises(RuntimeError, match="lab_occlusion4_queued"):
             l8._occl_ordered_cuda(o, d, tm, skip, ds, ordered)
-    assert (l7.closest_launches, l8.occlusion_launches) == (0, 0)
-    assert len(fake_lib.calls) == 3
+        with pytest.raises(RuntimeError, match="lab_closest4 launch"):
+            l2._closest4_cuda(o, d, tm, ds, ordered)
+    for descent, kind in L6_RUNS:
+        with pytest.raises(RuntimeError, match="lab_closest4_queued"):
+            l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
+    assert _launch_counts() == (0, 0, 0, 0)
+    assert len(fake_lib.calls) == 5 + len(L6_RUNS)
 
 
 @pytest.mark.parametrize("need", [0, qw.CAP + 1])
@@ -405,6 +542,16 @@ def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
             l8._occl_ordered_cuda(o, d, tm, skip, deep_scene, ordered)
         with pytest.raises(ValueError, match="stack need"):
             l8.run_occl_ordered(o, d, tm, skip, deep_scene, ordered)
+        with pytest.raises(ValueError, match="stack need"):
+            l2._closest4_cuda(o, d, tm, deep_scene, ordered)
+        with pytest.raises(ValueError, match="stack need"):
+            l2.run_closest4(o, d, tm, deep_scene, ordered)
+    for descent, kind in L6_RUNS:
+        with pytest.raises(ValueError, match="stack need"):
+            l6._closest_variant_cuda(o, d, tm, deep_scene, descent, kind)
+        with pytest.raises(ValueError, match="stack need"):
+            l6.run_closest_variant(o, d, tm, deep_scene, descent, kind == 1,
+                                   kind == 2)
     assert fake_lib.calls == []
 
 
@@ -419,6 +566,12 @@ def test_wrappers_refuse_more_rays_than_the_counter_takes(fake_lib,
     o, d, tm, skip = _rays(ds)
     with pytest.raises(ValueError, match="rays"):
         l8._occl_ordered_cuda(o, d, tm, skip, ds, False)
+    for ordered in (True, False):
+        with pytest.raises(ValueError, match="rays"):
+            l2._closest4_cuda(o, d, tm, ds, ordered)
+    for descent, kind in L6_RUNS:
+        with pytest.raises(ValueError, match="rays"):
+            l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
     assert fake_lib.calls == []
 
 
@@ -427,37 +580,66 @@ def test_no_rays_launch_nothing(fake_lib):
     o, d, tm, skip = (a[:0] for a in _rays(ds))
     assert l7._closest8_cuda(o, d, tm, tree, ds.ptris)[0].shape == (0,)
     assert l8._occl_ordered_cuda(o, d, tm, skip, ds, True).shape == (0,)
+    for ordered in (True, False):
+        assert l2._closest4_cuda(o, d, tm, ds, ordered)[0].shape == (0,)
+    for descent, kind in L6_RUNS:
+        out = l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
+        assert [t.shape for t in out] == [(0,)] * 4
     assert fake_lib.calls == []
-    assert (l7.closest_launches, l8.occlusion_launches) == (0, 0)
+    assert _launch_counts() == (0, 0, 0, 0)
 
 
+# kernel -> its mangled name in a -Xptxas=-v log.
 MANGLED = {
     "closest8": "_ZN12_GLOBAL__N_122closest8_queued_kernelEPKfS1_S1_ii",
     "occlusion_ordered":
         "_ZN12_GLOBAL__N_124occlusion4_queued_kernelILb1EEEvPKfS2_S2_PKi",
     "occlusion_fixed":
         "_ZN12_GLOBAL__N_124occlusion4_queued_kernelILb0EEEvPKfS2_S2_PKi",
+    "closest4_ordered":
+        "_ZN12_GLOBAL__N_126closest4_persistent_kernelILb1EEEvPKfS2_S2_ii",
+    "closest4_noorder":
+        "_ZN12_GLOBAL__N_126closest4_persistent_kernelILb0EEEvPKfS2_S2_ii",
+    **{qw.l6_kernel(descent, kind):
+       f"_ZN12_GLOBAL__N_133closest4_queued_persistent_kernelILb{descent}"
+       f"ELi{kind}EEEvPKfS2_S2_ii"
+       for kind in range(3) for descent in (0, 1)},
 }
 
 
 def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
                                                          monkeypatch):
-    """launch_info asks the library for kernel 0 (L7), 1 (L8 ordered) or 2
-    (L8 child order) at the need given, and finds that kernel's spills in
-    a -Xptxas=-v log, the two L8 instances apart."""
-    log = []
+    """launch_info asks L2's library (lab_launch_info: 0 ordered, 1 child
+    order) or the lab2 library (lab2_launch_info: 0 L7, 1 L8 ordered, 2 L8
+    child order, 3 + 2 * leaf kind + descent L6) for the kernel at the
+    need given, and finds that kernel's spills in its library's
+    -Xptxas=-v log, each template instance apart."""
+    assert sorted(MANGLED) == sorted(qw.LAUNCH_KERNELS)
+    logs = {"lab_traverse": [], "lab2_traverse": []}
     for k, (kernel, mangled) in enumerate(MANGLED.items()):
-        log += [f"ptxas info    : Function properties for {mangled}",
-                f"    0 bytes stack frame, {8 * k} bytes spill stores, "
-                f"{8 * k + 4} bytes spill loads"]
-    monkeypatch.setitem(_build.build_info, "liblab2_traverse",
-                        {"seconds": 0.0, "log": "\n".join(log)})
+        logs[qw.LAUNCH_KERNELS[kernel][0]] += [
+            f"ptxas info    : Function properties for {mangled}",
+            f"    0 bytes stack frame, {8 * k} bytes spill stores, "
+            f"{8 * k + 4} bytes spill loads"]
+    for library, log in logs.items():
+        monkeypatch.setitem(_build.build_info, f"lib{library}",
+                            {"seconds": 0.0, "log": "\n".join(log)})
+    want = {"closest4_ordered": ("lab_info", 0),
+            "closest4_noorder": ("lab_info", 1), "closest8": ("info", 0),
+            "occlusion_ordered": ("info", 1), "occlusion_fixed": ("info", 2),
+            **{qw.l6_kernel(descent, kind): ("info", 3 + 2 * kind + descent)
+               for kind in range(3) for descent in (0, 1)}}
     for k, kernel in enumerate(MANGLED):
         info = qw.launch_info(kernel, 24, torch.device("cpu"))
-        assert fake_lib.calls[-1] == ("info", (k, 24))
+        entry, index = want[kernel]
+        assert fake_lib.calls[-1] == (entry, (index, 24))
         assert [info[key] for key in qt.LAUNCH_INFO_KEYS] == list(
             range(1, len(qt.LAUNCH_INFO_KEYS) + 1))
         assert info["spills"] == (8 * k, 8 * k + 4)
+    assert l6.launch_kernel(True, True) == qw.l6_kernel(1, 1)
+    assert l6.launch_kernel(False, False, True) == qw.l6_kernel(0, 2)
     fake_lib.rc = 1
     with pytest.raises(RuntimeError, match="lab2_launch_info"):
         qw.launch_info("closest8", 24, torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="lab_launch_info"):
+        qw.launch_info("closest4_ordered", 24, torch.device("cpu"))
