@@ -349,17 +349,20 @@ def bound(n_rays, ray_bytes, arrays, counts, node, tri):
     return bound_of(nbytes, ops)
 
 
-def walk_bound(ds, nodes, n_rays, ray_bytes, counts, tests, node, tri):
-    """The bound of K1-K4, L7 and L8, which test only the triangles below
-    each leaf row's count: as bound(), for what they read and test. Bytes:
-    each live ray's inputs and outputs (ray_bytes; a live ray takes at
-    least one step of `counts`), each inactive ray's t_max and outputs
-    (INACTIVE_RAY_BYTES), what a node step reads of each of the tree's
-    node rows `nodes` (qnodes, onodes, whose rows hold the child metas, or
-    pnodes; ROW_READ_BYTES), the leaf counts and the real triangles of each
-    leaf row, once. Operations: the internal visits or steps of `counts`
-    times NODE_OPS[node] and `tests` (counting_leaf_tests(): the triangles
-    they test, not every slot of each row visited) times TRI_OPS[tri]."""
+def walk_bound(ds, nodes, n_rays, ray_bytes, counts, tests, node, tri,
+               counter_bytes=0):
+    """The bound of K1-K4 and the persistent labs, which test only the
+    triangles below each leaf row's count: as bound(), for what they read
+    and test. Bytes: each live ray's inputs and outputs (ray_bytes; a live
+    ray takes at least one step of `counts`), each inactive ray's t_max and
+    outputs (INACTIVE_RAY_BYTES), `counter_bytes` more for every ray (the
+    counters L1 and L9 write, 0s for an inactive ray), what a node step
+    reads of each of the tree's node rows `nodes` (qnodes, onodes, whose
+    rows hold the child metas, or pnodes; ROW_READ_BYTES), the leaf counts
+    and the real triangles of each leaf row, once. Operations: the internal
+    visits or steps of `counts` times NODE_OPS[node] and `tests`
+    (counting_leaf_tests(): the triangles they test, not every slot of each
+    row visited) times TRI_OPS[tri]."""
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     lc = qt.leaf_counts(ds)
@@ -367,6 +370,7 @@ def walk_bound(ds, nodes, n_rays, ray_bytes, counts, tests, node, tri):
     ops = (visits - leaves) * NODE_OPS[node] + tests * TRI_OPS[tri]
     live = int((counts[0] > 0).sum())
     nbytes = (live * ray_bytes + (n_rays - live) * INACTIVE_RAY_BYTES[tri]
+              + n_rays * counter_bytes
               + nodes.shape[0] * ROW_READ_BYTES[node] + lc.numel() * 4
               + int(lc.sum()) * qt.TRI_STRIDE * 4)
     return bound_of(nbytes, ops)
@@ -685,13 +689,16 @@ def phase2(ds, device):
     return report
 
 
-def log_walk_bound(what, r, arrays, counts, node, tri, phase="phase 2"):
+def log_walk_bound(what, r, arrays, counts, node, tri, phase="phase 2",
+                   counter_bytes=0):
     """A persistent kernel's bound on one set, beside bound() of the same
     walk, which counts every slot of each leaf row visited and reads the
     tree's `arrays` whole (qmeta or ometa too): the bound given for the
-    one-thread-per-ray design."""
-    whole = bound(WIDTH * HEIGHT, CLOSEST_RAY_BYTES if tri == "closest"
-                  else ANY_RAY_BYTES, arrays, counts, node, tri)
+    one-thread-per-ray design (with `counter_bytes` a ray, L1's and L9's
+    counters)."""
+    whole = bound(WIDTH * HEIGHT, counter_bytes + (
+        CLOSEST_RAY_BYTES if tri == "closest" else ANY_RAY_BYTES), arrays,
+        counts, node, tri)
     log(f"{phase}: bound {what}: {r['bound_ms']:.4f} ms ({r['bound_by']}: "
         f"{r['bytes']} B, {r['ops']} FP32 operations); every slot of each "
         f"row visited: {whole['bound_ms']:.4f} ms ({whole['ops']} "
@@ -1003,12 +1010,18 @@ def gate_equal(what, got, ref):
 
 
 def phase6(device):
-    """The traversal lab: its runs (the launch counts), then each kernel
-    against its plain version. Returns the four kernels' report entries."""
+    """The traversal lab: its runs (the launch counts; L1 with K3 and L9
+    with K4 timed on the same sets), then each kernel against its plain
+    version, L1 base against K3, L9 lean against K4's mask and L2 ordered
+    against K1, the persistent kernels' launch shapes (no local memory, no
+    spills) and their bounds on the triangles they test. Returns the four
+    kernels' report entries."""
     import torch
 
     from raytracer_tpu_torch.lab import bvh4_lab, kernel_lab, occl_lab
+    from raytracer_tpu_torch.lab import queue_walk as qw
     from raytracer_tpu_torch.lab import rays as lab_rays
+    from raytracer_tpu_torch.ops import binary_traverse as bt
 
     plog = lambda m: log(f"phase 6: {m}")  # noqa: E731
     t0 = time.perf_counter()
@@ -1044,11 +1057,20 @@ def phase6(device):
         if plain_ms is not None:
             entry["plain_ms"] = plain_ms
 
+    # L1 and L9 count their own visits (gated here against their plain
+    # versions'); the plain versions' leaf hooks count the triangles they
+    # test (leafilp's ILP leaf: every slot of each row it visits).
+    tests = {}
+    leaf16 = ds16.ptris.shape[1] // 12
     for label, (o, d, tm) in closest16.items():
         for plain_variant in ("nored", "leafilp", "pop2", "pop4"):
+            leaf_test, _, total = counting_leaf_tests()
             ref, plain_ms = lab_rays.host_ms(
                 kernel_lab.closest_lab_plain, o, d, tm, ds16.binary_root,
-                ds16.pnodes, ds16.ptris, plain_variant)
+                ds16.pnodes, ds16.ptris, plain_variant,
+                None if plain_variant == "leafilp" else leaf_test)
+            tested = (int(ref[5].sum()) * leaf16
+                      if plain_variant == "leafilp" else total[0])
             names = [plain_variant]
             if plain_variant == "nored":
                 names = ["base", "nored"]
@@ -1057,30 +1079,40 @@ def phase6(device):
                                      kres[(label, f"ts{block}")]["out"], ref)
                     keep("lab_closest_ts", err,
                          plain_ms if label == "bounce1" else None)
+                    tests[(label, f"ts{block}")] = tested
             for name in names:
                 err = gate_equal(f"lab_closest {label} {name}",
                                  kres[(label, name)]["out"], ref)
                 keep("lab_closest", err, plain_ms
                      if (label, name) == ("bounce1", "base") else None)
+                tests[(label, name)] = tested
             plog(f"lab_closest {label} {'/'.join(names)}: equal to the "
                  f"plain version on all {o.shape[0]} rays (t, tri, u, v, "
                  f"nvisit, nleaf); plain {plain_ms:.1f} ms")
+        # L1 base takes K3's steps in K3's order on K3's machinery.
+        gate_equal(f"lab_closest {label} base vs K3",
+                   kres[(label, "base")]["out"][:4],
+                   kres[(label, "k3")]["out"])
+        plog(f"lab_closest {label} base: equal to K3 on all {o.shape[0]} "
+             f"rays (t, tri, u, v); K3 {kres[(label, 'k3')]['ms']:.3f} ms")
 
     for label, (o, d, tm, skip, _) in shadow8.items():
         args = (ds8.binary_root, ds8.pnodes, ds8.ptris)
         for variant in occl_lab.VARIANTS:
             ordered = variant != "noorder"
+            _, any_hit, total = counting_leaf_tests()
             if variant == "resort":
                 perm = occl_lab.resort_perm(o, tm, ds8)
                 got_p, plain_ms = lab_rays.host_ms(
                     occl_lab.occl_lab_plain, o[perm], d[perm], tm[perm],
-                    skip[perm], *args, ordered)
+                    skip[perm], *args, ordered, any_hit)
                 ref = tuple(torch.empty_like(g) for g in got_p)
                 for dst, src in zip(ref, got_p):
                     dst[perm] = src
             else:
                 ref, plain_ms = lab_rays.host_ms(occl_lab.occl_lab_plain, o, d,
-                                            tm, skip, *args, ordered)
+                                            tm, skip, *args, ordered, any_hit)
+            tests[(label, variant)] = total[0]
             err = gate_equal(f"lab_occlusion {label} {variant}",
                              ores[(label, variant)]["out"], ref)
             keep("lab_occlusion", err, plain_ms
@@ -1088,6 +1120,12 @@ def phase6(device):
             plog(f"lab_occlusion {label} {variant}: equal to the plain "
                  f"version on all {o.shape[0]} rays (occ, nvisit, nleaf); "
                  f"plain {plain_ms:.1f} ms")
+        # L9 lean takes K4's steps in K4's order on K4's machinery.
+        gate_equal(f"lab_occlusion {label} lean vs K4",
+                   ores[(label, "lean")]["out"][:1],
+                   ores[(label, "k4")]["out"])
+        plog(f"lab_occlusion {label} lean: equal to K4's mask on all "
+             f"{o.shape[0]} rays; K4 {ores[(label, 'k4')]['ms']:.3f} ms")
 
     n = lab_rays.WIDTH * lab_rays.HEIGHT
     for label, (o, d, tm) in closest8.items():
@@ -1133,27 +1171,31 @@ def phase6(device):
              f"{bres[(label, 'k1')]['ms']:.3f} ms (counts above)")
     plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
 
-    launch_shapes_gate([(f"closest4_{order}", ds8.q_stack_need)
-                        for order in bvh4_lab.ORDERS], device)
+    need16, need8 = bt.stack_need(ds16), bt.stack_need(ds8)
+    launch_shapes_gate(
+        [(f"closest4_{order}", ds8.q_stack_need)
+         for order in bvh4_lab.ORDERS]
+        + [(qw.l1_kernel(v, leaf16), kernel_lab.stack_need(ds16, v))
+           for v in kernel_lab.VARIANTS]
+        + [(qw.l1_kernel("nored", block=b), need16)
+           for b in kernel_lab.BLOCKS]
+        + [(f"lab_occlusion_{order}", need8)
+           for order in ("ordered", "noorder")], device)
     l2_bounds = lab4_bounds(ds8, closest8, bres, bvh4_lab.ORDERS,
                             "lab_closest4", "L2", "phase 6")
+    l1_bounds = lab_binary_bounds(ds16, kres, tests, closest16, "closest",
+                                  "lab_closest", "L1")
+    l9_bounds = lab_binary_bounds(ds8, ores, tests, shadow8, "any",
+                                  "lab_occlusion", "L9")
 
-    # L1's and L9's kernels count their own visits (equal to their plain
-    # versions', gated above); L2's plain version counts for it (walk_bound,
-    # above).
-    n = closest16["bounce1"][0].shape[0]
-    base, ts = kres[("bounce1", "base")], kres[("bounce1", "ts128")]
-    lean = ores[("shadow_b1", "lean")]
-    for name, r, ray_bytes, arrays, counts, node, tri in (
-            ("lab_closest", base, CLOSEST_RAY_BYTES + COUNTER_BYTES,
-             (ds16.pnodes, ds16.ptris), base["out"][4:], "binary",
-             "closest"),
-            ("lab_closest_ts", ts, CLOSEST_RAY_BYTES + COUNTER_BYTES,
-             (ds16.pnodes, ds16.ptris), ts["out"][4:], "binary", "closest"),
-            ("lab_occlusion", lean, ANY_RAY_BYTES + COUNTER_BYTES,
-             (ds8.pnodes, ds8.ptris), lean["out"][1:], "binary", "any")):
-        report[name].update(ms=r["ms"], launches=launches[name],
-                            **bound(n, ray_bytes, arrays, counts, node, tri))
+    for name, r, b in (
+            ("lab_closest", kres[("bounce1", "base")],
+             l1_bounds[("bounce1", "base")]),
+            ("lab_closest_ts", kres[("bounce1", "ts128")],
+             l1_bounds[("bounce1", "ts128")]),
+            ("lab_occlusion", ores[("shadow_b1", "lean")],
+             l9_bounds[("shadow_b1", "lean")])):
+        report[name].update(ms=r["ms"], launches=launches[name], **b)
     report["lab_closest4"].update(
         ms=bres[("bounce1", "ordered")]["ms"],
         launches=launches["lab_closest4"],
@@ -1190,6 +1232,35 @@ def lab4_bounds(ds, sets, res, variants, name, label, phase):
             log(f"{phase}: {label} {what}: {r['ms']:.3f} ms against a bound "
                 f"of {b['bound_ms']:.4f} ms, "
                 f"{100 * b['bound_ms'] / r['ms']:.2f}% of the bound")
+    return bounds
+
+
+def lab_binary_bounds(ds, res, tests, sets, tri, name, label,
+                      phase="phase 6"):
+    """The bound of L1 (tri "closest") or L9 ("any") on each set of `sets`
+    and each variant (and L1b block) of the runs `res`, counted on the
+    triangles the plain versions tested (`tests`, keyed (set, variant)) and
+    on live rays' bytes with their counters (walk_bound, 64 B a pnodes
+    row), from the kernels' own counters; each logged beside bound() (every
+    slot of each leaf row visited) and beside the run's ms. Returns {(set,
+    variant): bound}."""
+    ray_bytes = CLOSEST_RAY_BYTES if tri == "closest" else ANY_RAY_BYTES
+    bounds = {}
+    for key, tested in tests.items():
+        if key[0] not in sets:
+            continue
+        r = res[key]
+        counts = r["out"][-2:]
+        b = bounds[key] = walk_bound(ds, ds.pnodes, WIDTH * HEIGHT, ray_bytes,
+                                     counts, tested, "binary", tri,
+                                     counter_bytes=COUNTER_BYTES)
+        what = f"{key[0]} {key[1]}"
+        log_walk_bound(f"{name} {what}", b, (ds.pnodes, ds.ptris), counts,
+                       "binary", tri, phase=phase,
+                       counter_bytes=COUNTER_BYTES)
+        log(f"{phase}: {label} {what}: {r['ms']:.3f} ms against a bound of "
+            f"{b['bound_ms']:.4f} ms, {100 * b['bound_ms'] / r['ms']:.2f}% "
+            "of the bound")
     return bounds
 
 

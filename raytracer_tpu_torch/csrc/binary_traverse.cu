@@ -30,10 +30,11 @@
 //      memory once per group, not once per triangle behind the previous
 //      test's division.
 //   4. The entry to visit next stays in a register: the node step
-//      (binary_visit<true> of traverse_common.cuh, the lab's and the plain
-//      version's) pushes the far child to the stack and keeps the near one
-//      when both are hit (a tie keeps left), keeps the one hit child, and
-//      pops when none is hit. The rest of the stack is in shared memory,
+//      (persistent_walk.cuh's binary_node on binary_visit<true> of
+//      traverse_common.cuh, the lab's and the plain version's) pushes the
+//      far child to the stack and keeps the near one when both are hit (a
+//      tie keeps left), keeps the one hit child, and pops when none is
+//      hit. The rest of the stack is in shared memory,
 //      laid out [entry][thread]: `need` = bvh_max_depth + 2 entries a
 //      thread (the wrapper's; at most STACK_CAP = 128, 64 KB a block),
 //      where the one-thread-per-ray design kept 128 in local memory.
@@ -58,26 +59,6 @@ namespace {
 constexpr int kGroup = 4;      // triangles of a leaf loaded together
 constexpr int kRefillAt = 16;  // idle lanes of 32 at which a warp fetches
 constexpr int kCap = 128;      // stack entries at most (STACK_CAP)
-
-// binary_visit's push policy here: the far child goes to the stack, the
-// near one to the register entry.
-struct NearInRegister {
-  Stack& st;
-  int& next;
-  __device__ __forceinline__ void operator()(int meta) const { st.push(meta); }
-  __device__ __forceinline__ void near(int meta) const { next = meta; }
-};
-
-// Node step of both kernels: slab-test both children of pnodes row `p`
-// against [t_min, t_cap] and return the entry to visit next.
-__device__ __forceinline__ int binary_node(const Ray& r,
-                                           const float4* __restrict__ p,
-                                           float t_min, float t_cap,
-                                           Stack& st) {
-  int next = kNone;
-  binary_visit<true>(r, p, t_min, t_cap, NearInRegister{st, next});
-  return next != kNone ? next : st.pop();
-}
 
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ origin,
@@ -150,7 +131,7 @@ extern "C" int binary_occlusion(const float* origin, const float* direction,
 }
 
 // What a launch of kernel `occlusion` (0 K3, 1 K4) at stack need `need`
-// looks like on the current device: out[0..7] as persistent_walk.cuh's
+// looks like on the current device: out[0..8] as persistent_walk.cuh's
 // info().
 extern "C" int binary_launch_info(int occlusion, int need, int* out) {
   return occlusion

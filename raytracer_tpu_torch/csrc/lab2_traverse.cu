@@ -852,7 +852,7 @@ extern "C" int lab_closest4_queued(const float* origin, const float* direction,
 
 // What a launch of `kernel` (0 L7, 1 L8 ordered, 2 L8 child order, 3 +
 // 2 * leaf_kind + descent L6) at stack need `need` looks like on the
-// current device: out[0..7] as persistent_walk.cuh's info(), the shared
+// current device: out[0..8] as persistent_walk.cuh's info(), the shared
 // memory holding the queue too.
 extern "C" int lab2_launch_info(int kernel, int need, int* out) {
   if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;

@@ -213,7 +213,7 @@ extern "C" int quad_occlusion(const float* origin, const float* direction,
 }
 
 // What a launch of kernel `occlusion` (0 K1, 1 K2) at stack need `need`
-// looks like on the current device: out[0..7] as persistent_walk.cuh's
+// looks like on the current device: out[0..8] as persistent_walk.cuh's
 // info().
 extern "C" int quad_launch_info(int occlusion, int need, int* out) {
   return occlusion

@@ -1,9 +1,10 @@
 // Device helpers shared by the traversal kernels (quad_traverse.cu,
 // binary_traverse.cu, lab_traverse.cu, lab2_traverse.cu, lab3_traverse.cu):
 // the ray with its clamped inverse direction, the slab test of one box,
-// Moller-Trumbore against one leaf triangle, the closest-hit (serial, ILP
-// and component-major) and any-hit leaf loops, and the binary, 4-wide and
-// 8-wide node steps with their push policy.
+// Moller-Trumbore against one leaf triangle, the closest-hit leaf loops
+// (serial, ILP and component-major; the persistent walks' grouped loops are
+// in persistent_walk.cuh), and the binary, 4-wide and 8-wide node steps
+// with their push policy.
 //
 // Each term is written in the order of the plain torch versions
 // (ops/quad_traverse.py: _inv_dir, _slab_children, _moller), and the
@@ -130,30 +131,12 @@ __device__ __forceinline__ void closest_leaf(const Ray& r,
   }
 }
 
-// Any-hit leaf: whether a triangle of one leaf row, not of object `skip`,
-// hits in (t_min, t_max).
-__device__ __forceinline__ bool occluded_leaf(const Ray& r,
-                                              const float4* __restrict__ row,
-                                              int leaf, float t_min,
-                                              float t_max, float skip) {
-  for (int k = 0; k < leaf; ++k) {
-    float4 a = __ldg(row + 3 * k);
-    float4 b = __ldg(row + 3 * k + 1);
-    float4 c = __ldg(row + 3 * k + 2);
-    float t, u, v;
-    if (moller(r, a, b, c, t_min, t_max, &t, &u, &v) && c.z != skip) {
-      return true;
-    }
-  }
-  return false;
-}
-
 // The node steps' push policy: every hit child goes through push(meta), the
 // near one (pushed last) through push.near(meta). StackPush puts both on the
-// ray's stack (the one-thread-per-ray binary labs); the persistent walks
-// keep the entry popped next in a register (binary_traverse.cu,
-// lab_traverse.cu), and the queued walks (lab2_traverse.cu) route leaf
-// children to a leaf queue.
+// ray's stack (the one-thread-per-ray binary labs L3-L5); the persistent
+// walks keep the entry popped next in a register (persistent_walk.cuh's
+// binary_node, lab_traverse.cu), and the queued walks (lab2_traverse.cu)
+// route leaf children to a leaf queue.
 struct StackPush {
   int* stack;
   int& sp;

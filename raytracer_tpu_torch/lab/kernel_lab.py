@@ -5,15 +5,18 @@ counters and its variants, the port's counterpart of tools/kernel_lab.py
     python -m raytracer_tpu_torch.lab.kernel_lab [--width W --height H]
 
 Bakes the atrium with leaf 16 (RenderConfig.bvh_leaf_size, as the JAX
-lab), traces the primary rays and the bounce-1 wavefront in the renderer's
-and in the sorted order, and prints per variant the kernel time (CUDA
-events, mean of 5), visits per live ray, the leaf share of the visits, ns
-per visit (kernel time over all visits) and whether the triangles match
+lab), prints each kernel's launch shape, traces the primary rays and the
+bounce-1 wavefront in the renderer's and in the sorted order, and prints
+K3's time (ops/binary_traverse.intersect_bvh_binary, the walk the lab
+counts) and per variant the kernel time (CUDA events, mean of 5) and its
+ratio to K3's, visits per live ray, the leaf share of the visits, ns per
+visit (kernel time over all visits) and whether the triangles match
 `base`; then L1b's time for each block size.
 
 Variants, each computing per ray what the TPU kernel computes per packet:
   base, nored  K3's walk with counters; one kernel serves both names (for
-               one ray, any(hit) and min t_near < BIG are one predicate)
+               one ray, any(hit) and min t_near < BIG are one predicate);
+               it equals K3 on every ray
   leafilp      every triangle of a leaf tested against the entry best t,
                then a pairwise min tree (a tie keeps the lower k); equals
                the serial leaf; leaf 8 or 16
@@ -25,10 +28,12 @@ L1b (`run_closest_ts`) is the nored kernel with the TPU's rays per packet
 turned into threads per block (BLOCKS); results and counts do not change.
 
 nvisit counts every pop of a ray's walk, nleaf its leaf pops. On CUDA
-tensors the wrappers launch csrc/lab_traverse.cu:lab_closest; on CPU
-tensors they run the plain torch versions below, which the kernels equal
-bit for bit (counts included) and the tests compare with the JAX lab
-kernels.
+tensors the wrappers launch csrc/lab_traverse.cu:lab_closest, K3's
+machinery (persistent warps, the stack in shared memory below the entry
+kept in a register, `stack_need(scene, variant)` entries a thread, leaves
+tested up to their counts but leafilp's); on CPU tensors they run the
+plain torch versions below, which the kernels equal bit for bit (counts
+included) and the tests compare with the JAX lab kernels.
 """
 
 from __future__ import annotations
@@ -38,8 +43,10 @@ import sys
 
 import torch
 
+from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import rays as lab_rays
 from raytracer_tpu_torch.ops import binary_traverse as bt
+from raytracer_tpu_torch.ops import quad_traverse as qt
 from raytracer_tpu_torch.ops.binary_traverse import STACK_CAP, _binary_visit
 from raytracer_tpu_torch.ops.quad_traverse import (
     BIG,
@@ -55,7 +62,6 @@ from raytracer_tpu_torch.ops.quad_traverse import (
     _ptr,
     _ray_inputs,
     _serial_leaf,
-    _stream,
 )
 
 LEAF_SIZE = 16
@@ -82,15 +88,21 @@ def _npop(variant):
     return int(variant[3:]) if variant.startswith("pop") else 1
 
 
+def stack_need(scene, variant):
+    """The stack entries a thread `variant`'s kernel takes, its plain
+    walk's bound: bt.stack_need(scene) = depth + 2 for a single-pop walk;
+    npop x (depth + 2) for a multi-pop one, whose step pops k <= N metas
+    and pushes up to 2k, so that the stack holds at most N per level and
+    2N at the top."""
+    return _npop(variant) * bt.stack_need(scene)
+
+
 def _check(scene, variant):
     if variant not in _KERNEL_VARIANT:
         raise ValueError(f"unknown closest-lab variant {variant!r}; "
                          f"expected one of {VARIANTS}")
     bt._check_stack(scene)
-    npop = _npop(variant)
-    # A multi-pop step pops k <= N metas and pushes up to 2k, so the stack
-    # holds at most N per level and 2N at the top.
-    if npop * (scene.bvh_max_depth + 2) > STACK_CAP:
+    if stack_need(scene, variant) > STACK_CAP:
         raise ValueError(f"{variant}: BVH depth {scene.bvh_max_depth} may "
                          f"overflow the stack (STACK_CAP={STACK_CAP})")
     leaf = scene.ptris.shape[1] // TRI_STRIDE
@@ -103,14 +115,10 @@ def run_closest_lab(origin, direction, t_max, scene, variant):
     (t_min 1e-3, t_max scalar or f32[N]; a ray with t_max <= 1e-3 is not
     walked). Returns (t f32[N], tri i32[N], u f32[N], v f32[N], nvisit
     i32[N], nleaf i32[N])."""
-    global closest_launches
     _check(scene, variant)
     o, d, tm = _ray_inputs(origin, direction, t_max, None)
     if o.is_cuda:
-        out = _closest_lab_cuda(o, d, tm, scene, _KERNEL_VARIANT[variant],
-                                THREADS)
-        closest_launches += 1
-        return out
+        return _closest_lab_cuda(o, d, tm, scene, variant)
     return closest_lab_plain(o, d, tm, scene.binary_root, scene.pnodes,
                              scene.ptris, variant)
 
@@ -118,15 +126,12 @@ def run_closest_lab(origin, direction, t_max, scene, variant):
 def run_closest_ts(origin, direction, t_max, scene, block):
     """L1b: the nored kernel with `block` threads per block (BLOCKS);
     returns what run_closest_lab returns."""
-    global closest_ts_launches
     _check(scene, "nored")
     if block not in BLOCKS:
         raise ValueError(f"block {block} is not one of {BLOCKS}")
     o, d, tm = _ray_inputs(origin, direction, t_max, None)
     if o.is_cuda:
-        out = _closest_lab_cuda(o, d, tm, scene, 0, block)
-        closest_ts_launches += 1
-        return out
+        return _closest_lab_cuda(o, d, tm, scene, "nored", block)
     return closest_lab_plain(o, d, tm, scene.binary_root, scene.pnodes,
                              scene.ptris, "nored")
 
@@ -158,11 +163,12 @@ def _ilp_leaf(origin, direction, rows, bt_, btri, bu, bv, t_min):
 
 
 def _multipop_walk(origin, direction, t_max, root, ptris, visit_node, npop,
-                   counts):
+                   counts, leaf_test=_serial_leaf):
     """tools/kernel_lab.py:69 _closest_kernel_multipop per ray: each step
     reads k = min(sp, npop) metas off the top of the stack, drops them, and
     visits them in order; an internal visit pushes at the current sp and
-    prunes with the best t of the visits before it."""
+    prunes with the best t of the visits before it; a leaf is tested by
+    `leaf_test` (called as _serial_leaf)."""
     n = origin.shape[0]
     best = _init_best(t_max)
     stack, sp = _init_stack(n, root, t_max, STACK_CAP, T_MIN)
@@ -185,7 +191,7 @@ def _multipop_walk(origin, direction, t_max, root, ptris, visit_node, npop,
             nleaf[rays] += is_leaf.to(torch.int32)
             if is_leaf.any():
                 _closest_leaves(origin, direction, ptris, best, rays[is_leaf],
-                                meta[is_leaf], T_MIN)
+                                meta[is_leaf], T_MIN, leaf_test)
             ii = rays[~is_leaf]
             if ii.numel():
                 visit_node(stack, sp, ii, meta[~is_leaf].long(), best[0][ii])
@@ -193,19 +199,22 @@ def _multipop_walk(origin, direction, t_max, root, ptris, visit_node, npop,
 
 
 def closest_lab_plain(origin, direction, t_max, root, pnodes, ptris,
-                      variant):
+                      variant, leaf_test=None):
     """Plain torch version of lab_closest's `variant`. Returns (t, tri, u,
-    v, nvisit, nleaf)."""
+    v, nvisit, nleaf). `leaf_test` (called as quad_traverse._serial_leaf)
+    replaces the variant's leaf test: the serial leaf, or leafilp's ILP
+    leaf."""
     n = origin.shape[0]
     counts = tuple(torch.zeros((n,), dtype=torch.int32, device=origin.device)
                    for _ in range(2))
     visit = _binary_visit(origin, _inv_dir(direction), pnodes, T_MIN)
+    if leaf_test is None:
+        leaf_test = _ilp_leaf if variant == "leafilp" else _serial_leaf
     npop = _npop(variant)
     if npop > 1:
         hit = _multipop_walk(origin, direction, t_max, root, ptris, visit,
-                             npop, counts)
+                             npop, counts, leaf_test)
     else:
-        leaf_test = _ilp_leaf if variant == "leafilp" else _serial_leaf
         hit = _closest_walk(origin, direction, t_max, root, ptris, visit,
                             STACK_CAP, T_MIN, leaf_test=leaf_test,
                             counts=counts)
@@ -216,30 +225,39 @@ def closest_lab_plain(origin, direction, t_max, root, pnodes, ptris,
 # CUDA wrapper (csrc/lab_traverse.cu).
 # --------------------------------------------------------------------------
 
-def _closest_lab_cuda(origin, direction, t_max, scene, variant_code,
-                      threads):
-    from raytracer_tpu_torch.ops import _build
-
+def _closest_lab_cuda(origin, direction, t_max, scene, variant, block=None):
+    """L1 on the card: L1a's `variant` (block None, THREADS threads a
+    block) or L1b, the nored kernel at `block` threads a block; the pnodes
+    rows, ptris and its leaf counts, the variant's stack need and a ray
+    counter of its own."""
+    global closest_launches, closest_ts_launches
     n, dev = _check_rays(origin, direction, t_max)
-    bt._check_scene_arrays(scene, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = (torch.empty((n,), **f32), torch.empty((n,), **i32),
-           torch.empty((n,), **f32), torch.empty((n,), **f32),
-           torch.empty((n,), **i32), torch.empty((n,), **i32))
-    if n == 0:
-        return out
-    lib = _build.lab_traverse_lib()
-    with torch.cuda.device(dev):
-        rc = lib.lab_closest(
-            _ptr(origin), _ptr(direction), _ptr(t_max), n, scene.binary_root,
-            _ptr(scene.pnodes), _ptr(scene.ptris),
-            scene.ptris.shape[1] // TRI_STRIDE, variant_code, threads,
-            *(_ptr(t) for t in out), _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"lab_closest launch failed: cudaError {rc}")
+    qt._check_n(n)
+    out = qw.hit_outputs(n, dev, counters=True)
+    if n:
+        args, _counter = bt._launch_args(scene, dev,
+                                         stack_need(scene, variant))
+        qw.launch("lab_closest", dev, _ptr(origin), _ptr(direction),
+                  _ptr(t_max), n, *args, _KERNEL_VARIANT[variant],
+                  block or THREADS, *(_ptr(t) for t in out),
+                  library="lab_traverse")
+        if block is None:
+            closest_launches += 1
+        else:
+            closest_ts_launches += 1
     return out
+
+
+def launch_lines(scene, leaf, device):
+    """The launch shape of every L1 kernel on `scene` (queue_walk
+    .launch_line): each variant, leafilp at leaf size `leaf`, and L1b at
+    each block but THREADS (base's)."""
+    kernels = [(v, qw.l1_kernel(v, leaf), stack_need(scene, v))
+               for v in VARIANTS if v != "nored"]
+    kernels += [(f"ts{b}", qw.l1_kernel("nored", block=b),
+                 stack_need(scene, "nored")) for b in BLOCKS if b != THREADS]
+    return [qw.launch_line(f"L1 {name}", key, need, device)
+            for name, key, need in kernels]
 
 
 # --------------------------------------------------------------------------
@@ -256,12 +274,23 @@ def _stats(out, t_max, ms):
 
 
 def run(scene, sets, reps=REPS, log=print):
-    """Every variant, then every L1b block size, on every ray set of
-    lab.rays.closest_sets; prints one line each. Returns {(set, name):
-    stats} with name a variant or f"ts{block}"; stats holds the kernel's
-    outputs under "out"."""
+    """K3, every variant, then every L1b block size, on every ray set of
+    lab.rays.closest_sets; prints one line each (on the card, first each
+    kernel's launch shape). Returns {(set, name): stats} with name "k3", a
+    variant or f"ts{block}"; stats holds the kernel's outputs under
+    "out"."""
+    if scene.ptris.is_cuda:
+        for line in launch_lines(scene, scene.ptris.shape[1] // TRI_STRIDE,
+                                 scene.ptris.device):
+            log(line)
     results = {}
     for label, (o, d, tm) in sets.items():
+        k3 = bt.intersect_bvh_binary(o, d, scene, T_MIN, tm)
+        k3_ms = lab_rays.cuda_ms(
+            lambda: bt.intersect_bvh_binary(o, d, scene, T_MIN, tm), reps)
+        results[(label, "k3")] = dict(ms=k3_ms, out=(k3.t, k3.tri, k3.u,
+                                                     k3.v))
+        log(f"{label:15s} K3       {k3_ms:8.3f} ms")
         ref = None
         for variant in VARIANTS:
             out = run_closest_lab(o, d, tm, scene, variant)
@@ -270,18 +299,19 @@ def run(scene, sets, reps=REPS, log=print):
             s = results[(label, variant)] = _stats(out, tm, ms)
             ref = out[1] if ref is None else ref
             differ = int((out[1] != ref).sum())
-            log(f"{label:15s} {variant:8s} {ms:8.3f} ms  visits/ray "
-                f"{s['visits_per_ray']:7.3f} (leaf {100 * s['leaf_share']:.0f}"
-                f"%)  ns/visit {s['ns_per_visit']:.5f}  match={not differ}"
-                f" ({differ} triangles differ from base)")
+            log(f"{label:15s} {variant:8s} {ms:8.3f} ms ({ms / k3_ms:.2f}x "
+                f"K3)  visits/ray {s['visits_per_ray']:7.3f} (leaf "
+                f"{100 * s['leaf_share']:.0f}%)  ns/visit "
+                f"{s['ns_per_visit']:.5f}  match={not differ} ({differ} "
+                "triangles differ from base)")
         for block in BLOCKS:
             out = run_closest_ts(o, d, tm, scene, block)
             ms = lab_rays.cuda_ms(
                 lambda: run_closest_ts(o, d, tm, scene, block), reps)
             s = results[(label, f"ts{block}")] = _stats(out, tm, ms)
-            log(f"{label:15s} threads/block {block:5d}: {ms:8.3f} ms  "
-                f"visits/ray {s['visits_per_ray']:7.3f}  total visits "
-                f"{s['visits']}")
+            log(f"{label:15s} threads/block {block:5d}: {ms:8.3f} ms "
+                f"({ms / k3_ms:.2f}x K3)  visits/ray "
+                f"{s['visits_per_ray']:7.3f}  total visits {s['visits']}")
     return results
 
 

@@ -4,24 +4,28 @@ tools/occl_lab.py (`run_occl_lab` :163).
 
     python -m raytracer_tpu_torch.lab.occl_lab [--width W --height H]
 
-Bakes the atrium with leaf 8 (as the JAX lab), builds the shadow batches of
-lab.rays.shadow_sets (bounce 0; bounce 1 in the renderer's and in the
-sorted order) and prints per variant the kernel time (CUDA events, mean of
-5), visits per active ray, the leaf share and the occluded share.
+Bakes the atrium with leaf 8 (as the JAX lab), prints each kernel's launch
+shape, builds the shadow batches of lab.rays.shadow_sets (bounce 0; bounce
+1 in the renderer's and in the sorted order) and prints K4's time
+(ops/binary_traverse.occlusion_bvh_binary, the walk the lab counts) and per
+variant the kernel time (CUDA events, mean of 5) and its ratio to K4's,
+visits per active ray, the leaf share and the occluded share.
 
 Variants:
   base, lean  K4's walk with counters; one kernel serves both names (where
               the TPU packet refreshes its union cap and its all-occluded
-              check only matters across lanes)
+              check only matters across lanes); its mask equals K4's
   noorder     children pushed right first, so left pops first (no
               near/far order)
   resort      lean on the rays permuted by occl_lab's key (inactive last,
               then position Morton, lab.rays.resort_key); the outputs are
               scattered back, so they equal lean's and only the time moves
 
-On CUDA tensors the wrapper launches csrc/lab_traverse.cu:lab_occlusion;
-on CPU tensors it runs the plain torch versions below, which the kernel
-equals bit for bit (counts included).
+On CUDA tensors the wrapper launches csrc/lab_traverse.cu:lab_occlusion,
+K4's machinery (persistent warps, the stack in shared memory below the
+entry kept in a register, bt.stack_need(scene) entries a thread, leaves
+tested up to their counts); on CPU tensors it runs the plain torch
+versions below, which the kernel equals bit for bit (counts included).
 """
 
 from __future__ import annotations
@@ -31,19 +35,20 @@ import sys
 
 import torch
 
+from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import rays as lab_rays
 from raytracer_tpu_torch.ops import binary_traverse as bt
+from raytracer_tpu_torch.ops import quad_traverse as qt
 from raytracer_tpu_torch.ops.binary_traverse import STACK_CAP, _binary_visit
 from raytracer_tpu_torch.ops.quad_traverse import (
     T_MIN,
-    TRI_STRIDE,
+    _any_leaf,
     _any_walk,
     _check_rays,
     _inv_dir,
     _ptr,
     _ray_inputs,
     _require,
-    _stream,
 )
 
 LEAF_SIZE = 8
@@ -89,61 +94,71 @@ def resort_perm(origin, t_max, scene):
 
 
 def _occl(origin, direction, t_max, skip, scene, ordered):
-    global occlusion_launches
     if origin.is_cuda:
-        out = _occl_lab_cuda(origin, direction, t_max, skip, scene, ordered)
-        occlusion_launches += 1
-        return out
+        return _occl_lab_cuda(origin, direction, t_max, skip, scene, ordered)
     return occl_lab_plain(origin, direction, t_max, skip, scene.binary_root,
                           scene.pnodes, scene.ptris, ordered)
 
 
 def occl_lab_plain(origin, direction, t_max, skip_object, root, pnodes,
-                   ptris, ordered):
-    """Plain torch version of lab_occlusion. Returns (occ, nvisit,
-    nleaf)."""
+                   ptris, ordered, leaf_test=_any_leaf):
+    """Plain torch version of lab_occlusion. Returns (occ, nvisit, nleaf).
+    `leaf_test` is quad_traverse._any_walk's leaf hook."""
     n = origin.shape[0]
     counts = tuple(torch.zeros((n,), dtype=torch.int32, device=origin.device)
                    for _ in range(2))
     visit = _binary_visit(origin, _inv_dir(direction), pnodes, T_MIN,
                           ordered=ordered)
     occ = _any_walk(origin, direction, t_max, skip_object, root, ptris, visit,
-                    STACK_CAP, T_MIN, counts=counts)
+                    STACK_CAP, T_MIN, counts=counts, leaf_test=leaf_test)
     return (occ, *counts)
 
 
 def _occl_lab_cuda(origin, direction, t_max, skip_object, scene, ordered):
-    from raytracer_tpu_torch.ops import _build
-
+    """L9 on the card: the pnodes rows, ptris and its leaf counts, the
+    tree's stack need (bt.stack_need) and a ray counter of its own."""
+    global occlusion_launches
     n, dev = _check_rays(origin, direction, t_max)
+    qt._check_n(n)
     _require("skip_object", skip_object, torch.int32, (n,), dev)
-    bt._check_scene_arrays(scene, dev)
     out = (torch.empty((n,), dtype=torch.bool, device=dev),
            torch.empty((n,), dtype=torch.int32, device=dev),
            torch.empty((n,), dtype=torch.int32, device=dev))
-    if n == 0:
-        return out
-    lib = _build.lab_traverse_lib()
-    with torch.cuda.device(dev):
-        rc = lib.lab_occlusion(
-            _ptr(origin), _ptr(direction), _ptr(t_max), _ptr(skip_object), n,
-            scene.binary_root, _ptr(scene.pnodes), _ptr(scene.ptris),
-            scene.ptris.shape[1] // TRI_STRIDE, int(ordered),
-            *(_ptr(t) for t in out), _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"lab_occlusion launch failed: cudaError {rc}")
+    if n:
+        args, _counter = bt._launch_args(scene, dev)
+        qw.launch("lab_occlusion", dev, _ptr(origin), _ptr(direction),
+                  _ptr(t_max), _ptr(skip_object), n, *args, int(ordered),
+                  *(_ptr(t) for t in out), library="lab_traverse")
+        occlusion_launches += 1
     return out
 
 
+def launch_lines(scene, device):
+    """The launch shape of both L9 kernels on `scene` (queue_walk
+    .launch_line)."""
+    return [qw.launch_line(f"L9 {order}", f"lab_occlusion_{order}",
+                           bt.stack_need(scene), device)
+            for order in ("ordered", "noorder")]
+
+
 def run(scene, sets, reps=REPS, log=print):
-    """Every variant on every shadow set of lab.rays.shadow_sets; prints one
-    line each. Returns {(set, variant): stats} with the outputs under
-    "out". As in the JAX lab, resort's time is the kernel's on the permuted
-    rays; the sort and the gathers are timed apart ("sort_ms")."""
+    """K4, then every variant, on every shadow set of lab.rays.shadow_sets;
+    prints one line each (on the card, first each kernel's launch shape).
+    Returns {(set, name): stats} with name "k4" or a variant, the outputs
+    under "out". As in the JAX lab, resort's time is the kernel's on the
+    permuted rays; the sort and the gathers are timed apart ("sort_ms")."""
+    if scene.ptris.is_cuda:
+        for line in launch_lines(scene, scene.ptris.device):
+            log(line)
     results = {}
     for label, (o, d, tm, skip, _active) in sets.items():
         live = int((tm > T_MIN).sum())
+        k4 = bt.occlusion_bvh_binary(o, d, T_MIN, tm, scene, skip)
+        k4_ms = lab_rays.cuda_ms(
+            lambda: bt.occlusion_bvh_binary(o, d, T_MIN, tm, scene, skip),
+            reps)
+        results[(label, "k4")] = dict(ms=k4_ms, out=(k4,))
+        log(f"occl {label:16s} K4       {k4_ms:8.3f} ms")
         for variant in VARIANTS:
             out = run_occl_lab(o, d, tm, skip, scene, variant)
             sort_ms = None
@@ -166,8 +181,8 @@ def run(scene, sets, reps=REPS, log=print):
                 ns_per_visit=ms * 1e6 / max(visits, 1),
                 occluded=int(out[0].sum()), sort_ms=sort_ms, out=out)
             sort = "" if sort_ms is None else f" (+ sort {sort_ms:.3f} ms)"
-            log(f"occl {label:16s} {variant:8s} {ms:8.3f} ms{sort}  "
-                f"visits/ray {s['visits_per_ray']:7.3f} (leaf "
+            log(f"occl {label:16s} {variant:8s} {ms:8.3f} ms ({ms / k4_ms:.2f}"
+                f"x K4){sort}  visits/ray {s['visits_per_ray']:7.3f} (leaf "
                 f"{100 * s['leaf_share']:.0f}%)  ns/visit "
                 f"{s['ns_per_visit']:.5f}  occluded "
                 f"{100 * s['occluded'] / max(live, 1):.0f}% of {live}")

@@ -25,7 +25,9 @@ text, from cuobjdump).
 csrc/ directory, e.g. a parent commit unpacked with `git archive`), with
 the same flags and the headers beside it, and gates, times and digests it
 as one more variant: equal digests mean the two trees compile K1/K2 to
-the same machine code.
+the same machine code. It also builds both trees' binary_traverse.cu and
+prints K3's and K4's SASS digests side by side (those are not timed
+here; chip_smoke.py phase 2 gates and times K3/K4).
 """
 
 from __future__ import annotations
@@ -133,6 +135,20 @@ def sass_digest(sass, kernel):
     return len(ins), hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12]
 
 
+def binary_digests(csrc_dir, tag):
+    """{"closest", "occlusion"} -> sass_digest of K3 and K4: csrc_dir/
+    binary_traverse.cu built as libbinary_traverse_<tag> with the repo's
+    flags and the headers beside it."""
+    headers = sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
+    path = _build.compile_library(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc_dir],
+        os.path.join(csrc_dir, "binary_traverse.cu"),
+        f"libbinary_traverse_{tag}", headers=headers)
+    sass = library_sass(path)
+    return {k: sass_digest(sass, f"{k}_kernel")
+            for k in ("closest", "occlusion")}
+
+
 def library_sass(path):
     """cuobjdump -sass of a library (cuobjdump beside nvcc)."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -151,12 +167,19 @@ def run(reps=REPS, say=print, against=None):
     values = source_values(text)
     todo = variants(values)
     names = {v: f"G={v[0]} refill_at={v[1]}" for v in todo}
-    with concurrent.futures.ThreadPoolExecutor(len(todo) + 1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(todo) + 3) as pool:
         jobs = {v: pool.submit(build_variant, text, *v) for v in todo}
         if against:
             jobs["against"] = pool.submit(build_against, against)
+            binary = {tag: pool.submit(binary_digests, d, tag) for tag, d in
+                      (("this", _build.CSRC_DIR), ("against", against))}
         built = {v: job.result() for v, job in jobs.items()}
     if against:
+        binary = {tag: job.result() for tag, job in binary.items()}
+        say("K3/K4 SASS (instructions, digest): this tree "
+            f"{binary['this']}; {against} {binary['against']}; "
+            + ("equal" if binary["this"] == binary["against"]
+               else "DIFFERENT"))
         other = built["against"][3]
         names["against"] = (f"{against} (G={other['group']} refill_at="
                             f"{other['refill_at']})")

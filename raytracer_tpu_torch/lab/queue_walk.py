@@ -5,7 +5,7 @@ that the traversal lab's L4 (tools/v3_kernel_lab.py), L5
 (tools/r3_oct_lab.py) vary, run per ray and vectorised over rays, and its
 any-hit form (K2, :423, and L8, tools/r3_occl3_lab.py).
 csrc/lab2_traverse.cu is its CUDA version; the two are equal bit for bit.
-The last section launches the persistent lab kernels (L2 of
+The last section launches the persistent lab kernels (L1, L2 and L9 of
 csrc/lab_traverse.cu, L6-L8) and reads their launch shapes.
 
 State per ray: an internal-node stack of CAP entries, a leaf queue of LQ
@@ -342,14 +342,36 @@ def l6_kernel(descent, leaf_kind):
     return f"closest4_queued_{L6_LEAF_KINDS[leaf_kind]}_d{int(descent)}"
 
 
+def l1_kernel(variant, leaf=None, block=128):
+    """The LAUNCH_KERNELS key of L1's `variant` (lab/kernel_lab.VARIANTS;
+    leafilp at leaf size `leaf`) at `block` threads a block (L1b)."""
+    if variant in ("base", "nored"):
+        return "lab_closest_base" if block == 128 else f"lab_closest_ts{block}"
+    return f"lab_closest_{variant}{leaf if variant == 'leafilp' else ''}"
+
+
+_L1_ILP = "closest_lab_persistent_kernelILi{}ELi{}EE"  # kIlpLeaf, kBlock
+
 # kernel -> (library, its mangled name's distinctive part, the library's
-# launch-info index). The lab_traverse library holds L2, lab2_traverse
-# L6, L7 and L8.
+# launch-info index). The lab_traverse library holds L2, L1 and L9,
+# lab2_traverse L6, L7 and L8.
 LAUNCH_KERNELS = {
     "closest4_ordered": ("lab_traverse", "closest4_persistent_kernelILb1E",
                          0),
     "closest4_noorder": ("lab_traverse", "closest4_persistent_kernelILb0E",
                          1),
+    "lab_closest_base": ("lab_traverse", _L1_ILP.format(0, 128), 2),
+    "lab_closest_leafilp8": ("lab_traverse", _L1_ILP.format(8, 128), 3),
+    "lab_closest_leafilp16": ("lab_traverse", _L1_ILP.format(16, 128), 4),
+    "lab_closest_pop2": ("lab_traverse", "closest_multipop_kernelILi2E", 5),
+    "lab_closest_pop4": ("lab_traverse", "closest_multipop_kernelILi4E", 6),
+    **{f"lab_closest_ts{block}": ("lab_traverse", _L1_ILP.format(0, block),
+                                  index)
+       for index, block in ((7, 64), (8, 256), (9, 512), (10, 1024))},
+    "lab_occlusion_ordered": ("lab_traverse",
+                              "occlusion_lab_persistent_kernelILb1E", 11),
+    "lab_occlusion_noorder": ("lab_traverse",
+                              "occlusion_lab_persistent_kernelILb0E", 12),
     "closest8": ("lab2_traverse", "closest8_queued_kernel", 0),
     "occlusion_ordered": ("lab2_traverse", "occlusion4_queued_kernelILb1E",
                           1),
@@ -366,8 +388,9 @@ _INFO_ENTRY = {"lab_traverse": "lab_launch_info",
 
 def launch_info(kernel, need, device):
     """What a launch of a persistent lab kernel (a key of LAUNCH_KERNELS:
-    L2 "closest4_ordered" or "closest4_noorder", L6 l6_kernel(...), L7
-    "closest8", L8 "occlusion_ordered" or "occlusion_fixed") at stack need
+    L2 "closest4_ordered" or "closest4_noorder", L1 l1_kernel(...), L9
+    "lab_occlusion_ordered" or "lab_occlusion_noorder", L6 l6_kernel(...),
+    L7 "closest8", L8 "occlusion_ordered" or "occlusion_fixed") at stack need
     `need` looks like on `device`: quad_traverse.launch_info's keys (the
     queued walks' shared memory holds the leaf queue too), and "spills",
     the ptxas spill stores and loads in bytes ("?" when the library was
@@ -400,8 +423,9 @@ def launch_line(label, kernel, need, device):
     return (f"{label} launch: {i['registers']} registers, spill stores {st} "
             f"B, spill loads {ld} B, local {i['local_bytes']} B a thread, "
             f"dynamic shared {i['smem_bytes']} B a block (stack need {need}"
-            f"{queue}), {i['blocks_per_sm']} blocks of 128 a SM "
-            f"({4 * i['blocks_per_sm']} warps), grid {i['grid']} blocks on "
+            f"{queue}), {i['blocks_per_sm']} blocks of {i['threads']} a SM "
+            f"({i['threads'] // 32 * i['blocks_per_sm']} warps), grid "
+            f"{i['grid']} blocks on "
             f"{i['sms']} SMs; G = {i['group']}, refill at {i['refill_at']} "
             "idle lanes")
 

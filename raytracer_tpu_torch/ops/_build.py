@@ -190,12 +190,12 @@ def binary_traverse_lib() -> ctypes.CDLL:
 
 def lab_traverse_lib() -> ctypes.CDLL:
     """The traversal lab's binary and 4-wide kernels (csrc/lab_traverse.cu;
-    L2 takes the persistent walks' scene arguments)."""
+    L1, L9 and L2 take the persistent walks' scene arguments)."""
     return _cuda_lib("lab_traverse", {
-        "lab_closest": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32, _I32,
-                        _P, _P, _P, _P, _P, _P, _P],
-        "lab_occlusion": [_P, _P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
-                          _P, _P, _P, _P],
+        "lab_closest": [_P, _P, _P, _I64, *_SCENE, _I32, _I32, _P, _P, _P,
+                        _P, _P, _P, _P],
+        "lab_occlusion": [_P, _P, _P, _P, _I64, *_SCENE, _I32, _P, _P, _P,
+                          _P],
         "lab_closest4": [_P, _P, _P, _I64, *_SCENE, _I32, _P, _P, _P, _P,
                          _P],
         "lab_launch_info": [_I32, _I32, _P],

@@ -619,7 +619,8 @@ def _occlusion_quad_cuda(origin, direction, t_max, skip_object, scene,
 
 
 LAUNCH_INFO_KEYS = ("registers", "local_bytes", "smem_bytes",
-                    "blocks_per_sm", "sms", "grid", "group", "refill_at")
+                    "blocks_per_sm", "sms", "grid", "group", "refill_at",
+                    "threads")
 
 
 def _launch_info(entry, kernel, need, dev):
@@ -638,8 +639,8 @@ def launch_info(kernel, scene, lib=None):
     device looks like: {"registers", "local_bytes" (a thread), "smem_bytes"
     (dynamic, a block), "blocks_per_sm", "sms", "grid" (the persistent
     grid), "group" (the triangles of a leaf loaded together), "refill_at"
-    (the idle lanes at which a warp fetches rays)}; `lib` as in
-    _intersect_quad_cuda."""
+    (the idle lanes at which a warp fetches rays), "threads" (a block)};
+    `lib` as in _intersect_quad_cuda."""
     from raytracer_tpu_torch.ops import _build
 
     lib = lib or _build.quad_traverse_lib()

@@ -1,33 +1,38 @@
-"""What the persistent lab kernels L2, L6, L7 and L8 (csrc/lab_traverse.cu
-lab_closest4, csrc/lab2_traverse.cu lab_closest4_queued,
-lab_closest8_queued, lab_occlusion4_queued) rely on in the trees and in
-their wrappers, on the CPU at small sizes:
+"""What the persistent lab kernels L1, L2, L6, L7, L8 and L9
+(csrc/lab_traverse.cu lab_closest, lab_closest4, lab_occlusion,
+csrc/lab2_traverse.cu lab_closest4_queued, lab_closest8_queued,
+lab_occlusion4_queued) rely on in the trees and in their wrappers, on the
+CPU at small sizes:
 
   - each onodes row carries its 8 child metas at columns 48:56 as exact
     f32 integers equal to ometa, so L7 reads one row per node; an absent
     child's box is NaN and never hit;
   - the plain walks with each leaf row tested up to its count
     (ops/quad_traverse.row_counts) equal the every-slot walks, results and
-    step counts both: L2's stack walk in both orders ((nvisit, nleaf)),
-    L6's queued walk with the serial and the division-free leaf, L7, and
-    L8 in both orders ((nit, nleaf)); the kernels stop their leaves there
-    (L6's ILP leaf takes the whole row);
+    step counts both: L2's stack walk in both orders, L1's binary walks
+    (base, multi-pop; leafilp's ILP leaf against the stopped serial leaf)
+    and L9's in both orders ((nvisit, nleaf)), L6's queued walk with the
+    serial and the division-free leaf, L7, and L8 in both orders ((nit,
+    nleaf)); the kernels stop their leaves there (L1's and L6's ILP leaves
+    take the whole row);
   - L6 with and without descent takes the same steps to the same results;
   - the plain walks' stack never holds more than the need the wrappers
-    size shared memory by (q_stack_need, OctTree.stack_need), and the leaf
-    queue never more than LQ;
+    size shared memory by (q_stack_need, OctTree.stack_need,
+    binary_traverse.stack_need, kernel_lab.stack_need for the multi-pop
+    walks), and the leaf queue never more than LQ;
   - with a fake library, the wrappers pass the node rows (not ometa or
-    qmeta), ptris's leaf counts, the tree's stack need and a ray counter of
-    each launch's own; they refuse a stack need outside 1..CAP and more
-    rays than the counter takes, raise on a failed launch, which is not
-    counted, and launch nothing for zero rays; the launch-shape query finds
-    each kernel's ptxas spills.
+    qmeta), ptris's leaf counts, the tree's stack need, a ray counter of
+    each launch's own and (L1) the variant and the block; they refuse a
+    stack need outside 1..CAP (1..STACK_CAP for L1 and L9) and more rays
+    than the counter takes, raise on a failed launch, which is not
+    counted, and launch nothing for zero rays; the launch-shape query asks
+    each kernel's library entry and finds its ptxas spills.
 
 The scenes are the Cornell box and a ~4k-triangle atrium, baked at leaf 8
 (the labs' leaf size) with the numpy BVH builder. The JAX lab kernels
-themselves are held against the port in tests/test_torch_lab.py (L2),
-tests/test_torch_lab_queue.py (L6) and tests/test_torch_lab_oct.py (L7,
-L8)."""
+themselves are held against the port in tests/test_torch_lab.py (L1, L2,
+L9), tests/test_torch_lab_queue.py (L6) and tests/test_torch_lab_oct.py
+(L7, L8)."""
 
 import contextlib
 import ctypes
@@ -41,11 +46,14 @@ import raytracer_tpu_torch.accel.native_builder as tnative
 import raytracer_tpu_torch.scene.benchmark as tbench
 import raytracer_tpu_torch.scene.model as tmodel
 from raytracer_tpu_torch.lab import bvh4_lab as l2
+from raytracer_tpu_torch.lab import kernel_lab as l1
+from raytracer_tpu_torch.lab import occl_lab as l9
 from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import r3_kernel_lab as l6
 from raytracer_tpu_torch.lab import r3_occl3_lab as l8
 from raytracer_tpu_torch.lab import r3_oct_lab as l7
 from raytracer_tpu_torch.ops import _build
+from raytracer_tpu_torch.ops import binary_traverse as bt
 from raytracer_tpu_torch.ops import quad_traverse as qt
 from raytracer_tpu_torch.scene.device_scene import bake_scene
 
@@ -54,11 +62,15 @@ torch.set_num_threads(1)  # see test_torch_ops.py
 SCENES = {"cornell": tmodel.create_cornell_box,
           "atrium4k": lambda: tbench.create_benchmark_atrium(4_000)}
 # L7, L8 in both orders, L2 in both orders, L6 with the serial and the
-# division-free leaf.
+# division-free leaf, L1's variants (base serves nored) and L9 in both
+# orders.
+L1_KINDS = tuple(f"l1_{v}" for v in ("base", "leafilp", "pop2", "pop4"))
+L9_KINDS = ("l9_ordered", "l9_noorder")
 KINDS = ("closest8", "ordered", "fixed", "closest4_ordered",
-         "closest4_noorder", "queued4_serial", "queued4_divfree")
+         "closest4_noorder", "queued4_serial", "queued4_divfree", *L1_KINDS,
+         *L9_KINDS)
 CLOSEST = ("closest8", "closest4_ordered", "closest4_noorder",
-           "queued4_serial", "queued4_divfree")
+           "queued4_serial", "queued4_divfree", *L1_KINDS)
 RAYS = 2048
 _bakes = {}
 
@@ -164,10 +176,32 @@ def _counted_any(origin, direction, rows, t_max, skip_f, t_min):
     return found
 
 
+def _binary_lab_walk(kind, ds, rays, counted, counts):
+    """L1's or L9's plain walk (kernel_lab.closest_lab_plain,
+    occl_lab.occl_lab_plain), its counts copied into `counts`; counted:
+    the stopped serial or any-hit leaf in place of the variant's."""
+    o, d, tm, skip = rays
+    scene = (ds.binary_root, ds.pnodes, ds.ptris)
+    if kind.startswith("l1_"):
+        out = l1.closest_lab_plain(o, d, tm, *scene, kind[3:],
+                                   _counted_closest if counted else None)
+        hits = out[:4]
+    else:
+        out = l9.occl_lab_plain(o, d, tm, skip, *scene, kind == "l9_ordered",
+                                _counted_any if counted else qt._any_leaf)
+        hits = out[:1]
+    if counts is not None:
+        for c, got in zip(counts, out[len(hits):], strict=True):
+            c.copy_(got)
+    return hits
+
+
 def _walk(kind, ds, tree, rays, counted=False, counts=None, descent=False):
     """The plain walk of `kind` (KINDS) on `rays`, every slot of each leaf
     row tested or (`counted`) up to its count; L6 with `descent` or not."""
     o, d, tm, skip = rays
+    if kind in L1_KINDS or kind in L9_KINDS:
+        return _binary_lab_walk(kind, ds, rays, counted, counts)
     if kind == "closest8":
         step = qw.oct_step(o, qt._inv_dir(d), tree.meta, tree.nodes)
         leaf = _counted_closest if counted else qt._serial_leaf
@@ -252,8 +286,8 @@ def test_absent_children_are_never_hit(name):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_queued_walks_stop_at_leaf_counts(name, kind):
     """Each leaf row tested up to its count: the same results and the same
-    step counts ((nit, nleaf); L2's (nvisit, nleaf)) of every ray as every
-    slot tested."""
+    step counts ((nit, nleaf); L1's, L2's and L9's (nvisit, nleaf)) of
+    every ray as every slot tested (leafilp: as its ILP leaf)."""
     ds, tree = _bake(name)
     rays = _rays(ds)
     c_all, c_counted = _new_counts(), _new_counts()
@@ -295,30 +329,41 @@ def test_descent_takes_the_same_steps(name, kind):
 def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
     """After every push of the plain walks, the stack holds at most the
     need the wrapper sizes shared memory by (OctTree.stack_need for L7,
-    q_stack_need for L2, L6 and L8; at most CAP), and the leaf queue at
-    most LQ (L2 has none: its leaves go on the stack). L6 is walked
-    without descent, whose stack holds the most: every internal child."""
+    q_stack_need for L2, L6 and L8, at most CAP; kernel_lab.stack_need for
+    L1 and binary_traverse.stack_need for L9, at most STACK_CAP), and the
+    leaf queue at most LQ (L1, L2 and L9 have none: their leaves go on the
+    stack). L6 is walked without descent, whose stack holds the most: every
+    internal child."""
     ds, tree = _bake(name)
-    need = tree.stack_need if kind == "closest8" else ds.q_stack_need
-    deepest = {qw.CAP: 0, qw.LQ: 0}
+    cap = qw.CAP
+    if kind == "closest8":
+        need = tree.stack_need
+    elif kind in L1_KINDS:
+        need, cap = l1.stack_need(ds, kind[3:]), bt.STACK_CAP
+    elif kind in L9_KINDS:
+        need, cap = bt.stack_need(ds), bt.STACK_CAP
+    else:
+        need = ds.q_stack_need
+    deepest = {qw.CAP: 0, qw.LQ: 0, bt.STACK_CAP: 0}
     push = qt._push
 
     def watched(stack, sp, rays, meta, mask):
         push(stack, sp, rays, meta, mask)
         if rays.numel():
-            cap = stack.shape[1]
-            deepest[cap] = max(deepest[cap], int(sp[rays].max()))
+            width = stack.shape[1]
+            deepest[width] = max(deepest[width], int(sp[rays].max()))
 
     assert qt.CAP == qw.CAP
     monkeypatch.setattr(qw, "_push", watched)
     monkeypatch.setattr(qt, "_push", watched)
+    monkeypatch.setattr(bt, "_push", watched)
     _walk(kind, ds, tree, _rays(ds))
-    assert 2 <= deepest[qw.CAP] <= need <= qw.CAP
-    if kind.startswith("closest4_"):
+    assert 2 <= deepest[cap] <= need <= cap
+    if kind.startswith(("closest4_", "l1_", "l9_")):
         assert deepest[qw.LQ] == 0
     else:
         assert 1 <= deepest[qw.LQ] <= qw.LQ
-    print(f"{name} {kind}: need {need}, deepest stack {deepest[qw.CAP]}, "
+    print(f"{name} {kind}: need {need}, deepest stack {deepest[cap]}, "
           f"deepest queue {deepest[qw.LQ]}")
 
 
@@ -376,11 +421,19 @@ def test_lab_runs_count_through_the_leaf_hooks(name, lab, monkeypatch):
 class _FakeLib:
     """A stand-in for the built lab and lab2 libraries: records each
     launch's arguments and returns `rc`; the launch-shape queries fill
-    their output with 1..8."""
+    their output with 1..9."""
 
     def __init__(self, rc=0):
         self.rc = rc
         self.calls = []
+
+    def lab_closest(self, *args):
+        self.calls.append(("closest", args))
+        return self.rc
+
+    def lab_occlusion(self, *args):
+        self.calls.append(("binary_occlusion", args))
+        return self.rc
 
     def lab_closest4(self, *args):
         self.calls.append(("closest4", args))
@@ -413,9 +466,9 @@ class _FakeLib:
 
 @pytest.fixture
 def fake_lib(monkeypatch):
-    """L2's, L6's, L7's and L8's CUDA wrappers on CPU tensors against a
-    _FakeLib, with the device context and the stream stubbed; the counters
-    the launches got are kept alive in `lib.counters`."""
+    """L1's, L2's, L6's, L7's, L8's and L9's CUDA wrappers on CPU tensors
+    against a _FakeLib, with the device context and the stream stubbed; the
+    counters the launches got are kept alive in `lib.counters`."""
     lib = _FakeLib()
     lib.counters = []
     walk_args = qt._walk_args
@@ -431,18 +484,23 @@ def fake_lib(monkeypatch):
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(qt, "_stream", lambda dev: ctypes.c_void_p(0))
     monkeypatch.setattr(qt, "_walk_args", spy)
-    for mod in (l2, l6, l7, l8):
+    monkeypatch.setattr(bt, "_walk_args", spy)
+    for mod in (l2, l6, l7, l8, l1, l9):
         mod.reset_launch_counts()
     return lib
 
 
 # L6's (descent, leaf kind) of the wrapper tests: each leaf kind once.
 L6_RUNS = ((False, 0), (True, 1), (False, 2))
+# L1's (variant, block) of the wrapper tests: each variant of L1a (block
+# None), then L1b at each block.
+L1_RUNS = (("base", None), ("leafilp", None), ("pop2", None),
+           ("pop4", None), *(("nored", b) for b in l1.BLOCKS))
 
 
 def _launch_all(ds, tree, rays):
-    """L7 once, L8 in both orders, L2 in both orders and L6 as L6_RUNS say
-    on the fake library."""
+    """L7 once, L8 in both orders, L2 in both orders, L6 as L6_RUNS say,
+    L1 as L1_RUNS say and L9 in both orders on the fake library."""
     o, d, tm, skip = rays
     l7._closest8_cuda(o, d, tm, tree, ds.ptris)
     for ordered in (True, False):
@@ -451,11 +509,23 @@ def _launch_all(ds, tree, rays):
         l2._closest4_cuda(o, d, tm, ds, ordered)
     for descent, kind in L6_RUNS:
         l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
+    for variant, block in L1_RUNS:
+        l1._closest_lab_cuda(o, d, tm, ds, variant, block)
+    for ordered in (True, False):
+        l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
 
 
 def _launch_counts():
     return (l7.closest_launches, l8.occlusion_launches,
-            l2.closest4_launches, l6.closest_launches)
+            l2.closest4_launches, l6.closest_launches, l1.closest_launches,
+            l1.closest_ts_launches, l9.occlusion_launches)
+
+
+# The launches of _launch_all, in order: L7, L8 x 2, L2 x 2, then L6, L1
+# and L9.
+N_QUAD = 5 + len(L6_RUNS)
+N_LAUNCHES = N_QUAD + len(L1_RUNS) + 2
+ZERO_COUNTS = (0,) * 7
 
 
 def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
@@ -464,13 +534,16 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
     leaf size, OctTree.stack_need, its counter and drain_at; L8 the same
     with the qnodes rows and q_stack_need, then its order; L2 the qnodes
     rows and q_stack_need, then its order; L6 as L8, then descent and its
-    leaf kind. None passes ometa or qmeta; each launch has its own counter
-    and adds one to its kernel's count."""
+    leaf kind; L1 the binary root, the pnodes rows and its variant's
+    stack need, then the variant's code and the block; L9 the same with
+    bt.stack_need, then its order. None passes ometa or qmeta; each launch
+    has its own counter and adds one to its kernel's count (L1b's to
+    closest_ts_launches)."""
     ds, tree = _bake("atrium4k")
     _launch_all(ds, tree, _rays(ds))
-    assert _launch_counts() == (1, 2, 2, len(L6_RUNS))
+    assert _launch_counts() == (1, 2, 2, len(L6_RUNS), 4, len(l1.BLOCKS), 2)
     ptrs = [c.data_ptr() for c in fake_lib.counters]
-    assert len(set(ptrs)) == 5 + len(L6_RUNS)
+    assert len(set(ptrs)) == N_LAUNCHES
     counts = qt.ptris_leaf_counts(ds.ptris).data_ptr()
     (k7, a7), (ko, ao), (kf, af), (k2o, a2o), (k2f, a2f) = fake_lib.calls[:5]
     assert (k7, ko, kf, k2o, k2f) == ("closest8", "occlusion", "occlusion",
@@ -490,7 +563,7 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
         assert len(a) == 16 and a[-1].value is None
     quad = [(a2o, ptrs[3], (1,)), (a2f, ptrs[4], (0,))]
     for (kind, a), (descent, leaf_kind), ptr in zip(
-            fake_lib.calls[5:], L6_RUNS, ptrs[5:], strict=True):
+            fake_lib.calls[5:N_QUAD], L6_RUNS, ptrs[5:N_QUAD], strict=True):
         assert kind == "queued4"
         quad.append((a, ptr, (qw.DRAIN_AT, int(descent), leaf_kind)))
     for a, ptr, tail in quad:
@@ -501,6 +574,27 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
         assert a[10].value == ptr
         assert a[11:11 + len(tail)] == tail
         assert len(a) == 11 + len(tail) + 5 and a[-1].value is None
+    binary = (ds.binary_root, ds.pnodes.data_ptr(), ds.ptris.data_ptr(),
+              counts, l7.LEAF_SIZE)
+    l1_calls = fake_lib.calls[N_QUAD:N_QUAD + len(L1_RUNS)]
+    for (kind, a), (variant, block), ptr in zip(
+            l1_calls, L1_RUNS, ptrs[N_QUAD:N_QUAD + len(L1_RUNS)],
+            strict=True):
+        assert kind == "closest" and a[3] == RAYS
+        assert (a[4], *(x.value for x in a[5:8]), a[8]) == binary
+        assert a[9] == l1.stack_need(ds, variant)
+        assert a[10].value == ptr
+        assert a[11:13] == (l1._KERNEL_VARIANT[variant], block or 128)
+        assert len(a) == 13 + 6 + 1 and a[-1].value is None
+    l9_calls = fake_lib.calls[N_QUAD + len(L1_RUNS):]
+    for (kind, a), ordered, ptr in zip(l9_calls, (1, 0), ptrs[-2:],
+                                       strict=True):
+        assert kind == "binary_occlusion" and a[4] == RAYS
+        assert (a[5], *(x.value for x in a[6:9]), a[9]) == binary
+        assert (a[10], a[11].value, a[12]) == (bt.stack_need(ds), ptr,
+                                                 ordered)
+        assert len(a) == 13 + 3 + 1 and a[-1].value is None
+    assert l1.stack_need(ds, "pop4") == 4 * bt.stack_need(ds)
     sent = {a.value for _, args in fake_lib.calls for a in args
             if isinstance(a, ctypes.c_void_p)}
     assert tree.meta.data_ptr() not in sent
@@ -521,14 +615,22 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
     for descent, kind in L6_RUNS:
         with pytest.raises(RuntimeError, match="lab_closest4_queued"):
             l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
-    assert _launch_counts() == (0, 0, 0, 0)
-    assert len(fake_lib.calls) == 5 + len(L6_RUNS)
+    for variant, block in L1_RUNS:
+        with pytest.raises(RuntimeError, match="lab_closest launch"):
+            l1._closest_lab_cuda(o, d, tm, ds, variant, block)
+    for ordered in (True, False):
+        with pytest.raises(RuntimeError, match="lab_occlusion launch"):
+            l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
+    assert _launch_counts() == ZERO_COUNTS
+    assert len(fake_lib.calls) == N_LAUNCHES
 
 
-@pytest.mark.parametrize("need", [0, qw.CAP + 1])
+@pytest.mark.parametrize("need", [0, qw.CAP + 1, bt.STACK_CAP + 1])
 def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
     """A stack need outside 1..CAP raises before the library is called, in
-    the CUDA wrappers and in the public entry points."""
+    the CUDA wrappers and in the public entry points; for L1 and L9 one
+    outside 1..STACK_CAP (the tree's depth + 2, times npop for pop2 and
+    pop4)."""
     ds, tree = _bake("cornell")
     o, d, tm, skip = _rays(ds)
     deep_tree = tree._replace(stack_need=need)
@@ -552,6 +654,29 @@ def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
         with pytest.raises(ValueError, match="stack need"):
             l6.run_closest_variant(o, d, tm, deep_scene, descent, kind == 1,
                                    kind == 2)
+    # The public entry points refuse a need above STACK_CAP (on CPU tensors
+    # they run the plain walks, which a need below 1 does not concern).
+    deep_binary = dataclasses.replace(ds, bvh_max_depth=need - 2)
+    for variant, block in L1_RUNS:
+        l1_need = l1.stack_need(deep_binary, variant)
+        if 1 <= l1_need <= bt.STACK_CAP:
+            continue
+        with pytest.raises(ValueError, match="stack need"):
+            l1._closest_lab_cuda(o, d, tm, deep_binary, variant, block)
+        if l1_need > bt.STACK_CAP:
+            with pytest.raises(ValueError, match="stack"):
+                if block is None:
+                    l1.run_closest_lab(o, d, tm, deep_binary, variant)
+                else:
+                    l1.run_closest_ts(o, d, tm, deep_binary, block)
+    if not 1 <= need <= bt.STACK_CAP:
+        for variant in l9.VARIANTS:
+            with pytest.raises(ValueError, match="stack need"):
+                l9._occl_lab_cuda(o, d, tm, skip, deep_binary,
+                                  variant != "noorder")
+            if need > bt.STACK_CAP:
+                with pytest.raises(ValueError, match="stack"):
+                    l9.run_occl_lab(o, d, tm, skip, deep_binary, variant)
     assert fake_lib.calls == []
 
 
@@ -572,6 +697,12 @@ def test_wrappers_refuse_more_rays_than_the_counter_takes(fake_lib,
     for descent, kind in L6_RUNS:
         with pytest.raises(ValueError, match="rays"):
             l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
+    for variant, block in L1_RUNS:
+        with pytest.raises(ValueError, match="rays"):
+            l1._closest_lab_cuda(o, d, tm, ds, variant, block)
+    for ordered in (True, False):
+        with pytest.raises(ValueError, match="rays"):
+            l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
     assert fake_lib.calls == []
 
 
@@ -585,8 +716,14 @@ def test_no_rays_launch_nothing(fake_lib):
     for descent, kind in L6_RUNS:
         out = l6._closest_variant_cuda(o, d, tm, ds, descent, kind)
         assert [t.shape for t in out] == [(0,)] * 4
+    for variant, block in L1_RUNS:
+        out = l1._closest_lab_cuda(o, d, tm, ds, variant, block)
+        assert [t.shape for t in out] == [(0,)] * 6
+    for ordered in (True, False):
+        out = l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
+        assert [t.shape for t in out] == [(0,)] * 3
     assert fake_lib.calls == []
-    assert _launch_counts() == (0, 0, 0, 0)
+    assert _launch_counts() == ZERO_COUNTS
 
 
 # kernel -> its mangled name in a -Xptxas=-v log.
@@ -604,16 +741,37 @@ MANGLED = {
        f"_ZN12_GLOBAL__N_133closest4_queued_persistent_kernelILb{descent}"
        f"ELi{kind}EEEvPKfS2_S2_ii"
        for kind in range(3) for descent in (0, 1)},
+    **{qw.l1_kernel(variant, leaf, block):
+       f"_ZN12_GLOBAL__N_129closest_lab_persistent_kernelILi{ilp}ELi{block}"
+       "EEEvPKfS2_S2_ii"
+       for variant, leaf, ilp, block in (
+           ("base", None, 0, 128), ("leafilp", 8, 8, 128),
+           ("leafilp", 16, 16, 128), *(("nored", None, 0, b)
+                                       for b in (64, 256, 512, 1024)))},
+    **{f"lab_closest_pop{k}":
+       f"_ZN12_GLOBAL__N_123closest_multipop_kernelILi{k}EEEvPKfS2_S2_ii"
+       for k in (2, 4)},
+    **{f"lab_occlusion_{order}":
+       f"_ZN12_GLOBAL__N_131occlusion_lab_persistent_kernelILb{b}EEEvPKfS2_"
+       "S2_PKi" for order, b in (("ordered", 1), ("noorder", 0))},
 }
+# L1's and L9's lab_launch_info indices (after L2's 0 and 1).
+L1_L9_INFO = {"lab_closest_base": 2, "lab_closest_leafilp8": 3,
+              "lab_closest_leafilp16": 4, "lab_closest_pop2": 5,
+              "lab_closest_pop4": 6, "lab_closest_ts64": 7,
+              "lab_closest_ts256": 8, "lab_closest_ts512": 9,
+              "lab_closest_ts1024": 10, "lab_occlusion_ordered": 11,
+              "lab_occlusion_noorder": 12}
 
 
 def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
                                                          monkeypatch):
     """launch_info asks L2's library (lab_launch_info: 0 ordered, 1 child
-    order) or the lab2 library (lab2_launch_info: 0 L7, 1 L8 ordered, 2 L8
-    child order, 3 + 2 * leaf kind + descent L6) for the kernel at the
-    need given, and finds that kernel's spills in its library's
-    -Xptxas=-v log, each template instance apart."""
+    order, then L1 and L9 as L1_L9_INFO says) or the lab2 library
+    (lab2_launch_info: 0 L7, 1 L8 ordered, 2 L8 child order, 3 + 2 * leaf
+    kind + descent L6) for the kernel at the need given, and finds that
+    kernel's spills in its library's -Xptxas=-v log, each template
+    instance apart."""
     assert sorted(MANGLED) == sorted(qw.LAUNCH_KERNELS)
     logs = {"lab_traverse": [], "lab2_traverse": []}
     for k, (kernel, mangled) in enumerate(MANGLED.items()):
@@ -628,7 +786,9 @@ def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
             "closest4_noorder": ("lab_info", 1), "closest8": ("info", 0),
             "occlusion_ordered": ("info", 1), "occlusion_fixed": ("info", 2),
             **{qw.l6_kernel(descent, kind): ("info", 3 + 2 * kind + descent)
-               for kind in range(3) for descent in (0, 1)}}
+               for kind in range(3) for descent in (0, 1)},
+            **{kernel: ("lab_info", index)
+               for kernel, index in L1_L9_INFO.items()}}
     for k, kernel in enumerate(MANGLED):
         info = qw.launch_info(kernel, 24, torch.device("cpu"))
         entry, index = want[kernel]
@@ -638,6 +798,25 @@ def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
         assert info["spills"] == (8 * k, 8 * k + 4)
     assert l6.launch_kernel(True, True) == qw.l6_kernel(1, 1)
     assert l6.launch_kernel(False, False, True) == qw.l6_kernel(0, 2)
+    assert [qw.l1_kernel(v, 16) for v in l1.VARIANTS] == [
+        "lab_closest_base", "lab_closest_base", "lab_closest_leafilp16",
+        "lab_closest_pop2", "lab_closest_pop4"]
+    assert [qw.l1_kernel("nored", block=b) for b in l1.BLOCKS] == [
+        "lab_closest_ts64", "lab_closest_base", "lab_closest_ts256",
+        "lab_closest_ts512", "lab_closest_ts1024"]
+    # The labs' launch lines ask each L1 kernel (leafilp at the bake's
+    # leaf, L1b at every block but 128) and both L9 kernels at its need.
+    ds, _ = _bake("cornell")
+    fake_lib.calls.clear()
+    cpu = torch.device("cpu")
+    lines = l1.launch_lines(ds, 8, cpu) + l9.launch_lines(ds, cpu)
+    need = bt.stack_need(ds)
+    assert fake_lib.calls == [("lab_info", (index, k * need)) for index, k in (
+        (2, 1), (3, 1), (5, 2), (6, 4), (7, 1), (8, 1), (9, 1), (10, 1),
+        (11, 1), (12, 1))]
+    assert len(lines) == 10
+    assert all(" launch: 1 registers" in line and "blocks of 9 a SM" in line
+               for line in lines)
     fake_lib.rc = 1
     with pytest.raises(RuntimeError, match="lab2_launch_info"):
         qw.launch_info("closest8", 24, torch.device("cpu"))
