@@ -280,6 +280,8 @@ INACTIVE_RAY_BYTES = {"closest": 4 + 16, "any": 4 + 1}
 # quad row; 14 float4 of the 256-byte oct row.
 ROW_READ_BYTES = {"binary": 64, "quad": 112, "quad_fixed": 112, "oct": 224}
 COUNTER_BYTES = 8  # nvisit/nit and nleaf out (L1, L4, L9)
+# The 10 floats of a triangle in a component-major row (v0, e1, e2, tri_f).
+CM_TRI_BYTES = 10 * 4
 # The fixed-sequence labs (phase 9): FP32 operations per iteration of
 # csrc/lab3_traverse.cu, counted as above. A warp's min of 32 values is 31
 # mins, counted as one a ray. L11a: full = 2 slab() + the two t_near mins +
@@ -350,29 +352,33 @@ def bound(n_rays, ray_bytes, arrays, counts, node, tri):
 
 
 def walk_bound(ds, nodes, n_rays, ray_bytes, counts, tests, node, tri,
-               counter_bytes=0):
+               counter_bytes=0, leaf_bytes=None):
     """The bound of K1-K4 and the persistent labs, which test only the
     triangles below each leaf row's count: as bound(), for what they read
     and test. Bytes: each live ray's inputs and outputs (ray_bytes; a live
     ray takes at least one step of `counts`), each inactive ray's t_max and
     outputs (INACTIVE_RAY_BYTES), `counter_bytes` more for every ray (the
-    counters L1 and L9 write, 0s for an inactive ray), what a node step
+    counters L1, L4 and L9 write, 0s for an inactive ray), what a node step
     reads of each of the tree's node rows `nodes` (qnodes, onodes, whose
     rows hold the child metas, or pnodes; ROW_READ_BYTES), the leaf counts
-    and the real triangles of each leaf row, once. Operations: the internal
-    visits or steps of `counts` times NODE_OPS[node] and `tests`
-    (counting_leaf_tests(): the triangles they test, not every slot of each
-    row visited) times TRI_OPS[tri]."""
+    and the real triangles of each leaf row (or `leaf_bytes` of them: L3's
+    CM_TRI_BYTES a triangle), once. Operations: the internal visits or steps of
+    `counts` times NODE_OPS[node] and `tests` (counting_leaf_tests(): the
+    triangles they test, not every slot of each row visited) times
+    TRI_OPS[tri]."""
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     lc = qt.leaf_counts(ds)
     visits, leaves = (int(c.sum()) for c in counts)
     ops = (visits - leaves) * NODE_OPS[node] + tests * TRI_OPS[tri]
     live = int((counts[0] > 0).sum())
-    nbytes = (live * ray_bytes + (n_rays - live) * INACTIVE_RAY_BYTES[tri]
+    if leaf_bytes is None:
+        leaf_bytes = int(lc.sum()) * qt.TRI_STRIDE * 4
+    kind = "any" if tri == "any" else "closest"
+    nbytes = (live * ray_bytes + (n_rays - live) * INACTIVE_RAY_BYTES[kind]
               + n_rays * counter_bytes
               + nodes.shape[0] * ROW_READ_BYTES[node] + lc.numel() * 4
-              + int(lc.sum()) * qt.TRI_STRIDE * 4)
+              + leaf_bytes)
     return bound_of(nbytes, ops)
 
 
@@ -447,6 +453,60 @@ def leaf_tests(ds, walk, origin, direction, t_max, skip_object=None,
         qt._any_walk(origin, direction, t_max, skip_object, root, ds.ptris,
                      visit, cap, t_min, leaf_test=any_hit)
     return total[0]
+
+
+def counting_cm_tests():
+    """(leaf, total): a leaf hook for L3's plain walk, called as
+    v2_kernel_lab._cm_leaf, that tests every slot as that does and adds to
+    total[0] the triangle tests lab_closest_cm makes: 4 a float4 group of
+    v2_kernel_lab.cm_groups in each leaf row; and to total[1] those below
+    each row's count, which the function needs and K3's leaf makes on this
+    walk."""
+    from raytracer_tpu_torch.lab import v2_kernel_lab as v2
+
+    total = [0, 0]
+
+    def leaf(o, d, rows, bt_, *rest):
+        total[0] += 4 * int(v2.cm_groups(rows, bt_).sum())
+        total[1] += int(v2.cm_row_counts(rows).sum())
+        return v2._cm_leaf(o, d, rows, bt_, *rest)
+
+    return leaf, total
+
+
+def gate_cm_ties(label, l3, k3, ds, origin, direction):
+    """Raise unless L3's t equals K3's on every ray and, where their
+    triangles differ, both triangles hit the ray at exactly that t (L3
+    keeps the largest index of a tie, K3 the first in slot order). Returns
+    the number of rays whose triangles differ."""
+    import torch
+
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    if not torch.equal(l3[0], k3[0]):
+        raise RuntimeError(f"L3 {label}: t differs from K3's on "
+                           f"{int((l3[0] != k3[0]).sum())} rays")
+    differ = torch.nonzero(l3[1] != k3[1]).squeeze(1)
+    if not differ.numel():
+        return 0
+    rows = ds.ptris.view(-1, qt.TRI_STRIDE)
+    leaf = ds.ptris.shape[1] // qt.TRI_STRIDE
+    slot = torch.arange(rows.shape[0], device=rows.device)
+    real = (slot % leaf) < qt.leaf_counts(ds).repeat_interleave(leaf)
+    where = torch.full((int(rows[real, 9].max()) + 1,), -1, dtype=torch.int64,
+                       device=rows.device)
+    where[rows[real, 9].long()] = slot[real]
+    o, d = origin[differ], direction[differ]
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    t_cap = torch.full_like(k3[0][differ], float("inf"))
+    for got in (l3, k3):
+        tri = rows[where[got[1][differ].long()]]
+        t, _, _, valid = qt._moller(ox, oy, oz, dx, dy, dz, tri, t_cap, 1e-3)
+        if not (bool(valid.all()) and torch.equal(t, k3[0][differ])):
+            raise RuntimeError(f"L3 {label}: a triangle that differs from "
+                               "K3's is not a tie at K3's t")
+    return int(differ.numel())
 
 
 def bound_of(nbytes, ops, ops_per_s=PEAK_FP32_PER_S):
@@ -697,7 +757,7 @@ def log_walk_bound(what, r, arrays, counts, node, tri, phase="phase 2",
     one-thread-per-ray design (with `counter_bytes` a ray, L1's and L9's
     counters)."""
     whole = bound(WIDTH * HEIGHT, counter_bytes + (
-        CLOSEST_RAY_BYTES if tri == "closest" else ANY_RAY_BYTES), arrays,
+        ANY_RAY_BYTES if tri == "any" else CLOSEST_RAY_BYTES), arrays,
         counts, node, tri)
     log(f"{phase}: bound {what}: {r['bound_ms']:.4f} ms ({r['bound_by']}: "
         f"{r['bytes']} B, {r['ops']} FP32 operations); every slot of each "
@@ -1237,8 +1297,8 @@ def lab4_bounds(ds, sets, res, variants, name, label, phase):
 
 def lab_binary_bounds(ds, res, tests, sets, tri, name, label,
                       phase="phase 6"):
-    """The bound of L1 (tri "closest") or L9 ("any") on each set of `sets`
-    and each variant (and L1b block) of the runs `res`, counted on the
+    """The bound of L1 or L4 (tri "closest") or L9 ("any") on each set of
+    `sets` and each variant (and L1b block) of the runs `res`, counted on the
     triangles the plain versions tested (`tests`, keyed (set, variant)) and
     on live rays' bytes with their counters (walk_bound, 64 B a pnodes
     row), from the kernels' own counters; each logged beside bound() (every
@@ -1293,13 +1353,18 @@ def lab2_modules():
 
 def phase7(device):
     """The deferred-leaf and component-major labs: their runs (the launch
-    counts), then each kernel against its plain version, the identities
-    and the agreement with K3/K1. Returns the four kernels' report
-    entries."""
+    counts; K3 and L1 base/leafilp timed beside L3 and L4 on the same
+    sets), then each kernel against its plain version, the identities, L3
+    against K3 (t on every ray, triangles only at ties) and the agreement
+    with K3/K1, the persistent kernels' launch shapes (no local memory, no
+    spills) and their bounds on the triangles they test. Returns the four
+    kernels' report entries."""
     import torch
 
     from raytracer_tpu_torch.lab import queue_walk as qw
     from raytracer_tpu_torch.lab import rays as lab_rays
+    from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import quad_traverse as qt
 
     mods = lab2_modules()
     v2, v3 = mods["lab_closest_cm"], mods["lab_closest_queued"]
@@ -1327,19 +1392,33 @@ def phase7(device):
     plog(f"lab launch counts {launches}")
     if not all(launches.values()):
         raise RuntimeError(f"a lab kernel was not launched: {launches}")
+    cm, q = res["lab_closest_cm"], res["lab_closest_queued"]
+    for label in sets:
+        k3_ms = cm[(label, "k3")]["ms"]
+        times = [("L1 base", cm[(label, "l1_base")]["ms"]),
+                 ("L1 leafilp", cm[(label, "l1_leafilp")]["ms"]),
+                 ("L3", cm[(label, "v2")]["ms"]),
+                 *((f"L4 {v}", q[(label, v)]["ms"]) for v in v3.VARIANTS)]
+        plog(f"leaf-8 yardsticks {label}: K3 {k3_ms:.3f} ms; " + ", ".join(
+            f"{what} {ms:.3f} ms ({ms / k3_ms:.2f}x K3)"
+            for what, ms in times))
 
     t0 = time.perf_counter()
     ptris_cm = v2.to_component_major(ds.ptris)
     # Each plain version takes zeroed counters `c` (L4's returns its own)
-    # and counts its walk's visits or steps: the kernels but L4's have no
+    # and counts its walk's visits or steps, and a leaf hook `lt` where it
+    # counts the triangles it tests: the kernels but L4's have no
     # counters, and take the same walk.
     plain = {
-        "lab_closest_cm": [("v2", lambda o, d, tm, c: v2.closest_v2_plain(
-            o, d, tm, ds.binary_root, ds.pnodes, ptris_cm, counts=c))],
+        "lab_closest_cm": [(
+            "v2", lambda o, d, tm, c, lt=v2._cm_leaf: v2.closest_v2_plain(
+                o, d, tm, ds.binary_root, ds.pnodes, ptris_cm, counts=c,
+                leaf_test=lt))],
         "lab_closest_queued": [
-            (var, lambda o, d, tm, c, var=var: v3.closest_v3_plain(
-                o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, qw.DRAIN_AT,
-                var)) for var in v3.VARIANTS],
+            (var, lambda o, d, tm, c, lt=qt._serial_leaf, var=var:
+             v3.closest_v3_plain(o, d, tm, ds.binary_root, ds.pnodes,
+                                 ds.ptris, qw.DRAIN_AT, var, leaf_test=lt))
+            for var in v3.VARIANTS],
         "lab_closest_pair": [
             (var, lambda o, d, tm, c, var=var: v4.closest_v4_plain(
                 o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, var,
@@ -1352,18 +1431,11 @@ def phase7(device):
                                       leaf_test=lt))
             for combo in combos],
     }
-    # L6's serial combinations count the triangles they test (lab4_bounds).
+    # L4 and L6's serial combinations count the triangles they test through
+    # counting_leaf_tests(), L3 its float4 groups (counting_cm_tests()).
     serial = [c for c in combos if not (c[1] or c[2])]
-    # The walk each one-thread-per-ray kernel's bound counts: its first
-    # variant on bounce 1 (L6's: lab4_bounds).
-    bounds = {
-        "lab_closest_cm": (CLOSEST_RAY_BYTES - 8, (ds.pnodes, ptris_cm),
-                           "binary", "cm"),
-        "lab_closest_queued": (CLOSEST_RAY_BYTES + COUNTER_BYTES,
-                               (ds.pnodes, ds.ptris), "binary", "closest"),
-        "lab_closest_pair": (CLOSEST_RAY_BYTES, (ds.pnodes, ds.ptris),
-                             "binary", "closest"),
-    }
+    counted = ({("lab_closest_queued", v) for v in v3.VARIANTS}
+               | {("lab_closest4_queued", c) for c in serial})
 
     report = {name: dict(max_abs_err=0.0) for name in mods}
     n = lab_rays.WIDTH * lab_rays.HEIGHT
@@ -1372,24 +1444,32 @@ def phase7(device):
             for variant, fn in variants:
                 counts = new_counts(o)
                 r = res[name][(label, variant)]
-                if variant in serial:
+                if name == "lab_closest_cm":
+                    leaf_test, total = counting_cm_tests()
+                elif (name, variant) in counted:
                     leaf_test, _, total = counting_leaf_tests()
+                else:
+                    leaf_test = total = None
+                if leaf_test is None:
+                    ref, plain_ms = lab_rays.host_ms(fn, o, d, tm, counts)
+                else:
                     ref, plain_ms = lab_rays.host_ms(fn, o, d, tm, counts,
                                                      leaf_test)
-                    r["counts"], r["tests"] = counts, total[0]
-                else:
-                    ref, plain_ms = lab_rays.host_ms(fn, o, d, tm, counts)
+                    r["tests"] = total[0]
+                    if name == "lab_closest_cm":
+                        r["count_tests"] = total[1]
                 if name == "lab_closest_queued":
                     counts = ref[4:]
+                r["counts"] = counts
                 err = gate_equal(f"{name} {label} {variant}", r["out"], ref)
                 entry = report[name]
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if label == "bounce1" and variant == variants[0][0]:
                     entry["plain_ms"] = plain_ms
-                    if name in bounds:
-                        ray_bytes, arrays, node, tri = bounds[name]
-                        entry.update(bound(o.shape[0], ray_bytes, arrays,
-                                           counts, node, tri))
+                    if name == "lab_closest_pair":
+                        entry.update(bound(o.shape[0], CLOSEST_RAY_BYTES,
+                                           (ds.pnodes, ds.ptris), counts,
+                                           "binary", "closest"))
                 vname = (r3.name(*variant) if isinstance(variant, tuple)
                          else variant)
                 plog(f"{name} {label} {vname}: equal to the plain version "
@@ -1407,7 +1487,7 @@ def phase7(device):
                                        f"kernel disagree beyond "
                                        f"{TREE_AGREEMENT} of the rays "
                                        f"({label})")
-        q, p = res["lab_closest_queued"], res["lab_closest_pair"]
+        p = res["lab_closest_pair"]
         quad = res["lab_closest4_queued"]
         base = q[(label, "base")]["out"]
         gate_equal(f"L4 dblread vs base {label}",
@@ -1418,14 +1498,28 @@ def phase7(device):
             gate_equal(f"L6 descent divfree={divfree} {label}",
                        quad[(label, (True, divfree, False))]["out"],
                        quad[(label, (False, divfree, False))]["out"])
+        ties = gate_cm_ties(label, cm[(label, "v2")]["out"],
+                            cm[(label, "k3")]["out"], ds, o, d)
         plog(f"{label}: L4 dblread = base (counts included), L5 switch = L4 "
-             f"base, L6 descent = no descent, on all {o.shape[0]} rays")
+             f"base, L6 descent = no descent, on all {o.shape[0]} rays; L3's "
+             f"t = K3's on every ray, its triangle differs on {ties} rays, "
+             "each a tie at that t")
     plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
 
-    launch_shapes_gate([(r3.launch_kernel(*combo), ds.q_stack_need)
-                        for combo in combos], device)
+    need = bt.stack_need(ds)
+    launch_shapes_gate([("closest_cm", need)]
+                       + [(qw.l4_kernel(v), need) for v in v3.VARIANTS]
+                       + [(r3.launch_kernel(*combo), ds.q_stack_need)
+                          for combo in combos], device)
+    l3_bounds = lab_cm_bounds(ds, sets, cm, ptris_cm)
+    l4_bounds = lab_binary_bounds(
+        ds, q, {(s, v): q[(s, v)]["tests"] for s in sets
+                for v in v3.VARIANTS},
+        sets, "closest", "lab_closest_queued", "L4", phase="phase 7")
     l6_bounds = lab4_bounds(ds, sets, res["lab_closest4_queued"], serial,
                             "lab_closest4_queued", "L6", "phase 7")
+    report["lab_closest_cm"].update(l3_bounds["bounce1"])
+    report["lab_closest_queued"].update(l4_bounds[("bounce1", "base")])
     report["lab_closest4_queued"].update(
         l6_bounds[("bounce1", (False, False, False))])
     for name, key in (("lab_closest_cm", "v2"), ("lab_closest_queued", "base"),
@@ -1434,6 +1528,49 @@ def phase7(device):
         report[name]["ms"] = res[name][("bounce1", key)]["ms"]
         report[name]["launches"] = launches[name]
     return report
+
+
+def lab_cm_bounds(ds, sets, cm, ptris_cm):
+    """The bound of L3 on each set, counted on the work its function needs
+    (walk_bound, 64 B a pnodes row): its plain walk's visits, the triangles
+    below each leaf row's count (the tests K3's leaf makes on the same
+    walk: the zero padding past the count is never valid, so it changes
+    neither t nor the triangle) and CM_TRI_BYTES of each real triangle,
+    once. Each is logged beside bound() (every slot of each row visited),
+    beside the run's ms and beside the whole float4 groups the kernel
+    tests, its extra work. Then what those cost: L1 leafilp's tests past
+    the counts (every slot) over L1 base's time on the same walk price a
+    test, and L3's time less its extra tests at that price is what it
+    would take tested to the counts, beside K3's. Returns {set: bound}."""
+    from raytracer_tpu_torch.ops import quad_traverse as qt
+
+    leaf = ptris_cm.shape[1] // 12
+    leaf_bytes = int(qt.leaf_counts(ds).sum()) * CM_TRI_BYTES
+    bounds = {}
+    for label in sets:
+        r = cm[(label, "v2")]
+        k3, base, ilp = (cm[(label, k)]["ms"]
+                         for k in ("k3", "l1_base", "l1_leafilp"))
+        b = bounds[label] = walk_bound(
+            ds, ds.pnodes, WIDTH * HEIGHT, CLOSEST_RAY_BYTES, r["counts"],
+            r["count_tests"], "binary", "cm", leaf_bytes=leaf_bytes)
+        log_walk_bound(f"lab_closest_cm {label}", b, (ds.pnodes, ptris_cm),
+                       r["counts"], "binary", "cm", phase="phase 7")
+        log(f"phase 7: L3 {label}: {r['ms']:.3f} ms against a bound of "
+            f"{b['bound_ms']:.4f} ms, {100 * b['bound_ms'] / r['ms']:.2f}% "
+            f"of the bound; the function needs {r['count_tests']} triangle "
+            f"tests, the kernel makes {r['tests']} in whole float4 groups "
+            f"({r['tests'] / max(r['count_tests'], 1):.3f}x)")
+        past = int(r["counts"][1].sum()) * leaf - r["count_tests"]
+        per_m = (ilp - base) / max(past, 1) * 1e6
+        extra = (r["tests"] - r["count_tests"]) * per_m / 1e6
+        log(f"phase 7: L3 {label} layout: L1 leafilp's {past} tests past "
+            f"the counts take {ilp - base:.3f} ms over L1 base, "
+            f"{per_m:.4f} ms a million; at that price L3's "
+            f"{r['tests'] - r['count_tests']} take {extra:.3f} ms, and L3 "
+            f"tested to the counts would take about {r['ms'] - extra:.3f} "
+            f"ms ({(r['ms'] - extra) / k3:.3f}x K3's {k3:.3f} ms)")
+    return bounds
 
 
 def phase8(device):

@@ -1,6 +1,6 @@
 // The traversal lab's deferred-leaf and component-major kernels for Hopper
-// (sm_90a): L3-L5 one thread per ray (two for lab_closest_pair), L6, L7 and
-// L8 on persistent warps.
+// (sm_90a): L3, L4, L6, L7 and L8 on persistent warps, L5 one thread per
+// two rays.
 //
 // Replaces the TPU lab kernels
 //   - tools/v2_kernel_lab.py:174 (run_closest_v2, L3): K3's walk over
@@ -31,13 +31,14 @@
 //     near child kept in a register instead, if any) and pushing its hit
 //     children far first, near last. The push policy routes them
 //     (traverse_common.cuh's node steps take it in place of the stack);
-//   - lab_closest_queued (L4) counts per ray what the TPU kernel counts per
-//     packet: nit, every step, and nleaf, the leaf steps. `nocond` drops
-//     leaf children at push time (its results are wrong by design);
-//     `dblread` loads row max(node-1, 0) as well and folds its first float,
-//     times 0.0, into the t cap (1 + 0*x is not folded without fast-math,
-//     so the load stays and the results equal base's while boxes are
-//     finite);
+//   - lab_closest_queued (L4): that walk on the binary tree, one 64-byte
+//     pnodes row a node step (binary_visit<true>), counting per ray what
+//     the TPU kernel counts per packet: nit, every step, and nleaf, the
+//     leaf steps. `nocond` drops leaf children at push time (its results
+//     are wrong by design); `dblread` loads row max(node-1, 0) as well and
+//     folds its first float, times 0.0, into the t cap (1 + 0*x is not
+//     folded without fast-math, so the load stays and the results equal
+//     base's while boxes are finite);
 //   - lab_closest_pair (L5): thread j walks rays 2j and 2j+1. `shared`:
 //     each step both take a leaf step if either one's drain condition
 //     holds, else both an internal step; a ray with nothing of that kind
@@ -67,11 +68,13 @@
 //     the TPU kernel's per-row exit; the node step caps its slab tests at
 //     t_max and pushes the near child last (ordered) or every child in
 //     child order (the production K2's order);
-//   - lab_closest_cm (L3): K3's stack walk (leaves on the stack, STACK_CAP
-//     128); a leaf reads each of its 10 used components as leaf/4 float4
-//     (component c of triangle k at lane leaf*c + k), tests every triangle
+//   - lab_closest_cm (L3): K3's walk itself (persistent_walk.cuh's
+//     closest_walk and binary_node: leaves on the stack) with a leaf hook of
+//     its own: a leaf reads each of its 10 used components as float4s
+//     (component c of triangle k at lane leaf*c + k), 4 triangles a float4,
+//     up to the group holding the row's last real triangle, tests them
 //     against the entry best t, and keeps the least t and, among the
-//     triangles at that t, the largest index.
+//     triangles at that t, the largest index (cm_leaf).
 //
 // The arithmetic is traverse_common.cuh's, written in the order of the
 // plain torch versions, and the library is built with -fmad=false, so each
@@ -83,12 +86,14 @@
 // blocks while the walk descends, which delays the best t and can only add
 // visits.
 //
-// L3-L5 keep their one-thread-per-ray design: a warp waits for its slowest
-// ray, and stack and queue sit in local memory (320 B a ray, 640 B for the
-// pair kernel). L6, L7 and L8 run K1-K4's machinery (persistent_walk.cuh's
-// fetch, Stack, grouped leaves and launch) in one walk, queued_walk, for a
-// closest-hit or an any-hit ray (ClosestRay with its leaf kind, AnyRay) and
-// a push policy (RegisterPush, or L6's SharedPush):
+// Only L5 keeps the one-thread-per-ray design: a warp waits for its slowest
+// ray, and its two stacks and queues sit in local memory (640 B a thread).
+// L3 runs on K3's closest_walk. L4, L6, L7 and L8 run K1-K4's machinery
+// (persistent_walk.cuh's fetch, Stack, grouped leaves and launch) in one
+// walk, queued_walk, for a closest-hit or an any-hit ray (ClosestRay with
+// its leaf kind, AnyRay), a push policy (RegisterPush, L4 nocond's
+// RegisterPushTo<true> or L6's SharedPush) and a per-ray hook (L4's
+// StepCounts; the others count nothing):
 //
 //   1. persistent warps: the occupancy calculator's grid, each warp taking
 //      rays from a per-launch counter (one atomicAdd per refill of its
@@ -96,10 +101,12 @@
 //      fetch time, and L8's occluded ray frees its lane at once;
 //   2. the stack and the leaf queue in dynamic shared memory, laid out
 //      [entry][thread]: the tree's stack need (OctTree.stack_need,
-//      q_stack_need; at most CAP) plus LQ entries a thread, the stack's top
-//      in a register (RegisterPush: the last internal child a step pushes
-//      is the node the plain walk pops next, and is never written; L6
-//      without descent writes it and pops it back);
+//      q_stack_need, the binary tree's stack_need = depth + 2; at most CAP)
+//      plus LQ entries a thread, the stack's top in a register
+//      (RegisterPush: the last internal child a step pushes is the node the
+//      plain walk pops next, and is never written; L6 without descent
+//      writes it and pops it back). L3 has K3's stack (depth + 2 entries, at
+//      most 128) and no queue;
 //   3. while-while over the drain rule: node steps while a lane's next step
 //      is a node step, then leaf steps while a lane's next step is a leaf
 //      step; each lane's next step is still decided by its own state, so
@@ -107,16 +114,17 @@
 //   4. one row per node: the metas come from the node row, not from
 //      ometa/qmeta;
 //   5. leaves stop at their last real triangle (ops/quad_traverse
-//      leaf_counts), their loads issued kGroup triangles at a time
-//      (closest_leaf_grouped, divfree_leaf_grouped, occluded_leaf_grouped).
-//      The slots past the count hold zero triangles, never accepted, so
-//      results and steps do not change. L6's ILP leaf loads the whole row
-//      at once.
+//      leaf_counts of the row-major ptris), their loads issued kGroup
+//      triangles at a time (closest_leaf_grouped, divfree_leaf_grouped,
+//      occluded_leaf_grouped), or a float4 group of 4 at a time (L3). The
+//      slots past the count hold zero triangles, never accepted, so results
+//      and steps do not change. L6's ILP leaf loads the whole row at once.
 // Per ray, an L7 node step reads 224 B of its 256-byte row (two 128-byte
 // lines) where the 4-wide walk reads 112 B of one line, for fewer node
 // steps; each does 8 slab tests (25 FP32 operations each) and the 3-bit
-// tournament (13). PERF.md gives each kernel's byte and operation bound
-// and its time against it.
+// tournament (13). A component-major leaf group is 10 float4 for 4
+// triangles, where the row-major layout takes 12. PERF.md gives each
+// kernel's byte and operation bound and its time against it.
 
 #include <type_traits>
 
@@ -126,16 +134,16 @@ using namespace traverse;
 
 namespace {
 
-constexpr int kStackCap = 128;  // L3's binary stack (STACK_CAP)
-constexpr int kCap = 64;        // the queued walks' internal-node stack
+constexpr int kCap = 64;         // the queued walks' internal-node stack
 constexpr int kLQ = 16;         // the leaf queue
+constexpr int kBinaryCap = 128;  // L3's stack need at most (K3's STACK_CAP)
 constexpr float kTMin = 1e-3f;  // the lab kernels' fixed t_min
 
 enum BinaryVariant { kBase = 0, kNocond = 1, kDblread = 2 };
 enum LeafKind { kSerialLeaf = 0, kDivfreeLeaf = 1, kIlpLeaf = 2 };
 
-// One ray of a one-thread-per-ray queued walk (L4, L5): the ray, its best
-// hit, its stack and its queue.
+// One ray of L5's one-thread-per-ray queued walk: the ray, its best hit,
+// its stack and its queue.
 struct QueuedRay {
   Ray r;
   float bt, bu, bv;
@@ -177,21 +185,20 @@ __device__ __forceinline__ bool wants_leaf(const QueuedRay& q,
 }
 
 // Routes the hit children of a node step: internal ones to the stack, leaf
-// ones to the queue (or nowhere, with kDropLeaves).
-template <bool kDropLeaves>
+// ones to the queue.
 struct QueuePush {
   QueuedRay& q;
   __device__ __forceinline__ void operator()(int meta) const {
     if (meta >= 0) {
       q.stack[q.sp++] = meta;
-    } else if (!kDropLeaves) {
+    } else {
       q.lq[q.ln++] = ~meta;
     }
   }
   __device__ __forceinline__ void near(int meta) const { (*this)(meta); }
 };
 
-// A leaf step of L4/L5: the queue's top block, every slot of its row.
+// A leaf step of L5: the queue's top block, every slot of its row.
 __device__ __forceinline__ void leaf_step(QueuedRay& q,
                                           const float4* __restrict__ ptris,
                                           int leaf) {
@@ -200,18 +207,13 @@ __device__ __forceinline__ void leaf_step(QueuedRay& q,
                kTMin, q.bt, q.btri, q.bu, q.bv);
 }
 
-template <int kVariant>
+// A node step of L5: the stack's top node, its hit children far first and
+// near last.
 __device__ __forceinline__ void binary_step(QueuedRay& q,
                                             const float4* __restrict__ pnodes) {
   const int node = q.stack[--q.sp];
-  float t_cap = q.bt;
-  if constexpr (kVariant == kDblread) {
-    const float x = __ldg(reinterpret_cast<const float*>(
-        pnodes + (int64_t)max(node - 1, 0) * 4));
-    t_cap = q.bt * (1.0f + 0.0f * x);
-  }
-  binary_visit<true>(q.r, pnodes + (int64_t)node * 4, kTMin, t_cap,
-                     QueuePush<kVariant == kNocond>{q});
+  binary_visit<true>(q.r, pnodes + (int64_t)node * 4, kTMin, q.bt,
+                     QueuePush{q});
 }
 
 __device__ __forceinline__ void store_hit(const QueuedRay& q, int64_t i,
@@ -223,36 +225,6 @@ __device__ __forceinline__ void store_hit(const QueuedRay& q, int64_t i,
   out_v[i] = q.bv;
 }
 
-template <int kVariant>
-__global__ void __launch_bounds__(kThreads)
-closest_queued_kernel(const float* __restrict__ origin,
-                      const float* __restrict__ direction,
-                      const float* __restrict__ t_max, int64_t n, int root,
-                      const float4* __restrict__ pnodes,
-                      const float4* __restrict__ ptris, int leaf,
-                      int drain_at, float* __restrict__ out_t,
-                      int* __restrict__ out_tri, float* __restrict__ out_u,
-                      float* __restrict__ out_v, int* __restrict__ out_nit,
-                      int* __restrict__ out_nleaf) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  QueuedRay q;
-  init_ray(q, load_ray(origin, direction, i), t_max[i], root);
-  int nit = 0, nleaf = 0;
-  while (alive(q)) {
-    ++nit;
-    if (wants_leaf(q, drain_at)) {
-      ++nleaf;
-      leaf_step(q, ptris, leaf);
-    } else {
-      binary_step<kVariant>(q, pnodes);
-    }
-  }
-  store_hit(q, i, out_t, out_tri, out_u, out_v);
-  out_nit[i] = nit;
-  out_nleaf[i] = nleaf;
-}
-
 // One step of a pair's ray, of the kind the pair chose: a ray with nothing
 // of that kind sits it out.
 __device__ __forceinline__ void pair_step(QueuedRay& q, bool leaf_kind,
@@ -262,7 +234,7 @@ __device__ __forceinline__ void pair_step(QueuedRay& q, bool leaf_kind,
   if (leaf_kind) {
     if (q.ln > 0) leaf_step(q, ptris, leaf);
   } else if (has_node(q)) {
-    binary_step<kBase>(q, pnodes);
+    binary_step(q, pnodes);
   }
 }
 
@@ -297,40 +269,9 @@ closest_pair_kernel(const float* __restrict__ origin,
   if (has_b) store_hit(b, ib, out_t, out_tri, out_u, out_v);
 }
 
-__global__ void __launch_bounds__(kThreads)
-closest_cm_kernel(const float* __restrict__ origin,
-                  const float* __restrict__ direction,
-                  const float* __restrict__ t_max, int64_t n, int root,
-                  const float4* __restrict__ pnodes,
-                  const float4* __restrict__ ptris_cm, int leaf,
-                  float* __restrict__ out_t, int* __restrict__ out_tri) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(origin, direction, i);
-  float bt = t_max[i];
-  int btri = -1;
-  const int leaf_f4 = leaf * kTriStride / 4;
-
-  int stack[kStackCap];
-  int sp = 0;
-  if (bt > kTMin) stack[sp++] = root;
-  while (sp > 0) {
-    const int meta = stack[--sp];
-    if (meta < 0) {
-      cm_leaf(r, ptris_cm + (int64_t)(~meta) * leaf_f4, leaf, kTMin, bt,
-              btri);
-    } else {
-      binary_visit<true>(r, pnodes + (int64_t)meta * 4, kTMin, bt, stack,
-                         sp);
-    }
-  }
-  out_t[i] = bt;
-  out_tri[i] = btri;
-}
-
 // ---------------------------------------------------------------------------
-// L6, L7 and L8: the queued walk on persistent warps (persistent_walk.cuh's
-// fetch, Stack, grouped leaves and launch).
+// L3, L4, L6, L7 and L8 on persistent warps (persistent_walk.cuh's fetch,
+// Stack, grouped leaves and launch).
 // ---------------------------------------------------------------------------
 
 constexpr int kGroup = 4;      // triangles of a leaf loaded together (K1's)
@@ -374,8 +315,9 @@ struct LaneQueue {
 // The push policy of a persistent node step: a hit internal child goes on
 // the stack, but the last one pushed stays in `top` (the node the plain
 // walk pops next, so it is never written); a hit leaf child goes into the
-// leaf queue.
-struct RegisterPush {
+// leaf queue, or nowhere with kDropLeaves (L4 nocond).
+template <bool kDropLeaves = false>
+struct RegisterPushTo {
   int& top;
   Stack& st;
   Stack& lq;
@@ -383,12 +325,14 @@ struct RegisterPush {
     if (meta >= 0) {
       if (top != kNone) st.push(top);
       top = meta;
-    } else {
+    } else if (!kDropLeaves) {
       lq.push(~meta);
     }
   }
   __device__ __forceinline__ void near(int meta) const { (*this)(meta); }
 };
+
+using RegisterPush = RegisterPushTo<>;
 
 // L6's push policy without descent: a hit internal child goes on the
 // stack, every one of them, and the next node is popped from it (`top` is
@@ -557,13 +501,16 @@ struct AnyRay {
 // persistent_walk.cuh's fetch, then while-while over the drain rule, node
 // steps (`visit(r, node, bound, push)`, then the node the policy kept in
 // `top`, or a pop) until no lane's next step is a node step, then leaf
-// steps (the queue's top block) until none is a leaf step.
-template <class Push = RegisterPush, class RayKind, class Visit>
+// steps (the queue's top block) until none is a leaf step. `hook` is a
+// per-ray hook as closest_walk's (visit(leaf) at each step; WalkHook, the
+// default, counts nothing; L4's StepCounts counts its steps).
+template <class Push = RegisterPush, class RayKind, class Visit,
+          class Hook = WalkHook<kGroup>>
 __device__ __forceinline__ void queued_walk(
     int* smem, int need, const float* __restrict__ origin,
     const float* __restrict__ direction, const float* __restrict__ t_max,
     int n, int root, int drain_at, int* __restrict__ next_ray,
-    RayKind ray_kind, const Visit& visit) {
+    RayKind ray_kind, const Visit& visit, Hook hook = {}) {
   LaneQueue q(smem, need);
   const int leaf_f4 = ray_kind.leaf * kTriStride / 4;
   int ray = -1;
@@ -573,8 +520,12 @@ __device__ __forceinline__ void queued_walk(
     r = load_ray(origin, direction, i);
     ray_kind.start(i, tm);
     q.start(root);
+    hook.start();
   };
-  auto skip = [&](int i, float tm) { ray_kind.skip(i, tm); };
+  auto skip = [&](int i, float tm) {
+    ray_kind.skip(i, tm);
+    hook.skip(i);
+  };
   for (;;) {
     if (fetch<kRefillAt>(ray, drained, n, next_ray, t_max, kTMin, start,
                          skip) == kFull) {
@@ -583,18 +534,20 @@ __device__ __forceinline__ void queued_walk(
     while (__any_sync(kFull, q.wants_node(drain_at))) {
       if (q.wants_node(drain_at)) {
         int top = kNone;
+        hook.visit(false);
         visit(r, q.cur, ray_kind.bound(), Push{top, q.st, q.lq});
         q.cur = top != kNone ? top : q.st.pop();
       }
     }
     while (__any_sync(kFull, q.wants_leaf(drain_at))) {
-      if (q.wants_leaf(drain_at) &&
-          ray_kind.leaf_step(r, q.lq.pop(), leaf_f4)) {
-        q.clear();
+      if (q.wants_leaf(drain_at)) {
+        hook.visit(true);
+        if (ray_kind.leaf_step(r, q.lq.pop(), leaf_f4)) q.clear();
       }
     }
     if (ray >= 0 && !q.alive()) {
       ray_kind.finish(ray);
+      hook.finish(ray);
       ray = -1;
     }
   }
@@ -700,58 +653,134 @@ Closest4Queued closest4_queued(int descent, int leaf_kind) {
   }
 }
 
+// L3: K3's walk (binary_node, the far child to the stack and the near one
+// in a register, leaves on the stack) over component-major leaf rows. The
+// leaf is cm_leaf up to the float4 group that holds the row's last real
+// triangle (ceil(count / 4) groups, at least one), which gives every
+// slot's bits: a slot past the count has zero edges, so it is never valid
+// and its t counts as kBig. Under a best t below kBig it can change neither
+// the least t nor the index at it, and a leaf whose least t is kBig keeps
+// nothing. Where the best t is not below kBig, a row all at kBig would be
+// kept with its largest index, so there the leaf tests every group. L3 has
+// no u, v: the walk writes 0s to the wrapper's scratch.
+struct CmLeafHook : WalkHook<kGroup> {
+  __device__ __forceinline__ void closest_leaf(
+      const Ray& r, const float4* __restrict__ row, int count, int leaf,
+      float t_min, float& bt, int& btri, float&, float&) const {
+    const int groups = bt < kBig ? max((count + 3) >> 2, 1) : leaf >> 2;
+    cm_leaf(r, row, leaf, groups, t_min, bt, btri);
+  }
+};
+
+// Under plain launch bounds ptxas kept it at 72 registers and spilled 38 B
+// (the 10 float4 of a group live across 4 tests); 6 blocks a SM let it
+// take up to 80, K3's.
+__global__ void __launch_bounds__(kThreads, 6)
+closest_cm_persistent_kernel(const float* __restrict__ origin,
+                             const float* __restrict__ direction,
+                             const float* __restrict__ t_max, int n,
+                             int root, const float4* __restrict__ pnodes,
+                             const float4* __restrict__ ptris_cm,
+                             const int* __restrict__ counts, int leaf,
+                             int* __restrict__ next_ray,
+                             float* __restrict__ out_t,
+                             int* __restrict__ out_tri,
+                             float* __restrict__ out_u,
+                             float* __restrict__ out_v) {
+  extern __shared__ int smem[];
+  closest_walk<kGroup, kRefillAt>(
+      smem, origin, direction, t_max, n, kTMin, root, ptris_cm, counts, leaf,
+      next_ray, out_t, out_tri, out_u, out_v,
+      [&](const Ray& r, int cur, float bt, Stack& st) {
+        return binary_node(r, pnodes + (int64_t)cur * 4, kTMin, bt, st);
+      },
+      CmLeafHook{});
+}
+
+// L4's per-ray hook on queued_walk: nit counts every step, nleaf the leaf
+// steps, written when the ray ends (0s for an inactive ray).
+struct StepCounts {
+  int* __restrict__ out_nit;
+  int* __restrict__ out_nleaf;
+  int nit = 0, nleaf = 0;
+  __device__ __forceinline__ void start() { nit = nleaf = 0; }
+  __device__ __forceinline__ void visit(bool leaf) {
+    ++nit;
+    nleaf += leaf;
+  }
+  __device__ __forceinline__ void finish(int i) const {
+    out_nit[i] = nit;
+    out_nleaf[i] = nleaf;
+  }
+  __device__ __forceinline__ void skip(int i) const {
+    out_nit[i] = 0;
+    out_nleaf[i] = 0;
+  }
+};
+
+// L4: the binary deferred-leaf walk, one 64-byte pnodes row a node step
+// (binary_visit<true>: far child first, near last, so the near one stays
+// in the register), leaves to their counts, with StepCounts. nocond drops
+// the hit leaf children (RegisterPushTo<true>); dblread also loads row
+// max(node - 1, 0), independent of the node's own row, and folds its first
+// float, times 0.0, into the t cap (1 + 0 * x is not folded without
+// fast-math, so the load stays and the results equal base's while boxes
+// are finite).
+template <int kVariant>
+__global__ void __launch_bounds__(kThreads)
+binary_queued_kernel(const float* __restrict__ origin,
+                     const float* __restrict__ direction,
+                     const float* __restrict__ t_max, int n, int root,
+                     const float4* __restrict__ pnodes,
+                     const float4* __restrict__ ptris,
+                     const int* __restrict__ counts, int leaf, int need,
+                     int drain_at, int* __restrict__ next_ray,
+                     float* __restrict__ out_t, int* __restrict__ out_tri,
+                     float* __restrict__ out_u, float* __restrict__ out_v,
+                     int* __restrict__ out_nit, int* __restrict__ out_nleaf) {
+  using Push = RegisterPushTo<kVariant == kNocond>;
+  extern __shared__ int smem[];
+  queued_walk<Push>(
+      smem, need, origin, direction, t_max, n, root, drain_at, next_ray,
+      ClosestRay<kSerialLeaf>{ptris, counts, leaf, out_t, out_tri, out_u,
+                              out_v},
+      [&](const Ray& r, int node, float bt, const Push& push) {
+        float t_cap = bt;
+        if constexpr (kVariant == kDblread) {
+          const float x = __ldg(reinterpret_cast<const float*>(
+              pnodes + (int64_t)max(node - 1, 0) * 4));
+          t_cap = bt * (1.0f + 0.0f * x);
+        }
+        binary_visit<true>(r, pnodes + (int64_t)node * 4, kTMin, t_cap,
+                           push);
+      },
+      StepCounts{out_nit, out_nleaf});
+}
+
+using BinaryQueued = void (*)(const float*, const float*, const float*, int,
+                              int, const float4*, const float4*, const int*,
+                              int, int, int, int*, float*, int*, float*,
+                              float*, int*, int*);
+
+// L4's kernel for `variant`, or nullptr.
+BinaryQueued binary_queued(int variant) {
+  switch (variant) {
+    case kBase:
+      return binary_queued_kernel<kBase>;
+    case kNocond:
+      return binary_queued_kernel<kNocond>;
+    case kDblread:
+      return binary_queued_kernel<kDblread>;
+    default:
+      return nullptr;
+  }
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on `stream` and
 // returns the launch's cudaError_t (cudaErrorInvalidValue for an argument
 // no kernel takes); none synchronises or allocates.
-
-// leaf: a multiple of 4.
-extern "C" int lab_closest_cm(const float* origin, const float* direction,
-                              const float* t_max, int64_t n, int root,
-                              const float* pnodes, const float* ptris_cm,
-                              int leaf, float* out_t, int* out_tri,
-                              void* stream) {
-  if (leaf % 4) return (int)cudaErrorInvalidValue;
-  closest_cm_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_max, n, root,
-      reinterpret_cast<const float4*>(pnodes),
-      reinterpret_cast<const float4*>(ptris_cm), leaf, out_t, out_tri);
-  return (int)cudaGetLastError();
-}
-
-// variant: 0 base, 1 nocond, 2 dblread; drain_at in 1..LQ-2.
-extern "C" int lab_closest_queued(const float* origin, const float* direction,
-                                  const float* t_max, int64_t n, int root,
-                                  const float* pnodes, const float* ptris,
-                                  int leaf, int drain_at, int variant,
-                                  float* out_t, int* out_tri, float* out_u,
-                                  float* out_v, int* out_nit, int* out_nleaf,
-                                  void* stream) {
-  if (drain_at < 1 || drain_at > kLQ - 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  auto p4 = reinterpret_cast<const float4*>(pnodes);
-  auto t4 = reinterpret_cast<const float4*>(ptris);
-#define LAB_QUEUED_LAUNCH(V)                                              \
-  closest_queued_kernel<V><<<blocks_for(n), kThreads, 0, s>>>(            \
-      origin, direction, t_max, n, root, p4, t4, leaf, drain_at, out_t,   \
-      out_tri, out_u, out_v, out_nit, out_nleaf)
-  switch (variant) {
-    case kBase:
-      LAB_QUEUED_LAUNCH(kBase);
-      break;
-    case kNocond:
-      LAB_QUEUED_LAUNCH(kNocond);
-      break;
-    case kDblread:
-      LAB_QUEUED_LAUNCH(kDblread);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LAB_QUEUED_LAUNCH
-  return (int)cudaGetLastError();
-}
 
 // shared: 1 the pair shares the step kind, 0 each ray takes its own.
 extern "C" int lab_closest_pair(const float* origin, const float* direction,
@@ -777,11 +806,50 @@ extern "C" int lab_closest_pair(const float* origin, const float* direction,
   return (int)cudaGetLastError();
 }
 
-// The persistent queued walks (L6, L7, L8). After the rays: root, node rows
-// (qnodes f32[N4,32] or onodes f32[N8,64], the metas in the rows), ptris,
-// leaf counts, leaf, the tree's stack need `need` (1..kCap: the shared
-// memory holds need + kLQ entries a thread) and the ray counter
-// `next_ray` (one int32, zeroed here on `stream`); then drain_at.
+// The persistent walks (L3, L4, L6, L7, L8). After the rays: root, node
+// rows (pnodes f32[NB,16], qnodes f32[N4,32] or onodes f32[N8,64], the
+// metas in the rows), leaf rows, the leaf counts of the row-major ptris,
+// leaf, the tree's stack need `need` (L3: 1..kBinaryCap, K3's stack; the
+// queued walks 1..kCap: the shared memory holds need + kLQ entries a
+// thread) and the ray counter `next_ray` (one int32, zeroed here on
+// `stream`); then the queued walks' drain_at.
+
+// L3. ptris_cm: the component-major leaf rows (leaf a multiple of 4); out_u
+// and out_v are scratch the walk writes.
+extern "C" int lab_closest_cm(const float* origin, const float* direction,
+                              const float* t_max, int64_t n, int root,
+                              const float* pnodes, const float* ptris_cm,
+                              const int* leaf_counts, int leaf, int need,
+                              int* next_ray, float* out_t, int* out_tri,
+                              float* out_u, float* out_v, void* stream) {
+  if (leaf % 4) return (int)cudaErrorInvalidValue;
+  return launch(closest_cm_persistent_kernel, n, need, kBinaryCap, next_ray,
+                stream, origin, direction, t_max, (int)n, root,
+                reinterpret_cast<const float4*>(pnodes),
+                reinterpret_cast<const float4*>(ptris_cm), leaf_counts, leaf,
+                next_ray, out_t, out_tri, out_u, out_v);
+}
+
+// L4. variant: 0 base, 1 nocond, 2 dblread; drain_at in 1..LQ-2.
+extern "C" int lab_closest_queued(const float* origin, const float* direction,
+                                  const float* t_max, int64_t n, int root,
+                                  const float* pnodes, const float* ptris,
+                                  const int* leaf_counts, int leaf, int need,
+                                  int* next_ray, int drain_at, int variant,
+                                  float* out_t, int* out_tri, float* out_u,
+                                  float* out_v, int* out_nit, int* out_nleaf,
+                                  void* stream) {
+  if (drain_at < 1 || drain_at > kLQ - 2) return (int)cudaErrorInvalidValue;
+  if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
+  BinaryQueued kernel = binary_queued(variant);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(kernel, n, need + kLQ, kCap + kLQ, next_ray, stream, origin,
+                direction, t_max, (int)n, root,
+                reinterpret_cast<const float4*>(pnodes),
+                reinterpret_cast<const float4*>(ptris), leaf_counts, leaf,
+                need, drain_at, next_ray, out_t, out_tri, out_u, out_v,
+                out_nit, out_nleaf);
+}
 
 // drain_at in 1..LQ-8 (an 8-wide step queues up to 8 leaves).
 extern "C" int lab_closest8_queued(const float* origin, const float* direction,
@@ -851,11 +919,20 @@ extern "C" int lab_closest4_queued(const float* origin, const float* direction,
 }
 
 // What a launch of `kernel` (0 L7, 1 L8 ordered, 2 L8 child order, 3 +
-// 2 * leaf_kind + descent L6) at stack need `need` looks like on the
-// current device: out[0..8] as persistent_walk.cuh's info(), the shared
-// memory holding the queue too.
+// 2 * leaf_kind + descent L6, 9 L3, 10 + variant L4) at stack need `need`
+// looks like on the current device: out[0..8] as persistent_walk.cuh's
+// info(), the queued walks' shared memory holding the queue too.
 extern "C" int lab2_launch_info(int kernel, int need, int* out) {
+  if (kernel == 9) {
+    return info<kGroup, kRefillAt>(closest_cm_persistent_kernel, need,
+                                   kBinaryCap, out);
+  }
   if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
+  if (kernel >= 10) {
+    BinaryQueued l4 = binary_queued(kernel - 10);
+    if (l4 == nullptr) return (int)cudaErrorInvalidValue;
+    return info<kGroup, kRefillAt>(l4, need + kLQ, kCap + kLQ, out);
+  }
   if (kernel >= 3) {
     Closest4Queued l6 = closest4_queued((kernel - 3) % 2, (kernel - 3) / 2);
     if (l6 == nullptr) return (int)cudaErrorInvalidValue;

@@ -3,8 +3,8 @@
 // the ray with its clamped inverse direction, the slab test of one box,
 // Moller-Trumbore against one leaf triangle, the closest-hit leaf loops
 // (serial, ILP and component-major; the persistent walks' grouped loops are
-// in persistent_walk.cuh), and the binary, 4-wide and 8-wide node steps
-// with their push policy.
+// in persistent_walk.cuh), and the binary, 4-wide and 8-wide node steps,
+// which take a push policy.
 //
 // Each term is written in the order of the plain torch versions
 // (ops/quad_traverse.py: _inv_dir, _slab_children, _moller), and the
@@ -132,19 +132,10 @@ __device__ __forceinline__ void closest_leaf(const Ray& r,
 }
 
 // The node steps' push policy: every hit child goes through push(meta), the
-// near one (pushed last) through push.near(meta). StackPush puts both on the
-// ray's stack (the one-thread-per-ray binary labs L3-L5); the persistent
-// walks keep the entry popped next in a register (persistent_walk.cuh's
-// binary_node, lab_traverse.cu), and the queued walks (lab2_traverse.cu)
-// route leaf children to a leaf queue.
-struct StackPush {
-  int* stack;
-  int& sp;
-  __device__ __forceinline__ void operator()(int meta) const {
-    stack[sp++] = meta;
-  }
-  __device__ __forceinline__ void near(int meta) const { stack[sp++] = meta; }
-};
+// near one (pushed last) through push.near(meta). The persistent walks keep
+// the entry popped next in a register (persistent_walk.cuh's binary_node,
+// lab_traverse.cu), and the queued walks (lab2_traverse.cu) route leaf
+// children to a leaf queue.
 
 // Binary node step: slab-test both children of pnodes row `p` (lanes 0-5
 // left box, 6-11 right box, 12/13 the child metas as f32) against [t_min,
@@ -171,14 +162,6 @@ __device__ __forceinline__ void binary_visit(const Ray& r,
   bool swap = kOrdered && near_r < near_l;
   if (swap ? hit_l : hit_r) push(swap ? lmeta : rmeta);
   if (swap ? hit_r : hit_l) push.near(swap ? rmeta : lmeta);
-}
-
-template <bool kOrdered>
-__device__ __forceinline__ void binary_visit(const Ray& r,
-                                             const float4* __restrict__ p,
-                                             float t_min, float t_cap,
-                                             int* stack, int& sp) {
-  binary_visit<kOrdered>(r, p, t_min, t_cap, StackPush{stack, sp});
 }
 
 // Slab tests of the 4 boxes in float4 q[0..5] (min.xyz, max.xyz each)
@@ -345,20 +328,22 @@ __device__ __forceinline__ float lane(float4 v, int j) {
 // The component-major leaf (tools/v2_kernel_lab.py:82-118 per ray, and
 // tools/smem_lab.py:66 transp_kernel with leaf 8): float4 quads*c + k4 of
 // the row holds component c (v0.xyz, e1.xyz, e2.xyz, tri_f) of triangles
-// 4*k4 .. 4*k4+3. Every triangle against the entry best t; the least t
-// (an invalid triangle counts as t = BIG) and the TPU kernels' reduction
-// of the indices, max over the triangles of (t at the least ? index : -1),
-// so -1 takes part unless every triangle is at the least t; kept if below
-// the best t.
+// 4*k4 .. 4*k4+3. The triangles of the first `groups` float4 groups (1..
+// leaf/4) against the entry best t; the least t (an invalid triangle
+// counts as t = BIG) and the TPU kernels' reduction of the indices, max
+// over the triangles of (t at the least ? index : -1), so -1 takes part
+// unless every triangle is at the least t; kept if below the best t. The
+// first group's loads do not wait for `groups`.
 __device__ __forceinline__ void cm_leaf(const Ray& r,
                                         const float4* __restrict__ row,
-                                        int leaf, float t_min, float& bt,
-                                        int& btri) {
+                                        int leaf, int groups, float t_min,
+                                        float& bt, int& btri) {
   const int quads = leaf / 4;  // float4s per component
   float tmin = kBig;
   int trimax = -1;
   bool first = true;
-  for (int k4 = 0; k4 < quads; ++k4) {
+  int k4 = 0;
+  do {
     float4 comp[10];
 #pragma unroll
     for (int c = 0; c < 10; ++c) comp[c] = __ldg(row + quads * c + k4);
@@ -386,7 +371,7 @@ __device__ __forceinline__ void cm_leaf(const Ray& r,
         trimax = max(trimax, -1);
       }
     }
-  }
+  } while (++k4 < groups);
   if (tmin < bt) {
     bt = tmin;
     btri = trimax;

@@ -26,8 +26,9 @@ csrc/ directory, e.g. a parent commit unpacked with `git archive`), with
 the same flags and the headers beside it, and gates, times and digests it
 as one more variant: equal digests mean the two trees compile K1/K2 to
 the same machine code. It also builds both trees' binary_traverse.cu and
-prints K3's and K4's SASS digests side by side (those are not timed
-here; chip_smoke.py phase 2 gates and times K3/K4).
+lab2_traverse.cu and prints the SASS digests of K3 and K4, and of the
+queued walk's L6, L7 and L8, side by side (those are not timed here;
+chip_smoke.py phases 2, 7 and 8 gate and time them).
 """
 
 from __future__ import annotations
@@ -135,18 +136,29 @@ def sass_digest(sass, kernel):
     return len(ins), hashlib.sha1("\n".join(ins).encode()).hexdigest()[:12]
 
 
-def binary_digests(csrc_dir, tag):
-    """{"closest", "occlusion"} -> sass_digest of K3 and K4: csrc_dir/
-    binary_traverse.cu built as libbinary_traverse_<tag> with the repo's
-    flags and the headers beside it."""
+# The kernels whose SASS --against compares, by source (the distinctive
+# part of each mangled name): K3 and K4, and L7, L8 and L6 on the queued
+# walk.
+DIGESTS = {
+    "binary_traverse": ("closest_kernel", "occlusion_kernel"),
+    "lab2_traverse": (
+        "closest8_queued_kernel", "occlusion4_queued_kernelILb1E",
+        "occlusion4_queued_kernelILb0E",
+        *(f"closest4_queued_persistent_kernelILb{descent}ELi{kind}E"
+          for kind in range(3) for descent in (0, 1))),
+}
+
+
+def library_digests(csrc_dir, tag, name):
+    """{kernel: sass_digest} of DIGESTS[name]: csrc_dir/<name>.cu built as
+    lib<name>_<tag> with the repo's flags and the headers beside it."""
     headers = sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
     path = _build.compile_library(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc_dir],
-        os.path.join(csrc_dir, "binary_traverse.cu"),
-        f"libbinary_traverse_{tag}", headers=headers)
+        os.path.join(csrc_dir, f"{name}.cu"), f"lib{name}_{tag}",
+        headers=headers)
     sass = library_sass(path)
-    return {k: sass_digest(sass, f"{k}_kernel")
-            for k in ("closest", "occlusion")}
+    return {k: sass_digest(sass, k) for k in DIGESTS[name]}
 
 
 def library_sass(path):
@@ -167,19 +179,22 @@ def run(reps=REPS, say=print, against=None):
     values = source_values(text)
     todo = variants(values)
     names = {v: f"G={v[0]} refill_at={v[1]}" for v in todo}
-    with concurrent.futures.ThreadPoolExecutor(len(todo) + 3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(todo) + 5) as pool:
         jobs = {v: pool.submit(build_variant, text, *v) for v in todo}
         if against:
             jobs["against"] = pool.submit(build_against, against)
-            binary = {tag: pool.submit(binary_digests, d, tag) for tag, d in
-                      (("this", _build.CSRC_DIR), ("against", against))}
+            digests = {(name, tag): pool.submit(library_digests, d, tag,
+                                                name)
+                       for name in DIGESTS for tag, d in (
+                           ("this", _build.CSRC_DIR), ("against", against))}
         built = {v: job.result() for v, job in jobs.items()}
     if against:
-        binary = {tag: job.result() for tag, job in binary.items()}
-        say("K3/K4 SASS (instructions, digest): this tree "
-            f"{binary['this']}; {against} {binary['against']}; "
-            + ("equal" if binary["this"] == binary["against"]
-               else "DIFFERENT"))
+        for name in DIGESTS:
+            this, other = (digests[(name, tag)].result()
+                           for tag in ("this", "against"))
+            say(f"{name} SASS (instructions, digest): this tree {this}; "
+                f"{against} {other}; "
+                + ("equal" if this == other else "DIFFERENT"))
         other = built["against"][3]
         names["against"] = (f"{against} (G={other['group']} refill_at="
                             f"{other['refill_at']})")

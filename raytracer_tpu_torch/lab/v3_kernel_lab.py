@@ -28,8 +28,14 @@ Variants (lab/queue_walk.py's walk, binary node step):
 nit counts every step of a ray's walk and nleaf its leaf steps: per ray
 what the TPU kernel counts per 8x128 tile (rows 0 and 1 of its nit
 output). On CUDA tensors the wrapper launches
-csrc/lab2_traverse.cu:lab_closest_queued; on CPU tensors it runs the plain
-torch version, which the kernel equals bit for bit (counts included).
+csrc/lab2_traverse.cu:lab_closest_queued, persistent warps on the queued
+walk of L6-L8 (queued_walk) with the binary node step: the internal-node
+stack (bt.stack_need(scene) entries a thread, its top in a register) and
+the leaf queue in shared memory, each leaf row tested up to its count, the
+counts kept by a per-ray hook. On CPU tensors it runs the plain torch
+version, every slot of each row, which the kernel equals bit for bit
+(counts included). On the card the lab first prints each variant's launch
+shape.
 """
 
 from __future__ import annotations
@@ -43,18 +49,19 @@ from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import rays as lab_rays
 from raytracer_tpu_torch.lab.bvh4_lab import against
 from raytracer_tpu_torch.ops import binary_traverse as bt
+from raytracer_tpu_torch.ops import quad_traverse as qt
 from raytracer_tpu_torch.ops.quad_traverse import (
     T_MIN,
-    TRI_STRIDE,
     _check_rays,
     _inv_dir,
     _ptr,
     _ray_inputs,
+    _serial_leaf,
 )
 
 LEAF_SIZE = 8
-_KERNEL_VARIANT = {"base": 0, "nocond": 1, "dblread": 2}
-VARIANTS = tuple(_KERNEL_VARIANT)
+VARIANTS = qw.L4_VARIANTS
+_KERNEL_VARIANT = {variant: code for code, variant in enumerate(VARIANTS)}
 REPS = 5
 
 # Kernel launches, counted where the CUDA wrapper launches.
@@ -83,43 +90,49 @@ def run_closest_v3(origin, direction, t_max, scene, drain_at=qw.DRAIN_AT,
     the deferred-leaf walk (t_min 1e-3, t_max scalar or f32[N]; a ray with
     t_max <= 1e-3 is not walked). Returns (t f32[N], tri i32[N], u f32[N],
     v f32[N], nit i32[N], nleaf i32[N])."""
-    global closest_launches
     _check(scene, drain_at, variant)
     o, d, tm = _ray_inputs(origin, direction, t_max, None)
     if o.is_cuda:
-        out = _closest_v3_cuda(o, d, tm, scene, drain_at,
-                               _KERNEL_VARIANT[variant])
-        closest_launches += 1
-        return out
+        return _closest_v3_cuda(o, d, tm, scene, drain_at,
+                                _KERNEL_VARIANT[variant])
     return closest_v3_plain(o, d, tm, scene.binary_root, scene.pnodes,
                             scene.ptris, drain_at, variant)
 
 
 def closest_v3_plain(origin, direction, t_max, root, pnodes, ptris, drain_at,
-                     variant):
+                     variant, leaf_test=_serial_leaf):
     """Plain torch version of lab_closest_queued's `variant`. Returns (t,
-    tri, u, v, nit, nleaf)."""
+    tri, u, v, nit, nleaf). `leaf_test`, queue_walk.queued_walk's leaf
+    hook, replaces the every-slot serial leaf."""
     n = origin.shape[0]
     counts = tuple(torch.zeros((n,), dtype=torch.int32, device=origin.device)
                    for _ in range(2))
     step = qw.binary_step(origin, _inv_dir(direction), pnodes,
                           dblread=variant == "dblread")
     hit = qw.queued_walk(origin, direction, t_max, root, ptris, step,
-                         drain_at=drain_at, drop_leaves=variant == "nocond",
-                         counts=counts)
+                         leaf_test=leaf_test, drain_at=drain_at,
+                         drop_leaves=variant == "nocond", counts=counts)
     return (*hit, *counts)
 
 
 def _closest_v3_cuda(origin, direction, t_max, scene, drain_at,
                      variant_code):
+    """L4 on the card: the pnodes rows, ptris and its leaf counts, the
+    binary tree's stack need (bt.stack_need: its internal nodes pending,
+    at most one a level, fit with room to spare) and a ray counter of its
+    own; then drain_at and the variant."""
+    global closest_launches
     n, dev = _check_rays(origin, direction, t_max)
-    bt._check_scene_arrays(scene, dev)
+    qt._check_n(n)
+    need = bt.stack_need(scene)
+    qw.check_need(need, "binary-BVH")
     out = qw.hit_outputs(n, dev, counters=True)
     if n:
+        args, _counter = bt._launch_args(scene, dev, need)
         qw.launch("lab_closest_queued", dev, _ptr(origin), _ptr(direction),
-                  _ptr(t_max), n, scene.binary_root, _ptr(scene.pnodes),
-                  _ptr(scene.ptris), scene.ptris.shape[1] // TRI_STRIDE,
-                  drain_at, variant_code, *(_ptr(t) for t in out))
+                  _ptr(t_max), n, *args, drain_at, variant_code,
+                  *(_ptr(t) for t in out))
+        closest_launches += 1
     return out
 
 
@@ -131,7 +144,11 @@ def run(scene, sets, variants=VARIANTS, drain_at=qw.DRAIN_AT, reps=REPS,
         log=print):
     """K3 and every variant on every closest-hit set; prints one line each.
     Returns {(set, variant): stats} (and {(set, "k3"): stats}) with the
-    outputs under "out"."""
+    outputs under "out"; on the card it first prints each variant's launch
+    shape."""
+    for variant in variants if scene.ptris.is_cuda else ():
+        log(qw.launch_line(f"L4 {variant}", qw.l4_kernel(variant),
+                           bt.stack_need(scene), scene.ptris.device))
     results = {}
     for label, (o, d, tm) in sets.items():
         k3 = bt.intersect_bvh_binary(o, d, scene, T_MIN, tm)

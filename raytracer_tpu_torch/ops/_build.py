@@ -204,12 +204,12 @@ def lab_traverse_lib() -> ctypes.CDLL:
 
 def lab2_traverse_lib() -> ctypes.CDLL:
     """The traversal lab's deferred-leaf (binary, 4-wide, 8-wide, any-hit)
-    and component-major kernels (csrc/lab2_traverse.cu; L6, L7 and L8 take
-    the persistent walks' scene arguments)."""
+    and component-major kernels (csrc/lab2_traverse.cu; L3, L4, L6, L7 and
+    L8 take the persistent walks' scene arguments)."""
     return _cuda_lib("lab2_traverse", {
-        "lab_closest_cm": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _P, _P, _P],
-        "lab_closest_queued": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
-                               _I32, _P, _P, _P, _P, _P, _P, _P],
+        "lab_closest_cm": [_P, _P, _P, _I64, *_SCENE, _P, _P, _P, _P, _P],
+        "lab_closest_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _I32, _P,
+                               _P, _P, _P, _P, _P, _P],
         "lab_closest_pair": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
                              _I32, _P, _P, _P, _P, _P],
         "lab_closest4_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _I32, _I32,

@@ -1,8 +1,8 @@
-"""What the persistent lab kernels L1, L2, L6, L7, L8 and L9
+"""What the persistent lab kernels L1, L2, L3, L4, L6, L7, L8 and L9
 (csrc/lab_traverse.cu lab_closest, lab_closest4, lab_occlusion,
-csrc/lab2_traverse.cu lab_closest4_queued, lab_closest8_queued,
-lab_occlusion4_queued) rely on in the trees and in their wrappers, on the
-CPU at small sizes:
+csrc/lab2_traverse.cu lab_closest_cm, lab_closest_queued,
+lab_closest4_queued, lab_closest8_queued, lab_occlusion4_queued) rely on
+in the trees and in their wrappers, on the CPU at small sizes:
 
   - each onodes row carries its 8 child metas at columns 48:56 as exact
     f32 integers equal to ometa, so L7 reads one row per node; an absent
@@ -11,19 +11,23 @@ CPU at small sizes:
     (ops/quad_traverse.row_counts) equal the every-slot walks, results and
     step counts both: L2's stack walk in both orders, L1's binary walks
     (base, multi-pop; leafilp's ILP leaf against the stopped serial leaf)
-    and L9's in both orders ((nvisit, nleaf)), L6's queued walk with the
-    serial and the division-free leaf, L7, and L8 in both orders ((nit,
-    nleaf)); the kernels stop their leaves there (L1's and L6's ILP leaves
-    take the whole row);
+    and L9's in both orders ((nvisit, nleaf)), L3's component-major leaf
+    stopped at the float4 group of the count (v2_kernel_lab.cm_groups),
+    L4's binary queued walk (each variant at drain_at 1 and 4), L6's
+    queued walk with the serial and the division-free leaf, L7, and L8 in
+    both orders ((nit, nleaf)); the kernels stop their leaves there (L1's
+    and L6's ILP leaves take the whole row);
   - L6 with and without descent takes the same steps to the same results;
   - the plain walks' stack never holds more than the need the wrappers
     size shared memory by (q_stack_need, OctTree.stack_need,
-    binary_traverse.stack_need, kernel_lab.stack_need for the multi-pop
-    walks), and the leaf queue never more than LQ;
+    binary_traverse.stack_need for L3, L4 and L9, kernel_lab.stack_need for
+    the multi-pop walks), and the leaf queue never more than LQ;
   - with a fake library, the wrappers pass the node rows (not ometa or
     qmeta), ptris's leaf counts, the tree's stack need, a ray counter of
-    each launch's own and (L1) the variant and the block; they refuse a
-    stack need outside 1..CAP (1..STACK_CAP for L1 and L9) and more rays
+    each launch's own and (L1) the variant and the block (L4: drain_at
+    and the variant; L3 the component-major rows with ptris's counts); they
+    refuse a stack need outside 1..CAP (1..STACK_CAP for L1, L3 and L9)
+    and more rays
     than the counter takes, raise on a failed launch, which is not
     counted, and launch nothing for zero rays; the launch-shape query asks
     each kernel's library entry and finds its ptxas spills.
@@ -31,8 +35,8 @@ CPU at small sizes:
 The scenes are the Cornell box and a ~4k-triangle atrium, baked at leaf 8
 (the labs' leaf size) with the numpy BVH builder. The JAX lab kernels
 themselves are held against the port in tests/test_torch_lab.py (L1, L2,
-L9), tests/test_torch_lab_queue.py (L6) and tests/test_torch_lab_oct.py
-(L7, L8)."""
+L9), tests/test_torch_lab_queue.py (L3, L4, L6) and
+tests/test_torch_lab_oct.py (L7, L8)."""
 
 import contextlib
 import ctypes
@@ -52,6 +56,8 @@ from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import r3_kernel_lab as l6
 from raytracer_tpu_torch.lab import r3_occl3_lab as l8
 from raytracer_tpu_torch.lab import r3_oct_lab as l7
+from raytracer_tpu_torch.lab import v2_kernel_lab as l3
+from raytracer_tpu_torch.lab import v3_kernel_lab as l4
 from raytracer_tpu_torch.ops import _build
 from raytracer_tpu_torch.ops import binary_traverse as bt
 from raytracer_tpu_torch.ops import quad_traverse as qt
@@ -66,11 +72,17 @@ SCENES = {"cornell": tmodel.create_cornell_box,
 # orders.
 L1_KINDS = tuple(f"l1_{v}" for v in ("base", "leafilp", "pop2", "pop4"))
 L9_KINDS = ("l9_ordered", "l9_noorder")
+# L4's (variant, drain_at) by kind: each variant at drain_at 1 and 4.
+L4_KINDS = {f"l4_{v}_d{drain}": (v, drain) for v in l4.VARIANTS
+            for drain in (1, 4)}
 KINDS = ("closest8", "ordered", "fixed", "closest4_ordered",
          "closest4_noorder", "queued4_serial", "queued4_divfree", *L1_KINDS,
-         *L9_KINDS)
+         *L9_KINDS, "l3", *L4_KINDS)
 CLOSEST = ("closest8", "closest4_ordered", "closest4_noorder",
-           "queued4_serial", "queued4_divfree", *L1_KINDS)
+           "queued4_serial", "queued4_divfree", *L1_KINDS, "l3",
+           *(k for k, (v, _) in L4_KINDS.items() if v != "nocond"))
+# nocond drops every leaf child: no leaf steps, no hits.
+NOCOND = tuple(k for k, (v, _) in L4_KINDS.items() if v == "nocond")
 RAYS = 2048
 _bakes = {}
 
@@ -162,6 +174,29 @@ def _counted_divfree(origin, direction, rows, bt_, btri, bu, bv, t_min):
     return num * inv, btri, bu * inv, bv * inv
 
 
+def _counted_cm(origin, direction, rows, bt, btri, bu, bv, t_min):
+    """L3's component-major leaf (v2_kernel_lab._cm_leaf) over the float4
+    groups the kernel tests (v2_kernel_lab.cm_groups) only: a slot past
+    them takes part neither in the least t nor in the index at it."""
+    ox, oy, oz = origin.unbind(1)
+    dx, dy, dz = direction.unbind(1)
+    leaf = rows.shape[1] // qt.TRI_STRIDE
+    tested = torch.arange(leaf) < 4 * l3.cm_groups(rows, bt)[:, None]
+    tris = rows.view(-1, qt.TRI_STRIDE, leaf).transpose(1, 2)
+    tcs, trik = [], []
+    for k in range(leaf):
+        tri = tris[:, k]
+        t, _, _, valid = qt._moller(ox, oy, oz, dx, dy, dz, tri, bt, t_min)
+        tc = torch.where(valid, t, qt.BIG)
+        tcs.append(torch.where(tested[:, k], tc, float("inf")))
+        trik.append(torch.where(tested[:, k], tri[:, 9].to(torch.int32), -1))
+    tc, trik = torch.stack(tcs, 1), torch.stack(trik, 1)
+    tmin = tc.amin(1)
+    trimax = torch.where(tc == tmin[:, None], trik, -1).amax(1)
+    win = tmin < bt
+    return torch.where(win, tmin, bt), torch.where(win, trimax, btri), bu, bv
+
+
 def _counted_any(origin, direction, rows, t_max, skip_f, t_min):
     """The any-hit leaf test up to each row's count only."""
     count = qt.row_counts(rows)
@@ -202,6 +237,20 @@ def _walk(kind, ds, tree, rays, counted=False, counts=None, descent=False):
     o, d, tm, skip = rays
     if kind in L1_KINDS or kind in L9_KINDS:
         return _binary_lab_walk(kind, ds, rays, counted, counts)
+    if kind == "l3":
+        return l3.closest_v2_plain(
+            o, d, tm, ds.binary_root, ds.pnodes,
+            l3.to_component_major(ds.ptris), counts=counts,
+            leaf_test=_counted_cm if counted else l3._cm_leaf)
+    if kind in L4_KINDS:
+        variant, drain_at = L4_KINDS[kind]
+        out = l4.closest_v3_plain(
+            o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, drain_at, variant,
+            leaf_test=_counted_closest if counted else qt._serial_leaf)
+        if counts is not None:
+            for c, got in zip(counts, out[4:], strict=True):
+                c.copy_(got)
+        return out[:4]
     if kind == "closest8":
         step = qw.oct_step(o, qt._inv_dir(d), tree.meta, tree.nodes)
         leaf = _counted_closest if counted else qt._serial_leaf
@@ -299,11 +348,48 @@ def test_queued_walks_stop_at_leaf_counts(name, kind):
         assert torch.equal(g, w)
     live = rays[2] > qt.T_MIN
     assert (c_all[0][~live] == 0).all() and (c_all[0][live] > 0).all()
+    if kind in NOCOND:
+        assert int(c_all[1].sum()) == 0 and (want[1] < 0).all()
+        return
     assert int(c_all[1].sum()) > 0
     if kind in CLOSEST:
         assert int((want[1] >= 0).sum()) > RAYS // 4
     else:
         assert 0 < int(want[0].sum()) < int(live.sum())
+    if kind == "l3":  # some leaf rows end in the first float4 group
+        assert int((qt.row_counts(ds.ptris) <= 4).sum()) > 0
+
+
+def _twin_cornell():
+    """The Cornell box with each object twice (the same mesh, material and
+    transform): every triangle has an exact copy, so every hit is a tie."""
+    scene = tmodel.create_cornell_box()
+    for obj in list(scene.objects):
+        scene.add_object(f"{obj.name} twin", obj.mesh_index,
+                         obj.material_index, transform=obj.transform)
+    return scene
+
+
+def test_cm_leaf_stopped_at_the_count_keeps_the_tie_rule():
+    """On a scene where every hit is a tie, L3's plain walk with each leaf
+    stopped at the float4 group of its count equals the every-slot walk
+    (t, tri and its pops), its t equals K3's walk's (L1 base) on every ray,
+    and where the triangles differ L3's is the larger index of the tie (K3
+    keeps the first in slot order)."""
+    ds, _ = bake_scene(_twin_cornell(), leaf_size=l7.LEAF_SIZE, device="cpu")
+    o, d, tm, skip = _rays(ds)
+    c_all, c_counted = _new_counts(), _new_counts()
+    rays = (o, d, tm, skip)
+    want = _walk("l3", ds, None, rays, counts=c_all)
+    got = _walk("l3", ds, None, rays, counted=True, counts=c_counted)
+    for g, w in zip((*got, *c_counted), (*want, *c_all), strict=True):
+        assert torch.equal(g, w)
+    k3 = l1.run_closest_lab(o, d, tm, ds, "base")
+    assert torch.equal(want[0], k3[0])
+    differ = want[1] != k3[1]
+    assert int(differ.sum()) > RAYS // 8
+    assert (want[1][differ] > k3[1][differ]).all()
+    assert int((qt.row_counts(ds.ptris) <= 4).sum()) > 0
 
 
 @pytest.mark.parametrize("kind", ("queued4_serial", "queued4_divfree"))
@@ -329,19 +415,22 @@ def test_descent_takes_the_same_steps(name, kind):
 def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
     """After every push of the plain walks, the stack holds at most the
     need the wrapper sizes shared memory by (OctTree.stack_need for L7,
-    q_stack_need for L2, L6 and L8, at most CAP; kernel_lab.stack_need for
-    L1 and binary_traverse.stack_need for L9, at most STACK_CAP), and the
-    leaf queue at most LQ (L1, L2 and L9 have none: their leaves go on the
-    stack). L6 is walked without descent, whose stack holds the most: every
-    internal child."""
+    q_stack_need for L2, L6 and L8, and binary_traverse.stack_need for L4,
+    at most CAP; kernel_lab.stack_need for L1 and binary_traverse
+    .stack_need for L3 and L9, at most STACK_CAP), and the leaf queue at
+    most LQ (L1, L2, L3 and L9 have none: their leaves go on the stack; L4
+    nocond drops its leaves). L4 and L6 are walked without descent, whose
+    stack holds the most: every internal child."""
     ds, tree = _bake(name)
     cap = qw.CAP
     if kind == "closest8":
         need = tree.stack_need
     elif kind in L1_KINDS:
         need, cap = l1.stack_need(ds, kind[3:]), bt.STACK_CAP
-    elif kind in L9_KINDS:
+    elif kind in L9_KINDS or kind == "l3":
         need, cap = bt.stack_need(ds), bt.STACK_CAP
+    elif kind in L4_KINDS:
+        need = bt.stack_need(ds)
     else:
         need = ds.q_stack_need
     deepest = {qw.CAP: 0, qw.LQ: 0, bt.STACK_CAP: 0}
@@ -359,7 +448,7 @@ def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
     monkeypatch.setattr(bt, "_push", watched)
     _walk(kind, ds, tree, _rays(ds))
     assert 2 <= deepest[cap] <= need <= cap
-    if kind.startswith(("closest4_", "l1_", "l9_")):
+    if kind.startswith(("closest4_", "l1_", "l9_", "l3")) or kind in NOCOND:
         assert deepest[qw.LQ] == 0
     else:
         assert 1 <= deepest[qw.LQ] <= qw.LQ
@@ -451,6 +540,14 @@ class _FakeLib:
         self.calls.append(("occlusion", args))
         return self.rc
 
+    def lab_closest_cm(self, *args):
+        self.calls.append(("closest_cm", args))
+        return self.rc
+
+    def lab_closest_queued(self, *args):
+        self.calls.append(("queued2", args))
+        return self.rc
+
     def _info(self, entry, kernel, need, out):
         self.calls.append((entry, (kernel, need)))
         for i in range(len(qt.LAUNCH_INFO_KEYS)):
@@ -466,7 +563,7 @@ class _FakeLib:
 
 @pytest.fixture
 def fake_lib(monkeypatch):
-    """L1's, L2's, L6's, L7's, L8's and L9's CUDA wrappers on CPU tensors
+    """L1's-L4's and L6's-L9's CUDA wrappers on CPU tensors
     against a _FakeLib, with the device context and the stream stubbed; the
     counters the launches got are kept alive in `lib.counters`."""
     lib = _FakeLib()
@@ -485,7 +582,7 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(qt, "_stream", lambda dev: ctypes.c_void_p(0))
     monkeypatch.setattr(qt, "_walk_args", spy)
     monkeypatch.setattr(bt, "_walk_args", spy)
-    for mod in (l2, l6, l7, l8, l1, l9):
+    for mod in (l2, l6, l7, l8, l1, l9, l3, l4):
         mod.reset_launch_counts()
     return lib
 
@@ -496,11 +593,14 @@ L6_RUNS = ((False, 0), (True, 1), (False, 2))
 # None), then L1b at each block.
 L1_RUNS = (("base", None), ("leafilp", None), ("pop2", None),
            ("pop4", None), *(("nored", b) for b in l1.BLOCKS))
+# L4's (variant, drain_at) of the wrapper tests: each variant once.
+L4_RUNS = (("base", 4), ("nocond", 1), ("dblread", 14))
 
 
 def _launch_all(ds, tree, rays):
     """L7 once, L8 in both orders, L2 in both orders, L6 as L6_RUNS say,
-    L1 as L1_RUNS say and L9 in both orders on the fake library."""
+    L1 as L1_RUNS say, L9 in both orders, L3 once and L4 as L4_RUNS say on
+    the fake library. Returns L3's component-major rows."""
     o, d, tm, skip = rays
     l7._closest8_cuda(o, d, tm, tree, ds.ptris)
     for ordered in (True, False):
@@ -513,19 +613,27 @@ def _launch_all(ds, tree, rays):
         l1._closest_lab_cuda(o, d, tm, ds, variant, block)
     for ordered in (True, False):
         l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
+    ptris_cm = l3.to_component_major(ds.ptris)
+    l3._closest_v2_cuda(o, d, tm, ds, ptris_cm)
+    for variant, drain_at in L4_RUNS:
+        l4._closest_v3_cuda(o, d, tm, ds, drain_at,
+                            l4._KERNEL_VARIANT[variant])
+    return ptris_cm
 
 
 def _launch_counts():
     return (l7.closest_launches, l8.occlusion_launches,
             l2.closest4_launches, l6.closest_launches, l1.closest_launches,
-            l1.closest_ts_launches, l9.occlusion_launches)
+            l1.closest_ts_launches, l9.occlusion_launches,
+            l3.closest_launches, l4.closest_launches)
 
 
-# The launches of _launch_all, in order: L7, L8 x 2, L2 x 2, then L6, L1
-# and L9.
+# The launches of _launch_all, in order: L7, L8 x 2, L2 x 2, then L6, L1,
+# L9, L3 and L4.
 N_QUAD = 5 + len(L6_RUNS)
-N_LAUNCHES = N_QUAD + len(L1_RUNS) + 2
-ZERO_COUNTS = (0,) * 7
+N_L9 = N_QUAD + len(L1_RUNS) + 2  # the end of L9's launches
+N_LAUNCHES = N_L9 + 1 + len(L4_RUNS)
+ZERO_COUNTS = (0,) * 9
 
 
 def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
@@ -536,12 +644,15 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
     rows and q_stack_need, then its order; L6 as L8, then descent and its
     leaf kind; L1 the binary root, the pnodes rows and its variant's
     stack need, then the variant's code and the block; L9 the same with
-    bt.stack_need, then its order. None passes ometa or qmeta; each launch
-    has its own counter and adds one to its kernel's count (L1b's to
+    bt.stack_need, then its order; L3 the component-major rows with
+    ptris's counts and bt.stack_need; L4 as L9, then drain_at and the
+    variant's code. None passes ometa or qmeta; each launch has its own
+    counter and adds one to its kernel's count (L1b's to
     closest_ts_launches)."""
     ds, tree = _bake("atrium4k")
-    _launch_all(ds, tree, _rays(ds))
-    assert _launch_counts() == (1, 2, 2, len(L6_RUNS), 4, len(l1.BLOCKS), 2)
+    ptris_cm = _launch_all(ds, tree, _rays(ds))
+    assert _launch_counts() == (1, 2, 2, len(L6_RUNS), 4, len(l1.BLOCKS), 2,
+                                1, len(L4_RUNS))
     ptrs = [c.data_ptr() for c in fake_lib.counters]
     assert len(set(ptrs)) == N_LAUNCHES
     counts = qt.ptris_leaf_counts(ds.ptris).data_ptr()
@@ -586,14 +697,28 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
         assert a[10].value == ptr
         assert a[11:13] == (l1._KERNEL_VARIANT[variant], block or 128)
         assert len(a) == 13 + 6 + 1 and a[-1].value is None
-    l9_calls = fake_lib.calls[N_QUAD + len(L1_RUNS):]
-    for (kind, a), ordered, ptr in zip(l9_calls, (1, 0), ptrs[-2:],
+    l9_calls = fake_lib.calls[N_QUAD + len(L1_RUNS):N_L9]
+    for (kind, a), ordered, ptr in zip(l9_calls, (1, 0), ptrs[N_L9 - 2:N_L9],
                                        strict=True):
         assert kind == "binary_occlusion" and a[4] == RAYS
         assert (a[5], *(x.value for x in a[6:9]), a[9]) == binary
         assert (a[10], a[11].value, a[12]) == (bt.stack_need(ds), ptr,
                                                  ordered)
         assert len(a) == 13 + 3 + 1 and a[-1].value is None
+    (kind, a) = fake_lib.calls[N_L9]
+    assert kind == "closest_cm" and a[3] == RAYS
+    cm_binary = (*binary[:2], ptris_cm.data_ptr(), *binary[3:])
+    assert (a[4], *(x.value for x in a[5:8]), a[8]) == cm_binary
+    assert (a[9], a[10].value) == (bt.stack_need(ds), ptrs[N_L9])
+    assert len(a) == 11 + 4 + 1 and a[-1].value is None
+    for (kind, a), (variant, drain_at), ptr in zip(
+            fake_lib.calls[N_L9 + 1:], L4_RUNS, ptrs[N_L9 + 1:],
+            strict=True):
+        assert kind == "queued2" and a[3] == RAYS
+        assert (a[4], *(x.value for x in a[5:8]), a[8]) == binary
+        assert (a[9], a[10].value) == (bt.stack_need(ds), ptr)
+        assert a[11:13] == (drain_at, l4._KERNEL_VARIANT[variant])
+        assert len(a) == 13 + 6 + 1 and a[-1].value is None
     assert l1.stack_need(ds, "pop4") == 4 * bt.stack_need(ds)
     sent = {a.value for _, args in fake_lib.calls for a in args
             if isinstance(a, ctypes.c_void_p)}
@@ -621,6 +746,12 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
     for ordered in (True, False):
         with pytest.raises(RuntimeError, match="lab_occlusion launch"):
             l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
+    with pytest.raises(RuntimeError, match="lab_closest_cm launch"):
+        l3._closest_v2_cuda(o, d, tm, ds, l3.to_component_major(ds.ptris))
+    for variant, drain_at in L4_RUNS:
+        with pytest.raises(RuntimeError, match="lab_closest_queued launch"):
+            l4._closest_v3_cuda(o, d, tm, ds, drain_at,
+                                l4._KERNEL_VARIANT[variant])
     assert _launch_counts() == ZERO_COUNTS
     assert len(fake_lib.calls) == N_LAUNCHES
 
@@ -628,9 +759,9 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
 @pytest.mark.parametrize("need", [0, qw.CAP + 1, bt.STACK_CAP + 1])
 def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
     """A stack need outside 1..CAP raises before the library is called, in
-    the CUDA wrappers and in the public entry points; for L1 and L9 one
-    outside 1..STACK_CAP (the tree's depth + 2, times npop for pop2 and
-    pop4)."""
+    the CUDA wrappers and in the public entry points (L4's: the binary
+    tree's depth + 2); for L1, L3 and L9 one outside 1..STACK_CAP (the
+    tree's depth + 2, times npop for pop2 and pop4)."""
     ds, tree = _bake("cornell")
     o, d, tm, skip = _rays(ds)
     deep_tree = tree._replace(stack_need=need)
@@ -677,6 +808,20 @@ def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
             if need > bt.STACK_CAP:
                 with pytest.raises(ValueError, match="stack"):
                     l9.run_occl_lab(o, d, tm, skip, deep_binary, variant)
+    ptris_cm = l3.to_component_major(ds.ptris)
+    if not 1 <= need <= bt.STACK_CAP:
+        with pytest.raises(ValueError, match="stack need"):
+            l3._closest_v2_cuda(o, d, tm, deep_binary, ptris_cm)
+        if need > bt.STACK_CAP:
+            with pytest.raises(ValueError, match="stack"):
+                l3.run_closest_v2(o, d, tm, deep_binary, ptris_cm)
+    for variant, drain_at in L4_RUNS:
+        with pytest.raises(ValueError, match="stack need"):
+            l4._closest_v3_cuda(o, d, tm, deep_binary, drain_at,
+                                l4._KERNEL_VARIANT[variant])
+        if need > qw.CAP:
+            with pytest.raises(ValueError, match="stack"):
+                l4.run_closest_v3(o, d, tm, deep_binary, drain_at, variant)
     assert fake_lib.calls == []
 
 
@@ -703,6 +848,12 @@ def test_wrappers_refuse_more_rays_than_the_counter_takes(fake_lib,
     for ordered in (True, False):
         with pytest.raises(ValueError, match="rays"):
             l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
+    with pytest.raises(ValueError, match="rays"):
+        l3._closest_v2_cuda(o, d, tm, ds, l3.to_component_major(ds.ptris))
+    for variant, drain_at in L4_RUNS:
+        with pytest.raises(ValueError, match="rays"):
+            l4._closest_v3_cuda(o, d, tm, ds, drain_at,
+                                l4._KERNEL_VARIANT[variant])
     assert fake_lib.calls == []
 
 
@@ -722,6 +873,12 @@ def test_no_rays_launch_nothing(fake_lib):
     for ordered in (True, False):
         out = l9._occl_lab_cuda(o, d, tm, skip, ds, ordered)
         assert [t.shape for t in out] == [(0,)] * 3
+    out = l3._closest_v2_cuda(o, d, tm, ds, l3.to_component_major(ds.ptris))
+    assert [t.shape for t in out] == [(0,)] * 2
+    for variant, drain_at in L4_RUNS:
+        out = l4._closest_v3_cuda(o, d, tm, ds, drain_at,
+                                  l4._KERNEL_VARIANT[variant])
+        assert [t.shape for t in out] == [(0,)] * 6
     assert fake_lib.calls == []
     assert _launch_counts() == ZERO_COUNTS
 
@@ -754,6 +911,11 @@ MANGLED = {
     **{f"lab_occlusion_{order}":
        f"_ZN12_GLOBAL__N_131occlusion_lab_persistent_kernelILb{b}EEEvPKfS2_"
        "S2_PKi" for order, b in (("ordered", 1), ("noorder", 0))},
+    "closest_cm":
+        "_ZN12_GLOBAL__N_128closest_cm_persistent_kernelEPKfS1_S1_iiPK6float4",
+    **{qw.l4_kernel(variant):
+       f"_ZN12_GLOBAL__N_120binary_queued_kernelILi{code}EEEvPKfS2_S2_ii"
+       for code, variant in enumerate(l4.VARIANTS)},
 }
 # L1's and L9's lab_launch_info indices (after L2's 0 and 1).
 L1_L9_INFO = {"lab_closest_base": 2, "lab_closest_leafilp8": 3,
@@ -769,7 +931,8 @@ def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
     """launch_info asks L2's library (lab_launch_info: 0 ordered, 1 child
     order, then L1 and L9 as L1_L9_INFO says) or the lab2 library
     (lab2_launch_info: 0 L7, 1 L8 ordered, 2 L8 child order, 3 + 2 * leaf
-    kind + descent L6) for the kernel at the need given, and finds that
+    kind + descent L6, 9 L3, 10 + variant code L4) for the kernel at the
+    need given, and finds that
     kernel's spills in its library's -Xptxas=-v log, each template
     instance apart."""
     assert sorted(MANGLED) == sorted(qw.LAUNCH_KERNELS)
@@ -788,7 +951,10 @@ def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
             **{qw.l6_kernel(descent, kind): ("info", 3 + 2 * kind + descent)
                for kind in range(3) for descent in (0, 1)},
             **{kernel: ("lab_info", index)
-               for kernel, index in L1_L9_INFO.items()}}
+               for kernel, index in L1_L9_INFO.items()},
+            "closest_cm": ("info", 9),
+            **{qw.l4_kernel(v): ("info", 10 + code)
+               for code, v in enumerate(l4.VARIANTS)}}
     for k, kernel in enumerate(MANGLED):
         info = qw.launch_info(kernel, 24, torch.device("cpu"))
         entry, index = want[kernel]
