@@ -59,17 +59,20 @@ Phases (any failure exits non-zero and prints no result line):
   7. The deferred-leaf and component-major labs at 1920x1080 on the leaf-8
      atrium (its closest-hit sets), through the functions their entry
      points run: v2_kernel_lab (L3), v3_kernel_lab (L4: base, nocond,
-     dblread), v4_interleave_lab (L5: shared, switch) and r3_kernel_lab
-     (L6: the four descent/divfree combinations and leafpar), with their
-     launch counts set to 0 just before and read just after. Then every
-     variant against its plain torch version on every ray of every set
-     (bit equality of t, tri, u, v and L4's counts; plain timed by host
-     clock, one run); L4 dblread = base, L5 switch = L4 base, L6 descent =
-     no descent; L3/L4 against K3 and L5/L6 against K1 (hit flips and
-     triangle differences at most TREE_AGREEMENT of the rays; nocond's
-     results are wrong by design and exempt). Then L6's launch shapes
-     (every combination run; no local memory and no spills) and the
-     bounds of its serial combinations on every set, counted as L2's.
+     dblread), v4_interleave_lab (L5: shared, switch, with K1, K3 and L4
+     base timed in the same run) and r3_kernel_lab (L6: the four
+     descent/divfree combinations and leafpar), with their launch counts
+     set to 0 just before and read just after. Then every variant against
+     its plain torch version on every ray of every set (bit equality of t,
+     tri, u, v and L4's counts; plain timed by host clock, one run); L4
+     dblread = base, L5 switch = L4 base, L6 descent = no descent; L3/L4
+     against K3 and L5/L6 against K1 (hit flips and triangle differences
+     at most TREE_AGREEMENT of the rays; nocond's results are wrong by
+     design and exempt); L5's times beside L4 base's, K3's and K1's. Then
+     the launch shapes of L3-L6 (every variant and combination run; no
+     local memory and no spills) and the bounds of L3, L4, L5 and L6's
+     serial combinations on every set, counted on the triangles they test
+     (walk_bound), each beside bound().
   8. The 8-wide lab L7 and the near-first any-hit lab L8 at 1920x1080 on
      the leaf-8 atrium, through the functions their entry points run:
      r3_oct_lab (the oct collapse of the bake's BVH, timed; K1 and L7 on
@@ -99,7 +102,11 @@ Phases (any failure exits non-zero and prints no result line):
      on the ones input and a random one (bit equality; the fused forms
      within 1 ulp, the differing elements counted); the identities (L11b
      slice = base and sliceilp = ilp, L10 smem = L11b base, L12 bf16 =
-     bf16_mul on the ones input); each variant's bound at the card size.
+     bf16_mul on the ones input); the launch shapes of L11a's variants
+     (no local memory and no spills), L11b's and L10's; the SASS
+     instructions of L11a full's and nored's loop an iteration and the
+     issue time they imply at the card size; each variant's bound at the
+     card size.
  10. The render modes on the 1080p 300k atrium at the bench camera, through
      ProgressiveRenderer, with K1/K2's launch counts set to 0 before and
      read after each part, and each part required to launch them: (a) one
@@ -210,8 +217,8 @@ Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
 FP32 operations over the card's FP32 rate (L12: its results over the
 card's instruction rate for their type), counted on the run whose ms it
-shows (bound(); walk_bound() for K1-K4, L2, L6, L7 and L8, which count
-only the triangles they test; fixed_seq_bound(), chain_bound()); library_ms is
+shows (bound(); walk_bound() for K1-K4 and L1-L9, which count only the
+triangles they test; fixed_seq_bound(), chain_bound()); library_ms is
 null, as no PyTorch call computes a BVH walk, a fixed-sequence walk or a
 K-step chain. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The scene and all rays are generated from
@@ -1296,28 +1303,30 @@ def lab4_bounds(ds, sets, res, variants, name, label, phase):
 
 
 def lab_binary_bounds(ds, res, tests, sets, tri, name, label,
-                      phase="phase 6"):
-    """The bound of L1 or L4 (tri "closest") or L9 ("any") on each set of
-    `sets` and each variant (and L1b block) of the runs `res`, counted on the
-    triangles the plain versions tested (`tests`, keyed (set, variant)) and
-    on live rays' bytes with their counters (walk_bound, 64 B a pnodes
+                      phase="phase 6", counters=True):
+    """The bound of L1, L4 or L5 (tri "closest") or L9 ("any") on each set
+    of `sets` and each variant (and L1b block) of the runs `res`, counted on
+    the triangles the plain versions tested (`tests`, keyed (set, variant))
+    and on live rays' bytes with their counters (walk_bound, 64 B a pnodes
     row), from the kernels' own counters; each logged beside bound() (every
-    slot of each leaf row visited) and beside the run's ms. Returns {(set,
-    variant): bound}."""
+    slot of each leaf row visited) and beside the run's ms. Without
+    `counters` (L5) the steps are the plain version's ("counts") and no
+    counter bytes are written. Returns {(set, variant): bound}."""
     ray_bytes = CLOSEST_RAY_BYTES if tri == "closest" else ANY_RAY_BYTES
+    counter_bytes = COUNTER_BYTES if counters else 0
     bounds = {}
     for key, tested in tests.items():
         if key[0] not in sets:
             continue
         r = res[key]
-        counts = r["out"][-2:]
+        counts = r["out"][-2:] if counters else r["counts"]
         b = bounds[key] = walk_bound(ds, ds.pnodes, WIDTH * HEIGHT, ray_bytes,
                                      counts, tested, "binary", tri,
-                                     counter_bytes=COUNTER_BYTES)
+                                     counter_bytes=counter_bytes)
         what = f"{key[0]} {key[1]}"
         log_walk_bound(f"{name} {what}", b, (ds.pnodes, ds.ptris), counts,
                        "binary", tri, phase=phase,
-                       counter_bytes=COUNTER_BYTES)
+                       counter_bytes=counter_bytes)
         log(f"{phase}: {label} {what}: {r['ms']:.3f} ms against a bound of "
             f"{b['bound_ms']:.4f} ms, {100 * b['bound_ms'] / r['ms']:.2f}% "
             "of the bound")
@@ -1420,9 +1429,9 @@ def phase7(device):
                                  ds.ptris, qw.DRAIN_AT, var, leaf_test=lt))
             for var in v3.VARIANTS],
         "lab_closest_pair": [
-            (var, lambda o, d, tm, c, var=var: v4.closest_v4_plain(
-                o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, var,
-                counts=c))
+            (var, lambda o, d, tm, c, lt=qt._serial_leaf, var=var:
+             v4.closest_v4_plain(o, d, tm, ds.binary_root, ds.pnodes,
+                                 ds.ptris, var, counts=c, leaf_test=lt))
             for var in v4.VARIANTS],
         "lab_closest4_queued": [
             (combo, lambda o, d, tm, c, lt=None, combo=combo:
@@ -1431,10 +1440,12 @@ def phase7(device):
                                       leaf_test=lt))
             for combo in combos],
     }
-    # L4 and L6's serial combinations count the triangles they test through
-    # counting_leaf_tests(), L3 its float4 groups (counting_cm_tests()).
+    # L4, L5 and L6's serial combinations count the triangles they test
+    # through counting_leaf_tests(), L3 its float4 groups
+    # (counting_cm_tests()).
     serial = [c for c in combos if not (c[1] or c[2])]
     counted = ({("lab_closest_queued", v) for v in v3.VARIANTS}
+               | {("lab_closest_pair", v) for v in v4.VARIANTS}
                | {("lab_closest4_queued", c) for c in serial})
 
     report = {name: dict(max_abs_err=0.0) for name in mods}
@@ -1466,10 +1477,6 @@ def phase7(device):
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if label == "bounce1" and variant == variants[0][0]:
                     entry["plain_ms"] = plain_ms
-                    if name == "lab_closest_pair":
-                        entry.update(bound(o.shape[0], CLOSEST_RAY_BYTES,
-                                           (ds.pnodes, ds.ptris), counts,
-                                           "binary", "closest"))
                 vname = (r3.name(*variant) if isinstance(variant, tuple)
                          else variant)
                 plog(f"{name} {label} {vname}: equal to the plain version "
@@ -1498,6 +1505,17 @@ def phase7(device):
             gate_equal(f"L6 descent divfree={divfree} {label}",
                        quad[(label, (True, divfree, False))]["out"],
                        quad[(label, (False, divfree, False))]["out"])
+        yard = {what: p[(label, key)]["ms"] for what, key in (
+            ("L4 base", v4.run_key("l4_base", qw.DRAIN_AT)), ("K3", "k3"),
+            ("K1", "k1"))}
+        plog(f"L5 yardsticks {label}: " + "; ".join(
+            f"{v} {p[(label, v)]['ms']:.3f} ms ("
+            + ", ".join(f"{p[(label, v)]['ms'] / ms:.2f}x {what}"
+                        for what, ms in yard.items()) + ")"
+            for v in v4.VARIANTS)
+            + "; " + ", ".join(f"{what} {ms:.3f} ms"
+                               for what, ms in yard.items())
+            + f", all at drain {qw.DRAIN_AT} in the same run")
         ties = gate_cm_ties(label, cm[(label, "v2")]["out"],
                             cm[(label, "k3")]["out"], ds, o, d)
         plog(f"{label}: L4 dblread = base (counts included), L5 switch = L4 "
@@ -1509,6 +1527,7 @@ def phase7(device):
     need = bt.stack_need(ds)
     launch_shapes_gate([("closest_cm", need)]
                        + [(qw.l4_kernel(v), need) for v in v3.VARIANTS]
+                       + [(qw.l5_kernel(v), need) for v in v4.VARIANTS]
                        + [(r3.launch_kernel(*combo), ds.q_stack_need)
                           for combo in combos], device)
     l3_bounds = lab_cm_bounds(ds, sets, cm, ptris_cm)
@@ -1516,10 +1535,17 @@ def phase7(device):
         ds, q, {(s, v): q[(s, v)]["tests"] for s in sets
                 for v in v3.VARIANTS},
         sets, "closest", "lab_closest_queued", "L4", phase="phase 7")
+    p = res["lab_closest_pair"]
+    l5_bounds = lab_binary_bounds(
+        ds, p, {(s, v): p[(s, v)]["tests"] for s in sets
+                for v in v4.VARIANTS},
+        sets, "closest", "lab_closest_pair", "L5", phase="phase 7",
+        counters=False)
     l6_bounds = lab4_bounds(ds, sets, res["lab_closest4_queued"], serial,
                             "lab_closest4_queued", "L6", "phase 7")
     report["lab_closest_cm"].update(l3_bounds["bounce1"])
     report["lab_closest_queued"].update(l4_bounds[("bounce1", "base")])
+    report["lab_closest_pair"].update(l5_bounds[("bounce1", "shared")])
     report["lab_closest4_queued"].update(
         l6_bounds[("bounce1", (False, False, False))])
     for name, key in (("lab_closest_cm", "v2"), ("lab_closest_queued", "base"),
@@ -1843,6 +1869,8 @@ def phase9(device):
                  f"{ms:.1f} ms")
     plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
 
+    phase9_visit_shapes(device, runs["lab_visit"], plog)
+
     # Each variant's bound on its card-size run.
     bounds = {}
     for name, variants, table, ops in (
@@ -1883,6 +1911,57 @@ def phase9(device):
                               else (name, v)],
             **bounds[(name, v)])
     return report
+
+
+def max_sm_clock_mhz():
+    """The card's highest SM clock, MHz (nvidia-smi clocks.max.sm)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return float(proc.stdout.strip().splitlines()[0])
+
+
+def phase9_visit_shapes(device, runs, plog):
+    """The fixed-sequence kernels' launch shapes (lab3_launch_info): L11a's
+    variants must run without local memory and without ptxas spills; L11b's
+    and L10's are logged. Then the SASS instructions of L11a full's and
+    nored's loop an iteration (cuobjdump), and the issue time they imply on
+    the card-size run `runs` (visit_cost_lab.run's): warps x K x
+    instructions over 4 a clock per SM on every SM at the highest SM
+    clock."""
+    import torch
+
+    from raytracer_tpu_torch.lab import fixed_seq as fs
+    from raytracer_tpu_torch.lab import visit_cost_lab as vc
+    from raytracer_tpu_torch.lab.quad_variant_lab import library_sass
+    from raytracer_tpu_torch.ops import _build
+
+    for index in range(len(fs.LAUNCH_KERNELS)):
+        plog(fs.launch_line(index, device))
+        i = fs.launch_info(index, device)
+        if index < len(vc.VISIT_VARIANTS) and (
+                i["local_bytes"] or i["spills"] not in ((0, 0), ("?", "?"))):
+            raise RuntimeError(f"{fs.LAUNCH_KERNELS[index][0]}: "
+                               f"{i['local_bytes']} B of local memory a "
+                               f"thread, spills {i['spills']}")
+    sass = library_sass(_build.build_info["liblab3_traverse"]["path"])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = max_sm_clock_mhz()
+    for v in ("full", "nored"):
+        name = fs.LAUNCH_KERNELS[vc.VISIT_VARIANTS.index(v)][1]
+        loop = len(vc.loop_body(sass, name))
+        r = runs[("card", v)]
+        warps = r["rays"] // fs.WARP
+        issue_ms = warps * r["k"] * loop / (4 * sms * mhz * 1e6) * 1e3
+        plog(f"issue L11a {v}: {loop} SASS instructions an iteration; "
+             f"{warps} warps x k = {r['k']} at 4 instructions a clock per SM "
+             f"on {sms} SMs at {mhz:.0f} MHz: {issue_ms:.3f} ms, "
+             f"{100 * issue_ms / r['ms']:.1f}% of the card run's "
+             f"{r['ms']:.3f} ms; {1e9 * issue_ms / (r['rays'] * r['k']):.3f}"
+             f" ps a ray-iteration against {r['ns_per_ray_iter'] * 1e3:.3f}")
 
 
 CORNELL_JSON = {

@@ -1,6 +1,5 @@
 // The traversal lab's deferred-leaf and component-major kernels for Hopper
-// (sm_90a): L3, L4, L6, L7 and L8 on persistent warps, L5 one thread per
-// two rays.
+// (sm_90a), all on persistent warps: L3-L8 (L5 two walks a thread).
 //
 // Replaces the TPU lab kernels
 //   - tools/v2_kernel_lab.py:174 (run_closest_v2, L3): K3's walk over
@@ -21,7 +20,7 @@
 //     comparison with K2, in child order).
 // The TPU kernels walk one tree per 8-row sub-packet (a row per ray path)
 // out of SMEM stacks and queues, because Mosaic has no per-lane gathers.
-// Here each lane walks its own ray:
+// Here each lane walks its own ray (L5: its own two):
 //
 //   - the deferred-leaf walk (lab/queue_walk.py): only internal nodes go on
 //     the stack (CAP = 64); a hit leaf child goes into the leaf queue (LQ =
@@ -39,11 +38,14 @@
 //     folds its first float, times 0.0, into the t cap (1 + 0*x is not
 //     folded without fast-math, so the load stays and the results equal
 //     base's while boxes are finite);
-//   - lab_closest_pair (L5): thread j walks rays 2j and 2j+1. `shared`:
-//     each step both take a leaf step if either one's drain condition
-//     holds, else both an internal step; a ray with nothing of that kind
-//     sits the step out. `switch`: each ray its own kind, so per ray it is
-//     L4 base;
+//   - lab_closest_pair (L5): a lane walks the rays 2j and 2j+1 of the pair
+//     j it fetches, each in a slot of its own (a LaneQueue, the ray and its
+//     best hit), with L4 base's node step and leaf. `shared`: each step
+//     both take a leaf step if either one's drain condition holds, else
+//     both an internal step; a ray with nothing of that kind sits the step
+//     out. `switch`: each ray its own kind, so per ray it is L4 base. A
+//     node step loads both slots' rows before either slot's slab test: two
+//     independent row loads in flight in one thread, where L4 has one;
 //   - lab_closest4_queued (L6): the 4-wide walk (quad_visit<true>, the
 //     metas from the qnodes row's float4 6); the near child (the 2-bit
 //     argmin) is pushed last. `descent` keeps the stack's top in a register
@@ -86,31 +88,32 @@
 // blocks while the walk descends, which delays the best t and can only add
 // visits.
 //
-// Only L5 keeps the one-thread-per-ray design: a warp waits for its slowest
-// ray, and its two stacks and queues sit in local memory (640 B a thread).
 // L3 runs on K3's closest_walk. L4, L6, L7 and L8 run K1-K4's machinery
 // (persistent_walk.cuh's fetch, Stack, grouped leaves and launch) in one
 // walk, queued_walk, for a closest-hit or an any-hit ray (ClosestRay with
 // its leaf kind, AnyRay), a push policy (RegisterPush, L4 nocond's
 // RegisterPushTo<true> or L6's SharedPush) and a per-ray hook (L4's
-// StepCounts; the others count nothing):
+// StepCounts; the others count nothing). L5 runs two of queued_walk's lane
+// states (LaneQueue, ClosestRay) in each thread, on the same pieces:
 //
 //   1. persistent warps: the occupancy calculator's grid, each warp taking
-//      rays from a per-launch counter (one atomicAdd per refill of its
-//      idle lanes, once kRefillAt are idle); an inactive ray is answered at
-//      fetch time, and L8's occluded ray frees its lane at once;
+//      rays (L5: pairs, fetch_with) from a per-launch counter (one
+//      atomicAdd per refill of its idle lanes, once kRefillAt are idle); an
+//      inactive ray (L5: a pair of two) is answered at fetch time, and L8's
+//      occluded ray frees its lane at once;
 //   2. the stack and the leaf queue in dynamic shared memory, laid out
 //      [entry][thread]: the tree's stack need (OctTree.stack_need,
 //      q_stack_need, the binary tree's stack_need = depth + 2; at most CAP)
-//      plus LQ entries a thread, the stack's top in a register
+//      plus LQ entries a thread (L5: twice), the stack's top in a register
 //      (RegisterPush: the last internal child a step pushes is the node the
 //      plain walk pops next, and is never written; L6 without descent
 //      writes it and pops it back). L3 has K3's stack (depth + 2 entries, at
 //      most 128) and no queue;
 //   3. while-while over the drain rule: node steps while a lane's next step
-//      is a node step, then leaf steps while a lane's next step is a leaf
-//      step; each lane's next step is still decided by its own state, so
-//      its sequence of steps is the plain walk's;
+//      (L5: a slot's) is a node step, then leaf steps while a lane's next
+//      step is a leaf step; each lane's (slot's) next step is still decided
+//      by its own state (L5 shared: its pair's), so its sequence of steps
+//      is the plain walk's;
 //   4. one row per node: the metas come from the node row, not from
 //      ometa/qmeta;
 //   5. leaves stop at their last real triangle (ops/quad_traverse
@@ -141,133 +144,6 @@ constexpr float kTMin = 1e-3f;  // the lab kernels' fixed t_min
 
 enum BinaryVariant { kBase = 0, kNocond = 1, kDblread = 2 };
 enum LeafKind { kSerialLeaf = 0, kDivfreeLeaf = 1, kIlpLeaf = 2 };
-
-// One ray of L5's one-thread-per-ray queued walk: the ray, its best hit,
-// its stack and its queue.
-struct QueuedRay {
-  Ray r;
-  float bt, bu, bv;
-  int btri;
-  int stack[kCap];
-  int sp;
-  int lq[kLQ];
-  int ln;
-};
-
-__device__ __forceinline__ void init_ray(QueuedRay& q, const Ray& r,
-                                         float t_max, int root) {
-  q.r = r;
-  q.bt = t_max;
-  q.btri = -1;
-  q.bu = 0.0f;
-  q.bv = 0.0f;
-  q.sp = 0;
-  q.ln = 0;
-  if (!(t_max > kTMin)) return;  // cannot accept a hit: not walked
-  if (root < 0) {
-    q.lq[q.ln++] = ~root;
-  } else {
-    q.stack[q.sp++] = root;
-  }
-}
-
-__device__ __forceinline__ bool has_node(const QueuedRay& q) {
-  return q.sp > 0;
-}
-
-__device__ __forceinline__ bool alive(const QueuedRay& q) {
-  return has_node(q) || q.ln > 0;
-}
-
-__device__ __forceinline__ bool wants_leaf(const QueuedRay& q,
-                                           int drain_at) {
-  return q.ln >= drain_at || (!has_node(q) && q.ln > 0);
-}
-
-// Routes the hit children of a node step: internal ones to the stack, leaf
-// ones to the queue.
-struct QueuePush {
-  QueuedRay& q;
-  __device__ __forceinline__ void operator()(int meta) const {
-    if (meta >= 0) {
-      q.stack[q.sp++] = meta;
-    } else {
-      q.lq[q.ln++] = ~meta;
-    }
-  }
-  __device__ __forceinline__ void near(int meta) const { (*this)(meta); }
-};
-
-// A leaf step of L5: the queue's top block, every slot of its row.
-__device__ __forceinline__ void leaf_step(QueuedRay& q,
-                                          const float4* __restrict__ ptris,
-                                          int leaf) {
-  const int blk = q.lq[--q.ln];
-  closest_leaf(q.r, ptris + (int64_t)blk * (leaf * kTriStride / 4), leaf,
-               kTMin, q.bt, q.btri, q.bu, q.bv);
-}
-
-// A node step of L5: the stack's top node, its hit children far first and
-// near last.
-__device__ __forceinline__ void binary_step(QueuedRay& q,
-                                            const float4* __restrict__ pnodes) {
-  const int node = q.stack[--q.sp];
-  binary_visit<true>(q.r, pnodes + (int64_t)node * 4, kTMin, q.bt,
-                     QueuePush{q});
-}
-
-__device__ __forceinline__ void store_hit(const QueuedRay& q, int64_t i,
-                                          float* out_t, int* out_tri,
-                                          float* out_u, float* out_v) {
-  out_t[i] = q.bt;
-  out_tri[i] = q.btri;
-  out_u[i] = q.bu;
-  out_v[i] = q.bv;
-}
-
-// One step of a pair's ray, of the kind the pair chose: a ray with nothing
-// of that kind sits it out.
-__device__ __forceinline__ void pair_step(QueuedRay& q, bool leaf_kind,
-                                          const float4* __restrict__ pnodes,
-                                          const float4* __restrict__ ptris,
-                                          int leaf) {
-  if (leaf_kind) {
-    if (q.ln > 0) leaf_step(q, ptris, leaf);
-  } else if (has_node(q)) {
-    binary_step(q, pnodes);
-  }
-}
-
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-closest_pair_kernel(const float* __restrict__ origin,
-                    const float* __restrict__ direction,
-                    const float* __restrict__ t_max, int64_t n, int root,
-                    const float4* __restrict__ pnodes,
-                    const float4* __restrict__ ptris, int leaf, int drain_at,
-                    float* __restrict__ out_t, int* __restrict__ out_tri,
-                    float* __restrict__ out_u, float* __restrict__ out_v) {
-  int64_t ia = 2 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
-  if (ia >= n) return;
-  const int64_t ib = ia + 1;
-  const bool has_b = ib < n;
-  QueuedRay a, b;
-  const Ray ra = load_ray(origin, direction, ia);
-  init_ray(a, ra, t_max[ia], root);
-  // An odd ray count leaves the last thread one ray; its partner is never
-  // walked.
-  init_ray(b, has_b ? load_ray(origin, direction, ib) : ra,
-           has_b ? t_max[ib] : kTMin, root);
-  while (alive(a) || alive(b)) {
-    bool leaf_a = wants_leaf(a, drain_at);
-    bool leaf_b = wants_leaf(b, drain_at);
-    if (kShared) leaf_a = leaf_b = leaf_a || leaf_b;
-    pair_step(a, leaf_a, pnodes, ptris, leaf);
-    pair_step(b, leaf_b, pnodes, ptris, leaf);
-  }
-  store_hit(a, ia, out_t, out_tri, out_u, out_v);
-  if (has_b) store_hit(b, ib, out_t, out_tri, out_u, out_v);
-}
 
 // ---------------------------------------------------------------------------
 // L3, L4, L6, L7 and L8 on persistent warps (persistent_walk.cuh's fetch,
@@ -776,43 +652,184 @@ BinaryQueued binary_queued(int variant) {
   }
 }
 
+// One of an L5 lane's two walks: its ray, its LaneQueue, its best hit, and
+// the index of its ray while it walks it (-1: the slot is dead, with no
+// ray, an inactive one, or one that has ended).
+struct PairSlot {
+  LaneQueue q;
+  ClosestRay<kSerialLeaf> hit;
+  Ray r{};
+  int ray = -1;
+  __device__ PairSlot(int* smem, int need, const ClosestRay<kSerialLeaf>& h)
+      : q(smem, need), hit(h) {}
+  // Take ray i of n, whose t_max is tm: walked when tm > t_min, else
+  // answered at once (ClosestRay::skip; nothing for i >= n) and dead.
+  __device__ __forceinline__ void start(const float* __restrict__ origin,
+                                        const float* __restrict__ direction,
+                                        int i, int n, float tm, int root) {
+    if (tm > kTMin) {
+      r = load_ray(origin, direction, i);
+      hit.start(i, tm);
+      q.start(root);
+      ray = i;
+    } else {
+      if (i < n) hit.skip(i, tm);
+      q.clear();
+      ray = -1;
+    }
+  }
+  // queued_walk's node step on the slot's row, loaded: the hit children
+  // through RegisterPush, then the node it kept in `top`, or a pop.
+  __device__ __forceinline__ void node_step(const BinaryRow& row) {
+    int top = kNone;
+    binary_visit<true>(r, row, kTMin, hit.bound(),
+                       RegisterPush{top, q.st, q.lq});
+    q.cur = top != kNone ? top : q.st.pop();
+  }
+  // queued_walk's leaf step: the queue's top block (a closest-hit walk
+  // never ends early).
+  __device__ __forceinline__ void leaf_step(int leaf_f4) {
+    hit.leaf_step(r, q.lq.pop(), leaf_f4);
+  }
+  __device__ __forceinline__ void finish() {
+    if (ray >= 0) hit.finish(ray);
+    ray = -1;
+  }
+};
+
+// Pair j's record for fetch_with: its rays' t_max (an odd n's missing
+// second ray inactive), live when either ray is.
+struct PairRecords {
+  int n;
+  __device__ __forceinline__ float2 load(const float* __restrict__ t_max,
+                                         int j) const {
+    return make_float2(t_max[2 * j],
+                       2 * j + 1 < n ? t_max[2 * j + 1] : kTMin);
+  }
+  __device__ __forceinline__ bool live(float2 tm, float t_min) const {
+    return tm.x > t_min || tm.y > t_min;
+  }
+};
+
+// Whether slot `s` of a pair (its partner `o`) takes a node step next:
+// under kShared, when neither slot's drain rule asks for a leaf step and
+// `s` has a node; else by its own drain rule.
+template <bool kShared>
+__device__ __forceinline__ bool next_node(const LaneQueue& s,
+                                          const LaneQueue& o, int drain_at) {
+  if constexpr (kShared) {
+    return s.wants_node(drain_at) && !o.wants_leaf(drain_at);
+  }
+  return s.wants_node(drain_at);
+}
+
+// Whether slot `s` takes a leaf step next: under kShared, when either
+// slot's drain rule asks for one and `s` has a leaf queued; else by its own
+// drain rule.
+template <bool kShared>
+__device__ __forceinline__ bool next_leaf(const LaneQueue& s,
+                                          const LaneQueue& o, int drain_at) {
+  if constexpr (kShared) {
+    return s.lq.sp > 0 && (s.wants_leaf(drain_at) || o.wants_leaf(drain_at));
+  }
+  return s.wants_leaf(drain_at);
+}
+
+// L5: two binary deferred-leaf walks a thread, rays 2j and 2j+1 of pair j,
+// on queued_walk's pieces: fetch_with over pairs (a pair whose rays are
+// both inactive is answered at fetch time; in a live pair an inactive ray
+// is answered at once and its slot stays dead), two LaneQueues in the
+// block's shared memory (each `need` + kLQ entries a thread), RegisterPush
+// and ClosestRay's leaf step to the counts. While-while over the pairs'
+// step kinds: node steps while a lane has a slot whose next step is a node
+// step, both slots' rows loaded before either slot's slab test; then leaf
+// steps while a lane has a slot whose next step is a leaf step. A slot's
+// next step is decided by the pair's state (kShared: the pair's kind, a
+// slot with nothing of it sitting the step out) or its own, as the plain
+// walk decides it, so each slot takes the plain walk's steps in the plain
+// walk's order.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
+pair_queued_kernel(const float* __restrict__ origin,
+                   const float* __restrict__ direction,
+                   const float* __restrict__ t_max, int n, int root,
+                   const float4* __restrict__ pnodes,
+                   const float4* __restrict__ ptris,
+                   const int* __restrict__ counts, int leaf, int need,
+                   int drain_at, int* __restrict__ next_pair,
+                   float* __restrict__ out_t, int* __restrict__ out_tri,
+                   float* __restrict__ out_u, float* __restrict__ out_v) {
+  extern __shared__ int smem[];
+  const ClosestRay<kSerialLeaf> hit{ptris, counts, leaf, out_t, out_tri,
+                                    out_u, out_v};
+  PairSlot a(smem, need, hit);
+  PairSlot b(smem + (need + kLQ) * kThreads, need, hit);
+  const int leaf_f4 = leaf * kTriStride / 4;
+  const int pairs = (n + 1) / 2;
+  int pair = -1;
+  bool drained = false;
+  auto start = [&](int j, float2 tm) {
+    a.start(origin, direction, 2 * j, n, tm.x, root);
+    b.start(origin, direction, 2 * j + 1, n, tm.y, root);
+  };
+  auto skip = [&](int j, float2 tm) {
+    a.hit.skip(2 * j, tm.x);
+    if (2 * j + 1 < n) b.hit.skip(2 * j + 1, tm.y);
+  };
+  for (;;) {
+    if (fetch_with<kRefillAt>(pair, drained, pairs, next_pair, t_max, kTMin,
+                              PairRecords{n}, start, skip) == kFull) {
+      return;
+    }
+    for (;;) {
+      const bool na = next_node<kShared>(a.q, b.q, drain_at);
+      const bool nb = next_node<kShared>(b.q, a.q, drain_at);
+      if (!__any_sync(kFull, na || nb)) break;
+      BinaryRow ra, rb;  // both rows in flight before either slab test
+      if (na) ra = load_binary_row(pnodes + (int64_t)a.q.cur * 4);
+      if (nb) rb = load_binary_row(pnodes + (int64_t)b.q.cur * 4);
+      if (na) a.node_step(ra);
+      if (nb) b.node_step(rb);
+    }
+    for (;;) {
+      const bool la = next_leaf<kShared>(a.q, b.q, drain_at);
+      const bool lb = next_leaf<kShared>(b.q, a.q, drain_at);
+      if (!__any_sync(kFull, la || lb)) break;
+      if (la) a.leaf_step(leaf_f4);
+      if (lb) b.leaf_step(leaf_f4);
+    }
+    if (pair >= 0 && !a.q.alive() && !b.q.alive()) {
+      a.finish();
+      b.finish();
+      pair = -1;
+    }
+  }
+}
+
+using PairQueued = void (*)(const float*, const float*, const float*, int,
+                            int, const float4*, const float4*, const int*,
+                            int, int, int, int*, float*, int*, float*,
+                            float*);
+
+// L5's kernel: the shared step kind or each ray its own (switch).
+PairQueued pair_queued(bool shared) {
+  if (shared) return pair_queued_kernel<true>;
+  return pair_queued_kernel<false>;
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on `stream` and
 // returns the launch's cudaError_t (cudaErrorInvalidValue for an argument
 // no kernel takes); none synchronises or allocates.
 
-// shared: 1 the pair shares the step kind, 0 each ray takes its own.
-extern "C" int lab_closest_pair(const float* origin, const float* direction,
-                                const float* t_max, int64_t n, int root,
-                                const float* pnodes, const float* ptris,
-                                int leaf, int drain_at, int shared,
-                                float* out_t, int* out_tri, float* out_u,
-                                float* out_v, void* stream) {
-  if (drain_at < 1 || drain_at > kLQ - 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  auto p4 = reinterpret_cast<const float4*>(pnodes);
-  auto t4 = reinterpret_cast<const float4*>(ptris);
-  const unsigned blocks = blocks_for((n + 1) / 2);
-  if (shared) {
-    closest_pair_kernel<true><<<blocks, kThreads, 0, s>>>(
-        origin, direction, t_max, n, root, p4, t4, leaf, drain_at, out_t,
-        out_tri, out_u, out_v);
-  } else {
-    closest_pair_kernel<false><<<blocks, kThreads, 0, s>>>(
-        origin, direction, t_max, n, root, p4, t4, leaf, drain_at, out_t,
-        out_tri, out_u, out_v);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The persistent walks (L3, L4, L6, L7, L8). After the rays: root, node
-// rows (pnodes f32[NB,16], qnodes f32[N4,32] or onodes f32[N8,64], the
-// metas in the rows), leaf rows, the leaf counts of the row-major ptris,
-// leaf, the tree's stack need `need` (L3: 1..kBinaryCap, K3's stack; the
-// queued walks 1..kCap: the shared memory holds need + kLQ entries a
-// thread) and the ray counter `next_ray` (one int32, zeroed here on
-// `stream`); then the queued walks' drain_at.
+// The persistent walks (L3-L8). After the rays: root, node rows (pnodes
+// f32[NB,16], qnodes f32[N4,32] or onodes f32[N8,64], the metas in the
+// rows), leaf rows, the leaf counts of the row-major ptris, leaf, the
+// tree's stack need `need` (L3: 1..kBinaryCap, K3's stack; the queued
+// walks 1..kCap: the shared memory holds need + kLQ entries a thread, L5's
+// twice) and the work counter `next_ray` (one int32, zeroed here on
+// `stream`; L5's counts pairs); then the queued walks' drain_at.
 
 // L3. ptris_cm: the component-major leaf rows (leaf a multiple of 4); out_u
 // and out_v are scratch the walk writes.
@@ -849,6 +866,26 @@ extern "C" int lab_closest_queued(const float* origin, const float* direction,
                 reinterpret_cast<const float4*>(ptris), leaf_counts, leaf,
                 need, drain_at, next_ray, out_t, out_tri, out_u, out_v,
                 out_nit, out_nleaf);
+}
+
+// L5. shared: 1 the pair shares the step kind, 0 each ray takes its own
+// (switch); drain_at in 1..LQ-2; (n + 1) / 2 pairs.
+extern "C" int lab_closest_pair(const float* origin, const float* direction,
+                                const float* t_max, int64_t n, int root,
+                                const float* pnodes, const float* ptris,
+                                const int* leaf_counts, int leaf, int need,
+                                int* next_ray, int drain_at, int shared,
+                                float* out_t, int* out_tri, float* out_u,
+                                float* out_v, void* stream) {
+  if (drain_at < 1 || drain_at > kLQ - 2) return (int)cudaErrorInvalidValue;
+  if (need < 1 || need > kCap || n > kMaxRays) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(pair_queued(shared != 0), (n + 1) / 2, 2 * (need + kLQ),
+                2 * (kCap + kLQ), next_ray, stream, origin, direction, t_max,
+                (int)n, root, reinterpret_cast<const float4*>(pnodes),
+                reinterpret_cast<const float4*>(ptris), leaf_counts, leaf,
+                need, drain_at, next_ray, out_t, out_tri, out_u, out_v);
 }
 
 // drain_at in 1..LQ-8 (an 8-wide step queues up to 8 leaves).
@@ -919,15 +956,20 @@ extern "C" int lab_closest4_queued(const float* origin, const float* direction,
 }
 
 // What a launch of `kernel` (0 L7, 1 L8 ordered, 2 L8 child order, 3 +
-// 2 * leaf_kind + descent L6, 9 L3, 10 + variant L4) at stack need `need`
-// looks like on the current device: out[0..8] as persistent_walk.cuh's
-// info(), the queued walks' shared memory holding the queue too.
+// 2 * leaf_kind + descent L6, 9 L3, 10 + variant L4, 13 L5 shared, 14 L5
+// switch) at stack need `need` looks like on the current device: out[0..8]
+// as persistent_walk.cuh's info(), the queued walks' shared memory holding
+// the queue too (L5's two stacks and two queues).
 extern "C" int lab2_launch_info(int kernel, int need, int* out) {
   if (kernel == 9) {
     return info<kGroup, kRefillAt>(closest_cm_persistent_kernel, need,
                                    kBinaryCap, out);
   }
   if (need < 1 || need > kCap) return (int)cudaErrorInvalidValue;
+  if (kernel == 13 || kernel == 14) {
+    return info<kGroup, kRefillAt>(pair_queued(kernel == 13),
+                                   2 * (need + kLQ), 2 * (kCap + kLQ), out);
+  }
   if (kernel >= 10) {
     BinaryQueued l4 = binary_queued(kernel - 10);
     if (l4 == nullptr) return (int)cudaErrorInvalidValue;

@@ -5,7 +5,8 @@
 //
 //   - fetch: a warp's idle lanes take live rays from a global counter, one
 //     atomicAdd for all of them, once kRefillAt of its 32 lanes are idle;
-//     an inactive ray (t_max <= t_min) is answered at fetch time;
+//     an inactive ray (t_max <= t_min) is answered at fetch time
+//     (fetch_with: the same for other work items, L5's ray pairs);
 //   - Stack: the entries below the one a lane visits next (which stays in
 //     a register), in shared memory laid out [entry][thread];
 //   - the grouped leaf loops: the loads of kGroup triangles issued together,
@@ -179,6 +180,42 @@ __device__ __forceinline__ unsigned fetch(int& ray, bool& drained, int n,
       if (i < n) {
         const float tm = t_max[i];
         if (tm > t_min) {
+          ray = i;
+          start(i, tm);
+        } else {
+          skip(i, tm);
+        }
+      }
+    }
+    idle = __ballot_sync(kFull, ray < 0);
+  }
+  return idle;
+}
+
+// fetch over work items 0..n-1 other than rays (L5's ray pairs): a lane
+// reads index i's record from t_max, records.load(t_max, i), and takes i
+// when records.live(record, t_min), calling start(i, record), else calls
+// skip(i, record) and takes the next index. fetch is not written on it:
+// that compiled K1-K4 to other SASS.
+template <int kRefillAt, class Records, class Start, class Skip>
+__device__ __forceinline__ unsigned fetch_with(
+    int& ray, bool& drained, int n, int* __restrict__ next_ray,
+    const float* __restrict__ t_max, float t_min, const Records& records,
+    const Start& start, const Skip& skip) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned idle = __ballot_sync(kFull, ray < 0);
+  if (drained || __popc(idle) < kRefillAt) return idle;
+  while (idle != 0 && !drained) {
+    const int want = __popc(idle);
+    int base = 0;
+    if (lane == 0) base = atomicAdd(next_ray, want);
+    base = __shfl_sync(kFull, base, 0);
+    drained = base + want >= n;
+    if (ray < 0) {
+      const int i = base + __popc(idle & ((1u << lane) - 1u));
+      if (i < n) {
+        const auto tm = records.load(t_max, i);
+        if (records.live(tm, t_min)) {
           ray = i;
           start(i, tm);
         } else {

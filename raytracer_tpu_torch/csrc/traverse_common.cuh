@@ -137,19 +137,27 @@ __device__ __forceinline__ void closest_leaf(const Ray& r,
 // lab_traverse.cu), and the queued walks (lab2_traverse.cu) route leaf
 // children to a leaf queue.
 
-// Binary node step: slab-test both children of pnodes row `p` (lanes 0-5
-// left box, 6-11 right box, 12/13 the child metas as f32) against [t_min,
-// t_cap] and push the hit ones: far first and near last (kOrdered; near is
-// the smaller t_near, a tie keeps left), or right first and left last.
+// A pnodes row (lanes 0-5 left box, 6-11 right box, 12/13 the child metas
+// as f32): its 4 float4, loaded in order.
+struct BinaryRow {
+  float4 f0, f1, f2, f3;
+};
+
+__device__ __forceinline__ BinaryRow load_binary_row(
+    const float4* __restrict__ p) {
+  return {__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+}
+
+// Binary node step on a loaded row: slab-test both children against
+// [t_min, t_cap] and push the hit ones: far first and near last (kOrdered;
+// near is the smaller t_near, a tie keeps left), or right first and left
+// last.
 template <bool kOrdered, class Push>
 __device__ __forceinline__ void binary_visit(const Ray& r,
-                                             const float4* __restrict__ p,
+                                             const BinaryRow& row,
                                              float t_min, float t_cap,
                                              const Push& push) {
-  float4 f0 = __ldg(p);
-  float4 f1 = __ldg(p + 1);
-  float4 f2 = __ldg(p + 2);
-  float4 f3 = __ldg(p + 3);
+  const float4 f0 = row.f0, f1 = row.f1, f2 = row.f2, f3 = row.f3;
   float tn_l, tn_r;
   bool hit_l = slab(r, f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, t_min, t_cap,
                     &tn_l);
@@ -162,6 +170,15 @@ __device__ __forceinline__ void binary_visit(const Ray& r,
   bool swap = kOrdered && near_r < near_l;
   if (swap ? hit_l : hit_r) push(swap ? lmeta : rmeta);
   if (swap ? hit_r : hit_l) push.near(swap ? rmeta : lmeta);
+}
+
+// Binary node step on pnodes row `p`: its row loaded, then binary_visit.
+template <bool kOrdered, class Push>
+__device__ __forceinline__ void binary_visit(const Ray& r,
+                                             const float4* __restrict__ p,
+                                             float t_min, float t_cap,
+                                             const Push& push) {
+  binary_visit<kOrdered>(r, load_binary_row(p), t_min, t_cap, push);
 }
 
 // Slab tests of the 4 boxes in float4 q[0..5] (min.xyz, max.xyz each)

@@ -166,6 +166,51 @@ def launch(entry, origin, direction, rows, k, variant_code, cycles):
     return out
 
 
+# lab3_launch_info's kernels by index: L11a's variants in lab_visit's
+# order (visit_cost_lab.VISIT_VARIANTS), L11b's serial and ILP leaf, L10's
+# smem and transp; each (label, its mangled name's distinctive part).
+LAUNCH_KERNELS = (
+    *((f"L11a {v}", f"visit_kernelILi{i}E") for i, v in enumerate(
+        ("full", "nored", "noslab", "extracts", "rowonly", "empty"))),
+    ("L11b serial", "leaf_visit_kernelILb0E"),
+    ("L11b ilp", "leaf_visit_kernelILb1E"),
+    ("L10 smem", "smem_kernel"), ("L10 transp", "transp_kernel"))
+LAUNCH_INFO_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+                    "blocks_per_sm", "threads")
+
+
+def launch_info(index, device):
+    """What a launch of LAUNCH_KERNELS[index] looks like on `device`
+    (csrc/lab3_traverse.cu:lab3_launch_info): LAUNCH_INFO_KEYS, and
+    "spills", the ptxas spill stores and loads in bytes ("?" when the
+    library was loaded from the build directory's cache)."""
+    import ctypes
+
+    from raytracer_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    with torch.cuda.device(device):
+        rc = _build.lab3_traverse_lib().lab3_launch_info(index, out)
+    if rc != 0:
+        raise RuntimeError(f"lab3_launch_info failed: cudaError {rc}")
+    info = dict(zip(LAUNCH_INFO_KEYS, out))
+    log = _build.build_info.get("liblab3_traverse", {}).get("log", "")
+    info["spills"] = _build.ptxas_spills(log, LAUNCH_KERNELS[index][1])
+    return info
+
+
+def launch_line(index, device):
+    """One line of launch_info(index, device)."""
+    i = launch_info(index, device)
+    st, ld = i["spills"]
+    warps = i["threads"] // 32 * i["blocks_per_sm"]
+    return (f"{LAUNCH_KERNELS[index][0]} launch: {i['registers']} registers, "
+            f"spill stores {st} B, spill loads {ld} B, local "
+            f"{i['local_bytes']} B a thread, static shared "
+            f"{i['static_smem_bytes']} B a block, {i['blocks_per_sm']} blocks "
+            f"of {i['threads']} a SM ({warps} warps)")
+
+
 def line(label, variant, r, unit):
     """One lab line of timed()'s result `r`."""
     return (f"{label:8s} {variant:9s} {r['rays']:7d} rays: {r['ms']:10.3f} "

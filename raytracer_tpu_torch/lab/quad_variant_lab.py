@@ -25,10 +25,11 @@ text, from cuobjdump).
 csrc/ directory, e.g. a parent commit unpacked with `git archive`), with
 the same flags and the headers beside it, and gates, times and digests it
 as one more variant: equal digests mean the two trees compile K1/K2 to
-the same machine code. It also builds both trees' binary_traverse.cu and
-lab2_traverse.cu and prints the SASS digests of K3 and K4, and of the
-queued walk's L6, L7 and L8, side by side (those are not timed here;
-chip_smoke.py phases 2, 7 and 8 gate and time them).
+the same machine code. It also builds both trees' binary_traverse.cu,
+lab_traverse.cu, lab2_traverse.cu and lab3_traverse.cu and prints, for
+each, how many of its kernels' SASS digests (K3 and K4, L1-L11) equal the
+other tree's, and both digests of each that differs (those kernels are not
+timed here; chip_smoke.py phases 2 and 6-9 gate and time them).
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ import sys
 
 import torch
 
+from raytracer_tpu_torch.lab import fixed_seq as fs
+from raytracer_tpu_torch.lab import queue_walk as qw
 from raytracer_tpu_torch.lab import rays as lab_rays
 from raytracer_tpu_torch.ops import _build
 from raytracer_tpu_torch.ops import quad_traverse as qt
@@ -137,15 +140,15 @@ def sass_digest(sass, kernel):
 
 
 # The kernels whose SASS --against compares, by source (the distinctive
-# part of each mangled name): K3 and K4, and L7, L8 and L6 on the queued
-# walk.
+# part of each mangled name): K3 and K4, every persistent lab kernel (L1-L9,
+# queue_walk.LAUNCH_KERNELS) and the fixed-sequence ones (L10, L11,
+# fixed_seq.LAUNCH_KERNELS).
 DIGESTS = {
     "binary_traverse": ("closest_kernel", "occlusion_kernel"),
-    "lab2_traverse": (
-        "closest8_queued_kernel", "occlusion4_queued_kernelILb1E",
-        "occlusion4_queued_kernelILb0E",
-        *(f"closest4_queued_persistent_kernelILb{descent}ELi{kind}E"
-          for kind in range(3) for descent in (0, 1))),
+    **{lib: tuple(name for where, name, _ in qw.LAUNCH_KERNELS.values()
+                  if where == lib)
+       for lib in ("lab_traverse", "lab2_traverse")},
+    "lab3_traverse": tuple(name for _, name in fs.LAUNCH_KERNELS),
 }
 
 
@@ -192,9 +195,11 @@ def run(reps=REPS, say=print, against=None):
         for name in DIGESTS:
             this, other = (digests[(name, tag)].result()
                            for tag in ("this", "against"))
-            say(f"{name} SASS (instructions, digest): this tree {this}; "
-                f"{against} {other}; "
-                + ("equal" if this == other else "DIFFERENT"))
+            differ = [k for k in this if this[k] != other[k]]
+            say(f"{name} SASS (instructions, digest) of {len(this)} kernels: "
+                f"{len(this) - len(differ)} equal to {against}'s"
+                + "".join(f"; {k} DIFFERENT: this tree {this[k]}, {against} "
+                          f"{other[k]}" for k in differ))
         other = built["against"][3]
         names["against"] = (f"{against} (G={other['group']} refill_at="
                             f"{other['refill_at']})")

@@ -6,7 +6,7 @@ that the traversal lab's L4 (tools/v3_kernel_lab.py), L5
 any-hit form (K2, :423, and L8, tools/r3_occl3_lab.py).
 csrc/lab2_traverse.cu is its CUDA version; the two are equal bit for bit.
 The last section launches the persistent lab kernels (L1, L2 and L9 of
-csrc/lab_traverse.cu, L3, L4 and L6-L8) and reads their launch shapes.
+csrc/lab_traverse.cu, L3-L8) and reads their launch shapes.
 
 State per ray: an internal-node stack of CAP entries, a leaf queue of LQ
 blocks and, for descent, the node kept in a register (`cur`, -1 when
@@ -335,6 +335,7 @@ def hit_outputs(n, device, counters=False):
 
 L6_LEAF_KINDS = ("serial", "divfree", "ilp")  # lab_closest4_queued's order
 L4_VARIANTS = ("base", "nocond", "dblread")  # lab_closest_queued's order
+L5_VARIANTS = ("shared", "switch")  # lab_closest_pair's shared = 1, 0
 
 
 def l6_kernel(descent, leaf_kind):
@@ -346,6 +347,11 @@ def l6_kernel(descent, leaf_kind):
 def l4_kernel(variant):
     """The LAUNCH_KERNELS key of L4's `variant` (L4_VARIANTS)."""
     return f"binary_queued_{variant}"
+
+
+def l5_kernel(variant):
+    """The LAUNCH_KERNELS key of L5's `variant` (L5_VARIANTS)."""
+    return f"closest_pair_{variant}"
 
 
 def l1_kernel(variant, leaf=None, block=128):
@@ -360,7 +366,7 @@ _L1_ILP = "closest_lab_persistent_kernelILi{}ELi{}EE"  # kIlpLeaf, kBlock
 
 # kernel -> (library, its mangled name's distinctive part, the library's
 # launch-info index). The lab_traverse library holds L2, L1 and L9,
-# lab2_traverse L3, L4, L6, L7 and L8.
+# lab2_traverse L3-L8.
 LAUNCH_KERNELS = {
     "closest4_ordered": ("lab_traverse", "closest4_persistent_kernelILb1E",
                          0),
@@ -391,6 +397,10 @@ LAUNCH_KERNELS = {
     **{l4_kernel(variant): ("lab2_traverse",
                             f"binary_queued_kernelILi{code}E", 10 + code)
        for code, variant in enumerate(L4_VARIANTS)},
+    **{l5_kernel(variant): ("lab2_traverse",
+                            f"pair_queued_kernelILb{int(variant == 'shared')}E",
+                            13 + code)
+       for code, variant in enumerate(L5_VARIANTS)},
 }
 _INFO_ENTRY = {"lab_traverse": "lab_launch_info",
                "lab2_traverse": "lab2_launch_info"}
@@ -400,10 +410,11 @@ def launch_info(kernel, need, device):
     """What a launch of a persistent lab kernel (a key of LAUNCH_KERNELS:
     L2 "closest4_ordered" or "closest4_noorder", L1 l1_kernel(...), L9
     "lab_occlusion_ordered" or "lab_occlusion_noorder", L3 "closest_cm", L4
-    l4_kernel(...), L6 l6_kernel(...), L7 "closest8", L8
-    "occlusion_ordered" or "occlusion_fixed") at stack need `need` looks
-    like on `device`: quad_traverse.launch_info's keys (the queued walks'
-    shared memory holds the leaf queue too), and "spills",
+    l4_kernel(...), L5 l5_kernel(...), L6 l6_kernel(...), L7 "closest8",
+    L8 "occlusion_ordered" or "occlusion_fixed") at stack need `need`
+    looks like on `device`: quad_traverse.launch_info's keys (the queued
+    walks' shared memory holds the leaf queue too, L5's two stacks and two
+    queues), and "spills",
     the ptxas spill stores and loads in bytes ("?" when the library was
     loaded from the build directory's cache)."""
     import ctypes
@@ -426,18 +437,23 @@ def launch_info(kernel, need, device):
 
 
 def launch_line(label, kernel, need, device):
-    """One line of launch_info(kernel, need, device), labelled `label`."""
+    """One line of launch_info(kernel, need, device), labelled `label`,
+    with the rays in flight a SM (L5: two a thread)."""
     i = launch_info(kernel, need, device)
     st, ld = i["spills"]
     queued = (LAUNCH_KERNELS[kernel][0] == "lab2_traverse"
               and kernel != "closest_cm")
     queue = f" + LQ {LQ}" if queued else ""
+    pair = kernel.startswith("closest_pair_")
+    if pair:
+        queue += ", twice"
+    threads = i["threads"] * i["blocks_per_sm"]
     return (f"{label} launch: {i['registers']} registers, spill stores {st} "
             f"B, spill loads {ld} B, local {i['local_bytes']} B a thread, "
             f"dynamic shared {i['smem_bytes']} B a block (stack need {need}"
             f"{queue}), {i['blocks_per_sm']} blocks of {i['threads']} a SM "
-            f"({i['threads'] // 32 * i['blocks_per_sm']} warps), grid "
-            f"{i['grid']} blocks on "
+            f"({threads // 32} warps, {threads * (2 if pair else 1)} rays in "
+            f"flight), grid {i['grid']} blocks on "
             f"{i['sms']} SMs; G = {i['group']}, refill at {i['refill_at']} "
             "idle lanes")
 

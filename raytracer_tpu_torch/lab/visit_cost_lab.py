@@ -24,7 +24,12 @@ Each thread holds one ray; the TPU kernel's reductions over its 32x128
 tile are reductions over a warp of 32 here (and over groups of 32
 consecutive rays in the plain version), so the wrapper takes a multiple
 of 32 rays. On the lab's rays, one ray in every lane, every scope gives
-the TPU kernel's output.
+the TPU kernel's output. A minimum is one redux.sync of the values'
+uint32 bit patterns, which order as the floats do because every value
+reduced is positive (minimum_inputs gives them); the rows are copied 4
+rows ahead of the tests (cp.async into a ring of rows in shared memory,
+one a warp), so no iteration waits on its row's load. On the card the
+lab first prints each variant's launch shape.
 
 L11b (`run_leaf_visit`), K_LEAF = 32,768 leaf visits of 8 Moller-Trumbore
 tests over ptris, from best t 1e4 and best triangle -1, at the JAX lab's
@@ -47,6 +52,7 @@ bit for bit and the tests compare with the JAX lab kernels.
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 
 import torch
@@ -131,6 +137,34 @@ def _per_ray(x):
     return x.repeat_interleave(fs.WARP)
 
 
+def _minimum_inputs(origin, inv, row, t_cap, variant):
+    """What one iteration of `full` or `noslab` on pnodes row `row` reduces
+    over a warp, per ray: (near_l, near_r), the values of its two minimums
+    (a hit child's t_near, else BIG; noslab: t_cap or BIG), and (any_l,
+    any_r), the flags of its two anys."""
+    if variant == "noslab":
+        return ((torch.where(t_cap > row[0], t_cap, BIG),
+                 torch.where(t_cap > row[6], t_cap, BIG)),
+                (t_cap > row[1], t_cap > row[7]))
+    hit, tn = _slab_children(origin, inv, row[:12].expand(
+        origin.shape[0], 12), t_cap, T_MIN)
+    return ((torch.where(hit[:, 0], tn[:, 0], BIG),
+             torch.where(hit[:, 1], tn[:, 1], BIG)), (hit[:, 0], hit[:, 1]))
+
+
+def minimum_inputs(origin, direction, pnodes, variant, k):
+    """The values `full` or `noslab` (`variant`) reduces with its two warp
+    minimums over k iterations of the fixed sequence: f32[k, 2, N]. The
+    kernel's redux.sync of their bit patterns gives the float minimum only
+    where every one is positive."""
+    t_cap = torch.full((origin.shape[0],), fs.T_CAP, dtype=torch.float32,
+                       device=origin.device)
+    inv = _inv_dir(direction)
+    return torch.stack([torch.stack(_minimum_inputs(
+        origin, inv, pnodes[it % pnodes.shape[0]], t_cap, variant)[0])
+        for it in range(k)])
+
+
 def visit_plain(origin, direction, pnodes, variant, k):
     """Plain torch version of lab_visit's `variant` (the reductions over
     groups of 32 consecutive rays). Returns i32[N]."""
@@ -155,22 +189,16 @@ def visit_plain(origin, direction, pnodes, variant, k):
                 s = s + row[c]
             acc += fs.sat_i32(s) + lmeta + rmeta
             continue
-        if variant == "noslab":
-            near_l = torch.where(t_cap > row[0], t_cap, BIG)
-            near_r = torch.where(t_cap > row[6], t_cap, BIG)
-            any_l, any_r = t_cap > row[1], t_cap > row[7]
-        else:
+        if variant == "nored":
             hit, tn = _slab_children(origin, inv, row[:12].expand(n, 12),
                                      t_cap, T_MIN)
-            if variant == "nored":
-                h0, tl0, tr0 = (_per_ray(_groups(a)[:, 0]) for a in
-                                (hit[:, 0], tn[:, 0], tn[:, 1]))
-                acc += (torch.where(h0, lmeta, rmeta) + fs.sat_i32(tl0)
-                        + fs.sat_i32(tr0))
-                continue
-            near_l = torch.where(hit[:, 0], tn[:, 0], BIG)
-            near_r = torch.where(hit[:, 1], tn[:, 1], BIG)
-            any_l, any_r = hit[:, 0], hit[:, 1]
+            h0, tl0, tr0 = (_per_ray(_groups(a)[:, 0]) for a in
+                            (hit[:, 0], tn[:, 0], tn[:, 1]))
+            acc += (torch.where(h0, lmeta, rmeta) + fs.sat_i32(tl0)
+                    + fs.sat_i32(tr0))
+            continue
+        (near_l, near_r), (any_l, any_r) = _minimum_inputs(
+            origin, inv, row, t_cap, variant)
         near_l, near_r = (_per_ray(_groups(a).amin(1))
                           for a in (near_l, near_r))
         any_l, any_r = (_per_ray(_groups(a).any(1)) for a in (any_l, any_r))
@@ -201,13 +229,53 @@ def leaf_visit_plain(origin, direction, ptris, variant, k):
     return btri, bt
 
 
+def loop_body(sass, kernel):
+    """The instructions (their text) of the longest loop of the function
+    whose name contains `kernel` in `sass` (cuobjdump -sass output): from a
+    backward branch's target to the branch, both included: L11a's K loop,
+    one iteration."""
+    ins, labels, pending, inside = [], {}, [], False
+    for text in sass.splitlines():
+        if "Function :" in text:
+            if inside:
+                break
+            inside = kernel in text
+            continue
+        if not inside:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", text)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", text)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((label, addr) for label in pending)
+            pending = []
+            ins.append((addr, m.group(2)))
+    longest = []
+    for addr, op in ins:
+        m = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", op)
+        if not m:
+            continue
+        target = labels[m.group(1)] if m.group(1) else int(m.group(2), 16)
+        body = [text for a, text in ins if target <= a <= addr]
+        if target <= addr and len(body) > len(longest):
+            longest = body
+    return longest
+
+
 # --------------------------------------------------------------------------
 # The lab.
 # --------------------------------------------------------------------------
 
 def run(scene, reps=fs.REPS, log=print, k=fs.K_VISIT):
     """L11a: every variant at the lab size and at the card size, on the
-    lab's rays. Returns {(size label, variant): fixed_seq.timed's dict}."""
+    lab's rays. Returns {(size label, variant): fixed_seq.timed's dict}.
+    On the card it first prints each variant's launch shape."""
+    if scene.pnodes.is_cuda:
+        for index in range(len(VISIT_VARIANTS)):
+            log(fs.launch_line(index, scene.pnodes.device))
     results = {}
     for label, n in fs.sizes(scene.device, VISIT_LAB_RAYS):
         o, d = fs.lab_rays_const(n, scene.device)

@@ -50,7 +50,7 @@ _locks_guard = threading.Lock()
 _locks = {}
 _libs = {}
 # library stem -> {"seconds": build seconds (0 when cached), "log": the
-# compiler's output}
+# compiler's output, "path": the library}
 build_info = {}
 
 
@@ -91,7 +91,7 @@ def compile_library(argv, src: str, stem: str, headers=()) -> str:
     out_dir = build_dir()
     path = os.path.join(out_dir, f"{stem}_{key.hexdigest()[:16]}.so")
     if os.path.exists(path):
-        build_info[stem] = {"seconds": 0.0, "log": "cached"}
+        build_info[stem] = {"seconds": 0.0, "log": "cached", "path": path}
         return path
     os.makedirs(out_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
@@ -107,7 +107,8 @@ def compile_library(argv, src: str, stem: str, headers=()) -> str:
             f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
     os.replace(tmp, path)
     build_info[stem] = {"seconds": seconds,
-                        "log": (proc.stderr + proc.stdout).strip()}
+                        "log": (proc.stderr + proc.stdout).strip(),
+                        "path": path}
     return path
 
 
@@ -204,14 +205,14 @@ def lab_traverse_lib() -> ctypes.CDLL:
 
 def lab2_traverse_lib() -> ctypes.CDLL:
     """The traversal lab's deferred-leaf (binary, 4-wide, 8-wide, any-hit)
-    and component-major kernels (csrc/lab2_traverse.cu; L3, L4, L6, L7 and
-    L8 take the persistent walks' scene arguments)."""
+    and component-major kernels (csrc/lab2_traverse.cu; L3-L8 take the
+    persistent walks' scene arguments)."""
     return _cuda_lib("lab2_traverse", {
         "lab_closest_cm": [_P, _P, _P, _I64, *_SCENE, _P, _P, _P, _P, _P],
         "lab_closest_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _I32, _P,
                                _P, _P, _P, _P, _P, _P],
-        "lab_closest_pair": [_P, _P, _P, _I64, _I32, _P, _P, _I32, _I32,
-                             _I32, _P, _P, _P, _P, _P],
+        "lab_closest_pair": [_P, _P, _P, _I64, *_SCENE, _I32, _I32, _P, _P,
+                             _P, _P, _P],
         "lab_closest4_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _I32, _I32,
                                 _P, _P, _P, _P, _P],
         "lab_closest8_queued": [_P, _P, _P, _I64, *_SCENE, _I32, _P, _P,
@@ -228,6 +229,7 @@ def lab3_traverse_lib() -> ctypes.CDLL:
     row = [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P, _P]
     return _cuda_lib("lab3_traverse", {
         "lab_visit": row, "lab_leaf_visit": row, "lab_smem": row,
+        "lab3_launch_info": [_I32, _P],
     })
 
 

@@ -11,7 +11,12 @@ kernels to those on the card. Every output is compared bit for bit.
   - L11a: the lab's constant rays, a ray that misses every box, and
     one-ray tiles of seeded random rays aimed into the scene (each tile's
     lanes one ray, so the TPU's tile reductions and the port's warp
-    reductions agree); `full` must see some child hit.
+    reductions agree); `full` must see some child hit. What the kernel's
+    redux.sync minimum relies on, on the Cornell box's pnodes with the
+    lab's rays and with seeded aimed rays: every value `full` and `noslab`
+    reduce is positive (a hit child's t_near >= 1e-3, or BIG), so a warp's
+    minimum of the uint32 bit patterns is its float minimum. The SASS loop
+    count of phase 9, the ring depth and the launch-shape query.
   - L11b (tile heights 8 and 32) and L10: the constant rays and one tile
     of distinct seeded random rays aimed into the scene, of which at least
     a quarter must hit.
@@ -22,7 +27,9 @@ kernels to those on the card. Every output is compared bit for bit.
     show (test_bf16_matches_jax_interpret).
 """
 
+import contextlib
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +44,8 @@ from raytracer_tpu_torch.lab import bf16_lab
 from raytracer_tpu_torch.lab import fixed_seq as fs
 from raytracer_tpu_torch.lab import smem_lab
 from raytracer_tpu_torch.lab import visit_cost_lab as vc
+from raytracer_tpu_torch.ops import _build
+from raytracer_tpu_torch.ops.quad_traverse import BIG, T_MIN
 from tests.conftest import make_traversal_scene
 from tests.test_torch_lab import _port_scene
 from tools import bf16_lab as jbf
@@ -159,6 +168,136 @@ def test_visit_reduces_per_warp(scene):
     assert torch.equal(nored, lane0)
     with pytest.raises(ValueError, match="multiple"):
         vc.run_visit(o[:40], d[:40], ps.pnodes, "full", K_NODES)
+
+
+@pytest.fixture(scope="module")
+def cornell_pnodes():
+    """The Cornell box's pnodes, baked at leaf 8 with the numpy builder."""
+    import raytracer_tpu_torch.accel.native_builder as tnative
+    import raytracer_tpu_torch.scene.model as tmodel
+    from raytracer_tpu_torch.scene.device_scene import bake_scene
+
+    available = tnative.available
+    tnative.available = lambda: False
+    try:
+        ds, _ = bake_scene(tmodel.create_cornell_box(), leaf_size=8,
+                           device="cpu")
+    finally:
+        tnative.available = available
+    return ds.pnodes
+
+
+@pytest.mark.parametrize("rays", ["lab", "aimed"])
+@pytest.mark.parametrize("variant", ["full", "noslab"])
+def test_visit_minimums_reduce_as_bit_patterns(variant, rays,
+                                               cornell_pnodes):
+    """Every value `full` and `noslab` reduce with a warp minimum over a
+    pass of the Cornell box's rows is positive (a hit child's t_near at
+    least t_min 1e-3, or BIG; noslab's t_cap or BIG), and each warp's
+    minimum of their uint32 bit patterns, as one redux.sync takes it, has
+    the bits of its float minimum."""
+    m = 4 * fs.WARP
+    o, d = _const(m) if rays == "lab" else _aimed(m, seed=8)
+    k = cornell_pnodes.shape[0]
+    vals = vc.minimum_inputs(_t(o), _t(d), cornell_pnodes, variant, k)
+    assert vals.shape == (k, 2, m)
+    assert bool(((vals >= T_MIN) & (vals <= BIG)).all())
+    if variant == "full":
+        assert bool(((vals == BIG) | (vals < fs.T_CAP)).all())
+        hits = int((vals < BIG).sum())
+        print(f"{rays}: {hits} of {vals.numel()} values are a hit's t_near")
+        assert hits > 0 and (rays == "lab" or hits < vals.numel())
+    else:
+        assert bool(((vals == BIG) | (vals == fs.T_CAP)).all())
+    warps = vals.view(k, 2, -1, fs.WARP)
+    as_u32 = warps.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    redux = as_u32.amin(-1).to(torch.int32)
+    assert torch.equal(redux, warps.amin(-1).view(torch.int32))
+
+
+def test_loop_body_is_the_longest_loop():
+    """loop_body takes a function's longest loop, from a backward branch's
+    target to the branch, whether cuobjdump names the target by label or
+    by address, and only in the function asked for."""
+    sass = """
+        Function : _ZN12_GLOBAL__N_112visit_kernelILi0ELi4EEEvPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;  /* 0x0 */
+.L_x_0:
+        /*0010*/                   FADD R2, R3, R4 ;  /* 0x0 */
+        /*0020*/                   REDUX.MIN UR4, R2 ;  /* 0x0 */
+.L_x_1:
+        /*0030*/                   BSSY B0, 0x40 ;  /* 0x0 */
+        /*0040*/               @P0 BRA `(.L_x_1) ;  /* 0x0 */
+        /*0050*/               @P1 BRA `(.L_x_0) ;  /* 0x0 */
+        /*0060*/               @P1 BRA `(.L_x_2) ;  /* 0x0 */
+.L_x_2:
+        /*0070*/                   EXIT ;  /* 0x0 */
+        Function : _ZN12_GLOBAL__N_112visit_kernelILi1ELi4EEEvPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;  /* 0x0 */
+        /*0010*/                   FADD R2, R3, R4 ;  /* 0x0 */
+        /*0020*/               @P0 BRA 0x10 ;  /* 0x0 */
+        /*0030*/                   EXIT ;  /* 0x0 */
+"""
+    body = vc.loop_body(sass, "visit_kernelILi0E")
+    assert body[0] == "FADD R2, R3, R4" and len(body) == 5
+    assert len(vc.loop_body(sass, "visit_kernelILi1E")) == 2
+    assert vc.loop_body(sass, "visit_kernelILi2E") == []
+
+
+def test_launch_kernels_follow_lab3_launch_info():
+    """fixed_seq.LAUNCH_KERNELS lists csrc/lab3_traverse.cu's
+    lab3_launch_info table in order: L11a's variants in lab_visit's order,
+    L11b's serial and ILP leaf, L10's smem and transp."""
+    with open(f"{_build.CSRC_DIR}/lab3_traverse.cu") as f:
+        src = f.read()
+    table = src[src.index("lab3_launch_info"):]
+    names = re.findall(r"reinterpret_cast<const void\*>\((\w+)", table)
+    assert [label for label, _ in fs.LAUNCH_KERNELS[:6]] == [
+        f"L11a {v}" for v in vc.VISIT_VARIANTS]
+    assert len(names) == len(fs.LAUNCH_KERNELS) == 10
+    for kernel, (_, mangled) in zip(names, fs.LAUNCH_KERNELS):
+        assert mangled.startswith(kernel)
+
+
+def test_lab3_launch_info_reads_each_kernels_shape_and_spills(monkeypatch):
+    """fixed_seq.launch_info asks lab3_launch_info for the kernel's index
+    and finds that kernel's spills in the -Xptxas=-v log, each template
+    instance apart; a failed query raises."""
+    calls = []
+
+    class Lib:
+        rc = 0
+
+        def lab3_launch_info(self, index, out):
+            calls.append(index)
+            for i in range(len(fs.LAUNCH_INFO_KEYS)):
+                out[i] = 10 * index + i
+            return self.rc
+
+    lib = Lib()
+    monkeypatch.setattr(_build, "lab3_traverse_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    log = []
+    for k, (_, name) in enumerate(fs.LAUNCH_KERNELS):
+        log += [f"ptxas info    : Function properties for _ZN12_GLOBAL__N_"
+                f"{name}Ev",
+                f"    0 bytes stack frame, {k} bytes spill stores, {k + 1} "
+                "bytes spill loads"]
+    monkeypatch.setitem(_build.build_info, "liblab3_traverse",
+                        {"seconds": 0.0, "log": "\n".join(log)})
+    cpu = torch.device("cpu")
+    for k in range(len(fs.LAUNCH_KERNELS)):
+        info = fs.launch_info(k, cpu)
+        assert calls[-1] == k
+        assert [info[key] for key in fs.LAUNCH_INFO_KEYS] == [
+            10 * k + i for i in range(len(fs.LAUNCH_INFO_KEYS))]
+        assert info["spills"] == (k, k + 1)
+    assert fs.launch_line(1, cpu).startswith(
+        "L11a nored launch: 10 registers, spill stores 1 B")
+    lib.rc = 2
+    with pytest.raises(RuntimeError, match="lab3_launch_info"):
+        fs.launch_info(0, cpu)
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""What the persistent lab kernels L1, L2, L3, L4, L6, L7, L8 and L9
-(csrc/lab_traverse.cu lab_closest, lab_closest4, lab_occlusion,
-csrc/lab2_traverse.cu lab_closest_cm, lab_closest_queued,
-lab_closest4_queued, lab_closest8_queued, lab_occlusion4_queued) rely on
-in the trees and in their wrappers, on the CPU at small sizes:
+"""What the persistent lab kernels L1-L9 (csrc/lab_traverse.cu
+lab_closest, lab_closest4, lab_occlusion, csrc/lab2_traverse.cu
+lab_closest_cm, lab_closest_queued, lab_closest_pair, lab_closest4_queued,
+lab_closest8_queued, lab_occlusion4_queued) rely on in the trees and in
+their wrappers, on the CPU at small sizes:
 
   - each onodes row carries its 8 child metas at columns 48:56 as exact
     f32 integers equal to ometa, so L7 reads one row per node; an absent
@@ -13,24 +13,27 @@ in the trees and in their wrappers, on the CPU at small sizes:
     (base, multi-pop; leafilp's ILP leaf against the stopped serial leaf)
     and L9's in both orders ((nvisit, nleaf)), L3's component-major leaf
     stopped at the float4 group of the count (v2_kernel_lab.cm_groups),
-    L4's binary queued walk (each variant at drain_at 1 and 4), L6's
-    queued walk with the serial and the division-free leaf, L7, and L8 in
-    both orders ((nit, nleaf)); the kernels stop their leaves there (L1's
-    and L6's ILP leaves take the whole row);
+    L4's binary queued walk (each variant at drain_at 1 and 4), L5's pair
+    walk (both variants at drain_at 1 and 4, on an odd number of rays,
+    with pairs of which one ray or both are inactive), L6's queued walk
+    with the serial and the division-free leaf, L7, and L8 in both orders
+    ((nit, nleaf)); the kernels stop their leaves there (L1's and L6's ILP
+    leaves take the whole row);
   - L6 with and without descent takes the same steps to the same results;
   - the plain walks' stack never holds more than the need the wrappers
     size shared memory by (q_stack_need, OctTree.stack_need,
-    binary_traverse.stack_need for L3, L4 and L9, kernel_lab.stack_need for
-    the multi-pop walks), and the leaf queue never more than LQ;
+    binary_traverse.stack_need for L3, L4, L5 (each of a pair's two
+    stacks) and L9, kernel_lab.stack_need for the multi-pop walks), and
+    the leaf queue never more than LQ;
   - with a fake library, the wrappers pass the node rows (not ometa or
-    qmeta), ptris's leaf counts, the tree's stack need, a ray counter of
-    each launch's own and (L1) the variant and the block (L4: drain_at
-    and the variant; L3 the component-major rows with ptris's counts); they
+    qmeta), ptris's leaf counts, the tree's stack need, a ray (L5: pair)
+    counter of each launch's own and (L1) the variant and the block (L4:
+    drain_at and the variant; L5: drain_at and whether the pair shares its
+    step kind; L3 the component-major rows with ptris's counts); they
     refuse a stack need outside 1..CAP (1..STACK_CAP for L1, L3 and L9)
-    and more rays
-    than the counter takes, raise on a failed launch, which is not
-    counted, and launch nothing for zero rays; the launch-shape query asks
-    each kernel's library entry and finds its ptxas spills.
+    and more rays than the counter takes, raise on a failed launch, which
+    is not counted, and launch nothing for zero rays; the launch-shape
+    query asks each kernel's library entry and finds its ptxas spills.
 
 The scenes are the Cornell box and a ~4k-triangle atrium, baked at leaf 8
 (the labs' leaf size) with the numpy BVH builder. The JAX lab kernels
@@ -58,6 +61,7 @@ from raytracer_tpu_torch.lab import r3_occl3_lab as l8
 from raytracer_tpu_torch.lab import r3_oct_lab as l7
 from raytracer_tpu_torch.lab import v2_kernel_lab as l3
 from raytracer_tpu_torch.lab import v3_kernel_lab as l4
+from raytracer_tpu_torch.lab import v4_interleave_lab as l5
 from raytracer_tpu_torch.ops import _build
 from raytracer_tpu_torch.ops import binary_traverse as bt
 from raytracer_tpu_torch.ops import quad_traverse as qt
@@ -75,12 +79,16 @@ L9_KINDS = ("l9_ordered", "l9_noorder")
 # L4's (variant, drain_at) by kind: each variant at drain_at 1 and 4.
 L4_KINDS = {f"l4_{v}_d{drain}": (v, drain) for v in l4.VARIANTS
             for drain in (1, 4)}
+# L5's (variant, drain_at) by kind, likewise.
+L5_KINDS = {f"l5_{v}_d{drain}": (v, drain) for v in l5.VARIANTS
+            for drain in (1, 4)}
 KINDS = ("closest8", "ordered", "fixed", "closest4_ordered",
          "closest4_noorder", "queued4_serial", "queued4_divfree", *L1_KINDS,
-         *L9_KINDS, "l3", *L4_KINDS)
+         *L9_KINDS, "l3", *L4_KINDS, *L5_KINDS)
 CLOSEST = ("closest8", "closest4_ordered", "closest4_noorder",
            "queued4_serial", "queued4_divfree", *L1_KINDS, "l3",
-           *(k for k, (v, _) in L4_KINDS.items() if v != "nocond"))
+           *(k for k, (v, _) in L4_KINDS.items() if v != "nocond"),
+           *L5_KINDS)
 # nocond drops every leaf child: no leaf steps, no hits.
 NOCOND = tuple(k for k, (v, _) in L4_KINDS.items() if v == "nocond")
 RAYS = 2048
@@ -101,22 +109,22 @@ def _bake(name):
     return _bakes[name]
 
 
-def _rays(ds, seed=3):
-    """Rays from inside the scene's bounds in random directions (a
+def _rays(ds, seed=3, n=RAYS):
+    """n rays from inside the scene's bounds in random directions (a
     sixteenth along an axis), a quarter inactive (t_max = 1e-3), and a skip
     object each."""
     rng = np.random.default_rng(seed)
     v0 = ds.ptris.view(ds.ptris.shape[0], -1, qt.TRI_STRIDE)[:, :, 0:3]
     v0 = v0.reshape(-1, 3).numpy()
     lo, hi = v0.min(0), v0.max(0)
-    o = rng.uniform(lo, hi, (RAYS, 3)).astype(np.float32)
-    d = rng.normal(size=(RAYS, 3)).astype(np.float32)
-    d[:RAYS // 16, 1:] = 0.0
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:n // 16, 1:] = 0.0
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t_max = rng.uniform(0.1, 2.0, RAYS).astype(np.float32)
+    t_max = rng.uniform(0.1, 2.0, n).astype(np.float32)
     t_max *= np.float32(np.linalg.norm(hi - lo))
-    t_max[rng.uniform(size=RAYS) < 0.25] = np.float32(qt.T_MIN)
-    skip = rng.integers(-1, 6, RAYS).astype(np.int32)
+    t_max[rng.uniform(size=n) < 0.25] = np.float32(qt.T_MIN)
+    skip = rng.integers(-1, 6, n).astype(np.int32)
     return (torch.from_numpy(o), torch.from_numpy(d),
             torch.from_numpy(t_max), torch.from_numpy(skip))
 
@@ -251,6 +259,12 @@ def _walk(kind, ds, tree, rays, counted=False, counts=None, descent=False):
             for c, got in zip(counts, out[4:], strict=True):
                 c.copy_(got)
         return out[:4]
+    if kind in L5_KINDS:
+        variant, drain_at = L5_KINDS[kind]
+        return l5.closest_v4_plain(
+            o, d, tm, ds.binary_root, ds.pnodes, ds.ptris, variant,
+            counts=counts, drain_at=drain_at,
+            leaf_test=_counted_closest if counted else qt._serial_leaf)
     if kind == "closest8":
         step = qw.oct_step(o, qt._inv_dir(d), tree.meta, tree.nodes)
         leaf = _counted_closest if counted else qt._serial_leaf
@@ -276,8 +290,8 @@ def _walk(kind, ds, tree, rays, counted=False, counts=None, descent=False):
                                counts=counts, leaf_test=leaf),)
 
 
-def _new_counts():
-    return tuple(torch.zeros(RAYS, dtype=torch.int32) for _ in range(2))
+def _new_counts(n=RAYS):
+    return tuple(torch.zeros(n, dtype=torch.int32) for _ in range(2))
 
 
 # --------------------------------------------------------------------------
@@ -336,10 +350,13 @@ def test_absent_children_are_never_hit(name):
 def test_queued_walks_stop_at_leaf_counts(name, kind):
     """Each leaf row tested up to its count: the same results and the same
     step counts ((nit, nleaf); L1's, L2's and L9's (nvisit, nleaf)) of
-    every ray as every slot tested (leafilp: as its ILP leaf)."""
+    every ray as every slot tested (leafilp: as its ILP leaf). L5 walks an
+    odd number of rays, so its last pair is one ray, and some of its pairs
+    have one ray inactive, some both."""
     ds, tree = _bake(name)
-    rays = _rays(ds)
-    c_all, c_counted = _new_counts(), _new_counts()
+    n = RAYS - 1 if kind in L5_KINDS else RAYS
+    rays = _rays(ds, n=n)
+    c_all, c_counted = _new_counts(n), _new_counts(n)
     want = _walk(kind, ds, tree, rays, counts=c_all)
     got = _walk(kind, ds, tree, rays, counted=True, counts=c_counted)
     for g, w in zip(got, want, strict=True):
@@ -348,6 +365,9 @@ def test_queued_walks_stop_at_leaf_counts(name, kind):
         assert torch.equal(g, w)
     live = rays[2] > qt.T_MIN
     assert (c_all[0][~live] == 0).all() and (c_all[0][live] > 0).all()
+    if kind in L5_KINDS:
+        pairs = live[:-1].view(-1, 2).sum(1)
+        assert (pairs == 1).any() and (pairs == 0).any() and live[-1]
     if kind in NOCOND:
         assert int(c_all[1].sum()) == 0 and (want[1] < 0).all()
         return
@@ -419,8 +439,9 @@ def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
     at most CAP; kernel_lab.stack_need for L1 and binary_traverse
     .stack_need for L3 and L9, at most STACK_CAP), and the leaf queue at
     most LQ (L1, L2, L3 and L9 have none: their leaves go on the stack; L4
-    nocond drops its leaves). L4 and L6 are walked without descent, whose
-    stack holds the most: every internal child."""
+    nocond drops its leaves); L5's stacks and queues, one of each a ray,
+    likewise. L4, L5 and L6 are walked without descent, whose stack holds
+    the most: every internal child."""
     ds, tree = _bake(name)
     cap = qw.CAP
     if kind == "closest8":
@@ -429,7 +450,7 @@ def test_stack_and_queue_fit_the_shared_memory(name, kind, monkeypatch):
         need, cap = l1.stack_need(ds, kind[3:]), bt.STACK_CAP
     elif kind in L9_KINDS or kind == "l3":
         need, cap = bt.stack_need(ds), bt.STACK_CAP
-    elif kind in L4_KINDS:
+    elif kind in L4_KINDS or kind in L5_KINDS:
         need = bt.stack_need(ds)
     else:
         need = ds.q_stack_need
@@ -548,6 +569,10 @@ class _FakeLib:
         self.calls.append(("queued2", args))
         return self.rc
 
+    def lab_closest_pair(self, *args):
+        self.calls.append(("pair", args))
+        return self.rc
+
     def _info(self, entry, kernel, need, out):
         self.calls.append((entry, (kernel, need)))
         for i in range(len(qt.LAUNCH_INFO_KEYS)):
@@ -563,9 +588,9 @@ class _FakeLib:
 
 @pytest.fixture
 def fake_lib(monkeypatch):
-    """L1's-L4's and L6's-L9's CUDA wrappers on CPU tensors
-    against a _FakeLib, with the device context and the stream stubbed; the
-    counters the launches got are kept alive in `lib.counters`."""
+    """L1's-L9's CUDA wrappers on CPU tensors against a _FakeLib, with the
+    device context and the stream stubbed; the counters the launches got
+    are kept alive in `lib.counters`."""
     lib = _FakeLib()
     lib.counters = []
     walk_args = qt._walk_args
@@ -582,7 +607,7 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(qt, "_stream", lambda dev: ctypes.c_void_p(0))
     monkeypatch.setattr(qt, "_walk_args", spy)
     monkeypatch.setattr(bt, "_walk_args", spy)
-    for mod in (l2, l6, l7, l8, l1, l9, l3, l4):
+    for mod in (l2, l6, l7, l8, l1, l9, l3, l4, l5):
         mod.reset_launch_counts()
     return lib
 
@@ -595,12 +620,15 @@ L1_RUNS = (("base", None), ("leafilp", None), ("pop2", None),
            ("pop4", None), *(("nored", b) for b in l1.BLOCKS))
 # L4's (variant, drain_at) of the wrapper tests: each variant once.
 L4_RUNS = (("base", 4), ("nocond", 1), ("dblread", 14))
+# L5's (variant, drain_at) of the wrapper tests: each variant once.
+L5_RUNS = (("shared", 4), ("switch", 1))
 
 
 def _launch_all(ds, tree, rays):
     """L7 once, L8 in both orders, L2 in both orders, L6 as L6_RUNS say,
-    L1 as L1_RUNS say, L9 in both orders, L3 once and L4 as L4_RUNS say on
-    the fake library. Returns L3's component-major rows."""
+    L1 as L1_RUNS say, L9 in both orders, L3 once, L4 as L4_RUNS say and
+    L5 as L5_RUNS say on the fake library. Returns L3's component-major
+    rows."""
     o, d, tm, skip = rays
     l7._closest8_cuda(o, d, tm, tree, ds.ptris)
     for ordered in (True, False):
@@ -618,6 +646,8 @@ def _launch_all(ds, tree, rays):
     for variant, drain_at in L4_RUNS:
         l4._closest_v3_cuda(o, d, tm, ds, drain_at,
                             l4._KERNEL_VARIANT[variant])
+    for variant, drain_at in L5_RUNS:
+        l5._closest_v4_cuda(o, d, tm, ds, drain_at, variant == "shared")
     return ptris_cm
 
 
@@ -625,15 +655,16 @@ def _launch_counts():
     return (l7.closest_launches, l8.occlusion_launches,
             l2.closest4_launches, l6.closest_launches, l1.closest_launches,
             l1.closest_ts_launches, l9.occlusion_launches,
-            l3.closest_launches, l4.closest_launches)
+            l3.closest_launches, l4.closest_launches, l5.closest_launches)
 
 
 # The launches of _launch_all, in order: L7, L8 x 2, L2 x 2, then L6, L1,
-# L9, L3 and L4.
+# L9, L3, L4 and L5.
 N_QUAD = 5 + len(L6_RUNS)
 N_L9 = N_QUAD + len(L1_RUNS) + 2  # the end of L9's launches
-N_LAUNCHES = N_L9 + 1 + len(L4_RUNS)
-ZERO_COUNTS = (0,) * 9
+N_L4 = N_L9 + 1 + len(L4_RUNS)  # the end of L4's launches
+N_LAUNCHES = N_L4 + len(L5_RUNS)
+ZERO_COUNTS = (0,) * 10
 
 
 def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
@@ -646,13 +677,14 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
     stack need, then the variant's code and the block; L9 the same with
     bt.stack_need, then its order; L3 the component-major rows with
     ptris's counts and bt.stack_need; L4 as L9, then drain_at and the
-    variant's code. None passes ometa or qmeta; each launch has its own
-    counter and adds one to its kernel's count (L1b's to
-    closest_ts_launches)."""
+    variant's code; L5 as L4, its counter counting pairs, then drain_at
+    and 1 for shared, 0 for switch. None passes ometa or qmeta; each
+    launch has its own counter and adds one to its kernel's count (L1b's
+    to closest_ts_launches)."""
     ds, tree = _bake("atrium4k")
     ptris_cm = _launch_all(ds, tree, _rays(ds))
     assert _launch_counts() == (1, 2, 2, len(L6_RUNS), 4, len(l1.BLOCKS), 2,
-                                1, len(L4_RUNS))
+                                1, len(L4_RUNS), len(L5_RUNS))
     ptrs = [c.data_ptr() for c in fake_lib.counters]
     assert len(set(ptrs)) == N_LAUNCHES
     counts = qt.ptris_leaf_counts(ds.ptris).data_ptr()
@@ -712,13 +744,20 @@ def test_each_launch_passes_the_rows_counts_need_and_its_own_counter(
     assert (a[9], a[10].value) == (bt.stack_need(ds), ptrs[N_L9])
     assert len(a) == 11 + 4 + 1 and a[-1].value is None
     for (kind, a), (variant, drain_at), ptr in zip(
-            fake_lib.calls[N_L9 + 1:], L4_RUNS, ptrs[N_L9 + 1:],
+            fake_lib.calls[N_L9 + 1:N_L4], L4_RUNS, ptrs[N_L9 + 1:N_L4],
             strict=True):
         assert kind == "queued2" and a[3] == RAYS
         assert (a[4], *(x.value for x in a[5:8]), a[8]) == binary
         assert (a[9], a[10].value) == (bt.stack_need(ds), ptr)
         assert a[11:13] == (drain_at, l4._KERNEL_VARIANT[variant])
         assert len(a) == 13 + 6 + 1 and a[-1].value is None
+    for (kind, a), (variant, drain_at), ptr in zip(
+            fake_lib.calls[N_L4:], L5_RUNS, ptrs[N_L4:], strict=True):
+        assert kind == "pair" and a[3] == RAYS
+        assert (a[4], *(x.value for x in a[5:8]), a[8]) == binary
+        assert (a[9], a[10].value) == (bt.stack_need(ds), ptr)
+        assert a[11:13] == (drain_at, int(variant == "shared"))
+        assert len(a) == 13 + 4 + 1 and a[-1].value is None
     assert l1.stack_need(ds, "pop4") == 4 * bt.stack_need(ds)
     sent = {a.value for _, args in fake_lib.calls for a in args
             if isinstance(a, ctypes.c_void_p)}
@@ -752,6 +791,9 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
         with pytest.raises(RuntimeError, match="lab_closest_queued launch"):
             l4._closest_v3_cuda(o, d, tm, ds, drain_at,
                                 l4._KERNEL_VARIANT[variant])
+    for variant, drain_at in L5_RUNS:
+        with pytest.raises(RuntimeError, match="lab_closest_pair launch"):
+            l5._closest_v4_cuda(o, d, tm, ds, drain_at, variant == "shared")
     assert _launch_counts() == ZERO_COUNTS
     assert len(fake_lib.calls) == N_LAUNCHES
 
@@ -759,9 +801,9 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
 @pytest.mark.parametrize("need", [0, qw.CAP + 1, bt.STACK_CAP + 1])
 def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
     """A stack need outside 1..CAP raises before the library is called, in
-    the CUDA wrappers and in the public entry points (L4's: the binary
-    tree's depth + 2); for L1, L3 and L9 one outside 1..STACK_CAP (the
-    tree's depth + 2, times npop for pop2 and pop4)."""
+    the CUDA wrappers and in the public entry points (L4's and L5's: the
+    binary tree's depth + 2); for L1, L3 and L9 one outside 1..STACK_CAP
+    (the tree's depth + 2, times npop for pop2 and pop4)."""
     ds, tree = _bake("cornell")
     o, d, tm, skip = _rays(ds)
     deep_tree = tree._replace(stack_need=need)
@@ -822,13 +864,20 @@ def test_wrappers_refuse_a_stack_need_outside_the_cap(fake_lib, need):
         if need > qw.CAP:
             with pytest.raises(ValueError, match="stack"):
                 l4.run_closest_v3(o, d, tm, deep_binary, drain_at, variant)
+    for variant, drain_at in L5_RUNS:
+        with pytest.raises(ValueError, match="stack need"):
+            l5._closest_v4_cuda(o, d, tm, deep_binary, drain_at,
+                                variant == "shared")
+        if need > qw.CAP:
+            with pytest.raises(ValueError, match="stack"):
+                l5.run_closest_v4(o, d, tm, deep_binary, variant, drain_at)
     assert fake_lib.calls == []
 
 
 def test_wrappers_refuse_more_rays_than_the_counter_takes(fake_lib,
                                                           monkeypatch):
     """More than MAX_RAYS rays raise before the library is called
-    (MAX_RAYS lowered to 100 here)."""
+    (MAX_RAYS lowered to 100 here; L5's pairs, fewer than its rays, too)."""
     ds, tree = _bake("cornell")
     monkeypatch.setattr(qt, "MAX_RAYS", 100)
     with pytest.raises(ValueError, match="rays"):
@@ -854,6 +903,9 @@ def test_wrappers_refuse_more_rays_than_the_counter_takes(fake_lib,
         with pytest.raises(ValueError, match="rays"):
             l4._closest_v3_cuda(o, d, tm, ds, drain_at,
                                 l4._KERNEL_VARIANT[variant])
+    for variant, drain_at in L5_RUNS:
+        with pytest.raises(ValueError, match="rays"):
+            l5._closest_v4_cuda(o, d, tm, ds, drain_at, variant == "shared")
     assert fake_lib.calls == []
 
 
@@ -879,6 +931,9 @@ def test_no_rays_launch_nothing(fake_lib):
         out = l4._closest_v3_cuda(o, d, tm, ds, drain_at,
                                   l4._KERNEL_VARIANT[variant])
         assert [t.shape for t in out] == [(0,)] * 6
+    for variant, drain_at in L5_RUNS:
+        out = l5._closest_v4_cuda(o, d, tm, ds, drain_at, variant == "shared")
+        assert [t.shape for t in out] == [(0,)] * 4
     assert fake_lib.calls == []
     assert _launch_counts() == ZERO_COUNTS
 
@@ -916,6 +971,9 @@ MANGLED = {
     **{qw.l4_kernel(variant):
        f"_ZN12_GLOBAL__N_120binary_queued_kernelILi{code}EEEvPKfS2_S2_ii"
        for code, variant in enumerate(l4.VARIANTS)},
+    **{qw.l5_kernel(variant):
+       f"_ZN12_GLOBAL__N_118pair_queued_kernelILb{shared}EEEvPKfS2_S2_ii"
+       for variant, shared in (("shared", 1), ("switch", 0))},
 }
 # L1's and L9's lab_launch_info indices (after L2's 0 and 1).
 L1_L9_INFO = {"lab_closest_base": 2, "lab_closest_leafilp8": 3,
@@ -931,8 +989,8 @@ def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
     """launch_info asks L2's library (lab_launch_info: 0 ordered, 1 child
     order, then L1 and L9 as L1_L9_INFO says) or the lab2 library
     (lab2_launch_info: 0 L7, 1 L8 ordered, 2 L8 child order, 3 + 2 * leaf
-    kind + descent L6, 9 L3, 10 + variant code L4) for the kernel at the
-    need given, and finds that
+    kind + descent L6, 9 L3, 10 + variant code L4, 13 L5 shared, 14 L5
+    switch) for the kernel at the need given, and finds that
     kernel's spills in its library's -Xptxas=-v log, each template
     instance apart."""
     assert sorted(MANGLED) == sorted(qw.LAUNCH_KERNELS)
@@ -954,7 +1012,9 @@ def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
                for kernel, index in L1_L9_INFO.items()},
             "closest_cm": ("info", 9),
             **{qw.l4_kernel(v): ("info", 10 + code)
-               for code, v in enumerate(l4.VARIANTS)}}
+               for code, v in enumerate(l4.VARIANTS)},
+            qw.l5_kernel("shared"): ("info", 13),
+            qw.l5_kernel("switch"): ("info", 14)}
     for k, kernel in enumerate(MANGLED):
         info = qw.launch_info(kernel, 24, torch.device("cpu"))
         entry, index = want[kernel]
@@ -983,6 +1043,11 @@ def test_launch_info_reads_each_kernels_shape_and_spills(fake_lib,
     assert len(lines) == 10
     assert all(" launch: 1 registers" in line and "blocks of 9 a SM" in line
                for line in lines)
+    # L5's line counts two rays a thread in flight (4 blocks of 9 threads).
+    l5_line = qw.launch_line("L5", qw.l5_kernel("switch"), need, cpu)
+    l4_line = qw.launch_line("L4", qw.l4_kernel("base"), need, cpu)
+    assert "LQ 16, twice" in l5_line and "72 rays in flight" in l5_line
+    assert "LQ 16)" in l4_line and "36 rays in flight" in l4_line
     fake_lib.rc = 1
     with pytest.raises(RuntimeError, match="lab2_launch_info"):
         qw.launch_info("closest8", 24, torch.device("cpu"))
