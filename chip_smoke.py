@@ -98,15 +98,19 @@ Phases (any failure exits non-zero and prints no result line):
      the six JAX chains and the two fused forms). Then every L10/L11
      variant against its plain version at K_CHECK iterations on every ray
      of every size, on the lab's rays and on rays aimed at the sequence's
-     triangles (bit equality); L12's against its plain versions at its K
-     on the ones input and a random one (bit equality; the fused forms
-     within 1 ulp, the differing elements counted); the identities (L11b
-     slice = base and sliceilp = ilp, L10 smem = L11b base, L12 bf16 =
-     bf16_mul on the ones input); the launch shapes of L11a's variants
-     (no local memory and no spills), L11b's and L10's; the SASS
-     instructions of L11a full's and nored's loop an iteration and the
-     issue time they imply at the card size; each variant's bound at the
-     card size.
+     triangles (bit equality), and at the lab size on a table whose
+     triangles' edges are scaled by a power of two, so that dets reach
+     2^126 and L11b's and L10's exact rerun runs; their reciprocal against the
+     division on every float it takes (lab_rcp_check); L12's against its
+     plain versions at its K on the ones input and a random one (bit
+     equality; the fused forms within 1 ulp, the differing elements
+     counted); the identities (L11b slice = base and sliceilp = ilp, L10
+     smem = L11b base: different kernels, L12 bf16 = bf16_mul on the ones
+     input); the launch shapes of every L11a, L11b and L10 kernel (no
+     local memory and no spills); the SASS instructions of the K loop of
+     L11a full and nored, L11b's four and L10's two a visit and the issue
+     time they imply at the card size; each variant's bound at the card
+     size.
  10. The render modes on the 1080p 300k atrium at the bench camera, through
      ProgressiveRenderer, with K1/K2's launch counts set to 0 before and
      read after each part, and each part required to launch them: (a) one
@@ -227,6 +231,7 @@ fixed seeds; nothing is downloaded.
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1776,8 +1781,9 @@ def phase9(device):
     if not all(launches.values()):
         raise RuntimeError(f"a lab kernel was not launched: {launches}")
 
-    # Every variant against its plain version at K_CHECK iterations. The
-    # plain versions of variants that share an instantiation are run once.
+    # Every variant against its plain version at K_CHECK iterations.
+    # Variants that share a plain version (L11b slice and base, sliceilp
+    # and ilp; L10 smem and L11b base) run it once.
     kc = fs.K_CHECK
     t0 = time.perf_counter()
     labs = (
@@ -1822,7 +1828,7 @@ def phase9(device):
                          + (f"{hits} with btri >= 0" if bt is not None else
                             f"{torch.unique(got).numel()} distinct outputs")
                          + f"); plain {ms:.1f} ms")
-    # The identities: one instantiation per pair; L10 smem computes L11b
+    # The identities: two kernels a pair; L10 smem computes L11b
     # base; bf16 = bf16_mul on the ones input (b below half an ulp).
     for label, n in fs.sizes(device, vc.LEAF_LAB_RAYS):
         for rays in ("lab rays", "aimed"):
@@ -1835,11 +1841,13 @@ def phase9(device):
             gate_equal(f"L10 smem vs L11b base {label} {rays}",
                        (outs[("lab_smem", label, rays, "smem")],),
                        (outs[("lab_leaf_visit", label, rays, "base")],))
+    phase9_exact(ds, device, plog)
     gate_equal("L12 bf16 vs bf16_mul on the ones input",
                (chains["bf16"]["out"].view(torch.int16),),
                (chains["bf16_mul"]["out"].view(torch.int16),))
     plog("identities hold: L11b slice = base and sliceilp = ilp at every "
-         "size, L10 smem = L11b base, L12 bf16 = bf16_mul on the ones input")
+         "size, L10 smem = L11b base (each pair two kernels), L12 bf16 = "
+         "bf16_mul on the ones input")
 
     # L12 against its plain version at the full K, on the ones input and
     # on a seeded random one: the six JAX chains bit for bit, the fused
@@ -1869,7 +1877,7 @@ def phase9(device):
                  f"{ms:.1f} ms")
     plog(f"kernels vs plain versions in {time.perf_counter() - t0:.1f} s")
 
-    phase9_visit_shapes(device, runs["lab_visit"], plog)
+    phase9_visit_shapes(device, runs, plog)
 
     # Each variant's bound on its card-size run.
     bounds = {}
@@ -1924,17 +1932,74 @@ def max_sm_clock_mhz():
     return float(proc.stdout.strip().splitlines()[0])
 
 
-def phase9_visit_shapes(device, runs, plog):
-    """The fixed-sequence kernels' launch shapes (lab3_launch_info): L11a's
-    variants must run without local memory and without ptxas spills; L11b's
-    and L10's are logged. Then the SASS instructions of L11a full's and
-    nored's loop an iteration (cuobjdump), and the issue time they imply on
-    the card-size run `runs` (visit_cost_lab.run's): warps x K x
-    instructions over 4 a clock per SM on every SM at the highest SM
-    clock."""
+def phase9_exact(ds, device, plog):
+    """L11b's and L10's reciprocal (rcp_fast, the division's fast path)
+    against the IEEE division on every float it takes, and each of their
+    variants against its plain version at K_CHECK on a table whose
+    triangles reach dets of 2^126 (the first K_CHECK rows, every third
+    triangle's edges scaled by a power of two), on the lab's rays and on
+    aimed rays at the lab size: a thread whose visits meet a det of 2^126
+    or more runs them again with the division (csrc/lab3_traverse.cu:
+    exact_visits)."""
     import torch
 
     from raytracer_tpu_torch.lab import fixed_seq as fs
+    from raytracer_tpu_torch.lab import smem_lab
+    from raytracer_tpu_torch.lab import visit_cost_lab as vc
+
+    checked, differ = fs.rcp_check(device)
+    if checked != fs.RCP_FLOATS or differ:
+        raise RuntimeError(f"lab_rcp_check: {differ} of {checked} floats "
+                           f"differ from the division (want 0 of "
+                           f"{fs.RCP_FLOATS})")
+    plog(f"rcp_fast equals the IEEE division on all {checked} floats with "
+         "|x| in [2^-126, 2^126)")
+    kc = fs.K_CHECK
+    n = vc.LEAF_LAB_RAYS[0]
+    runs = [("lab_leaf_visit", v, vc.run_leaf_visit, vc.leaf_visit_plain)
+            for v in vc.LEAF_VARIANTS]
+    runs += [("lab_smem", v, smem_lab.run_smem, smem_lab.smem_plain)
+             for v in smem_lab.VARIANTS]
+    for rays, (o, d) in (("lab rays", fs.lab_rays_const(n, device)),
+                         ("aimed", aimed_rays(ds.ptris, n, kc, AIMED_SEED,
+                                              device))):
+        # Every third triangle's edges scaled by a power of two 2^e that
+        # takes the median |det| of these rays to about 2^127.
+        huge = ds.ptris[:kc].clone().view(kc, vc.LEAF_SIZE, 12)
+        tri = huge.view(-1, 12)[None]
+        det = (tri[..., 3:6] * torch.linalg.cross(
+            d[:, None, :].expand(-1, tri.shape[1], 3),
+            tri[..., 6:9].expand(n, -1, 3))).sum(-1).abs()
+        e = math.ceil((127 - math.log2(float(det[det > 0].median()))) / 2)
+        huge[:, ::3, 3:9] *= 2.0 ** e
+        huge = huge.view(kc, -1).contiguous()
+        big = int((det.view(n, kc, vc.LEAF_SIZE)[:, :, ::3]
+                   >= 2.0 ** (126 - 2 * e)).sum())
+        if not big:
+            raise RuntimeError(f"phase 9 exact: no det reaches 2^126 on "
+                               f"{rays}")
+        for name, v, launch, plain in runs:
+            gate_equal(f"{name} {v} exact {rays}",
+                       (launch(o, d, huge, v, kc),),
+                       (fs.leaf_out(*plain(o, d, huge, v, kc)),))
+        plog(f"exact rerun on {rays}: every L11b and L10 variant equal to "
+             f"its plain version at k = {kc} on the table with every third "
+             f"triangle's edges scaled by 2^{e} (about {big} of "
+             f"{det.numel()} ray-triangle dets reach 2^126)")
+
+
+def phase9_visit_shapes(device, runs, plog):
+    """The fixed-sequence kernels' launch shapes (lab3_launch_info): every
+    L11a, L11b and L10 kernel must run without local memory and without
+    ptxas spills. Then the SASS instructions of the K loop (cuobjdump;
+    visit_cost_lab.loop_body) of L11a full and nored an iteration and of
+    L11b's and L10's kernels a visit, and the issue time they imply on the
+    card-size runs `runs` (phase 9's): warps x K x instructions over 4 a
+    clock per SM on every SM at the highest SM clock."""
+    import torch
+
+    from raytracer_tpu_torch.lab import fixed_seq as fs
+    from raytracer_tpu_torch.lab import smem_lab
     from raytracer_tpu_torch.lab import visit_cost_lab as vc
     from raytracer_tpu_torch.lab.quad_variant_lab import library_sass
     from raytracer_tpu_torch.ops import _build
@@ -1942,26 +2007,32 @@ def phase9_visit_shapes(device, runs, plog):
     for index in range(len(fs.LAUNCH_KERNELS)):
         plog(fs.launch_line(index, device))
         i = fs.launch_info(index, device)
-        if index < len(vc.VISIT_VARIANTS) and (
-                i["local_bytes"] or i["spills"] not in ((0, 0), ("?", "?"))):
+        if i["local_bytes"] or i["spills"] not in ((0, 0), ("?", "?")):
             raise RuntimeError(f"{fs.LAUNCH_KERNELS[index][0]}: "
                                f"{i['local_bytes']} B of local memory a "
                                f"thread, spills {i['spills']}")
     sass = library_sass(_build.build_info["liblab3_traverse"]["path"])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     mhz = max_sm_clock_mhz()
-    for v in ("full", "nored"):
-        name = fs.LAUNCH_KERNELS[vc.VISIT_VARIANTS.index(v)][1]
+    for lab, v, label, unit in (
+            *(("lab_visit", v, f"L11a {v}", "iteration")
+              for v in ("full", "nored")),
+            *(("lab_leaf_visit", v, f"L11b {v}", "visit")
+              for v in vc.LEAF_VARIANTS),
+            *(("lab_smem", v, f"L10 {v}", "visit")
+              for v in smem_lab.VARIANTS)):
+        name = fs.LAUNCH_KERNELS[fs.launch_index(label)][1]
         loop = len(vc.loop_body(sass, name))
-        r = runs[("card", v)]
+        r = runs[lab][("card", v)]
         warps = r["rays"] // fs.WARP
         issue_ms = warps * r["k"] * loop / (4 * sms * mhz * 1e6) * 1e3
-        plog(f"issue L11a {v}: {loop} SASS instructions an iteration; "
-             f"{warps} warps x k = {r['k']} at 4 instructions a clock per SM "
-             f"on {sms} SMs at {mhz:.0f} MHz: {issue_ms:.3f} ms, "
+        article = "an" if unit[0] in "aeiou" else "a"
+        plog(f"issue {label}: {loop} SASS instructions {article} {unit}; "
+             f"{warps} warps x k = {r['k']} at 4 instructions a clock per "
+             f"SM on {sms} SMs at {mhz:.0f} MHz: {issue_ms:.3f} ms, "
              f"{100 * issue_ms / r['ms']:.1f}% of the card run's "
              f"{r['ms']:.3f} ms; {1e9 * issue_ms / (r['rays'] * r['k']):.3f}"
-             f" ps a ray-iteration against {r['ns_per_ray_iter'] * 1e3:.3f}")
+             f" ps a ray-{unit} against {r['ns_per_ray_iter'] * 1e3:.3f}")
 
 
 CORNELL_JSON = {

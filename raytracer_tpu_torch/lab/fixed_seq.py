@@ -146,8 +146,8 @@ def check_inputs(origin, direction, rows, width, variant, variants):
 
 def launch(entry, origin, direction, rows, k, variant_code, cycles):
     """Launch csrc/lab3_traverse.cu's `entry` (lab_visit, lab_leaf_visit or
-    lab_smem) on rays f32[N,3] over `rows` for k iterations; returns its
-    output i32[N]."""
+    lab_smem) on rays f32[N,3] over `rows` for k iterations with the
+    kernel's `variant_code`; returns its output i32[N]."""
     from raytracer_tpu_torch.ops import _build
 
     n, dev = origin.shape[0], origin.device
@@ -167,16 +167,26 @@ def launch(entry, origin, direction, rows, k, variant_code, cycles):
 
 
 # lab3_launch_info's kernels by index: L11a's variants in lab_visit's
-# order (visit_cost_lab.VISIT_VARIANTS), L11b's serial and ILP leaf, L10's
-# smem and transp; each (label, its mangled name's distinctive part).
+# order (visit_cost_lab.VISIT_VARIANTS), L11b's in lab_leaf_visit's
+# (LEAF_VARIANTS: base and ilp on direct loads, slice and sliceilp on a
+# warp's ring in shared memory), L10's smem and transp (one kernel on the
+# block's staged ring); each (label, its mangled name's distinctive part).
 LAUNCH_KERNELS = (
     *((f"L11a {v}", f"visit_kernelILi{i}E") for i, v in enumerate(
         ("full", "nored", "noslab", "extracts", "rowonly", "empty"))),
-    ("L11b serial", "leaf_visit_kernelILb0E"),
+    ("L11b base", "leaf_visit_kernelILb0E"),
     ("L11b ilp", "leaf_visit_kernelILb1E"),
-    ("L10 smem", "smem_kernel"), ("L10 transp", "transp_kernel"))
+    ("L11b slice", "slice_visit_kernelILb0E"),
+    ("L11b sliceilp", "slice_visit_kernelILb1E"),
+    ("L10 smem", "staged_kernelILb0E"), ("L10 transp", "staged_kernelILb1E"))
 LAUNCH_INFO_KEYS = ("registers", "local_bytes", "static_smem_bytes",
                     "blocks_per_sm", "threads")
+
+
+def launch_index(label):
+    """The index in LAUNCH_KERNELS (and lab3_launch_info) of the kernel
+    labelled `label` ("L11b base", "L10 smem", ...)."""
+    return [name for name, _ in LAUNCH_KERNELS].index(label)
 
 
 def launch_info(index, device):
@@ -216,3 +226,24 @@ def line(label, variant, r, unit):
     return (f"{label:8s} {variant:9s} {r['rays']:7d} rays: {r['ms']:10.3f} "
             f"ms  {r['cycles_per_iter']:8.1f} cyc/{unit}  "
             f"{r['ns_per_ray_iter']:.6f} ns/ray-{unit}")
+
+
+# The floats whose reciprocal the leaf labs take by rcp_fast: |x| in
+# [2^-126, 2^126), both signs (exponent fields 1-252).
+RCP_FLOATS = 2 * 252 * 2 ** 23
+
+
+def rcp_check(device):
+    """csrc/lab3_traverse.cu:lab_rcp_check on `device`: (floats checked,
+    floats where the leaf labs' reciprocal differs from the IEEE
+    division). The first must be RCP_FLOATS, the second 0."""
+    from raytracer_tpu_torch.ops import _build
+
+    counts = torch.zeros((2,), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = _build.lab3_traverse_lib().lab_rcp_check(_ptr(counts),
+                                                      _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"lab_rcp_check launch failed: cudaError {rc}")
+    checked, differ = counts.tolist()
+    return checked, differ

@@ -9,17 +9,20 @@ sequence (lab/fixed_seq.py) for K_SMEM = 65,536 leaf visits from best t
 1e4 and best triangle -1; prints, at the JAX lab's size (one 8x128 tile,
 1024 rays) and at the card size, each variant's clock64() cycles per leaf
 visit, its time (CUDA events) and ns per ray-visit, beside the card's SM
-clock.
+clock, after each variant's launch shape.
 
-  smem    each visit, 24 threads of a block copy the row's 24 float4 into
-          shared memory (the TPU kernel's DMA into SMEM), a barrier, the 8
-          serial tests read it (a broadcast), a barrier. Per ray it
-          computes what L11b `base` computes (lab/visit_cost_lab.py), from
-          shared memory instead of direct float4 loads.
-  transp  the row read column-wise, as the TPU kernel reads it
-          (col[8c:8c+8] is component c of triangles 0-7), the 8 tests
-          against the entry best t, the least t and the TPU kernel's
-          largest-index reduction: cm_leaf of csrc/traverse_common.cuh.
+  smem    the TPU kernel's DMA of the row into SMEM as Hopper's bulk
+          copy: one thread a block copies each 384-byte row into a ring
+          of row stages in shared memory, rows ahead, each stage with a
+          full and an empty mbarrier (no block barrier a visit); the 8
+          serial tests read the row as broadcasts. Per ray it computes
+          what L11b `base` computes (lab/visit_cost_lab.py), from shared
+          memory instead of direct float4 loads.
+  transp  the row read column-wise from the same ring, as the TPU kernel
+          reads it (col[8c:8c+8] is component c of triangles 0-7), the 8
+          tests against the entry best t, the least t and the TPU
+          kernel's largest-index reduction: cm_leaf's (csrc/
+          traverse_common.cuh).
           The JAX lab feeds it the triangle-major bake, so its "triangles"
           are mixed components and its indices truncated coordinates: the
           output is deterministic and reproduced here, but it is not a
@@ -60,16 +63,21 @@ def reset_launch_counts():
 def run_smem(origin, direction, ptris, variant, k=fs.K_SMEM, cycles=None):
     """L10: `k` visits of the fixed leaf sequence over ptris f32[NB,96]
     (leaf 8) by rays f32[N,3]. Returns btri + int(bt) i32[N]."""
-    global smem_launches
     fs.check_inputs(origin, direction, ptris, LEAF_SIZE * 12, variant,
                     VARIANTS)
     fs.check_k(k)
     if origin.is_cuda:
-        out = fs.launch("lab_smem", origin, direction, ptris, k,
-                        VARIANTS.index(variant), cycles)
-        smem_launches += 1
-        return out
+        return _smem_cuda(origin, direction, ptris, variant, k, cycles)
     return fs.leaf_out(*smem_plain(origin, direction, ptris, variant, k))
+
+
+def _smem_cuda(origin, direction, ptris, variant, k, cycles):
+    """lab_smem with the variant's code, its index in VARIANTS."""
+    global smem_launches
+    out = fs.launch("lab_smem", origin, direction, ptris, k,
+                    VARIANTS.index(variant), cycles)
+    smem_launches += 1
+    return out
 
 
 def smem_plain(origin, direction, ptris, variant, k):
@@ -90,7 +98,12 @@ def smem_plain(origin, direction, ptris, variant, k):
 
 def run(scene, reps=fs.REPS, log=print, k=fs.K_SMEM):
     """Both variants at the lab size and at the card size, on the lab's
-    rays. Returns {(size label, variant): fixed_seq.timed's dict}."""
+    rays. Returns {(size label, variant): fixed_seq.timed's dict}. On the
+    card it first prints each variant's launch shape."""
+    if scene.ptris.is_cuda:
+        for v in VARIANTS:
+            log(fs.launch_line(fs.launch_index(f"L10 {v}"),
+                               scene.ptris.device))
     results = {}
     for label, n in fs.sizes(scene.device, LAB_RAYS):
         o, d = fs.lab_rays_const(n, scene.device)

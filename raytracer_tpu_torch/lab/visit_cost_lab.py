@@ -9,7 +9,8 @@ Bakes the atrium with leaf 8 (as the JAX lab) and walks a fixed sequence
 so each variant does the same number of visits whatever the scene. For
 each variant, at the lab size and at the card size, prints the kernel's
 clock64() cycles per iteration, its time (CUDA events) and ns per
-ray-iteration, beside the card's SM clock.
+ray-iteration, beside the card's SM clock; on the card it first prints
+each variant's launch shape.
 
 L11a (`run_visit`), K_VISIT = 262,144 internal-node visits over pnodes,
 one component ablated at a time (csrc/lab3_traverse.cu:visit_kernel):
@@ -28,18 +29,22 @@ the TPU kernel's output. A minimum is one redux.sync of the values'
 uint32 bit patterns, which order as the floats do because every value
 reduced is positive (minimum_inputs gives them); the rows are copied 4
 rows ahead of the tests (cp.async into a ring of rows in shared memory,
-one a warp), so no iteration waits on its row's load. On the card the
-lab first prints each variant's launch shape.
+one a warp), so no iteration waits on its row's load.
 
 L11b (`run_leaf_visit`), K_LEAF = 32,768 leaf visits of 8 Moller-Trumbore
 tests over ptris, from best t 1e4 and best triangle -1, at the JAX lab's
 tile heights 8 and 32 (1024 and 4096 rays):
-  base      the serial leaf (closest_leaf)
-  ilp       all 8 against the entry best t, then the min tree (ilp_leaf)
-  slice     base with the TPU's two-step lane broadcast of each scalar
+  base      the serial leaf (closest_leaf's tests), the row read from
+            global memory, each row's sectors touched into L1 4 visits
+            ahead
+  ilp       all 8 against the entry best t, then the min tree (ilp_leaf's)
+  slice     base on the row as a slice (the TPU's row broadcast): a
+            warp's ring of rows in shared memory, filled by cp.async rows
+            ahead, read as broadcasts (csrc/lab3_traverse.cu:
+            slice_visit_kernel)
   sliceilp  ilp likewise
-One thread per ray has no lanes to broadcast to: `slice` runs `base`'s
-instantiation and `sliceilp` runs `ilp`'s.
+`slice` computes what `base` computes and `sliceilp` what `ilp` does, by
+other kernels.
 
 Outputs, per ray, are the TPU kernels' int32: L11a the accumulator, L11b
 btri + int(bt) (acc[:8] + bt[:8].astype(int32) for rows 0-7), wrapping
@@ -71,6 +76,7 @@ from raytracer_tpu_torch.ops.quad_traverse import (
 LEAF_SIZE = 8
 VISIT_VARIANTS = ("full", "nored", "noslab", "extracts", "rowonly", "empty")
 LEAF_VARIANTS = ("base", "ilp", "slice", "sliceilp")
+# Whether a variant computes the ILP leaf (its plain version's leaf).
 LEAF_ILP = {"base": 0, "slice": 0, "ilp": 1, "sliceilp": 1}
 VISIT_LAB_RAYS = (fs.TILE_S * fs.TILE_L,)  # one 32x128 tile
 LEAF_LAB_RAYS = (8 * fs.TILE_L, fs.TILE_S * fs.TILE_L)  # tile heights 8, 32
@@ -111,16 +117,22 @@ def run_leaf_visit(origin, direction, ptris, variant, k=fs.K_LEAF,
                    cycles=None):
     """L11b: `k` visits of the fixed leaf sequence over ptris f32[NB,96]
     (leaf 8) by rays f32[N,3]. Returns btri + int(bt) i32[N]."""
-    global leaf_visit_launches
     fs.check_inputs(origin, direction, ptris, LEAF_SIZE * 12, variant,
                     LEAF_VARIANTS)
     fs.check_k(k)
     if origin.is_cuda:
-        out = fs.launch("lab_leaf_visit", origin, direction, ptris, k,
-                      LEAF_ILP[variant], cycles)
-        leaf_visit_launches += 1
-        return out
+        return _leaf_visit_cuda(origin, direction, ptris, variant, k, cycles)
     return fs.leaf_out(*leaf_visit_plain(origin, direction, ptris, variant, k))
+
+
+def _leaf_visit_cuda(origin, direction, ptris, variant, k, cycles):
+    """lab_leaf_visit with the variant's code, its index in LEAF_VARIANTS
+    (each variant its own kernel)."""
+    global leaf_visit_launches
+    out = fs.launch("lab_leaf_visit", origin, direction, ptris, k,
+                    LEAF_VARIANTS.index(variant), cycles)
+    leaf_visit_launches += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -230,10 +242,12 @@ def leaf_visit_plain(origin, direction, ptris, variant, k):
 
 
 def loop_body(sass, kernel):
-    """The instructions (their text) of the longest loop of the function
-    whose name contains `kernel` in `sass` (cuobjdump -sass output): from a
-    backward branch's target to the branch, both included: L11a's K loop,
-    one iteration."""
+    """The instructions (their text) of the longest loop that makes no call
+    of the function whose name contains `kernel` in `sass` (cuobjdump -sass
+    output): from a backward branch's target to the branch, both included.
+    That is one iteration of L11a's K loop, and of L11b's and L10's on the
+    fast path (their exact rerun, a loop that calls the division's slow
+    path, is not it)."""
     ins, labels, pending, inside = [], {}, [], False
     for text in sass.splitlines():
         if "Function :" in text:
@@ -260,7 +274,8 @@ def loop_body(sass, kernel):
             continue
         target = labels[m.group(1)] if m.group(1) else int(m.group(2), 16)
         body = [text for a, text in ins if target <= a <= addr]
-        if target <= addr and len(body) > len(longest):
+        calls = any(re.match(r"(@!?U?P\w+\s+)?CALL\b", t) for t in body)
+        if target <= addr and not calls and len(body) > len(longest):
             longest = body
     return longest
 
@@ -289,7 +304,12 @@ def run(scene, reps=fs.REPS, log=print, k=fs.K_VISIT):
 
 def run_leaf(scene, reps=fs.REPS, log=print, k=fs.K_LEAF):
     """L11b: every variant at both lab sizes and at the card size, on the
-    lab's rays. Returns {(size label, variant): fixed_seq.timed's dict}."""
+    lab's rays. Returns {(size label, variant): fixed_seq.timed's dict}.
+    On the card it first prints each variant's launch shape."""
+    if scene.ptris.is_cuda:
+        for v in LEAF_VARIANTS:
+            log(fs.launch_line(fs.launch_index(f"L11b {v}"),
+                               scene.ptris.device))
     results = {}
     for label, n in fs.sizes(scene.device, LEAF_LAB_RAYS):
         o, d = fs.lab_rays_const(n, scene.device)

@@ -224,12 +224,12 @@ def lab2_traverse_lib() -> ctypes.CDLL:
 
 
 def lab3_traverse_lib() -> ctypes.CDLL:
-    """The fixed-sequence labs' kernels, L11a, L11b and L10
-    (csrc/lab3_traverse.cu)."""
+    """The fixed-sequence labs' kernels, L11a, L11b and L10, and the check
+    of their reciprocal (csrc/lab3_traverse.cu)."""
     row = [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P, _P]
     return _cuda_lib("lab3_traverse", {
         "lab_visit": row, "lab_leaf_visit": row, "lab_smem": row,
-        "lab3_launch_info": [_I32, _P],
+        "lab_rcp_check": [_P, _P], "lab3_launch_info": [_I32, _P],
     })
 
 

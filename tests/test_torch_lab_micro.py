@@ -28,6 +28,7 @@ kernels to those on the card. Every output is compared bit for bit.
 """
 
 import contextlib
+import ctypes
 import functools
 import re
 
@@ -244,19 +245,160 @@ def test_loop_body_is_the_longest_loop():
     assert vc.loop_body(sass, "visit_kernelILi2E") == []
 
 
+def test_loop_body_skips_loops_that_call():
+    """L11b's and L10's kernels end in a rerun of their visits with the
+    IEEE division, a longer loop that calls the division's slow path:
+    loop_body takes the K loop, the longest loop that makes no call."""
+    sass = """
+        Function : _ZN12_GLOBAL__N_117leaf_visit_kernelILb0EEEvPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;  /* 0x0 */
+        /*0010*/                   FMUL R2, R3, R4 ;  /* 0x0 */
+        /*0020*/                   MUFU.RCP R5, R2 ;  /* 0x0 */
+        /*0030*/               @P0 BRA 0x10 ;  /* 0x0 */
+        /*0040*/                   FADD R2, R3, R4 ;  /* 0x0 */
+        /*0050*/                   FMUL R2, R3, R4 ;  /* 0x0 */
+        /*0060*/               @P1 CALL.REL.NOINC 0x100 ;  /* 0x0 */
+        /*0070*/                   FADD R2, R3, R4 ;  /* 0x0 */
+        /*0080*/               @P0 BRA 0x40 ;  /* 0x0 */
+        /*0090*/                   EXIT ;  /* 0x0 */
+"""
+    body = vc.loop_body(sass, "leaf_visit_kernelILb0E")
+    assert body == ["FMUL R2, R3, R4", "MUFU.RCP R5, R2", "@P0 BRA 0x10"]
+
+
+def _lab3_source():
+    with open(f"{_build.CSRC_DIR}/lab3_traverse.cu") as f:
+        return f.read()
+
+
+def _mangled(kernel):
+    """The distinctive part of a kernel's mangled name from its source
+    spelling: visit_kernel<kVFull, ...> -> visit_kernelILi0E,
+    leaf_visit_kernel<true> -> leaf_visit_kernelILb1E."""
+    name, _, args = kernel.partition("<")
+    first = args.split(",")[0].strip(" >")
+    if first in ("true", "false"):
+        return f"{name}ILb{int(first == 'true')}E"
+    enum = ("kVFull", "kVNored", "kVNoslab", "kVExtracts", "kVRowonly",
+            "kVEmpty")
+    return f"{name}ILi{enum.index(first)}E"
+
+
 def test_launch_kernels_follow_lab3_launch_info():
     """fixed_seq.LAUNCH_KERNELS lists csrc/lab3_traverse.cu's
     lab3_launch_info table in order: L11a's variants in lab_visit's order,
-    L11b's serial and ILP leaf, L10's smem and transp."""
-    with open(f"{_build.CSRC_DIR}/lab3_traverse.cu") as f:
-        src = f.read()
-    table = src[src.index("lab3_launch_info"):]
-    names = re.findall(r"reinterpret_cast<const void\*>\((\w+)", table)
-    assert [label for label, _ in fs.LAUNCH_KERNELS[:6]] == [
-        f"L11a {v}" for v in vc.VISIT_VARIANTS]
-    assert len(names) == len(fs.LAUNCH_KERNELS) == 10
-    for kernel, (_, mangled) in zip(names, fs.LAUNCH_KERNELS):
-        assert mangled.startswith(kernel)
+    L11b's in lab_leaf_visit's (visit_cost_lab.LEAF_VARIANTS: base, ilp,
+    slice, sliceilp), L10's smem and transp (smem_lab.VARIANTS), each its
+    own template instance."""
+    src = _lab3_source()
+    table = src[src.index("extern \"C\" int lab3_launch_info"):]
+    names = re.findall(r"reinterpret_cast<const void\*>\(([\w<>, ]+)\)",
+                       table)
+    assert [label for label, _ in fs.LAUNCH_KERNELS] == [
+        *(f"L11a {v}" for v in vc.VISIT_VARIANTS),
+        *(f"L11b {v}" for v in vc.LEAF_VARIANTS),
+        *(f"L10 {v}" for v in smem_lab.VARIANTS)]
+    assert len(names) == len(fs.LAUNCH_KERNELS) == 12
+    assert [_mangled(k) for k in names] == [m for _, m in fs.LAUNCH_KERNELS]
+    assert len(set(names)) == len(names)
+    for label, _ in fs.LAUNCH_KERNELS:
+        assert fs.LAUNCH_KERNELS[fs.launch_index(label)][0] == label
+
+
+@pytest.mark.parametrize("entry,variants,base", [
+    ("lab_leaf_visit", vc.LEAF_VARIANTS, 6),
+    ("lab_smem", smem_lab.VARIANTS, 10)])
+def test_launch_codes_follow_the_launch_table(entry, variants, base):
+    """Each entry point launches, for variant code c (the variant's index
+    in its lab's variants), the kernel at lab3_launch_info's index base +
+    c: the launch table, the entry points and LAUNCH_KERNELS agree."""
+    src = _lab3_source()
+    body = src[src.index(f"extern \"C\" int {entry}("):]
+    body = body[:body.index("\n}\n")]
+    launched = re.findall(r"((?:leaf_visit|slice_visit|staged)_kernel<\w+>)",
+                          body)
+    if entry == "lab_smem":  # if (transp) <true> else <false>
+        launched = launched[::-1]
+    assert [_mangled(k) for k in launched] == [
+        fs.LAUNCH_KERNELS[base + c][1] for c in range(len(variants))]
+
+
+class _LaunchLib:
+    """A stand-in for the lab3 library's launches: records (entry, variant
+    code) and returns `rc`; lab_rcp_check writes `counts`."""
+
+    def __init__(self):
+        self.rc = 0
+        self.calls = []
+        self.counts = (fs.RCP_FLOATS, 0)
+
+    def _launch(self, entry, args):
+        self.calls.append((entry, args[6]))
+        return self.rc
+
+    def lab_leaf_visit(self, *args):
+        return self._launch("lab_leaf_visit", args)
+
+    def lab_smem(self, *args):
+        return self._launch("lab_smem", args)
+
+    def lab_rcp_check(self, counts, stream):
+        out = ctypes.cast(counts, ctypes.POINTER(ctypes.c_int64))
+        out[0], out[1] = self.counts
+        return self.rc
+
+
+@pytest.fixture
+def launch_lib(monkeypatch):
+    lib = _LaunchLib()
+    monkeypatch.setattr(_build, "lab3_traverse_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(fs, "_stream", lambda dev: ctypes.c_void_p(0))
+    for mod in (vc, smem_lab):
+        mod.reset_launch_counts()
+    return lib
+
+
+@pytest.mark.parametrize("lab", ["L11b", "L10"])
+def test_wrappers_pass_a_code_for_each_variant(lab, scene, launch_lib):
+    """The CUDA wrappers of L11b and L10 pass each variant its own code,
+    its index in the lab's variants (lab_leaf_visit: 0 base, 1 ilp, 2
+    slice, 3 sliceilp; lab_smem: 0 smem, 1 transp), and count one launch
+    each; a failed launch raises and is not counted."""
+    _, ps = scene
+    o, d = (_t(a) for a in _const(64))
+    if lab == "L11b":
+        entry, variants, wrap = ("lab_leaf_visit", vc.LEAF_VARIANTS,
+                                 vc._leaf_visit_cuda)
+        count = lambda: vc.leaf_visit_launches  # noqa: E731
+    else:
+        entry, variants, wrap = "lab_smem", smem_lab.VARIANTS, \
+            smem_lab._smem_cuda
+        count = lambda: smem_lab.smem_launches  # noqa: E731
+    for v in variants:
+        out = wrap(o, d, ps.ptris, v, 4, None)
+        assert out.shape == (64,) and out.dtype == torch.int32
+    assert launch_lib.calls == [(entry, c) for c in range(len(variants))]
+    assert count() == len(variants)
+    launch_lib.rc = 2
+    with pytest.raises(RuntimeError, match=entry):
+        wrap(o, d, ps.ptris, variants[0], 4, None)
+    assert count() == len(variants)
+
+
+def test_rcp_check_reads_both_counts(launch_lib):
+    """fixed_seq.rcp_check returns lab_rcp_check's two counts, the floats
+    checked (RCP_FLOATS: both signs of exponent fields 1-252) and those
+    that differ, and raises on a failed launch."""
+    cpu = torch.device("cpu")
+    assert fs.RCP_FLOATS == 2 * (252 - 1 + 1) * 2 ** 23
+    assert fs.rcp_check(cpu) == (fs.RCP_FLOATS, 0)
+    launch_lib.counts = (7, 3)
+    assert fs.rcp_check(cpu) == (7, 3)
+    launch_lib.rc = 1
+    with pytest.raises(RuntimeError, match="lab_rcp_check"):
+        fs.rcp_check(cpu)
 
 
 def test_lab3_launch_info_reads_each_kernels_shape_and_spills(monkeypatch):
