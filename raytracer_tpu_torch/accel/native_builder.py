@@ -53,10 +53,13 @@ def _load() -> Optional[ctypes.CDLL]:
     if _load_attempted:
         return _lib
     _load_attempted = True
-    path = _compile()
-    if path is None:
+    from raytracer_tpu_torch.ops._build import library_load
+
+    with library_load("libbvh"):
+        path = _compile()
+        lib = None if path is None else ctypes.CDLL(path)
+    if lib is None:
         return None
-    lib = ctypes.CDLL(path)
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     lib.bvh_build.argtypes = [

@@ -29,7 +29,10 @@ global pixel ids, so the image is bit-identical to a single-device
 render. image(), aovs(), preview_image() and save_checkpoint() gather the
 tiles (rank 0 writes the checkpoint); every rank must call them together.
 `timer` (utils/profiling.py PhaseTimer, off by default) times each rank's
-tile render, ReSTIR halo exchange and image gather.
+tile render, ReSTIR halo exchange and image gather; one made with
+`record=True` is also the active tracer of `step()` and `begin_frame()`,
+and keeps the program's spans and counters (`rt.step` and the spans under
+it) until its `export()`.
 
 As in the JAX package, accel="cuda" falls back to accel="bvh" (the binary
 tree's kernels), with a logged warning, for a t_min other than 1e-3 and for
@@ -80,6 +83,7 @@ from raytracer_tpu_torch.scene.device_scene import (
     update_materials,
 )
 from raytracer_tpu_torch.scene.model import Scene, SceneChangeType
+from raytracer_tpu_torch.utils import profiling
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 log = logging.getLogger(__name__)
@@ -150,7 +154,7 @@ class ProgressiveRenderer:
         # This rank's pixels [pixel_start, pixel_start + rows): every pixel
         # on one device.
         self._pixel_start, self._rows = 0, self.config.num_pixels
-        self.timer = None  # utils/profiling.PhaseTimer: per-rank spans
+        self.timer = None  # utils/profiling.PhaseTimer: phases and spans
         if mesh is not None:
             self._init_mesh()
         self._install(*bake_scene(self.scene, **self._bake_kwargs()))
@@ -359,16 +363,17 @@ class ProgressiveRenderer:
         return True
 
     def begin_frame(self):
-        scene_changed = self._replay_changes()
-        if scene_changed or self.camera.dirty:
-            self.reset_accumulation()
-        if scene_changed:
-            # Edits can move geometry or change albedo.
-            self._drop_gbuffers()
-        if self.camera.dirty or self._camera_ubo_dev is None:
-            self._refresh_camera_ubo()
-            self.camera.clear_dirty()
-            self._drop_gbuffers()
+        with profiling.activated(self.timer):
+            scene_changed = self._replay_changes()
+            if scene_changed or self.camera.dirty:
+                self.reset_accumulation()
+            if scene_changed:
+                # Edits can move geometry or change albedo.
+                self._drop_gbuffers()
+            if self.camera.dirty or self._camera_ubo_dev is None:
+                self._refresh_camera_ubo()
+                self.camera.clear_dirty()
+                self._drop_gbuffers()
 
     def _drop_gbuffers(self):
         self._gbuffers = {}
@@ -412,29 +417,34 @@ class ProgressiveRenderer:
         """One progressive step: cfg.spp_batch samples (default 1) in one
         launch. Returns False when the accumulation limit has been reached
         (frame skipped). `self.frame` counts samples accumulated, not
-        launches."""
-        self.begin_frame()
-        limit = self.config.accumulation_limit
-        if limit is not None and self.frame >= limit:
-            return False
-        if self.mesh is not None:
-            self._step_sharded()
-        elif self.adaptive is not None:
-            self.adaptive, self.last_stats = render_frame_adaptive(
-                self.device_scene, self._camera_ubo_dev, self.adaptive,
-                self.config, with_stats=True)
-            # self.accum mirrors the image (checkpoints, the denoiser).
-            self.accum = self.adaptive.mean
-        elif self.reservoir is not None:
-            self.accum, self.reservoir, self.last_stats = render_frame_restir(
-                self.device_scene, self._camera_ubo_dev, self.accum,
-                self.reservoir, self.frame, self.config, with_stats=True)
-        else:
-            self.accum, self.last_stats = render_frame(
-                self.device_scene, self._camera_ubo_dev, self.accum,
-                self.frame, self.config, with_stats=True)
-        self.frame += self.config.spp_batch
-        return True
+        launches. The step is the `rt.step` span of its frame, with a
+        recording timer the active tracer."""
+        with profiling.activated(self.timer), profiling.span(
+                "rt.step", frame=self.frame):
+            self.begin_frame()
+            limit = self.config.accumulation_limit
+            if limit is not None and self.frame >= limit:
+                return False
+            if self.mesh is not None:
+                self._step_sharded()
+            elif self.adaptive is not None:
+                self.adaptive, self.last_stats = render_frame_adaptive(
+                    self.device_scene, self._camera_ubo_dev, self.adaptive,
+                    self.config, with_stats=True)
+                # self.accum mirrors the image (checkpoints, the denoiser).
+                self.accum = self.adaptive.mean
+            elif self.reservoir is not None:
+                self.accum, self.reservoir, self.last_stats = (
+                    render_frame_restir(
+                        self.device_scene, self._camera_ubo_dev, self.accum,
+                        self.reservoir, self.frame, self.config,
+                        with_stats=True))
+            else:
+                self.accum, self.last_stats = render_frame(
+                    self.device_scene, self._camera_ubo_dev, self.accum,
+                    self.frame, self.config, with_stats=True)
+            self.frame += self.config.spp_batch
+            return True
 
     def _step_sharded(self):
         """This rank's tile of one step (parallel/sharding.py), timed as

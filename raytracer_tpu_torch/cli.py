@@ -157,7 +157,7 @@ def main(argv=None) -> int:
         stats.frame_begin()
         if not renderer.step():
             break
-        stats.frame_end()
+        stats.frame_end(renderer.last_stats["total_rays"])
         i = renderer.frame - 1  # samples accumulated, 0-based last sample
         if args.verbose or (i + 1) % 16 == 0 or first_launch:
             elapsed = time.perf_counter() - start

@@ -90,7 +90,7 @@ def run(args) -> dict:
         stats.frame_begin()
         r.step()
         r.accum[:1].cpu()  # waits for the frame (a readback)
-        stats.frame_end()
+        stats.frame_end(r.last_stats["total_rays"])
 
     def visible():
         """The editor's visible next frame after an edit."""

@@ -50,7 +50,7 @@ def main(argv=None) -> int:
         for _ in range(n):
             stats.frame_begin()
             r.step()
-            stats.frame_end()
+            stats.frame_end(r.last_stats["total_rays"])
             replays.append(r.last_replay)
         path = f"{args.prefix}_{tag}.png"
         write_image(path, r.image())

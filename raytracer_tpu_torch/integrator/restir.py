@@ -63,8 +63,8 @@ from raytracer_tpu_torch.ops.math3d import (
     normalize,
     world_to_local,
 )
+from raytracer_tpu_torch.utils import profiling
 from raytracer_tpu_torch.utils.config import RenderConfig
-from raytracer_tpu_torch.utils.profiling import sync
 
 _RESTIR_STREAM = 0x9E3779B9
 
@@ -299,213 +299,224 @@ def restir_direct(scene, gbuf: GBuffer, wo_world, prev_reservoir,
     neighbouring ranks' tiles, so the tile is bit-identical to the same
     pixels of a single-device pass whenever the halo, min((radius + 1) *
     width, N) rows, covers the tap radius. `timer` (utils/profiling.py
-    PhaseTimer) times the exchange as its "halo" phase."""
-    n = gbuf.position.shape[0]
-    dev = gbuf.position.device
-    l_used = min(scene.num_lights, cfg.max_lights)
-    if l_used == 0:
-        return (torch.zeros((n, 3), dtype=torch.float32, device=dev),
-                Reservoir.empty(n, dev),
-                torch.zeros((), dtype=torch.int64, device=dev))
+    PhaseTimer) times the exchange as its "halo" phase. The call is the
+    `rt.restir_direct` span."""
+    with profiling.span("rt.restir_direct"):
+        n = gbuf.position.shape[0]
+        dev = gbuf.position.device
+        l_used = min(scene.num_lights, cfg.max_lights)
+        if l_used == 0:
+            return (torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                    Reservoir.empty(n, dev),
+                    torch.zeros((), dtype=torch.int64, device=dev))
 
-    start = int(pixel_start)
-    pixel_idx = torch.arange(start, start + n, dtype=torch.int64,
-                             device=dev)
-    seed = rng.tea(pixel_idx,
-                   wf._lane_frames(frame_number, n, dev) ^ _RESTIR_STREAM)
+        start = int(pixel_start)
+        pixel_idx = torch.arange(start, start + n, dtype=torch.int64,
+                                 device=dev)
+        seed = rng.tea(pixel_idx,
+                       wf._lane_frames(frame_number, n, dev) ^ _RESTIR_STREAM)
 
-    # Light-selection weights (power/dist^2, as the path tracer's NEE).
-    weights = wf._light_weights_base(scene, gbuf.position, cfg)
-    weights = torch.where(
-        scene.light_object[None, :l_used] == gbuf.object[:, None], 0.0,
-        weights)
-    total_w = weights.sum(dim=-1)
-    cdf = torch.cumsum(weights, dim=1)
+        # Light-selection weights (power/dist^2, as the path tracer's NEE).
+        weights = wf._light_weights_base(scene, gbuf.position, cfg)
+        weights = torch.where(
+            scene.light_object[None, :l_used] == gbuf.object[:, None], 0.0,
+            weights)
+        total_w = weights.sum(dim=-1)
+        cdf = torch.cumsum(weights, dim=1)
 
-    # --- 2. initial candidates (RIS) ---
-    res = Reservoir.empty(n, dev)
-    lt_count = scene.light_tri_packed.shape[0]
-    for _ in range(cfg.restir_initial_candidates):
-        r_sel, seed = rng.rnd(seed)
-        r_tri, seed = rng.rnd(seed)
-        r1, seed = rng.rnd(seed)
-        r2, seed = rng.rnd(seed)
-        r_keep, seed = rng.rnd(seed)
-        pick = r_sel * total_w
-        at_or_past = cdf >= pick[:, None]
-        # First column where the CDF reaches the pick (0 when none does).
-        light = at_or_past.to(torch.int32).argmax(dim=1).to(torch.int32)
-        found = at_or_past.any(dim=1) & (total_w > 0.0)
-        sel_c = torch.clamp(light, 0, l_used - 1).long()
-        sel_w = weights.gather(1, sel_c[:, None])[:, 0]
-        # A uniform triangle of the light -> the global light-triangle id
-        # (the sample's identity, with uv the point on it).
-        meta = scene.light_meta_packed[sel_c]
-        num_tris = meta[:, 1].to(torch.int32)
-        tri_local = torch.minimum(
-            (r_tri * num_tris.to(torch.float32)).to(torch.int32),
-            num_tris - 1)
-        tri_global = torch.where(
-            found,
-            torch.clamp(meta[:, 0].to(torch.int32) + tri_local, 0,
-                        lt_count - 1),
-            -1).to(torch.int32)
-        source_pdf = torch.where(
-            found, sel_w / torch.clamp_min(total_w, 1e-20), 0.0)
-        uv = torch.stack([r1, r2], dim=-1)
-        radiance, dist, _pos, _wi, valid = _unshadowed_radiance(
-            scene, gbuf, wo_world, tri_global, uv)
-        target = luminance_rec601(radiance)
-        # RIS weight = p-hat / p_source (the triangle and area pdfs are
-        # folded into the area-measure radiance).
-        cand_weight = torch.where(
-            valid & (source_pdf > 0.0),
-            target / torch.clamp_min(source_pdf, 1e-20), 0.0)
-        res = _reservoir_update(res, tri_global, uv, dist, target,
-                                cand_weight, r_keep)
-    res = _finalize(res)
+        # --- 2. initial candidates (RIS) ---
+        res = Reservoir.empty(n, dev)
+        lt_count = scene.light_tri_packed.shape[0]
+        for _ in range(cfg.restir_initial_candidates):
+            r_sel, seed = rng.rnd(seed)
+            r_tri, seed = rng.rnd(seed)
+            r1, seed = rng.rnd(seed)
+            r2, seed = rng.rnd(seed)
+            r_keep, seed = rng.rnd(seed)
+            pick = r_sel * total_w
+            at_or_past = cdf >= pick[:, None]
+            # First column where the CDF reaches the pick (0 when none does).
+            light = at_or_past.to(torch.int32).argmax(dim=1).to(torch.int32)
+            found = at_or_past.any(dim=1) & (total_w > 0.0)
+            sel_c = torch.clamp(light, 0, l_used - 1).long()
+            sel_w = weights.gather(1, sel_c[:, None])[:, 0]
+            # A uniform triangle of the light -> the global light-triangle id
+            # (the sample's identity, with uv the point on it).
+            meta = scene.light_meta_packed[sel_c]
+            num_tris = meta[:, 1].to(torch.int32)
+            tri_local = torch.minimum(
+                (r_tri * num_tris.to(torch.float32)).to(torch.int32),
+                num_tris - 1)
+            tri_global = torch.where(
+                found,
+                torch.clamp(meta[:, 0].to(torch.int32) + tri_local, 0,
+                            lt_count - 1),
+                -1).to(torch.int32)
+            source_pdf = torch.where(
+                found, sel_w / torch.clamp_min(total_w, 1e-20), 0.0)
+            uv = torch.stack([r1, r2], dim=-1)
+            radiance, dist, _pos, _wi, valid = _unshadowed_radiance(
+                scene, gbuf, wo_world, tri_global, uv)
+            target = luminance_rec601(radiance)
+            # RIS weight = p-hat / p_source (the triangle and area pdfs are
+            # folded into the area-measure radiance).
+            cand_weight = torch.where(
+                valid & (source_pdf > 0.0),
+                target / torch.clamp_min(source_pdf, 1e-20), 0.0)
+            res = _reservoir_update(res, tri_global, uv, dist, target,
+                                    cand_weight, r_keep)
+        res = _finalize(res)
 
-    # --- 3. visibility of the survivor (no RNG draws) ---
-    shadow_rays = torch.zeros((), dtype=torch.int64, device=dev)
-    if cfg.restir_initial_visibility:
-        _, _, lpos, wi, valid = _unshadowed_radiance(
+        # --- 3. visibility of the survivor (no RNG draws) ---
+        shadow_rays = torch.zeros((), dtype=torch.int64, device=dev)
+        if cfg.restir_initial_visibility:
+            _, _, lpos, wi, valid = _unshadowed_radiance(
+                scene, gbuf, wo_world, res.light_index, res.uv)
+            origin, sr_dir, sr_dist, light_obj = _shadow_ray(
+                scene, gbuf, lpos, wi, res.light_index)
+            occ_active = valid & (sr_dist > 0.0)
+            occ = occlusion_fn(origin, sr_dir, sr_dist * 0.999, light_obj,
+                               occ_active)
+            live = occ_active.sum()
+            wf.count_rays(n, live)
+            shadow_rays = shadow_rays + live
+            res = _invalidate(res, occ | ~valid)
+
+        # --- 4. temporal reuse ---
+        if prev_reservoir is not None:
+            r_t, seed = rng.rnd(seed)
+            prev = prev_reservoir._replace(
+                m=torch.clamp_max(prev_reservoir.m, float(cfg.restir_max_m)))
+            prev_rad, _, _, _, prev_valid = _unshadowed_radiance(
+                scene, gbuf, wo_world, prev.light_index, prev.uv)
+            res = _reservoir_merge(res, prev, luminance_rec601(prev_rad), r_t,
+                                   prev_valid & (prev.w > 0.0))
+            res = _finalize(res)
+
+        # --- 5. spatial reuse ---
+        # Every tap reads this snapshot of the post-temporal buffer, never the
+        # evolving `res`: a tap that read a neighbour which already merged
+        # this pixel's sample would feed it back, and temporal reuse would
+        # compound that across frames (the JAX module measured the 64-light
+        # grid at about twice the right brightness by frame 16).
+        width = cfg.width
+        src = res
+        m_canonical = res.m
+        unbiased = (cfg.restir_unbiased_spatial
+                    and cfg.restir_spatial_neighbors > 0)
+        halo = 0
+        if group is not None:
+            # A tap moves at most `radius` rows plus a partial row in the
+            # flat index, so (radius + 1) * width halo rows cover it;
+            # clamping to the tile keeps short tiles legal (taps past the
+            # clamped halo are dropped by `reach`, the bias case the
+            # renderer warns about). The snapshot is fixed, so one exchange
+            # serves every tap.
+            halo = min((int(cfg.restir_spatial_radius) + 1) * width, n)
+            rows = {"normal": gbuf.normal, "m": src.m, "w": src.w,
+                    "light_index": src.light_index, "uv": src.uv,
+                    "distance": src.distance}
+            if unbiased:
+                # The Z-count evaluates the final sample's p-hat at each tap's
+                # surface, so the taps' surface attributes ride the same halo.
+                rows.update(position=gbuf.position, albedo=gbuf.albedo,
+                            roughness=gbuf.roughness, metallic=gbuf.metallic,
+                            hit=gbuf.hit, object=gbuf.object, wo=wo_world)
+            if timer is None:
+                ext = _exchange_halo(rows, halo, group, num_tiles)
+            else:
+                # The span starts with the rows to send ready.
+                with profiling.span("rt.sync", site="halo"):
+                    profiling.sync(gbuf.normal)
+                done = []
+                with timer.phase("halo", done):
+                    ext = _exchange_halo(rows, halo, group, num_tiles)
+                    done.append(ext["normal"])
+            zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+        taps = []  # (tap gather index, M-mass merged)
+        px0 = pixel_idx % width
+        py0 = pixel_idx // width
+        for _ in range(cfg.restir_spatial_neighbors):
+            r_a, seed = rng.rnd(seed)
+            r_b, seed = rng.rnd(seed)
+            r_m, seed = rng.rnd(seed)
+            ang = 2.0 * 3.14159265 * r_a
+            rad = cfg.restir_spatial_radius * torch.sqrt(r_b)
+            dx = (torch.cos(ang) * rad).to(torch.int32)
+            dy = (torch.sin(ang) * rad).to(torch.int32)
+            px = px0 + dx
+            py = py0 + dy
+            in_bounds = ((px >= 0) & (px < width) & (py >= 0)
+                         & (py < cfg.height))
+            if group is None:
+                nbr = torch.clamp(py * width + px, 0, n - 1)
+                nbr_res = Reservoir(*(a[nbr] for a in src))
+                nbr_normal = gbuf.normal[nbr]
+                reach = in_bounds
+            else:
+                ext_idx = py * width + px - start + halo
+                reach = in_bounds & (ext_idx >= 0) & (ext_idx < n + 2 * halo)
+                nbr = torch.clamp(ext_idx, 0, n + 2 * halo - 1)
+                nbr_res = Reservoir(
+                    weight_sum=zeros, target_pdf=zeros,  # not read by merge
+                    **{k: ext[k][nbr] for k in ("m", "light_index", "uv",
+                                                "distance", "w")})
+                nbr_normal = ext["normal"][nbr]
+            nbr_res = nbr_res._replace(
+                m=torch.clamp_max(nbr_res.m, float(cfg.restir_max_m)))
+            # Geometric similarity gate.
+            nrm_ok = dot(nbr_normal, gbuf.normal) > 0.9
+            nbr_rad, _, _, _, nbr_valid = _unshadowed_radiance(
+                scene, gbuf, wo_world, nbr_res.light_index, nbr_res.uv)
+            participate = (reach & nrm_ok & nbr_valid & (nbr_res.w > 0.0)
+                           & gbuf.hit)
+            res = _reservoir_merge(res, nbr_res, luminance_rec601(nbr_rad),
+                                   r_m, participate)
+            if unbiased:
+                taps.append((nbr, torch.where(participate, nbr_res.m, 0.0)))
+        if unbiased:
+            # The Alg.-6 Z-count of the final sample: the receiver covers
+            # its own choice; a tap adds its merged M-mass iff the sample's
+            # p-hat at the tap's surface is positive.
+            z = m_canonical
+            surf = (dict(gbuf._asdict(), wo=wo_world) if group is None
+                    else ext)
+            for nbr, m_mass in taps:
+                tap_gbuf = GBuffer(
+                    **{k: surf[k][nbr] for k in (
+                        "position", "normal", "albedo", "roughness",
+                        "metallic", "hit", "object")},
+                    emission=gbuf.emission,  # unread by _unshadowed_radiance
+                )
+                tap_rad, _, _, _, tap_valid = _unshadowed_radiance(
+                    scene, tap_gbuf, surf["wo"][nbr], res.light_index, res.uv)
+                covered = tap_valid & (luminance_rec601(tap_rad) > 0.0)
+                z = z + torch.where(covered, m_mass, 0.0)
+            res = _finalize(res, z=z)
+        else:
+            res = _finalize(res)
+
+        # --- 6. shade the final sample ---
+        # Spatial reuse can import a sample that is visible at the neighbour
+        # and occluded here, so the final sample gets a shadow ray of its own.
+        radiance, _, lpos, wi, valid = _unshadowed_radiance(
             scene, gbuf, wo_world, res.light_index, res.uv)
         origin, sr_dir, sr_dist, light_obj = _shadow_ray(
             scene, gbuf, lpos, wi, res.light_index)
-        occ_active = valid & (sr_dist > 0.0)
-        occ = occlusion_fn(origin, sr_dir, sr_dist * 0.999, light_obj,
-                           occ_active)
-        shadow_rays = shadow_rays + occ_active.sum()
-        res = _invalidate(res, occ | ~valid)
-
-    # --- 4. temporal reuse ---
-    if prev_reservoir is not None:
-        r_t, seed = rng.rnd(seed)
-        prev = prev_reservoir._replace(
-            m=torch.clamp_max(prev_reservoir.m, float(cfg.restir_max_m)))
-        prev_rad, _, _, _, prev_valid = _unshadowed_radiance(
-            scene, gbuf, wo_world, prev.light_index, prev.uv)
-        res = _reservoir_merge(res, prev, luminance_rec601(prev_rad), r_t,
-                               prev_valid & (prev.w > 0.0))
-        res = _finalize(res)
-
-    # --- 5. spatial reuse ---
-    # Every tap reads this snapshot of the post-temporal buffer, never the
-    # evolving `res`: a tap that read a neighbour which already merged
-    # this pixel's sample would feed it back, and temporal reuse would
-    # compound that across frames (the JAX module measured the 64-light
-    # grid at about twice the right brightness by frame 16).
-    width = cfg.width
-    src = res
-    m_canonical = res.m
-    unbiased = cfg.restir_unbiased_spatial and cfg.restir_spatial_neighbors > 0
-    halo = 0
-    if group is not None:
-        # A tap moves at most `radius` rows plus a partial row in the flat
-        # index, so (radius + 1) * width halo rows cover it; clamping to the
-        # tile keeps short tiles legal (taps past the clamped halo are
-        # dropped by `reach`, the bias case the renderer warns about). The
-        # snapshot is fixed, so one exchange serves every tap.
-        halo = min((int(cfg.restir_spatial_radius) + 1) * width, n)
-        rows = {"normal": gbuf.normal, "m": src.m, "w": src.w,
-                "light_index": src.light_index, "uv": src.uv,
-                "distance": src.distance}
-        if unbiased:
-            # The Z-count evaluates the final sample's p-hat at each tap's
-            # surface, so the taps' surface attributes ride the same halo.
-            rows.update(position=gbuf.position, albedo=gbuf.albedo,
-                        roughness=gbuf.roughness, metallic=gbuf.metallic,
-                        hit=gbuf.hit, object=gbuf.object, wo=wo_world)
-        if timer is None:
-            ext = _exchange_halo(rows, halo, group, num_tiles)
-        else:
-            sync(gbuf.normal)  # the span starts with the rows to send ready
-            done = []
-            with timer.phase("halo", done):
-                ext = _exchange_halo(rows, halo, group, num_tiles)
-                done.append(ext["normal"])
-        zeros = torch.zeros(n, dtype=torch.float32, device=dev)
-    taps = []  # (tap gather index, M-mass merged)
-    px0 = pixel_idx % width
-    py0 = pixel_idx // width
-    for _ in range(cfg.restir_spatial_neighbors):
-        r_a, seed = rng.rnd(seed)
-        r_b, seed = rng.rnd(seed)
-        r_m, seed = rng.rnd(seed)
-        ang = 2.0 * 3.14159265 * r_a
-        rad = cfg.restir_spatial_radius * torch.sqrt(r_b)
-        dx = (torch.cos(ang) * rad).to(torch.int32)
-        dy = (torch.sin(ang) * rad).to(torch.int32)
-        px = px0 + dx
-        py = py0 + dy
-        in_bounds = (px >= 0) & (px < width) & (py >= 0) & (py < cfg.height)
-        if group is None:
-            nbr = torch.clamp(py * width + px, 0, n - 1)
-            nbr_res = Reservoir(*(a[nbr] for a in src))
-            nbr_normal = gbuf.normal[nbr]
-            reach = in_bounds
-        else:
-            ext_idx = py * width + px - start + halo
-            reach = in_bounds & (ext_idx >= 0) & (ext_idx < n + 2 * halo)
-            nbr = torch.clamp(ext_idx, 0, n + 2 * halo - 1)
-            nbr_res = Reservoir(
-                weight_sum=zeros, target_pdf=zeros,  # not read by merge
-                **{k: ext[k][nbr] for k in ("m", "light_index", "uv",
-                                            "distance", "w")})
-            nbr_normal = ext["normal"][nbr]
-        nbr_res = nbr_res._replace(
-            m=torch.clamp_max(nbr_res.m, float(cfg.restir_max_m)))
-        # Geometric similarity gate.
-        nrm_ok = dot(nbr_normal, gbuf.normal) > 0.9
-        nbr_rad, _, _, _, nbr_valid = _unshadowed_radiance(
-            scene, gbuf, wo_world, nbr_res.light_index, nbr_res.uv)
-        participate = (reach & nrm_ok & nbr_valid & (nbr_res.w > 0.0)
-                       & gbuf.hit)
-        res = _reservoir_merge(res, nbr_res, luminance_rec601(nbr_rad), r_m,
-                               participate)
-        if unbiased:
-            taps.append((nbr, torch.where(participate, nbr_res.m, 0.0)))
-    if unbiased:
-        # The Alg.-6 Z-count of the final sample: the receiver covers its
-        # own choice; a tap adds its merged M-mass iff the sample's p-hat at
-        # the tap's surface is positive.
-        z = m_canonical
-        surf = (dict(gbuf._asdict(), wo=wo_world) if group is None
-                else ext)
-        for nbr, m_mass in taps:
-            tap_gbuf = GBuffer(
-                **{k: surf[k][nbr] for k in ("position", "normal", "albedo",
-                                             "roughness", "metallic", "hit",
-                                             "object")},
-                emission=gbuf.emission,  # unread by _unshadowed_radiance
-            )
-            tap_rad, _, _, _, tap_valid = _unshadowed_radiance(
-                scene, tap_gbuf, surf["wo"][nbr], res.light_index, res.uv)
-            covered = tap_valid & (luminance_rec601(tap_rad) > 0.0)
-            z = z + torch.where(covered, m_mass, 0.0)
-        res = _finalize(res, z=z)
-    else:
-        res = _finalize(res)
-
-    # --- 6. shade the final sample ---
-    # Spatial reuse can import a sample that is visible at the neighbour
-    # and occluded here, so the final sample gets a shadow ray of its own.
-    radiance, _, lpos, wi, valid = _unshadowed_radiance(
-        scene, gbuf, wo_world, res.light_index, res.uv)
-    origin, sr_dir, sr_dist, light_obj = _shadow_ray(
-        scene, gbuf, lpos, wi, res.light_index)
-    shadeable = valid & (res.w > 0.0)
-    occ_final_active = shadeable & (sr_dist > 0.0)
-    occ_final = occlusion_fn(origin, sr_dir, sr_dist * 0.999, light_obj,
-                             occ_final_active)
-    shadow_rays = shadow_rays + occ_final_active.sum()
-    direct = radiance * res.w[:, None]
-    direct = torch.where((shadeable & ~occ_final)[:, None], direct, 0.0)
-    if cfg.restir_final_visibility_feedback:
-        # The step-6 ray is paid for: an occluded-here sample must not ride
-        # next frame's temporal reuse (shading black for ~M frames).
-        res = _invalidate(res, occ_final_active & occ_final)
-    return direct, res, shadow_rays
+        shadeable = valid & (res.w > 0.0)
+        occ_final_active = shadeable & (sr_dist > 0.0)
+        occ_final = occlusion_fn(origin, sr_dir, sr_dist * 0.999, light_obj,
+                                 occ_final_active)
+        live = occ_final_active.sum()
+        wf.count_rays(n, live)
+        shadow_rays = shadow_rays + live
+        direct = radiance * res.w[:, None]
+        direct = torch.where((shadeable & ~occ_final)[:, None], direct, 0.0)
+        if cfg.restir_final_visibility_feedback:
+            # The step-6 ray is paid for: an occluded-here sample must not ride
+            # next frame's temporal reuse (shading black for ~M frames).
+            res = _invalidate(res, occ_final_active & occ_final)
+        return direct, res, shadow_rays
 
 
 def render_wavefront_restir(scene, camera_ubo, prev_reservoir, frame_number,
@@ -531,47 +542,53 @@ def render_wavefront_restir(scene, camera_ubo, prev_reservoir, frame_number,
                                device=dev)
 
     # --- primary trace + G-buffer (restir.rgen) ---
-    rays_traced = state.alive.sum()
-    hit = wf._trace(scene, state.origin, state.direction, cfg, state.alive)
-    lane = state.alive & hit.hit
-    surf = wf.fetch_surface(scene, hit, state.direction, lane)
-    # Dielectric lanes carry their own light transport (the plain path
-    # skips NEE on them too); ReSTIR covers the opaque surface lanes.
-    if cfg.enable_transmission:
-        restir_lane = lane & ~(surf.transmission > 0.0)
-    else:
-        restir_lane = lane
-    gbuf = GBuffer(
-        position=surf.world_pos,
-        normal=surf.world_nrm,
-        albedo=surf.albedo,
-        roughness=surf.roughness,
-        metallic=surf.metallic,
-        emission=surf.emission_color * surf.emission_power[:, None],
-        hit=restir_lane,
-        object=surf.obj,
-    )
+    n = state.alive.shape[0]
+    with profiling.span("rt.bounce", depth=0, lanes=n):
+        rays_traced = state.alive.sum()
+        wf.count_rays(n, rays_traced)
+        hit = wf._trace(scene, state.origin, state.direction, cfg,
+                        state.alive)
+        lane = state.alive & hit.hit
+        surf = wf.fetch_surface(scene, hit, state.direction, lane)
+        # Dielectric lanes carry their own light transport (the plain path
+        # skips NEE on them too); ReSTIR covers the opaque surface lanes.
+        if cfg.enable_transmission:
+            restir_lane = lane & ~(surf.transmission > 0.0)
+        else:
+            restir_lane = lane
+        gbuf = GBuffer(
+            position=surf.world_pos,
+            normal=surf.world_nrm,
+            albedo=surf.albedo,
+            roughness=surf.roughness,
+            metallic=surf.metallic,
+            emission=surf.emission_color * surf.emission_power[:, None],
+            hit=restir_lane,
+            object=surf.obj,
+        )
 
-    def occlusion_fn(o, d, t_max, skip_obj, active):
-        return wf._occluded(scene, o, d, t_max, skip_obj, cfg, active)
+        def occlusion_fn(o, d, t_max, skip_obj, active):
+            return wf._occluded(scene, o, d, t_max, skip_obj, cfg, active)
 
-    direct, reservoir, shadow_total = restir_direct(
-        scene, gbuf, state.direction, prev_reservoir, frame_number, cfg,
-        occlusion_fn, pixel_start=pixel_start, num_tiles=num_tiles,
-        group=group, timer=timer)
+        direct, reservoir, shadow_total = restir_direct(
+            scene, gbuf, state.direction, prev_reservoir, frame_number,
+            cfg, occlusion_fn, pixel_start=pixel_start,
+            num_tiles=num_tiles, group=group, timer=timer)
 
-    # --- primary shading (BRDF sample + emission, NEE suppressed) ---
-    state, payload_hit, _ = wf._shade(scene, state, hit, cfg,
-                                      suppress_nee=True)
-    # ReSTIR's direct light at this vertex is the full estimate (no MIS
-    # split), so the next bounce's emissive hit stays suppressed on the
-    # specular-lobe lanes too: the reference's isSpecular full-emission add
-    # (simple.rchit:644) would count glossy direct light twice.
-    state = state._replace(
-        color=state.color + torch.where(restir_lane[:, None], direct, 0.0),
-        is_specular=torch.where(restir_lane, False, state.is_specular),
-    )
-    state = wf.end_bounce(state, payload_hit, clear_color)
+        # --- primary shading (BRDF sample + emission, NEE suppressed) ---
+        state, payload_hit, _ = wf._shade(scene, state, hit, cfg,
+                                          suppress_nee=True)
+        # ReSTIR's direct light at this vertex is the full estimate (no
+        # MIS split), so the next bounce's emissive hit stays suppressed on
+        # the specular-lobe lanes too: the reference's isSpecular
+        # full-emission add (simple.rchit:644) would count glossy direct
+        # light twice.
+        state = state._replace(
+            color=state.color + torch.where(restir_lane[:, None], direct,
+                                            0.0),
+            is_specular=torch.where(restir_lane, False, state.is_specular),
+        )
+        state = wf.end_bounce(state, payload_hit, clear_color)
 
     # --- indirect bounces (path tracing with NEE) ---
     for depth in range(1, cfg.max_depth):

@@ -93,6 +93,7 @@ from raytracer_tpu_torch.ops.quad_traverse import (
     occlusion_quad,
 )
 from raytracer_tpu_torch.ops.traverse import intersect_bvh, occlusion_bvh
+from raytracer_tpu_torch.utils import profiling
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 
@@ -400,46 +401,48 @@ class SurfaceHit(NamedTuple):
 
 def fetch_surface(scene, hit, ray_dir, lane) -> SurfaceHit:
     """Barycentric interpolation of the hit triangle + material lookup:
-    one tri_shade row and one mat_packed row per lane."""
-    t_count = scene.tri_shade.shape[0]
-    ti = torch.clamp(hit.tri, 0, t_count - 1).long()
-    row = scene.tri_shade[ti]  # [N,24]
-    v0 = row[:, 0:3]
-    e1 = row[:, 3:6]
-    e2 = row[:, 6:9]
-    bary_u = hit.u[:, None]
-    bary_v = hit.v[:, None]
-    world_pos = v0 + bary_u * e1 + bary_v * e2
-    bw = 1.0 - bary_u - bary_v
-    n_interp = (
-        bw * row[:, 9:12] + bary_u * row[:, 12:15] + bary_v * row[:, 15:18]
-    )
-    world_nrm = normalize(n_interp)
-    front_facing = dot(world_nrm, -ray_dir) > 0.0
-    world_nrm = torch.where(front_facing[:, None], world_nrm, -world_nrm)
-    obj = torch.where(lane, row[:, 18].to(torch.int32), 0)
-    mat = torch.where(lane, row[:, 19].to(torch.int32), 0)
-    mrow = scene.mat_packed[mat.long()]  # [N,16]
-    return SurfaceHit(
-        world_pos=world_pos,
-        world_nrm=world_nrm,
-        front_facing=front_facing,
-        tri=ti,
-        e1=e1,
-        e2=e2,
-        obj=obj,
-        mat=mat,
-        albedo=mrow[:, 0:3],
-        roughness=mrow[:, 7],
-        metallic=mrow[:, 8],
-        emission_color=mrow[:, 3:6],
-        emission_power=mrow[:, 6],
-        transmission=mrow[:, 9],
-        ior=mrow[:, 10],
-        dispersion=mrow[:, 11],
-        light_index=row[:, 20].to(torch.int32),
-        light_num_tris=row[:, 21],
-    )
+    one tri_shade row and one mat_packed row per lane (the `rt.fetch_surface`
+    span)."""
+    with profiling.span("rt.fetch_surface"):
+        t_count = scene.tri_shade.shape[0]
+        ti = torch.clamp(hit.tri, 0, t_count - 1).long()
+        row = scene.tri_shade[ti]  # [N,24]
+        v0 = row[:, 0:3]
+        e1 = row[:, 3:6]
+        e2 = row[:, 6:9]
+        bary_u = hit.u[:, None]
+        bary_v = hit.v[:, None]
+        world_pos = v0 + bary_u * e1 + bary_v * e2
+        bw = 1.0 - bary_u - bary_v
+        n_interp = (
+            bw * row[:, 9:12] + bary_u * row[:, 12:15] + bary_v * row[:, 15:18]
+        )
+        world_nrm = normalize(n_interp)
+        front_facing = dot(world_nrm, -ray_dir) > 0.0
+        world_nrm = torch.where(front_facing[:, None], world_nrm, -world_nrm)
+        obj = torch.where(lane, row[:, 18].to(torch.int32), 0)
+        mat = torch.where(lane, row[:, 19].to(torch.int32), 0)
+        mrow = scene.mat_packed[mat.long()]  # [N,16]
+        return SurfaceHit(
+            world_pos=world_pos,
+            world_nrm=world_nrm,
+            front_facing=front_facing,
+            tri=ti,
+            e1=e1,
+            e2=e2,
+            obj=obj,
+            mat=mat,
+            albedo=mrow[:, 0:3],
+            roughness=mrow[:, 7],
+            metallic=mrow[:, 8],
+            emission_color=mrow[:, 3:6],
+            emission_power=mrow[:, 6],
+            transmission=mrow[:, 9],
+            ior=mrow[:, 10],
+            dispersion=mrow[:, 11],
+            light_index=row[:, 20].to(torch.int32),
+            light_num_tris=row[:, 21],
+        )
 
 
 def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
@@ -452,249 +455,259 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
     stays off: ReSTIR (integrator/restir.py) supplies the direct light at
     this vertex.
 
+    The call is the `rt.shade` span, with `rt.fetch_surface` and
+    `rt.light_select` (the power/dist² weights, and NEE's pick through its
+    selection pdf) under it.
+
     Returns (new_state, payload_hit bool[N], shadow_ray_count i64[])."""
-    lane = state.alive & hit.hit
-    n = state.origin.shape[0]
-    dev = state.origin.device
-    no_lanes = torch.zeros(n, dtype=torch.bool, device=dev)
-    zero_count = torch.zeros((), dtype=torch.int64, device=dev)
+    with profiling.span("rt.shade", suppress_nee=suppress_nee):
+        lane = state.alive & hit.hit
+        n = state.origin.shape[0]
+        dev = state.origin.device
+        no_lanes = torch.zeros(n, dtype=torch.bool, device=dev)
+        zero_count = torch.zeros((), dtype=torch.int64, device=dev)
 
-    surf = fetch_surface(scene, hit, state.direction, lane)
-    world_pos = surf.world_pos
-    world_nrm = surf.world_nrm
-    ray_dir = state.direction
-    albedo = surf.albedo
-    roughness = surf.roughness
-    metallic = surf.metallic
-    emission_color = surf.emission_color
-    emission_power = surf.emission_power
-    is_emissive = emission_power > 0.0
+        surf = fetch_surface(scene, hit, state.direction, lane)
+        world_pos = surf.world_pos
+        world_nrm = surf.world_nrm
+        ray_dir = state.direction
+        albedo = surf.albedo
+        roughness = surf.roughness
+        metallic = surf.metallic
+        emission_color = surf.emission_color
+        emission_power = surf.emission_power
+        is_emissive = emission_power > 0.0
 
-    color = state.color
-    throughput = state.throughput
-    seed = state.seed
+        color = state.color
+        throughput = state.throughput
+        seed = state.seed
 
-    basis = make_basis(world_nrm)
-    wo_local = world_to_local(-ray_dir, basis)
+        basis = make_basis(world_nrm)
+        wo_local = world_to_local(-ray_dir, basis)
 
-    # --- dielectric lanes (extension; see module docstring) ---
-    if cfg.enable_transmission:
-        dielectric = lane & (surf.transmission > 0.0)
-    else:
-        dielectric = no_lanes
-    surface_lane = lane & ~dielectric
-
-    # --- NEE with MIS (simple.rchit:618-632) ---
-    did_direct = no_lanes
-    p_sample_light = torch.clamp(roughness, 0.1, 0.9)
-    # One power/dist² pass per bounce, shared by the NEE selection and the
-    # emissive-MIS selection pdf.
-    if cfg.use_direct_lighting and scene.num_lights > 0:
-        w_base = _light_weights_base(scene, world_pos, cfg)
-    else:
-        w_base = None
-    mis_nee = cfg.use_mis and not cfg.use_light_sampling_only
-    if suppress_nee:
-        did_direct = surface_lane
-        shadow_rays = zero_count
-    elif cfg.use_direct_lighting and scene.num_lights > 0:
-        if mis_nee:
-            # Stochastic NEE lottery (simple.rchit:621-623).
-            p_draw, seed = rng.rnd_masked(seed, surface_lane)
-            do_nee = surface_lane & (p_draw < p_sample_light)
+        # --- dielectric lanes (extension; see module docstring) ---
+        if cfg.enable_transmission:
+            dielectric = lane & (surf.transmission > 0.0)
         else:
-            # USE_MIS=0 (simple.rchit:628-631): NEE every bounce, weight 1.
-            do_nee = surface_lane
+            dielectric = no_lanes
+        surface_lane = lane & ~dielectric
 
-        weights, total_w = _light_weights(scene, world_pos, surf.obj, cfg,
-                                          w_all=w_base)
-        has_weight = total_w > 0.0
-        m_sel = do_nee & has_weight
-        r_sel, seed = rng.rnd_masked(seed, m_sel)
-        r1 = r_sel * total_w
-        at_or_past = torch.cumsum(weights, dim=1) >= r1[:, None]
-        found = at_or_past.any(dim=1)
-        # First column where the CDF reaches r1 (0 when none does).
-        selected = at_or_past.to(torch.int32).argmax(dim=1).to(torch.int32)
-        m_samp = m_sel & found
-
+        # --- NEE with MIS (simple.rchit:618-632) ---
+        did_direct = no_lanes
+        p_sample_light = torch.clamp(roughness, 0.1, 0.9)
+        # One power/dist² pass per bounce, shared by the NEE selection and the
+        # emissive-MIS selection pdf.
         l_used = min(scene.num_lights, cfg.max_lights)
-        sel_c = torch.clamp(selected, 0, l_used - 1).long()
-        sel_w = weights.gather(1, sel_c[:, None])[:, 0]
-        light_sel_pdf = sel_w / torch.clamp_min(total_w, 1e-20)
-
-        (l_pos, _l_nrm, l_dir, _l_dist, l_pdf, l_emission, light_obj,
-         l_valid, seed
-         ) = _sample_light(scene, selected, world_pos, seed, m_samp, cfg)
-
-        wi_local = world_to_local(l_dir, basis)
-        consider = m_samp & l_valid & (cos_theta(wi_local) > 1e-4)
-
-        # Shadow ray (isVisibleRQ, simple.rchit:350-385).
-        eps = 0.001
-        to_light_n = normalize(l_pos - world_pos)
-        offset_from = world_pos + world_nrm * (
-            eps * torch.sign(dot_k(world_nrm, to_light_n))
-        )
-        sr = l_pos - offset_from
-        sr_dist = length(sr)
-        sr_dir = sr / torch.clamp_min(sr_dist, 1e-20)[:, None]
-        shadow_lane = consider & (sr_dist > 0.0)
-        occ = _occluded(scene, offset_from, sr_dir, sr_dist * 0.999,
-                        light_obj, cfg, shadow_lane)
-        visible = shadow_lane & ~occ
-
-        brdf_val = brdf.evaluate_full(wo_local, wi_local, albedo, roughness,
-                                      metallic)
-        light_pdf = l_pdf * light_sel_pdf
-        p_spec = brdf.specular_probability(albedo, roughness, metallic)
-        h_local = normalize(wo_local + wi_local)
-        spec_pdf = brdf.microfacet_pdf(wo_local, h_local, roughness)
-        diff_pdf = cos_theta(wi_local) / brdf.M_PI
-        brdf_pdf = p_spec * spec_pdf + (1.0 - p_spec) * diff_pdf
-        if mis_nee:
-            weight = mis_weight_power(light_pdf, brdf_pdf)
+        if cfg.use_direct_lighting and scene.num_lights > 0:
+            with profiling.span("rt.light_select", columns=l_used):
+                w_base = _light_weights_base(scene, world_pos, cfg)
         else:
-            weight = torch.ones_like(light_pdf)  # evaluateLightMIS else
+            w_base = None
+        mis_nee = cfg.use_mis and not cfg.use_light_sampling_only
+        if suppress_nee:
+            did_direct = surface_lane
+            shadow_rays = zero_count
+        elif cfg.use_direct_lighting and scene.num_lights > 0:
+            if mis_nee:
+                # Stochastic NEE lottery (simple.rchit:621-623).
+                p_draw, seed = rng.rnd_masked(seed, surface_lane)
+                do_nee = surface_lane & (p_draw < p_sample_light)
+            else:
+                # USE_MIS=0 (simple.rchit:628-631): NEE every bounce, weight 1.
+                do_nee = surface_lane
 
-        radiance = (
-            brdf_val * l_emission
-            * (cos_theta(wi_local) * weight
-               / torch.clamp_min(light_pdf, 1e-6))[:, None]
-        )
-        if mis_nee:
-            # Stochastic-NEE unbiasing divide (simple.rchit:625).
-            contrib = throughput * radiance / p_sample_light[:, None]
+            with profiling.span("rt.light_select", columns=l_used):
+                weights, total_w = _light_weights(scene, world_pos, surf.obj,
+                                                  cfg, w_all=w_base)
+                has_weight = total_w > 0.0
+                m_sel = do_nee & has_weight
+                r_sel, seed = rng.rnd_masked(seed, m_sel)
+                r1 = r_sel * total_w
+                at_or_past = torch.cumsum(weights, dim=1) >= r1[:, None]
+                found = at_or_past.any(dim=1)
+                # First column where the CDF reaches r1 (0 when none does).
+                selected = at_or_past.to(torch.int32).argmax(dim=1).to(
+                    torch.int32)
+                m_samp = m_sel & found
+
+                sel_c = torch.clamp(selected, 0, l_used - 1).long()
+                sel_w = weights.gather(1, sel_c[:, None])[:, 0]
+                light_sel_pdf = sel_w / torch.clamp_min(total_w, 1e-20)
+
+            (l_pos, _l_nrm, l_dir, _l_dist, l_pdf, l_emission, light_obj,
+             l_valid, seed
+             ) = _sample_light(scene, selected, world_pos, seed, m_samp, cfg)
+
+            wi_local = world_to_local(l_dir, basis)
+            consider = m_samp & l_valid & (cos_theta(wi_local) > 1e-4)
+
+            # Shadow ray (isVisibleRQ, simple.rchit:350-385).
+            eps = 0.001
+            to_light_n = normalize(l_pos - world_pos)
+            offset_from = world_pos + world_nrm * (
+                eps * torch.sign(dot_k(world_nrm, to_light_n))
+            )
+            sr = l_pos - offset_from
+            sr_dist = length(sr)
+            sr_dir = sr / torch.clamp_min(sr_dist, 1e-20)[:, None]
+            shadow_lane = consider & (sr_dist > 0.0)
+            occ = _occluded(scene, offset_from, sr_dir, sr_dist * 0.999,
+                            light_obj, cfg, shadow_lane)
+            visible = shadow_lane & ~occ
+
+            brdf_val = brdf.evaluate_full(wo_local, wi_local, albedo,
+                                          roughness, metallic)
+            light_pdf = l_pdf * light_sel_pdf
+            p_spec = brdf.specular_probability(albedo, roughness, metallic)
+            h_local = normalize(wo_local + wi_local)
+            spec_pdf = brdf.microfacet_pdf(wo_local, h_local, roughness)
+            diff_pdf = cos_theta(wi_local) / brdf.M_PI
+            brdf_pdf = p_spec * spec_pdf + (1.0 - p_spec) * diff_pdf
+            if mis_nee:
+                weight = mis_weight_power(light_pdf, brdf_pdf)
+            else:
+                weight = torch.ones_like(light_pdf)  # evaluateLightMIS else
+
+            radiance = (
+                brdf_val * l_emission
+                * (cos_theta(wi_local) * weight
+                   / torch.clamp_min(light_pdf, 1e-6))[:, None]
+            )
+            if mis_nee:
+                # Stochastic-NEE unbiasing divide (simple.rchit:625).
+                contrib = throughput * radiance / p_sample_light[:, None]
+            else:
+                contrib = throughput * radiance
+            color = torch.where(visible[:, None], color + contrib, color)
+            did_direct = do_nee
+            shadow_rays = shadow_lane.sum()
+            count_rays(n, shadow_rays)
+        elif cfg.use_direct_lighting and mis_nee:
+            # No lights: the NEE lottery draw still happens (simple.rchit:622).
+            _, seed = rng.rnd_masked(seed, surface_lane)
+            shadow_rays = zero_count
         else:
-            contrib = throughput * radiance
-        color = torch.where(visible[:, None], color + contrib, color)
-        did_direct = do_nee
-        shadow_rays = shadow_lane.sum()
-    elif cfg.use_direct_lighting and mis_nee:
-        # No lights: the NEE lottery draw still happens (simple.rchit:622).
-        _, seed = rng.rnd_masked(seed, surface_lane)
-        shadow_rays = zero_count
-    else:
-        shadow_rays = zero_count
+            shadow_rays = zero_count
 
-    # --- BSDF sampling (simple.rchit:634-639 -> sampleBRDF) ---
-    sample, seed_after_brdf = brdf.sample_brdf(
-        wo_local, albedo, roughness, metallic, seed)
-    # Only surface lanes consume its 3 draws; dielectric lanes draw below.
-    seed_surface = torch.where(surface_lane, seed_after_brdf, seed)
+        # --- BSDF sampling (simple.rchit:634-639 -> sampleBRDF) ---
+        sample, seed_after_brdf = brdf.sample_brdf(
+            wo_local, albedo, roughness, metallic, seed)
+        # Only surface lanes consume its 3 draws; dielectric lanes draw below.
+        seed_surface = torch.where(surface_lane, seed_after_brdf, seed)
 
-    # --- emissive-hit handling (simple.rchit:641-686) ---
-    if cfg.use_direct_lighting and mis_nee:
-        add_full = surface_lane & is_emissive & (
-            state.first_bounce | state.is_specular)
-        color = torch.where(
-            add_full[:, None],
-            color + throughput * emission_color * emission_power[:, None],
-            color,
+        # --- emissive-hit handling (simple.rchit:641-686) ---
+        if cfg.use_direct_lighting and mis_nee:
+            add_full = surface_lane & is_emissive & (
+                state.first_bounce | state.is_specular)
+            color = torch.where(
+                add_full[:, None],
+                color + throughput * emission_color * emission_power[:, None],
+                color,
+            )
+            if scene.num_lights > 0:
+                light_idx = surf.light_index
+                add_mis = (
+                    surface_lane & is_emissive
+                    & ~(state.first_bounce | state.is_specular)
+                    & ~state.did_direct & (light_idx >= 0)
+                )
+                d = length(world_pos - state.prev_hit_pos)
+                cos_light = torch.clamp_min(dot(world_nrm, -ray_dir), 0.0)
+                tri_area = 0.5 * length(cross(surf.e1, surf.e2))
+                num_tris_l = surf.light_num_tris
+                pdf_geo = (
+                    (1.0 / torch.clamp_min(num_tris_l, 1.0))
+                    * (1.0 / torch.clamp_min(tri_area, 1e-20))
+                    * d * d / torch.clamp_min(cos_light, 1e-20)
+                )
+                # computeLightSelectionPdf uses the un-skipped total
+                # (simple.rchit:536-541).
+                w_all, _ = _light_weights(
+                    scene, world_pos,
+                    torch.full((n,), -1, dtype=torch.int32, device=dev), cfg,
+                    w_all=w_base,
+                )
+                total_all = w_all.sum(dim=-1)
+                li_cap = torch.clamp(light_idx, 0, l_used - 1).long()
+                w_this = w_all.gather(1, li_cap[:, None])[:, 0]
+                light_sel = torch.where(
+                    total_all > 0.0,
+                    w_this / torch.clamp_min(total_all, 1e-20), 0.0)
+                light_pdf_hit = light_sel * pdf_geo
+                mis_w = mis_weight_power(state.prev_brdf_pdf, light_pdf_hit)
+                contrib = (
+                    throughput * emission_color
+                    * (emission_power * mis_w
+                       / torch.clamp_min(1.0 - state.p_sample_light, 1e-20)
+                       )[:, None]
+                )
+                color = torch.where(add_mis[:, None], color + contrib, color)
+        else:
+            add_full = surface_lane & is_emissive
+            if cfg.use_direct_lighting:  # USE_MIS=0 branch (simple.rchit:679)
+                add_full = add_full & (state.first_bounce | state.is_specular)
+            color = torch.where(
+                add_full[:, None],
+                color + throughput * emission_color * emission_power[:, None],
+                color,
+            )
+
+        # --- bounce update (simple.rchit:693-703) ---
+        sample_ok = (sample.pdf > 0.0) & (cos_theta(sample.direction) > 0.0)
+        new_dir_surface = local_to_world(sample.direction, basis)
+        tp_scale = ((cos_theta(sample.direction) / sample.pdf)[:, None]
+                    * sample.value)
+
+        # --- dielectric transmission lanes (extension) ---
+        if cfg.enable_transmission:
+            (diel_dir, diel_tp, diel_ok, new_channel, seed_diel) = (
+                _sample_dielectric(
+                    ray_dir, world_nrm, surf.front_facing, albedo, surf.ior,
+                    surf.transmission, surf.dispersion, state.channel, seed,
+                    dielectric,
+                )
+            )
+            seed = torch.where(dielectric, seed_diel, seed_surface)
+            new_dir = torch.where(dielectric[:, None], diel_dir,
+                                  new_dir_surface)
+            tp_mult = torch.where(dielectric[:, None], diel_tp, tp_scale)
+            sample_ok = torch.where(dielectric, diel_ok, sample_ok)
+            new_specular = dielectric | sample.is_specular
+            new_pdf = torch.where(dielectric, 1.0, sample.pdf)
+            channel = torch.where(dielectric, new_channel, state.channel)
+        else:
+            seed = seed_surface
+            new_dir = new_dir_surface
+            tp_mult = tp_scale
+            new_specular = sample.is_specular
+            new_pdf = sample.pdf
+            channel = state.channel
+
+        upd = lane & sample_ok
+        throughput = torch.where(upd[:, None], throughput * tp_mult,
+                                 throughput)
+
+        new_state = WavefrontState(
+            origin=torch.where(upd[:, None], world_pos, state.origin),
+            direction=torch.where(upd[:, None], new_dir, state.direction),
+            color=torch.where(lane[:, None], color, state.color),
+            throughput=throughput,
+            seed_rgen=state.seed_rgen,
+            seed=torch.where(lane, seed, state.seed),
+            alive=state.alive,
+            first_bounce=state.first_bounce & ~lane,
+            is_specular=torch.where(upd, new_specular, state.is_specular),
+            prev_brdf_pdf=torch.where(upd, new_pdf, state.prev_brdf_pdf),
+            prev_hit_pos=torch.where(upd[:, None], world_pos,
+                                     state.prev_hit_pos),
+            p_sample_light=torch.where(lane, p_sample_light,
+                                       state.p_sample_light),
+            did_direct=torch.where(lane, did_direct, state.did_direct),
+            channel=channel,
+            pixel=state.pixel,
         )
-        if scene.num_lights > 0:
-            light_idx = surf.light_index
-            add_mis = (
-                surface_lane & is_emissive
-                & ~(state.first_bounce | state.is_specular)
-                & ~state.did_direct & (light_idx >= 0)
-            )
-            d = length(world_pos - state.prev_hit_pos)
-            cos_light = torch.clamp_min(dot(world_nrm, -ray_dir), 0.0)
-            tri_area = 0.5 * length(cross(surf.e1, surf.e2))
-            num_tris_l = surf.light_num_tris
-            pdf_geo = (
-                (1.0 / torch.clamp_min(num_tris_l, 1.0))
-                * (1.0 / torch.clamp_min(tri_area, 1e-20))
-                * d * d / torch.clamp_min(cos_light, 1e-20)
-            )
-            # computeLightSelectionPdf uses the un-skipped total
-            # (simple.rchit:536-541).
-            w_all, _ = _light_weights(
-                scene, world_pos,
-                torch.full((n,), -1, dtype=torch.int32, device=dev), cfg,
-                w_all=w_base,
-            )
-            total_all = w_all.sum(dim=-1)
-            l_used = min(scene.num_lights, cfg.max_lights)
-            li_cap = torch.clamp(light_idx, 0, l_used - 1).long()
-            w_this = w_all.gather(1, li_cap[:, None])[:, 0]
-            light_sel = torch.where(
-                total_all > 0.0,
-                w_this / torch.clamp_min(total_all, 1e-20), 0.0)
-            light_pdf_hit = light_sel * pdf_geo
-            mis_w = mis_weight_power(state.prev_brdf_pdf, light_pdf_hit)
-            contrib = (
-                throughput * emission_color
-                * (emission_power * mis_w
-                   / torch.clamp_min(1.0 - state.p_sample_light, 1e-20)
-                   )[:, None]
-            )
-            color = torch.where(add_mis[:, None], color + contrib, color)
-    else:
-        add_full = surface_lane & is_emissive
-        if cfg.use_direct_lighting:  # USE_MIS=0 branch (simple.rchit:679)
-            add_full = add_full & (state.first_bounce | state.is_specular)
-        color = torch.where(
-            add_full[:, None],
-            color + throughput * emission_color * emission_power[:, None],
-            color,
-        )
-
-    # --- bounce update (simple.rchit:693-703) ---
-    sample_ok = (sample.pdf > 0.0) & (cos_theta(sample.direction) > 0.0)
-    new_dir_surface = local_to_world(sample.direction, basis)
-    tp_scale = ((cos_theta(sample.direction) / sample.pdf)[:, None]
-                * sample.value)
-
-    # --- dielectric transmission lanes (extension) ---
-    if cfg.enable_transmission:
-        (diel_dir, diel_tp, diel_ok, new_channel, seed_diel) = (
-            _sample_dielectric(
-                ray_dir, world_nrm, surf.front_facing, albedo, surf.ior,
-                surf.transmission, surf.dispersion, state.channel, seed,
-                dielectric,
-            )
-        )
-        seed = torch.where(dielectric, seed_diel, seed_surface)
-        new_dir = torch.where(dielectric[:, None], diel_dir, new_dir_surface)
-        tp_mult = torch.where(dielectric[:, None], diel_tp, tp_scale)
-        sample_ok = torch.where(dielectric, diel_ok, sample_ok)
-        new_specular = dielectric | sample.is_specular
-        new_pdf = torch.where(dielectric, 1.0, sample.pdf)
-        channel = torch.where(dielectric, new_channel, state.channel)
-    else:
-        seed = seed_surface
-        new_dir = new_dir_surface
-        tp_mult = tp_scale
-        new_specular = sample.is_specular
-        new_pdf = sample.pdf
-        channel = state.channel
-
-    upd = lane & sample_ok
-    throughput = torch.where(upd[:, None], throughput * tp_mult, throughput)
-
-    new_state = WavefrontState(
-        origin=torch.where(upd[:, None], world_pos, state.origin),
-        direction=torch.where(upd[:, None], new_dir, state.direction),
-        color=torch.where(lane[:, None], color, state.color),
-        throughput=throughput,
-        seed_rgen=state.seed_rgen,
-        seed=torch.where(lane, seed, state.seed),
-        alive=state.alive,
-        first_bounce=state.first_bounce & ~lane,
-        is_specular=torch.where(upd, new_specular, state.is_specular),
-        prev_brdf_pdf=torch.where(upd, new_pdf, state.prev_brdf_pdf),
-        prev_hit_pos=torch.where(upd[:, None], world_pos,
-                                 state.prev_hit_pos),
-        p_sample_light=torch.where(lane, p_sample_light,
-                                   state.p_sample_light),
-        did_direct=torch.where(lane, did_direct, state.did_direct),
-        channel=channel,
-        pixel=state.pixel,
-    )
-    payload_hit = lane & sample_ok
-    return new_state, payload_hit, shadow_rays
+        payload_hit = lane & sample_ok
+        return new_state, payload_hit, shadow_rays
 
 
 def _sample_dielectric(ray_dir, normal, front_facing, albedo, ior,
@@ -804,8 +817,11 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
             if depth > 0 or active is not None:
                 state, _ = _sort_wavefront(state, scene)
             k = _compact_prefix(n, depth, cfg)
-            if k is not None and int(state.alive.sum()) > k:
-                k = None  # the live lanes do not fit: full size
+            if k is not None:
+                with profiling.span("rt.sync", site="compact"):
+                    live = int(state.alive.sum())
+                if live > k:
+                    k = None  # the live lanes do not fit: full size
         if k is None:
             state, rays, shadow_rays = path_bounce(scene, state, depth, cfg,
                                                    clear_color)
@@ -920,25 +936,38 @@ def start_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
 def path_bounce(scene, state: WavefrontState, depth: int, cfg: RenderConfig,
                 clear_color):
     """One bounce of simple.rgen's loop: Russian roulette, the closest-hit
-    trace, `_shade`, then `end_bounce`. Returns (state, rays traced, shadow
-    rays), the counts as i64[] device tensors."""
-    # Russian roulette (simple.rgen:55-68,88-90).
-    if depth >= cfg.rr_start_depth:
-        rr_lane = state.alive
-        lum = luminance_rec709(state.throughput)
-        p = torch.clamp(lum, 0.05, 0.95)
-        r, seed_rgen = rng.rnd_masked(state.seed_rgen, rr_lane)
-        rr_kill = rr_lane & (r > p)
-        throughput = torch.where(
-            (rr_lane & ~rr_kill)[:, None],
-            state.throughput / p[:, None], state.throughput)
-        state = state._replace(seed_rgen=seed_rgen, throughput=throughput,
-                               alive=state.alive & ~rr_kill)
+    trace, `_shade`, then `end_bounce`; the `rt.bounce` span. Returns
+    (state, rays traced, shadow rays), the counts as i64[] device
+    tensors."""
+    n = state.alive.shape[0]
+    with profiling.span("rt.bounce", depth=depth, lanes=n):
+        # Russian roulette (simple.rgen:55-68,88-90).
+        if depth >= cfg.rr_start_depth:
+            rr_lane = state.alive
+            lum = luminance_rec709(state.throughput)
+            p = torch.clamp(lum, 0.05, 0.95)
+            r, seed_rgen = rng.rnd_masked(state.seed_rgen, rr_lane)
+            rr_kill = rr_lane & (r > p)
+            throughput = torch.where(
+                (rr_lane & ~rr_kill)[:, None],
+                state.throughput / p[:, None], state.throughput)
+            state = state._replace(seed_rgen=seed_rgen,
+                                   throughput=throughput,
+                                   alive=state.alive & ~rr_kill)
 
-    rays = state.alive.sum()
-    hit = _trace(scene, state.origin, state.direction, cfg, state.alive)
-    state, payload_hit, shadow_rays = _shade(scene, state, hit, cfg)
-    return end_bounce(state, payload_hit, clear_color), rays, shadow_rays
+        rays = state.alive.sum()
+        count_rays(n, rays)
+        hit = _trace(scene, state.origin, state.direction, cfg, state.alive)
+        state, payload_hit, shadow_rays = _shade(scene, state, hit, cfg)
+        return end_bounce(state, payload_hit, clear_color), rays, shadow_rays
+
+
+def count_rays(lanes: int, live):
+    """The traversal counters of one launch: `trace.lanes`, its lanes, and
+    `trace.live`, the live ones among them (an i64[] count the caller
+    already has for its ray statistics, so no kernel is added)."""
+    profiling.count("trace.lanes", lanes)
+    profiling.count("trace.live", live)
 
 
 def end_bounce(state: WavefrontState, payload_hit, clear_color):

@@ -19,6 +19,7 @@ versions bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +30,7 @@ import tempfile
 import threading
 import time
 
-from raytracer_tpu_torch.utils import compile_cache
+from raytracer_tpu_torch.utils import compile_cache, profiling
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -139,18 +140,32 @@ def bind(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
 def _cuda_lib(name: str, signatures, headers=CUDA_HEADERS) -> ctypes.CDLL:
     """csrc/<name>.cu built (stem lib<name>; its hash covers `headers`, the
     repo's headers it includes) and loaded once per process, its entry
-    points bound to `signatures`."""
+    points bound to `signatures`; the first load is a `rt.kernel_load`
+    span (`library_load`)."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        lib = bind(ctypes.CDLL(compile_library(
-            [_nvcc(), *NVCC_FLAGS], os.path.join(CSRC_DIR, f"{name}.cu"),
-            f"lib{name}", headers=headers)), signatures)
+        stem = f"lib{name}"
+        with library_load(stem):
+            lib = bind(ctypes.CDLL(compile_library(
+                [_nvcc(), *NVCC_FLAGS], os.path.join(CSRC_DIR, f"{name}.cu"),
+                stem, headers=headers)), signatures)
         _libs[name] = lib
         return lib
+
+
+@contextlib.contextmanager
+def library_load(stem: str):
+    """The `rt.kernel_load` span of a library's first load in the process:
+    attributes `library` (the stem) and `built` (compiled now, not found in
+    the build directory)."""
+    with profiling.span("rt.kernel_load", library=stem) as attrs:
+        yield
+        if attrs is not None:
+            attrs["built"] = build_info.get(stem, {}).get("seconds", 0) > 0
 
 
 _P = ctypes.c_void_p

@@ -72,6 +72,7 @@ from raytracer_tpu_torch.ops.quad_traverse import (
     any_passes,
     closest_passes,
 )
+from raytracer_tpu_torch.utils import profiling
 
 STACK_CAP = 128  # per-ray stack entries, as the TPU kernels' SMEM stack
 
@@ -116,38 +117,42 @@ def intersect_bvh_binary(origin, direction, scene, t_min, t_max,
     """Closest hit of rays f32[N,3] against `scene` (a DeviceScene);
     `t_max` scalar or f32[N]; inactive lanes get t_max = t_min. A
     multi-part scene takes one pass per part, as K1's
-    (quad_traverse.closest_passes)."""
+    (quad_traverse.closest_passes). The `rt.trace` span."""
     _check_stack(scene)
-    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
+    with profiling.span("rt.trace", lanes=origin.shape[0]):
+        o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
 
-    def trace(t_cap, part):
-        if o.is_cuda:
-            return _intersect_binary_cuda(o, d, t_cap, t_min, part)
-        return _intersect_binary_plain(o, d, t_cap, t_min, part.binary_root,
-                                       part.pnodes, part.ptris)
+        def trace(t_cap, part):
+            if o.is_cuda:
+                return _intersect_binary_cuda(o, d, t_cap, t_min, part)
+            return _intersect_binary_plain(o, d, t_cap, t_min,
+                                           part.binary_root, part.pnodes,
+                                           part.ptris)
 
-    t, tri, u, v = closest_passes(o, tm, scene, trace)
-    return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
+        t, tri, u, v = closest_passes(o, tm, scene, trace)
+        return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
 
 
 def occlusion_bvh_binary(origin, direction, t_min, t_max, scene,
                          skip_object, active_mask=None):
     """Any hit in (t_min, t_max) by a triangle whose object is not the
     ray's `skip_object` (i32[N]); returns bool[N]. A multi-part scene takes
-    one pass per part (quad_traverse.any_passes)."""
+    one pass per part (quad_traverse.any_passes). The `rt.occlusion`
+    span."""
     _check_stack(scene)
-    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
-    skip = torch.as_tensor(skip_object, device=o.device).to(
-        torch.int32).expand(o.shape[0]).contiguous()
+    with profiling.span("rt.occlusion", lanes=origin.shape[0]):
+        o, d, tm = _ray_inputs(origin, direction, t_max, active_mask, t_min)
+        skip = torch.as_tensor(skip_object, device=o.device).to(
+            torch.int32).expand(o.shape[0]).contiguous()
 
-    def trace(t_cap, part):
-        if o.is_cuda:
-            return _occlusion_binary_cuda(o, d, t_cap, skip, t_min, part)
-        return _occlusion_binary_plain(o, d, t_cap, skip, t_min,
-                                       part.binary_root, part.pnodes,
-                                       part.ptris)
+        def trace(t_cap, part):
+            if o.is_cuda:
+                return _occlusion_binary_cuda(o, d, t_cap, skip, t_min, part)
+            return _occlusion_binary_plain(o, d, t_cap, skip, t_min,
+                                           part.binary_root, part.pnodes,
+                                           part.ptris)
 
-    return any_passes(o, tm, t_min, scene, trace)
+        return any_passes(o, tm, t_min, scene, trace)
 
 
 # --------------------------------------------------------------------------

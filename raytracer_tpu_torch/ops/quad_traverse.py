@@ -58,6 +58,7 @@ import weakref
 import torch
 
 from raytracer_tpu_torch.ops.intersect import HitRecord
+from raytracer_tpu_torch.utils import profiling
 
 CAP = 64  # per-ray stack entries (quad nodes and leaf blocks)
 T_MIN = 1e-3  # the reference's traceRayEXT t_min, fixed in the kernels
@@ -107,39 +108,41 @@ def intersect_quad(origin, direction, scene, t_min, t_max,
                    active_mask=None) -> HitRecord:
     """Closest hit of rays f32[N,3] against `scene` (a DeviceScene);
     `t_max` scalar or f32[N]; inactive lanes get t_max = 1e-3. A multi-part
-    scene takes one pass per part (closest_passes)."""
+    scene takes one pass per part (closest_passes). The `rt.trace` span."""
     _check_t_min(t_min)
     _check_scene(scene)
-    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
+    with profiling.span("rt.trace", lanes=origin.shape[0]):
+        o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
 
-    def trace(t_cap, part):
-        if o.is_cuda:
-            return _intersect_quad_cuda(o, d, t_cap, part)
-        return _intersect_quad_plain(o, d, t_cap, part.root, part.qmeta,
-                                     part.qnodes, part.ptris)
+        def trace(t_cap, part):
+            if o.is_cuda:
+                return _intersect_quad_cuda(o, d, t_cap, part)
+            return _intersect_quad_plain(o, d, t_cap, part.root, part.qmeta,
+                                         part.qnodes, part.ptris)
 
-    t, tri, u, v = closest_passes(o, tm, scene, trace)
-    return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
+        t, tri, u, v = closest_passes(o, tm, scene, trace)
+        return HitRecord(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
 
 
 def occlusion_quad(origin, direction, t_min, t_max, scene, skip_object,
                    active_mask=None):
     """Any hit in (1e-3, t_max) by a triangle whose object is not the
     ray's `skip_object` (i32[N]); returns bool[N]. A multi-part scene takes
-    one pass per part (any_passes)."""
+    one pass per part (any_passes). The `rt.occlusion` span."""
     _check_t_min(t_min)
     _check_scene(scene)
-    o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
-    skip = torch.as_tensor(skip_object, device=o.device).to(
-        torch.int32).expand(o.shape[0]).contiguous()
+    with profiling.span("rt.occlusion", lanes=origin.shape[0]):
+        o, d, tm = _ray_inputs(origin, direction, t_max, active_mask)
+        skip = torch.as_tensor(skip_object, device=o.device).to(
+            torch.int32).expand(o.shape[0]).contiguous()
 
-    def trace(t_cap, part):
-        if o.is_cuda:
-            return _occlusion_quad_cuda(o, d, t_cap, skip, part)
-        return _occlusion_quad_plain(o, d, t_cap, skip, part.root,
-                                     part.qmeta, part.qnodes, part.ptris)
+        def trace(t_cap, part):
+            if o.is_cuda:
+                return _occlusion_quad_cuda(o, d, t_cap, skip, part)
+            return _occlusion_quad_plain(o, d, t_cap, skip, part.root,
+                                         part.qmeta, part.qnodes, part.ptris)
 
-    return any_passes(o, tm, T_MIN, scene, trace)
+        return any_passes(o, tm, T_MIN, scene, trace)
 
 
 # --------------------------------------------------------------------------
@@ -153,14 +156,16 @@ def scene_parts(scene, origin):
     near to far from the rays' centroid (the JAX order: distance from the
     centroid to each part root's box). The order cannot change a hit
     record, as each pass's cap only tightens; it makes early hits prune
-    later parts. It costs one read of the order to the host a trace."""
+    later parts. It costs one read of the order to the host a trace (an
+    `rt.sync` span)."""
     if getattr(scene, "num_parts", 1) <= 1:
         return [scene]
     aabb = scene.part_aabb
     centroid = origin.mean(dim=0)
     clamped = torch.clamp(centroid[None, :], aabb[:, 0:3], aabb[:, 3:6])
     d2 = ((centroid[None, :] - clamped) ** 2).sum(dim=1)
-    order = torch.argsort(d2, stable=True).tolist()
+    with profiling.span("rt.sync", site="scene_parts"):
+        order = torch.argsort(d2, stable=True).tolist()
     return [scene.parts[k] for k in order]
 
 

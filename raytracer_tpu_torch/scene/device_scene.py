@@ -73,6 +73,7 @@ from raytracer_tpu_torch.accel.bvh import (
     quad_boxes,
 )
 from raytracer_tpu_torch.scene.model import Scene
+from raytracer_tpu_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -788,10 +789,14 @@ def bake_scene(scene: Scene, leaf_size: int = 16, device="cuda",
     `pallas_budget_bytes` cuts a tree whose tables exceed it into parts;
     `stable_shapes` pads every table to a capacity bucket (not under
     parts). A binary tree too deep for K3/K4's stack also gets the
-    skip-link walk's tables. See the module docstring."""
-    arrays, bvh = _bake_arrays(scene, leaf_size, reuse_bvh,
-                               pallas_budget_bytes, stable_shapes)
-    ds = _to_device(arrays, device)
+    skip-link walk's tables. See the module docstring. The bake is the
+    `rt.bake` span (attributes: triangles, refit)."""
+    with profiling.span("rt.bake", refit=reuse_bvh is not None) as attrs:
+        arrays, bvh = _bake_arrays(scene, leaf_size, reuse_bvh,
+                                   pallas_budget_bytes, stable_shapes)
+        ds = _to_device(arrays, device)
+        if attrs is not None:
+            attrs["triangles"] = ds.num_triangles
     log.info(
         "bake%s: %d triangles, %d lights, %d part(s), qnodes %s f32 (%d "
         "bytes), ptris %s f32 (%d bytes), stack need %d; pnodes %s f32 (%d "

@@ -13,10 +13,14 @@ memsets, copies; one stream, so they do not overlap) and idle share, the
 device activities grouped by name, the top-level operations by the device
 time of the kernels under them, and the traversal kernels' launches and ms
 (names containing closest_kernel or occlusion_kernel: K1/K2, or K3/K4
-under --accel bvh). With --restir the frame runs ReSTIR DI, and its
-reservoir passes (integrator/restir.py:restir_direct, shadow rays
-included) show as one top-level operation, `restir_direct`. Needs a CUDA
-device; exits non-zero without one.
+under --accel bvh). The frame runs with the program's tracer active
+(utils/profiling.py; its spans add nothing to the profile), and its device
+time and idle gaps are put down to the program's spans
+(utils/attribution.py): device ms by span path and under each span name
+(`rt.restir_direct` is ReSTIR DI's reservoir passes, shadow rays included,
+with --restir), the idle ms before each path's activities, and the host ms
+of the frame's `rt.sync` reads. Needs a CUDA device; exits non-zero
+without one.
 """
 
 from __future__ import annotations
@@ -36,10 +40,6 @@ from raytracer_tpu_torch.lab.rays import (
 )
 
 TRAVERSAL = ("closest_kernel", "occlusion_kernel")
-# record_function ranges: the profiler also lists them as device
-# activities spanning their kernels (and the gaps between them), so they
-# are kept out of the device busy time.
-SPANS = ("restir_direct",)
 
 
 def _frame_ms(renderer):
@@ -67,9 +67,9 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from raytracer_tpu_torch.api import ProgressiveRenderer
-    from raytracer_tpu_torch.integrator import restir
     from raytracer_tpu_torch.ops.camera import Camera
     from raytracer_tpu_torch.scene.benchmark import create_benchmark_atrium
+    from raytracer_tpu_torch.utils import attribution, profiling
     from raytracer_tpu_torch.utils.config import RenderConfig
 
     print(f"card: {card_line()}; torch {torch.__version__}", flush=True)
@@ -80,24 +80,21 @@ def main(argv=None):
         RenderConfig(width=WIDTH, height=HEIGHT, max_depth=3,
                      accel=args.accel, use_restir=args.restir),
         device="cuda")
-    own = restir.restir_direct
-
-    def restir_direct(*a, **kw):
-        with torch.profiler.record_function(SPANS[0]):
-            return own(*a, **kw)
-
-    restir.restir_direct = restir_direct
     for _ in range(args.warm):
         _frame_ms(r)
     plain_ms = _frame_ms(r)
+    tracer = profiling.PhaseTimer(record=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_ms = _frame_ms(r)
+        with profiling.activated(tracer):
+            wall_ms = _frame_ms(r)
+    spans = attribution.attribute(prof.profiler.kineto_results.events(),
+                                  tracer.export(), 1)
 
     events = prof.events()
     by_name = defaultdict(lambda: [0, 0.0])
     for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in SPANS:
+        if e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.device_time_total / 1e3
     busy = sum(ms for _, ms in by_name.values())
@@ -129,7 +126,35 @@ def main(argv=None):
         ms = sum(m for _, _, m in hits)
         print(f"traversal {key}: {count} launches, {ms:.3f} ms, "
               f"{100 * ms / busy:.2f}% of the device time")
+    print_spans(spans, args.top)
     return 0
+
+
+def print_spans(spans, top):
+    """The frame's device ms by the program's span paths and under each
+    span name, the idle ms by path, and the host ms of its rt.sync reads
+    (`spans`: utils/attribution.py's Attribution of the frame)."""
+    busy = spans.busy_s
+    print(f"device ms by program span path (top {top}; "
+          f"{1e3 * spans.attributed_s:.3f} of {1e3 * busy:.3f} ms busy "
+          f"attributed): share, ms")
+    for path, s in sorted(spans.device_s.items(),
+                          key=lambda kv: -kv[1])[:top]:
+        print(f"  {100 * s / busy:5.1f}% {1e3 * s:9.3f} ms {path}")
+    names = sorted({name for path in spans.device_s
+                    for name in path.split("/") if name.startswith("rt.")})
+    print("device ms under each program span: share, ms")
+    for name in sorted(names, key=lambda n: -spans.under(n)):
+        s = spans.under(name)
+        print(f"  {100 * s / busy:5.1f}% {1e3 * s:9.3f} ms {name}")
+    print(f"idle ms by the span path launching the next activity (top "
+          f"{top}):")
+    for path, s in spans.idle_spans(top):
+        print(f"  {1e3 * s:9.3f} ms {path}")
+    print(f"host ms in rt.sync reads: "
+          f"{1e3 * spans.host_s.get('rt.sync', 0.0):.3f}")
+    for name, s in sorted(spans.no_launch_s.items(), key=lambda kv: -kv[1]):
+        print(f"  no launch found: {1e3 * s:9.3f} ms {name[:110]}")
 
 
 if __name__ == "__main__":
