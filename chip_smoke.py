@@ -11,8 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
      csrc/lab_traverse.cu, the traversal lab's L1/L9/L2;
      csrc/lab2_traverse.cu, its L3-L8; csrc/lab3_traverse.cu, the
      fixed-sequence labs' L10/L11; csrc/bf16_lab.cu, L12; the names of
-     PERF.md's kernel table) with nvcc, one process per source, all
-     started together.
+     PERF.md's kernel table; csrc/light_select.cu, NEE's light selection
+     S1) with nvcc, one process per source, all started together.
   2. Kernels against their plain torch versions on the card, on the
      300k-triangle atrium and five 1920x1080 ray sets (primary rays,
      incoherent reflected rays, the incoherent rays with a quarter of the
@@ -34,8 +34,9 @@ Phases (any failure exits non-zero and prints no result line):
   3. The main path: ProgressiveRenderer on the atrium at 1920x1080, depth 3,
      NEE; 2 warm and 4 timed frames, with ms/frame, rays/frame, Mrays/s
      and peak device memory; a finite, non-black image; both kernels
-     launched during the run. Then the atrium at 64x64, 2 frames, on the
-     card against the CPU (the plain versions), pixel by pixel.
+     launched during the run, and S1 once a bounce (3 a frame). Then the
+     atrium at 64x64, 2 frames, on the card against the CPU (the plain
+     versions), pixel by pixel.
   4. The CLI renders a JSON scene to a PNG.
   5. The accel="bvh" path: phase 3 with RenderConfig(accel="bvh"), whose
      frames must launch K3/K4 and not K1/K2, and whose image must agree
@@ -113,7 +114,8 @@ Phases (any failure exits non-zero and prints no result line):
      size.
  10. The render modes on the 1080p 300k atrium at the bench camera, through
      ProgressiveRenderer, with K1/K2's launch counts set to 0 before and
-     read after each part, and each part required to launch them: (a) one
+     read after each part, and each part required to launch them (and S1
+     3 a frame, a step or a preview; none for the G-buffer): (a) one
      spp_batch=4 step against 4 sequential steps of a fresh renderer
      (bit-equal, else within PIXEL_ATOL / MAX_FLIPPED), with ms per step
      and per sample against phase 3's ms/frame and the peak device memory
@@ -137,17 +139,18 @@ Phases (any failure exits non-zero and prints no result line):
      (a) the 1080p atrium at the bench camera, accel auto, 2 warm and 4
      timed frames, with ms/frame beside phase 3's, Mrays/s (shadow rays
      included) and peak device memory; K1 3 and K2 4 launches a frame and
-     no K3/K4; a finite, non-black image and M > 0 on every pixel that
-     hits; (b) the same with accel="bvh": K3 3 and K4 4 a frame, no K1/K2,
-     the image within PIXEL_ATOL / MAX_FLIPPED of (a)'s; (c) one more step
+     no K3/K4, S1 3 (the primary vertex's MIS-only call and 2 bounces); a
+     finite, non-black image and M > 0 on every pixel that hits; (b) the
+     same with accel="bvh": K3 3 and K4 4 a frame, no K1/K2, the image
+     within PIXEL_ATOL / MAX_FLIPPED of (a)'s; (c) one more step
      of (a) with its primary K1 launch and K2 launch 1 (step 6's final
      visibility, each ray skipping its sample's light object) captured and
      held bit for bit against the plain walks on the card; (d) the 64-light
      grid at 1080p (the JAX ReSTIR lab's camera), ReSTIR against plain
-     NEE, 4 timed frames each; (e) the atrium at 32x32 and the lightgrid at
-     24x24, 3 frames each, card against CPU within PIXEL_ATOL /
-     MAX_FLIPPED, the reservoir's light_index equal on all but MAX_FLIPPED
-     of the pixels.
+     NEE, 4 timed frames each, S1 3 a frame; (e) the atrium at 32x32 and
+     the lightgrid at 24x24, 3 frames each, card against CPU within
+     PIXEL_ATOL / MAX_FLIPPED, the reservoir's light_index equal on all
+     but MAX_FLIPPED of the pixels.
  12. The editor path (scene edits, ROADMAP P3/P11), with the launch counts
      set to 0 before and read after each part, and each part required to
      launch its kernels: (a) examples/interactive_session.py's edits on the
@@ -183,12 +186,12 @@ Phases (any failure exits non-zero and prints no result line):
      and ReSTIR at the defaults (radius 16: a 17-row halo), each with
      per-rank ms/frame, PhaseTimer spans (tile render, halo, gather), peak
      device memory and launches by frame (K1 3 / K2 3, ReSTIR K1 3 / K2
-     4), the gathered images bit-equal to (a)'s single-device ones, and
-     one K1 and one K2 launch per rank captured and bit-equal to the plain
-     walks; (c) one accel="bvh" frame in that world: K3/K4 3 each on every
-     rank, no K1/K2, the image bit-equal to (b)'s first frame; (d) the
-     Cornell box at 32x32 on the card's world of 2 against one CPU device:
-     plain, spp_batch=2, adaptive (tol 0.15), preview_image(4) with and
+     4; S1 3 in both), the gathered images bit-equal to (a)'s single-device
+     ones, and one K1 and one K2 launch per rank captured and bit-equal to
+     the plain walks; (c) one accel="bvh" frame in that world: K3/K4 3 each
+     on every rank, no K1/K2, the image bit-equal to (b)'s first frame; (d)
+     the Cornell box at 32x32 on the card's world of 2 against one CPU
+     device: plain, spp_batch=2, adaptive (tol 0.15), preview_image(4) with and
      without the denoiser, aovs(), image(denoise=True) and ReSTIR (radius
      2), within PIXEL_ATOL / MAX_FLIPPED.
  14. The port's last modules (ROADMAP P6, P1, P4, P5, P2), through
@@ -216,16 +219,25 @@ Phases (any failure exits non-zero and prints no result line):
      MAX_FLIPPED; (e) (a)-(d) on the Cornell box (a at 64x32 with
      compact_decay 0.25, so that a prefix runs; b at the JAX tests' 96 KiB
      budget), 2 frames, card against CPU within PIXEL_ATOL / MAX_FLIPPED.
+ 15. NEE light selection (S1, ops/light_select.py) on the renderer's own
+     tensors: one frame of the 1080p atrium at the bench camera and one of
+     the 64-light grid (NEE, phase 11's camera), each with its bounce-1
+     call's inputs and outputs kept (2,073,600 lanes; L columns as the
+     scene gives them), the kernel's outputs bit-equal to the plain
+     version's on the same inputs (run on the CPU), the kernel timed
+     (CUDA events, mean of SELECT_REPS launches) and the plain version on
+     the card (host clock, one run), each beside select_bound().
 
 Every kernel's entry in the kernels line has its bound (bound_ms,
 bound_by): the larger of its bytes over the card's memory rate and its
 FP32 operations over the card's FP32 rate (L12: its results over the
 card's instruction rate for their type), counted on the run whose ms it
 shows (bound(); walk_bound() for K1-K4 and L1-L9, which count only the
-triangles they test; fixed_seq_bound(), chain_bound()); library_ms is
-null, as no PyTorch call computes a BVH walk, a fixed-sequence walk or a
-K-step chain. The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. The scene and all rays are generated from
+triangles they test; fixed_seq_bound(), chain_bound(); select_bound()
+for S1); library_ms is null, as no PyTorch call computes a BVH walk, a
+fixed-sequence walk, a K-step chain or a light selection. The line before
+the last is {"kernels": [...]}; the last line is {"ok": true, "device":
+{...}}. The scene and all rays are generated from
 fixed seeds; nothing is downloaded.
 """
 
@@ -252,6 +264,7 @@ LAB_SOURCE = "raytracer_tpu_torch/csrc/lab_traverse.cu"
 LAB2_SOURCE = "raytracer_tpu_torch/csrc/lab2_traverse.cu"
 LAB3_SOURCE = "raytracer_tpu_torch/csrc/lab3_traverse.cu"
 BF16_SOURCE = "raytracer_tpu_torch/csrc/bf16_lab.cu"
+SELECT_SOURCE = "raytracer_tpu_torch/csrc/light_select.cu"
 AIMED_SEED = 9  # phase 9's rays that hit
 # K3 vs K1, K4 vs K2, L2 vs K1: share of rays that may differ
 TREE_AGREEMENT = 1e-4
@@ -578,7 +591,8 @@ def phase1():
 
     loaders = (_build.quad_traverse_lib, _build.binary_traverse_lib,
                _build.lab_traverse_lib, _build.lab2_traverse_lib,
-               _build.lab3_traverse_lib, _build.bf16_lab_lib)
+               _build.lab3_traverse_lib, _build.bf16_lab_lib,
+               _build.light_select_lib)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
         for b in [pool.submit(load) for load in loaders]:
@@ -590,7 +604,8 @@ def phase1():
                          (LAB_SOURCE, "liblab_traverse"),
                          (LAB2_SOURCE, "liblab2_traverse"),
                          (LAB3_SOURCE, "liblab3_traverse"),
-                         (BF16_SOURCE, "libbf16_lab")):
+                         (BF16_SOURCE, "libbf16_lab"),
+                         (SELECT_SOURCE, "liblight_select")):
         info = _build.build_info[stem]
         log(f"phase 1: {source}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -598,22 +613,46 @@ def phase1():
                 log(f"  ptxas: {line.strip()}")
 
 
+# The traversal kernels' keys of all_launch_counts().
+TRAVERSAL_KINDS = ("quad_closest", "quad_occlusion", "binary_closest",
+                   "binary_occlusion")
+# S1's launches in a depth-3 frame: one a `_shade`, one a bounce.
+SELECT_PER_FRAME = 3
+
+
 def reset_all_launch_counts():
     from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import light_select as ls
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     qt.reset_launch_counts()
     bt.reset_launch_counts()
+    ls.reset_launch_counts()
 
 
 def all_launch_counts():
     from raytracer_tpu_torch.ops import binary_traverse as bt
+    from raytracer_tpu_torch.ops import light_select as ls
     from raytracer_tpu_torch.ops import quad_traverse as qt
 
     return {"quad_closest": qt.closest_launches,
             "quad_occlusion": qt.occlusion_launches,
             "binary_closest": bt.closest_launches,
-            "binary_occlusion": bt.occlusion_launches}
+            "binary_occlusion": bt.occlusion_launches,
+            "light_select": ls.launches}
+
+
+def gate_select(what, frames, per_frame=SELECT_PER_FRAME):
+    """Raise unless S1 launched `per_frame` times a frame over `frames`
+    depth-3 frames (steps, previews) since the last
+    reset_all_launch_counts(); returns its launches."""
+    from raytracer_tpu_torch.ops import light_select as ls
+
+    if ls.launches != per_frame * frames:
+        raise RuntimeError(f"{what}: {ls.launches} light selection "
+                           f"launches, want {per_frame} a frame over "
+                           f"{frames} frames")
+    return ls.launches
 
 
 def bench_camera_ubo(device, width, height):
@@ -1007,6 +1046,10 @@ def main_path(scene_fn, device, label, accel):
         f"mean {float(img.mean()):.5f}")
     if not np.isfinite(img).all() or not img.mean() > 0:
         raise RuntimeError(f"{label}: image is not finite and non-black")
+    if launches["light_select"] != SELECT_PER_FRAME * 6:
+        raise RuntimeError(f"{label}: {launches['light_select']} light "
+                           f"selection launches in 6 frames, want "
+                           f"{SELECT_PER_FRAME} a frame")
 
     # Card vs CPU (the plain versions) at 64x64, 2 frames.
     small = {}
@@ -2261,6 +2304,7 @@ def phase10_spp(scene_fn, device, phase3_ms):
     reset_all_launch_counts()
     _, ms_first = timed(bat.step)
     counts = quad_launches("(a) spp batching")
+    counts["light_select"] = gate_select("phase 10 (a) spp batching", 1)
     bat_peak = torch.cuda.max_memory_allocated()
     img_bat = bat.image()
     torch.cuda.reset_peak_memory_stats()
@@ -2313,6 +2357,8 @@ def phase10_adaptive(scene_fn, device):
         rows.append((ms, int(r.last_stats["rays_traced"]),
                      int(r.last_stats["shadow_rays"]), frac))
     counts = quad_launches("(b) adaptive sampling")
+    counts["light_select"] = gate_select("phase 10 (b) adaptive sampling",
+                                         MODES_FRAMES)
     for f, (ms, traced, shadow, frac) in enumerate(rows):
         log(f"  adaptive frame {f}: {ms:.1f} ms, {traced} traced + {shadow} "
             f"shadow rays" + ("" if frac is None else
@@ -2378,6 +2424,7 @@ def phase10_denoise_preview(scene_fn, device):
     reset_all_launch_counts()
     img, ms_image = timed(lambda: r.image(denoise=True))
     counts = quad_launches("(c) denoise", occlusion=False)
+    gate_select("phase 10 (c) denoise", 0)
     if counts != {"quad_closest": 1, "quad_occlusion": 0}:
         raise RuntimeError(f"phase 10 (c): the G-buffer pass launched "
                            f"{counts}, not one K1")
@@ -2428,6 +2475,8 @@ def phase10_denoise_preview(scene_fn, device):
             out, first = timed(preview)
             warm = [ms for ms, _ in timed_runs(preview, 3)]
             counts = quad_launches(f"(d) preview denoise={denoise}")
+            counts["light_select"] = gate_select(
+                f"phase 10 (d) preview denoise={denoise}", 1 + 3)
             shape = ((HEIGHT, WIDTH, 3) if upscale else
                      (HEIGHT // PREVIEW_SCALE, WIDTH // PREVIEW_SCALE, 3))
             if out.shape != shape or not np.isfinite(out).all():
@@ -2593,6 +2642,7 @@ def phase11_main(scene_fn, device, accel, phase3_ms):
     other = "binary" if accel == "auto" else "quad"
     want = {f"{tree}_{k}": 6 * n for k, n in RESTIR_LAUNCHES.items()}
     want.update({f"{other}_{k}": 0 for k in RESTIR_LAUNCHES})
+    want["light_select"] = 6 * SELECT_PER_FRAME
     if launches != want:
         raise RuntimeError(f"phase 11 {part}: launches {launches}, want "
                            f"{want} in 6 frames")
@@ -2656,6 +2706,7 @@ def phase11_lightgrid(device):
                             use_restir=restir)
         out[name] = timed_frames(r, f"(d) lightgrid {name}")
         quad_launches(f"(d) lightgrid {name}", phase="phase 11")
+        gate_select(f"phase 11 (d) lightgrid {name}", 6)
         del r
     ratio = out["ReSTIR"][0] / out["NEE"][0]
     log(f"phase 11 (d): lightgrid 1080p ReSTIR {out['ReSTIR'][0]:.1f} "
@@ -2985,7 +3036,8 @@ SHARD_FRAMES = 6  # 2 warm and 4 timed, as phase 3
 SHARD_TIMEOUT_S = 600.0
 # K1 (K3) and K2 (K4) launches a frame on each rank: the plain path
 # (phase 3) and ReSTIR (phase 11).
-SHARD_LAUNCHES = {"plain": (3, 3), "restir": (3, 4)}
+# K1, K2 and S1 launches a frame on each rank.
+SHARD_LAUNCHES = {"plain": (3, 3, 3), "restir": (3, 4, 3)}
 SHARD_SMALL = 32  # (d), card against CPU
 SHARD_SMALL_RESTIR = dict(use_restir=True, restir_spatial_radius=2.0)
 
@@ -3004,7 +3056,8 @@ def shard_renderer(mesh, device, **cfg):
         device=device, mesh=mesh)
 
 
-def shard_frames(r, label, kinds=("quad_closest", "quad_occlusion")):
+def shard_frames(r, label,
+                 kinds=("quad_closest", "quad_occlusion", "light_select")):
     """SHARD_FRAMES steps of this rank's renderer `r` with its PhaseTimer
     on: each frame's ms (host clock between device syncs) and launch
     counts of `kinds`, read per frame from 0 set just before. Returns
@@ -3203,7 +3256,7 @@ def phase13(phase3_ms):
                  timeout_s=SHARD_TIMEOUT_S)
     log(f"phase 13 (a): world 1 over NCCL {a['ms']:.1f} ms/frame against "
         f"phase 3's {phase3_ms:.1f} ({a['ms'] / phase3_ms:.3f}x), peak "
-        f"{a['peak']} B, K1/K2 launches a frame {a['launches']}")
+        f"{a['peak']} B, K1/K2/S1 launches a frame {a['launches']}")
     refs = {k: a[k] for k in ("plain_single", "restir_single")}
     ranks = spawn(phase13_world2, 2, (refs,), backend="gloo",
                   timeout_s=SHARD_TIMEOUT_S)
@@ -3617,7 +3670,7 @@ def phase14_walk(scene_fn, device):
         f"{r.device_scene.bvh_max_depth}): {ms:.1f} ms for the 1080p "
         f"frame, bake {r.bake_s:.2f} s, launches {launches}; micro-steps a "
         f"trace {steps}")
-    if any(launches.values()) or not steps:
+    if any(launches[k] for k in TRAVERSAL_KINDS) or not steps:
         raise RuntimeError(f"phase 14 (d): the frame did not take the walk "
                            f"alone: {launches}, {steps}")
     if not np.isfinite(img).all() or not img.mean() > 0:
@@ -3662,7 +3715,7 @@ def phase14_small(device):
             for k, v in saved.items():
                 setattr(mods[k], k, v)
         walked = what == "(d) walk"
-        if walked == any(launches.values()):
+        if walked == any(launches[k] for k in TRAVERSAL_KINDS):
             raise RuntimeError(f"phase 14 (e) {what}: launches {launches}")
         gate_pixels(f"(e) {what} Cornell {w}x{h} x2 card vs CPU ({parts} "
                     f"part(s), launches {launches})", imgs[str(device)],
@@ -3677,6 +3730,133 @@ def phase14(scene_fn, device):
     phase14_walk(scene_fn, device)
     phase14_small(device)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+
+# --- phase 15: NEE light selection (S1) on the renderer's own tensors -----
+
+SELECT_REPS = 20  # CUDA-event launches timed
+
+
+@contextlib.contextmanager
+def capture_select(at):
+    """Keeps the arguments and the outputs of `_shade`'s light selection
+    call number `at`, counted from 0 within the block, as the path makes
+    it: integrator/wavefront.py's select_lights is wrapped, so the launch
+    is the path's own. Yields a dict with "args", "kw" and "out"."""
+    import torch
+
+    from raytracer_tpu_torch.integrator import wavefront as wf
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    kept, seen = {}, [0]
+    select = wf.select_lights
+
+    def wrapped(*args, **kw):
+        out = select(*args, **kw)
+        if seen[0] == at:
+            kept["args"] = tuple(clone(a) for a in args)
+            kept["kw"] = {k: clone(v) for k, v in kw.items()}
+            kept["out"] = type(out)(*(clone(x) for x in out))
+        seen[0] += 1
+        return out
+
+    wf.select_lights = wrapped
+    try:
+        yield kept
+    finally:
+        wf.select_lights = select
+
+
+def select_bound(n, num_lights, sel, draw, mis):
+    """The bound of one S1 launch on `n` lanes over `num_lights` columns
+    (bound_of()): bytes, each lane's inputs and outputs once (12 B of
+    position; a draw's 13 in and 17 out; MIS's 4 in and 8 out) and the
+    light rows once (20 B a row); FP32 operations, 10 a weight (3
+    subtractions, 3 multiplies, 2 adds, the clamp and the division, each
+    counted as one) and in the first pass 1 for MIS's sum and 2 for the
+    draw's (a select and an add; the integer compare not counted), in the
+    second pass up to each pick's column (its `selected` + 1) 13 a column,
+    4 a lane for r1 and the pdf, and 10 for MIS's w_this."""
+    nbytes = n * (12 + (30 if draw else 0) + (12 if mis else 0))
+    nbytes += num_lights * 20
+    ops = n * num_lights * (10 + (1 if mis else 0) + (2 if draw else 0))
+    if draw:
+        visited = int((sel.selected.long() + 1)[sel.found].sum())
+        ops += 13 * visited + 4 * n
+    if mis:
+        ops += 10 * n
+    return bound_of(nbytes, ops)
+
+
+def phase15_scene(what, r):
+    """One frame of renderer `r` with its bounce-1 selection kept, the
+    kernel's outputs against the plain version's on the same inputs (on
+    the CPU), bit for bit; the kernel's ms (CUDA events) and the plain
+    version's on the card (host clock, one run) beside select_bound()."""
+    import torch
+
+    from raytracer_tpu_torch.lab.rays import cuda_ms
+    from raytracer_tpu_torch.ops import light_select as ls
+
+    r.step()
+    with capture_select(1) as kept:
+        r.step()
+    args, kw, got = kept["args"], kept["kw"], kept["out"]
+    pos, centers, powers, objects = args
+    inputs = (*args, kw["obj"], kw["do_nee"], kw["seed"], kw["light_index"])
+    draw, mis = kw["do_nee"] is not None, kw["light_index"] is not None
+    n, num_lights = pos.shape[0], powers.shape[0]
+    t0 = time.perf_counter()
+    want, _ = ls._select_plain(
+        *(None if x is None else x.cpu() for x in inputs), False)
+    cpu_s = time.perf_counter() - t0
+    for name in ls.LightSelection._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None) or (
+                a is not None and not torch.equal(a.cpu(), b)):
+            raise RuntimeError(f"phase 15 {what}: the kernel's {name} != "
+                               "the plain version's")
+    before = ls.launches
+    ms = cuda_ms(lambda: ls.select_lights(*args, **kw), SELECT_REPS)
+    if ls.launches != before + SELECT_REPS + 1:
+        raise RuntimeError(f"phase 15 {what}: the timed calls launched "
+                           f"{ls.launches - before} kernels")
+    plain_out, plain_ms = timed(lambda: ls._select_plain(*inputs, False))
+    plain_same = all(
+        x is None or torch.equal(x.cpu(), getattr(want, k))
+        for k, x in zip(ls.LightSelection._fields, plain_out[0]))
+    b = select_bound(n, num_lights, got, draw, mis)
+    drew = int(got.found.sum()) if draw else 0
+    log(f"phase 15 {what}: bounce-1 selection, {n} lanes, L = "
+        f"{num_lights} (draw {draw}, MIS {mis}), {drew} drew; kernel "
+        f"bit-equal to the plain version on the CPU ({cpu_s:.2f} s); "
+        f"kernel {ms:.4f} ms (mean of {SELECT_REPS}), plain on the card "
+        f"{plain_ms:.2f} ms (bit-equal to the CPU's: {plain_same}); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+        f"{b['ops']} FP32 operations), {100 * b['bound_ms'] / ms:.1f}% of "
+        "the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
+            "lanes": n, "columns": num_lights, **b}
+
+
+def phase15(scene_fn, device):
+    """S1 on the bounce-1 wavefront of the 1080p atrium and of the 1080p
+    64-light grid (NEE)."""
+    from raytracer_tpu_torch.scene.benchmark import (
+        create_benchmark_lightgrid,
+    )
+
+    t0 = time.perf_counter()
+    out = {"atrium": phase15_scene(
+        "atrium", modes_renderer(scene_fn, device, (WIDTH, HEIGHT)))}
+    out["lightgrid"] = phase15_scene(
+        "lightgrid", restir_renderer(create_benchmark_lightgrid, device,
+                                     (WIDTH, HEIGHT), cam=LIGHTGRID_CAM,
+                                     use_restir=False))
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase4():
@@ -3731,6 +3911,7 @@ def main():
     phase12(atrium, device)
     phase13(cuda_ms)
     phase14(atrium, device)
+    select = phase15(atrium, device)
 
     def entry(name, source, replaces, launches, shown, *others):
         """A kernel's entry of the kernels line: the ms, plain ms and bound
@@ -3742,7 +3923,7 @@ def main():
                 "ms": shown["ms"], "plain_ms": shown["plain_ms"],
                 "bound_ms": shown["bound_ms"], "bound_by": shown["bound_by"],
                 # No PyTorch call computes a BVH walk, a fixed-sequence
-                # walk or a K-step chain.
+                # walk, a K-step chain or a light selection.
                 "library_ms": None}
 
     kernels = [
@@ -3764,6 +3945,10 @@ def main():
               bvh_launches["binary_occlusion"], k["binary_occlusion_shadow"],
               *(k[f"binary_occlusion_{name}"]
                 for name, _, _ in BINARY_SHADOW_RUNS)),
+        entry("light_select", SELECT_SOURCE,
+              "raytracer_tpu/integrator/wavefront.py:588",
+              cuda_launches["light_select"], select["lightgrid"],
+              select["atrium"]),
     ]
     for source, report, names in (
             (LAB_SOURCE, lab, (("lab_closest", "tools/kernel_lab.py:273"),
@@ -3792,14 +3977,18 @@ def main():
         "7's: L3, L4 base, L5 shared, L6 without flags; phase 8's: L8 "
         "ordered); phase 9's: the card-size run at the lab's K (L11a full, "
         "L11b base, L10 smem) and L12 f32, their plain versions at k = "
-        "K_CHECK (L12: at its K); library_ms null: no PyTorch call computes "
-        "a BVH walk, a fixed-sequence walk or a K-step chain")
+        "K_CHECK (L12: at its K); light_select: the 1080p lightgrid's "
+        "bounce-1 call (phase 15), its plain version on the card; "
+        "library_ms null: no PyTorch call computes a BVH walk, a "
+        "fixed-sequence walk, a K-step chain or a light selection")
     for name, r in (("quad_closest", k["closest_incoherent"]),
                     ("quad_occlusion", k["occlusion_shadow"]),
                     ("binary_closest", k["binary_closest_incoherent"]),
                     ("binary_occlusion", k["binary_occlusion_shadow"]),
                     *lab.items(), *lab2.items(), *lab3.items(),
-                    *lab4.items()):
+                    *lab4.items(),
+                    *((f"light_select {name}", r)
+                      for name, r in select.items())):
         log(f"bound {name}: {r['ms']:.3f} ms against a bound of "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} B, "
             f"{r['ops']} FP32 operations), {100 * r['bound_ms'] / r['ms']:.1f}"

@@ -75,6 +75,7 @@ from raytracer_tpu_torch.ops.binary_traverse import (
     stack_fits,
 )
 from raytracer_tpu_torch.ops.intersect import intersect_brute, occlusion_brute
+from raytracer_tpu_torch.ops.light_select import select_lights
 from raytracer_tpu_torch.ops.math3d import (
     cos_theta,
     cross,
@@ -298,22 +299,23 @@ def _occluded(scene, origin, direction, t_max, skip_object, cfg, active):
                           skip_object, active_mask=active) & active
 
 
-def _light_weights(scene, hit_pos, skip_object, cfg: RenderConfig,
-                   w_all=None):
-    """Power/distance² light weights over the first min(L, MAXLIGHTS)
-    lights (simple.rchit:507-534). Returns ([N,Lc] weights with
-    `skip_object` zeroed, [N] total). `w_all` reuses the un-skipped
-    weights of the same hit positions."""
+def _select_lights(scene, cfg: RenderConfig, world_pos, obj, do_nee, seed,
+                   light_index):
+    """ops/light_select.py over the first min(L, MAX_LIGHTS) lights
+    (simple.rchit:507-541): NEE's pick where `do_nee` is given, the
+    emissive-MIS total and weight where `light_index` is. The
+    `rt.light_select` span (columns)."""
     l_used = min(scene.num_lights, cfg.max_lights)
-    light_objs = scene.light_object[:l_used]
-    if w_all is None:
-        w_all = _light_weights_base(scene, hit_pos, cfg)
-    w = torch.where(light_objs[None, :] == skip_object[:, None], 0.0, w_all)
-    return w, w.sum(dim=-1)
+    with profiling.span("rt.light_select", columns=l_used):
+        return select_lights(
+            world_pos, scene.light_center[:l_used],
+            scene.light_power[:l_used], scene.light_object[:l_used],
+            obj=obj, do_nee=do_nee, seed=seed, light_index=light_index)
 
 
 def _light_weights_base(scene, hit_pos, cfg: RenderConfig):
-    """Un-skipped power/dist² weights [N,Lc]."""
+    """Un-skipped power/dist² weights [N,Lc] over the first min(L,
+    MAX_LIGHTS) lights (ReSTIR's candidate CDF)."""
     l_used = min(scene.num_lights, cfg.max_lights)
     centers = scene.light_center[:l_used]
     powers = scene.light_power[:l_used]
@@ -456,8 +458,8 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
     this vertex.
 
     The call is the `rt.shade` span, with `rt.fetch_surface` and
-    `rt.light_select` (the power/dist² weights, and NEE's pick through its
-    selection pdf) under it.
+    `rt.light_select` (ops/light_select.py: NEE's pick and its selection
+    pdf, and the emissive-MIS total and weight, in one launch) under it.
 
     Returns (new_state, payload_hit bool[N], shadow_ray_count i64[])."""
     with profiling.span("rt.shade", suppress_nee=suppress_nee):
@@ -495,19 +497,11 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
         # --- NEE with MIS (simple.rchit:618-632) ---
         did_direct = no_lanes
         p_sample_light = torch.clamp(roughness, 0.1, 0.9)
-        # One power/dist² pass per bounce, shared by the NEE selection and the
-        # emissive-MIS selection pdf.
-        l_used = min(scene.num_lights, cfg.max_lights)
-        if cfg.use_direct_lighting and scene.num_lights > 0:
-            with profiling.span("rt.light_select", columns=l_used):
-                w_base = _light_weights_base(scene, world_pos, cfg)
-        else:
-            w_base = None
         mis_nee = cfg.use_mis and not cfg.use_light_sampling_only
-        if suppress_nee:
-            did_direct = surface_lane
-            shadow_rays = zero_count
-        elif cfg.use_direct_lighting and scene.num_lights > 0:
+        lit = cfg.use_direct_lighting and scene.num_lights > 0
+        draw = lit and not suppress_nee
+        do_nee = None
+        if draw:
             if mis_nee:
                 # Stochastic NEE lottery (simple.rchit:621-623).
                 p_draw, seed = rng.rnd_masked(seed, surface_lane)
@@ -515,28 +509,21 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
             else:
                 # USE_MIS=0 (simple.rchit:628-631): NEE every bounce, weight 1.
                 do_nee = surface_lane
-
-            with profiling.span("rt.light_select", columns=l_used):
-                weights, total_w = _light_weights(scene, world_pos, surf.obj,
-                                                  cfg, w_all=w_base)
-                has_weight = total_w > 0.0
-                m_sel = do_nee & has_weight
-                r_sel, seed = rng.rnd_masked(seed, m_sel)
-                r1 = r_sel * total_w
-                at_or_past = torch.cumsum(weights, dim=1) >= r1[:, None]
-                found = at_or_past.any(dim=1)
-                # First column where the CDF reaches r1 (0 when none does).
-                selected = at_or_past.to(torch.int32).argmax(dim=1).to(
-                    torch.int32)
-                m_samp = m_sel & found
-
-                sel_c = torch.clamp(selected, 0, l_used - 1).long()
-                sel_w = weights.gather(1, sel_c[:, None])[:, 0]
-                light_sel_pdf = sel_w / torch.clamp_min(total_w, 1e-20)
-
+        if lit and (draw or mis_nee):
+            # One pass a lane over the lights, shared by the NEE pick and
+            # the emissive-MIS selection pdf below.
+            sel = _select_lights(scene, cfg, world_pos, surf.obj, do_nee,
+                                 seed, surf.light_index if mis_nee else None)
+        if suppress_nee:
+            did_direct = surface_lane
+            shadow_rays = zero_count
+        elif draw:
+            seed = sel.seed
+            m_samp = sel.found
             (l_pos, _l_nrm, l_dir, _l_dist, l_pdf, l_emission, light_obj,
              l_valid, seed
-             ) = _sample_light(scene, selected, world_pos, seed, m_samp, cfg)
+             ) = _sample_light(scene, sel.selected, world_pos, seed, m_samp,
+                               cfg)
 
             wi_local = world_to_local(l_dir, basis)
             consider = m_samp & l_valid & (cos_theta(wi_local) > 1e-4)
@@ -557,7 +544,7 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
 
             brdf_val = brdf.evaluate_full(wo_local, wi_local, albedo,
                                           roughness, metallic)
-            light_pdf = l_pdf * light_sel_pdf
+            light_pdf = l_pdf * sel.pdf
             p_spec = brdf.specular_probability(albedo, roughness, metallic)
             h_local = normalize(wo_local + wi_local)
             spec_pdf = brdf.microfacet_pdf(wo_local, h_local, roughness)
@@ -622,17 +609,9 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
                 )
                 # computeLightSelectionPdf uses the un-skipped total
                 # (simple.rchit:536-541).
-                w_all, _ = _light_weights(
-                    scene, world_pos,
-                    torch.full((n,), -1, dtype=torch.int32, device=dev), cfg,
-                    w_all=w_base,
-                )
-                total_all = w_all.sum(dim=-1)
-                li_cap = torch.clamp(light_idx, 0, l_used - 1).long()
-                w_this = w_all.gather(1, li_cap[:, None])[:, 0]
                 light_sel = torch.where(
-                    total_all > 0.0,
-                    w_this / torch.clamp_min(total_all, 1e-20), 0.0)
+                    sel.total_all > 0.0,
+                    sel.w_this / torch.clamp_min(sel.total_all, 1e-20), 0.0)
                 light_pdf_hit = light_sel * pdf_geo
                 mis_w = mis_weight_power(state.prev_brdf_pdf, light_pdf_hit)
                 contrib = (

@@ -1,6 +1,6 @@
 """The traversal lab's workload, ray sets and timer, the ray sets built
 on the port's own render path (integrator/wavefront.py: _camera_rays,
-_trace, _shade, fetch_surface, _light_weights, _sample_light; ops/rng.py).
+_trace, _shade, fetch_surface, _select_lights, _sample_light; ops/rng.py).
 
 The workload is the JAX labs' (tools/kernel_lab.py:31,399-404,
 tools/occl_lab.py:245-252, tools/bvh4_lab.py:412-428): the procedural
@@ -176,17 +176,13 @@ def shadow_rays(ds, state, cfg):
     p_sample_light = torch.clamp(surf.roughness, 0.1, 0.9)
     p_draw, seed = rng.rnd_masked(state.seed, lane)
     do_nee = lane & (p_draw < p_sample_light)
-    weights, total_w = wf._light_weights(ds, surf.world_pos, surf.obj, cfg)
-    m_sel = do_nee & (total_w > 0.0)
-    r_sel, seed = rng.rnd_masked(seed, m_sel)
-    at_or_past = torch.cumsum(weights, dim=1) >= (r_sel * total_w)[:, None]
-    found = at_or_past.any(dim=1)
-    selected = at_or_past.to(torch.int32).argmax(dim=1).to(torch.int32)
-    m_samp = m_sel & found
+    sel = wf._select_lights(ds, cfg, surf.world_pos, surf.obj, do_nee, seed,
+                            None)
     l_used = min(ds.num_lights, cfg.max_lights)
-    sel_c = torch.clamp(selected, 0, l_used - 1).long()
+    sel_c = torch.clamp(sel.selected, 0, l_used - 1).long()
+    m_samp = sel.found
     l_pos, _, l_dir, _, _, _, _, l_valid, _ = wf._sample_light(
-        ds, selected, surf.world_pos, seed, m_samp, cfg)
+        ds, sel.selected, surf.world_pos, sel.seed, m_samp, cfg)
     wi_local = world_to_local(l_dir, make_basis(surf.world_nrm))
     consider = m_samp & l_valid & (cos_theta(wi_local) > 1e-4)
     to_light_n = normalize(l_pos - surf.world_pos)

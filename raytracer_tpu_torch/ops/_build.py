@@ -1,8 +1,8 @@
 """Build and load the port's native libraries: the CUDA kernels
-(csrc/*.cu: the render path's quad_traverse and binary_traverse, the
-traversal lab's lab_traverse, lab2_traverse and lab3_traverse, and the
-bf16 throughput lab's bf16_lab) and, for accel/native_builder.py, the C++
-BVH builder.
+(csrc/*.cu: the render path's quad_traverse, binary_traverse and
+light_select, the traversal lab's lab_traverse, lab2_traverse and
+lab3_traverse, and the bf16 throughput lab's bf16_lab) and, for
+accel/native_builder.py, the C++ BVH builder.
 
 Each source is compiled into a shared library with a plain C interface, in
 the build directory (utils/compile_cache.py: `raytracer_tpu_torch/_build/`,
@@ -202,6 +202,16 @@ BINARY_TRAVERSE_SIGNATURES = {
 def binary_traverse_lib() -> ctypes.CDLL:
     """The binary tree's traversal kernels (csrc/binary_traverse.cu)."""
     return _cuda_lib("binary_traverse", BINARY_TRAVERSE_SIGNATURES)
+
+
+def light_select_lib() -> ctypes.CDLL:
+    """NEE's light selection kernel (csrc/light_select.cu, which includes no
+    repo header): the lane inputs, the light rows, L, n, draw, mis, the
+    outputs, the drawn counter and the stream."""
+    return _cuda_lib("light_select", {
+        "light_select": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32,
+                         _I32, _P, _P, _P, _P, _P, _P, _P, _P],
+    }, headers=())
 
 
 def lab_traverse_lib() -> ctypes.CDLL:

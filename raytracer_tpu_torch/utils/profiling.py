@@ -85,6 +85,12 @@ def count(name: str, value):
         tracer.count(name, value)
 
 
+def counting() -> bool:
+    """Whether a tracer is active, so that `count` keeps what it is given:
+    a caller allocates a device counter only then."""
+    return _active is not None
+
+
 @contextlib.contextmanager
 def _activated(tracer):
     global _active

@@ -4,7 +4,8 @@ range; on, a render is bit for bit the render without it, its spans form
 the tree the integrator's layers make (one `rt.step` a step, its bounces,
 `rt.shade` with `rt.fetch_surface` and `rt.light_select` under it,
 `rt.sync` only where deep compaction reads the live count), its traversal
-counters are the renderer's ray statistics, its times sit on the
+counters are the renderer's ray statistics and the light selection's
+count its lanes and draws, its times sit on the
 profiler's host clock, and PhaseTimer's phase view is intact; export()
 keeps nothing behind. utils/attribution.py on synthetic kineto-like
 events: each device activity goes to the span holding its runtime launch,
@@ -133,6 +134,15 @@ def test_span_tree(traced, name):
                           "rt.shade", "rt.fetch_surface", "rt.light_select"}
     assert {p for n, p in zip(names, parent)
             if n == "rt.light_select"} == {"rt.shade"}
+    # One selection a shade, counted: its lanes, and the lanes that drew.
+    selects = [s for s in spans if s["name"] == "rt.light_select"]
+    assert len(selects) == len([n for n in names if n == "rt.shade"])
+    assert all(s["attrs"]["columns"] == r.device_scene.num_lights
+               for s in selects)
+    counters = exported["counters"]
+    assert set(counters["light_select.lanes"]) == set(range(STEPS))
+    assert all(0 < counters["light_select.drawn"][f]
+               < counters["light_select.lanes"][f] for f in range(STEPS))
     assert {p for n, p in zip(names, parent)
             if n == "rt.shade"} == {"rt.bounce"}
     fetch_parents = {p for n, p in zip(names, parent)
@@ -427,8 +437,10 @@ def test_a_cpu_profile_attributes_nothing():
 def test_spans_hold_every_launch_on_the_card(name, depth):
     """Three profiled frames of a 20k-triangle atrium at 480x270 on the
     card: every device activity's launch lies inside an `rt.step` span, so
-    the time put down to spans is the profile's busy time (within 1%), and
-    the traversal kernels' time lies under `rt.trace` and `rt.occlusion`.
+    the time put down to spans is the profile's busy time (within 1%), the
+    traversal kernels' time lies under `rt.trace` and `rt.occlusion`, and
+    the light selection kernel's under `rt.light_select` in `rt.shade`,
+    with its two counters.
     Run on the card with `--noconftest` (this directory's conftest.py
     loads JAX, which the card's machine lacks)."""
     if not torch.cuda.is_available():
@@ -455,7 +467,8 @@ def test_spans_hold_every_launch_on_the_card(name, depth):
                 r.step()
                 torch.cuda.synchronize()
     events = list(prof.profiler.kineto_results.events())
-    a = at.attribute(events, tracer.export(), 3)
+    exported = tracer.export()
+    a = at.attribute(events, exported, 3)
     kernels = [e for e in events if at._is_activity(e)]
     traversal = 1e-9 * sum(e.duration_ns() for e in kernels
                            if "closest_kernel" in e.name()
@@ -473,5 +486,27 @@ def test_spans_hold_every_launch_on_the_card(name, depth):
     assert a.attributed_s == pytest.approx(a.busy_s, rel=0.01)
     # K1/K2 and the few torch ops that prepare their rays.
     assert a.under("rt.trace") + a.under("rt.occlusion") >= traversal
+    selects = [e for e in kernels if "select_kernel" in e.name()]
+    select_s = 1e-9 * sum(e.duration_ns() for e in selects)
+    assert len(selects) >= 3 and select_s > 0
+    # Under the span: the kernel, and the fill that zeroes each traced
+    # call's drawn counter, and nothing else.
+    index = at._SpanIndex(exported["spans"])
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.name().startswith(at.LAUNCH_CALLS)}
+    under = [e for e in kernels if e.correlation_id() in launched
+             and "rt.light_select" in index.path(
+                 launched[e.correlation_id()]).split("/")]
+    fills = [e for e in under if "select_kernel" not in e.name()]
+    assert all("Fill" in e.name() or "emset" in e.name() for e in fills), \
+        sorted({e.name() for e in fills})
+    assert len(fills) <= len(selects)
+    fill_s = 1e-9 * sum(e.duration_ns() for e in fills)
+    assert a.under("rt.light_select") == pytest.approx(select_s + fill_s,
+                                                       rel=1e-9)
+    assert all(p.endswith("rt.shade/rt.light_select")
+               for p in a.device_s if "rt.light_select" in p)
+    assert 0 < a.counters["light_select.drawn"] \
+        < a.counters["light_select.lanes"]
     if name == "deep":
         assert a.host_s.get("rt.sync", 0) > 0
