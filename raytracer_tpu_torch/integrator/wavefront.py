@@ -45,8 +45,12 @@ sorted before every bounce past the first (`_sort_wavefront`: dead lanes
 last, then direction octant and position Morton, with a part-affinity
 prefix on multi-part bakes; under an `active` mask from depth 0), and each
 bounce past the Russian-roulette onset runs on the prefix of k lanes
-(`_compact_prefix`) when the live count fits, full-size otherwise. JAX's
-`lax.cond` on the count is one read of it to the host per such bounce.
+(`_compact_prefix`) when the live count fits. JAX's `lax.cond` on the
+count is one read of it to the host per such bounce; where the live lanes
+overflow k, JAX runs the bounce full size, the port on the prefix of the
+latest earlier bounce that holds them (full size only where none does), so
+that long-lived paths, as through glass, cost no full-size bounce deep in
+the path.
 Every lane's state travels with it (the `pixel` field names its lane of
 the launch), so the radiance is scattered back through `pixel` and the
 image is bit for bit the uncompacted loop's: excluded lanes are dead, and
@@ -457,9 +461,12 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
     stays off: ReSTIR (integrator/restir.py) supplies the direct light at
     this vertex.
 
-    The call is the `rt.shade` span, with `rt.fetch_surface` and
+    The call is the `rt.shade` span, with `rt.fetch_surface`,
     `rt.light_select` (ops/light_select.py: NEE's pick and its selection
-    pdf, and the emissive-MIS total and weight, in one launch) under it.
+    pdf, and the emissive-MIS total and weight, in one launch) and, where
+    the scene has a transmissive material, `rt.dielectric` (lanes) under
+    it. Counters: `shade.lanes`, the lanes that shade, and
+    `_sample_dielectric`'s.
 
     Returns (new_state, payload_hit bool[N], shadow_ray_count i64[])."""
     with profiling.span("rt.shade", suppress_nee=suppress_nee):
@@ -488,11 +495,14 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
         wo_local = world_to_local(-ray_dir, basis)
 
         # --- dielectric lanes (extension; see module docstring) ---
-        if cfg.enable_transmission:
+        transmits = cfg.enable_transmission and scene.transmissive
+        if transmits:
             dielectric = lane & (surf.transmission > 0.0)
         else:
             dielectric = no_lanes
         surface_lane = lane & ~dielectric
+        if profiling.counting():
+            profiling.count("shade.lanes", lane.sum())
 
         # --- NEE with MIS (simple.rchit:618-632) ---
         did_direct = no_lanes
@@ -638,22 +648,23 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
                     * sample.value)
 
         # --- dielectric transmission lanes (extension) ---
-        if cfg.enable_transmission:
-            (diel_dir, diel_tp, diel_ok, new_channel, seed_diel) = (
-                _sample_dielectric(
-                    ray_dir, world_nrm, surf.front_facing, albedo, surf.ior,
-                    surf.transmission, surf.dispersion, state.channel, seed,
-                    dielectric,
+        if transmits:
+            with profiling.span("rt.dielectric", lanes=n):
+                (diel_dir, diel_tp, diel_ok, new_channel, seed_diel) = (
+                    _sample_dielectric(
+                        ray_dir, world_nrm, surf.front_facing, albedo,
+                        surf.ior, surf.transmission, surf.dispersion,
+                        state.channel, seed, dielectric,
+                    )
                 )
-            )
-            seed = torch.where(dielectric, seed_diel, seed_surface)
-            new_dir = torch.where(dielectric[:, None], diel_dir,
-                                  new_dir_surface)
-            tp_mult = torch.where(dielectric[:, None], diel_tp, tp_scale)
-            sample_ok = torch.where(dielectric, diel_ok, sample_ok)
-            new_specular = dielectric | sample.is_specular
-            new_pdf = torch.where(dielectric, 1.0, sample.pdf)
-            channel = torch.where(dielectric, new_channel, state.channel)
+                seed = torch.where(dielectric, seed_diel, seed_surface)
+                new_dir = torch.where(dielectric[:, None], diel_dir,
+                                      new_dir_surface)
+                tp_mult = torch.where(dielectric[:, None], diel_tp, tp_scale)
+                sample_ok = torch.where(dielectric, diel_ok, sample_ok)
+                new_specular = dielectric | sample.is_specular
+                new_pdf = torch.where(dielectric, 1.0, sample.pdf)
+                channel = torch.where(dielectric, new_channel, state.channel)
         else:
             seed = seed_surface
             new_dir = new_dir_surface
@@ -698,7 +709,12 @@ def _sample_dielectric(ray_dir, normal, front_facing, albedo, ior,
     Dispersion (KHR_materials_dispersion, D = 20/Abbe): nF - nC =
     (ior - 1) * D / 20; R/G/B use ior + {-1/2, 0, +1/2} of that spread. The
     first dispersive refraction locks the path to one channel (prob 1/3
-    each, throughput x3 in that channel)."""
+    each, throughput x3 in that channel).
+
+    Counters, of the `active` lanes: `dielectric.lanes`, all of them;
+    `dielectric.refracted`, those that took the transmission lobe;
+    `dielectric.tir`, those at total internal reflection; and
+    `dielectric.locked`, those whose channel the dispersion locked here."""
     is_dispersive = dispersion > 0.0
     need_channel = active & is_dispersive & (channel < 0)
     r_chan, seed = rng.rnd_masked(seed, need_channel)
@@ -741,6 +757,11 @@ def _sample_dielectric(ray_dir, normal, front_facing, albedo, ior,
     ).to(torch.float32) * 3.0
     tp = torch.where(need_channel[:, None], tp * chan_onehot, tp)
     ok = torch.ones_like(take_transmit)
+    if profiling.counting():
+        profiling.count("dielectric.lanes", active.sum())
+        profiling.count("dielectric.refracted", (active & ~reflect_lobe).sum())
+        profiling.count("dielectric.tir", (active & tir).sum())
+        profiling.count("dielectric.locked", need_channel.sum())
     return new_dir, tp, ok, channel, seed
 
 
@@ -777,7 +798,13 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
     or a per-lane tensor [N] (adaptive sampling: each pixel at its own
     count; spp batching: repeated ids at successive frames). `active`
     (bool[N]) masks lanes out of the whole sample: they trace nothing and
-    their radiance is not a sample, so the caller must not accumulate it."""
+    their radiance is not a sample, so the caller must not accumulate it.
+
+    Under deep compaction each read of the live count is an `rt.sync` span
+    (site `compact`, the bounce's depth, its prefix, the live count and the
+    lanes it runs on), and each bounce whose live lanes no prefix of the
+    schedule holds, so that it runs full size, adds 1 to the counter
+    `compact.full_size`."""
     cfg = cfg.resolve_accel()
     if pixel_indices is None and (pixel_start or num_pixels is not None):
         pixel_indices = tile_pixels(cfg, pixel_start, num_pixels,
@@ -797,10 +824,14 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
                 state, _ = _sort_wavefront(state, scene)
             k = _compact_prefix(n, depth, cfg)
             if k is not None:
-                with profiling.span("rt.sync", site="compact"):
+                with profiling.span("rt.sync", site="compact", depth=depth,
+                                    prefix=k) as attrs:
                     live = int(state.alive.sum())
-                if live > k:
-                    k = None  # the live lanes do not fit: full size
+                    k = _compact_prefix(n, depth, cfg, live)
+                    if attrs is not None:
+                        attrs.update(live=live, lanes=n if k is None else k)
+                if k is None:
+                    profiling.count("compact.full_size", 1)
         if k is None:
             state, rays, shadow_rays = path_bounce(scene, state, depth, cfg,
                                                    clear_color)
@@ -833,16 +864,21 @@ def deep_compacts(cfg: RenderConfig) -> bool:
             and cfg.max_depth > cfg.rr_start_depth + 1)
 
 
-def _compact_prefix(n, depth, cfg: RenderConfig):
+def _compact_prefix(n, depth, cfg: RenderConfig, live: int = 0):
     """The lane prefix of the bounce at `depth` under deep compaction (None:
     full size), the JAX `_compact_prefix`: n x compact_decay per bounce past
-    the Russian-roulette onset, rounded up to 1024 lanes; render_wavefront
-    runs the bounce full-size when more lanes than that are alive."""
-    if depth <= cfg.rr_start_depth:
-        return None
-    frac = cfg.compact_decay ** (depth - cfg.rr_start_depth)
-    k = max(1024, -(-int(n * frac) // 1024) * 1024)
-    return None if k >= n else k
+    the Russian-roulette onset, rounded up to 1024 lanes. Where more than
+    `live` lanes are alive than that holds, the prefix of the latest earlier
+    bounce of the schedule that holds them, and full size only where none
+    does; JAX runs such a bounce full size."""
+    for d in range(depth, cfg.rr_start_depth, -1):
+        frac = cfg.compact_decay ** (d - cfg.rr_start_depth)
+        k = max(1024, -(-int(n * frac) // 1024) * 1024)
+        if k >= n:
+            return None
+        if live <= k:
+            return k
+    return None
 
 
 def tile_pixels(cfg: RenderConfig, pixel_start, num_pixels, device):

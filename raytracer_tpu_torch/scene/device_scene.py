@@ -121,6 +121,10 @@ class DeviceScene:
     # true_objects, true_refs]; num_triangles and num_lights then hold the
     # padded table sizes.
     true_counts: torch.Tensor = None
+    # Whether some material has transmission > 0 (mat_packed column 9), so
+    # the integrator shades dielectric lanes; False skips that branch,
+    # which then changes no lane.
+    transmissive: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -765,7 +769,12 @@ def _to_device(arrays, device) -> DeviceScene:
         binary_root=int(np.asarray(arrays["root_meta"]).reshape(-1)[0]),
         num_parts=int(arrays.get("num_parts", 1)),
         part_max_depth=int(arrays.get("part_max_depth", -1)),
+        transmissive=_transmissive(arrays["mat_packed"]),
     )
+
+
+def _transmissive(mat_packed) -> bool:
+    return bool((np.asarray(mat_packed)[..., 9] > 0.0).any())
 
 
 def bake_scene(scene: Scene, leaf_size: int = 16, device="cuda",
@@ -858,6 +867,7 @@ def update_materials(ds: DeviceScene, scene: Scene,
                                               emission_t, power_t),
         light_tri_packed=_refresh_light_tri_emission(ds.light_tri_packed,
                                                      emission_t),
+        transmissive=_transmissive(mat_packed),
     )
 
 

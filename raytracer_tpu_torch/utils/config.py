@@ -51,11 +51,12 @@ class RenderConfig:
     # max_depth > rr_start_depth + 1 only): after the dead-last sort,
     # bounces past the RR onset run on a prefix of the lane arrays sized by
     # compact_decay^(depth - rr_start_depth) when the live count fits (one
-    # read of the count to the host per such bounce; oversized frames take
-    # the full-size path). Excluded lanes are dead and untouched, and the
-    # port runs eagerly, so the image is bit for bit the uncompacted one
-    # (integrator/wavefront.py). Trades a sort per bounce for shrinking
-    # per-bounce traversal/shading cost on depth-8+ configs.
+    # read of the count to the host per such bounce; where more are live,
+    # the latest earlier prefix that holds them, else the full-size path).
+    # Excluded lanes are dead and untouched, and the port runs eagerly, so
+    # the image is bit for bit the uncompacted one (integrator/wavefront.py).
+    # Trades a sort per bounce for shrinking per-bounce traversal/shading
+    # cost on depth-8+ configs.
     compact_deep: bool = True
     compact_decay: float = 0.75
 

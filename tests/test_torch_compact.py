@@ -180,8 +180,9 @@ def test_occluded_sorted_matches_jax(bakes):
     assert 0 < got.sum() < active.sum()
 
 
-def _render(cfg, frames):
-    """The port's image on the CPU, and each bounce's lane count."""
+def _render(cfg, frames, scene=None):
+    """The port's image on the CPU (of the Cornell box by default), and each
+    bounce's lane count."""
     sizes = []
     bounce = twave.path_bounce
 
@@ -191,8 +192,8 @@ def _render(cfg, frames):
 
     twave.path_bounce = counted
     try:
-        img = ProgressiveRenderer(tmodel.create_cornell_box(), None, cfg,
-                                  device="cpu").render(frames)
+        img = ProgressiveRenderer(scene or tmodel.create_cornell_box(), None,
+                                  cfg, device="cpu").render(frames)
     finally:
         twave.path_bounce = bounce
     return img, sizes
@@ -216,6 +217,43 @@ def test_compaction_is_bit_exact(mode):
     print(f"{mode}: compacted bounces (depth, lanes) {compacted}")
     assert compacted and all(d > base.rr_start_depth for d, _ in compacted)
     assert all(k == full for _, k in off_sizes)
+    np.testing.assert_array_equal(on, off)
+
+
+def test_an_overflowing_bounce_runs_on_an_earlier_prefix():
+    """Where more lanes are alive than a bounce's prefix holds, the bounce
+    runs on the prefix of the latest earlier bounce that holds them, and
+    full size only where none does (JAX runs it full size). The numbers
+    are a 1080p frame of the glass atrium at depth 8 on the H100, whose
+    686,313 live lanes at depth 7 overflow its 656,384-lane prefix."""
+    cfg = RenderConfig(width=1920, height=1080, max_depth=8)
+    n = 2_073_600
+    ks = {d: twave._compact_prefix(n, d, cfg) for d in range(4, 8)}
+    assert ks == {4: 1_555_456, 5: 1_167_360, 6: 875_520, 7: 656_384}
+    assert twave._compact_prefix(n, 7, cfg, 656_384) == 656_384
+    assert twave._compact_prefix(n, 7, cfg, 686_313) == 875_520
+    assert twave._compact_prefix(n, 7, cfg, 1_167_361) == 1_555_456
+    assert twave._compact_prefix(n, 7, cfg, 1_555_457) is None
+    assert twave._compact_prefix(n, 4, cfg, 1_555_457) is None
+    assert twave._compact_prefix(n, 3, cfg, 0) is None
+
+
+def test_an_overflowing_bounce_is_bit_exact():
+    """The Cornell box with its metal sphere as glass, whose paths live
+    long: depth 3's live lanes overflow its 1024-lane prefix and run on
+    depth 2's 2048, and the image is compact_deep=False's bit for bit."""
+    scene = tmodel.create_cornell_box()
+    i = next(k for k, m in enumerate(scene.materials)
+             if m.name == "metallic")
+    scene.materials[i] = tmodel.Material(
+        name="flint", albedo=(0.97, 0.97, 0.97), transmission=1.0,
+        ior=1.7847, dispersion=20.0 / 25.8)
+    cfg = RenderConfig(width=128, height=64, max_depth=5, rr_start_depth=1,
+                       compact_decay=0.2)
+    assert twave._compact_prefix(128 * 64, 3, cfg) == 1024
+    on, on_sizes = _render(cfg, 1, scene)
+    off, _ = _render(cfg.replace(compact_deep=False), 1, scene)
+    assert (3, 2048) in on_sizes
     np.testing.assert_array_equal(on, off)
 
 

@@ -2,10 +2,13 @@
 off, it is one shared no-op that reads no clock and opens no profiler
 range; on, a render is bit for bit the render without it, its spans form
 the tree the integrator's layers make (one `rt.step` a step, its bounces,
-`rt.shade` with `rt.fetch_surface` and `rt.light_select` under it,
-`rt.sync` only where deep compaction reads the live count), its traversal
-counters are the renderer's ray statistics and the light selection's
-count its lanes and draws, its times sit on the
+`rt.shade` with `rt.fetch_surface` and `rt.light_select` under it, and
+`rt.dielectric` only where the scene has glass, `rt.sync` only where deep
+compaction reads the live count), its traversal
+counters are the renderer's ray statistics, the light selection's
+count its lanes and draws, the dielectric counters the glass lanes
+counted by hand, and `compact.full_size` the bounces whose live lanes
+overflow their prefix, its times sit on the
 profiler's host clock, and PhaseTimer's phase view is intact; export()
 keeps nothing behind. utils/attribution.py on synthetic kineto-like
 events: each device activity goes to the span holding its runtime launch,
@@ -26,9 +29,11 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.api import ProgressiveRenderer
+from raytracer_tpu_torch.integrator import wavefront
 from raytracer_tpu_torch.ops import _build
+from raytracer_tpu_torch.ops.math3d import dot
 from raytracer_tpu_torch.scene.device_scene import bake_scene
-from raytracer_tpu_torch.scene.model import create_cornell_box
+from raytracer_tpu_torch.scene.model import Material, create_cornell_box
 from raytracer_tpu_torch.utils import profiling
 from raytracer_tpu_torch.utils.config import RenderConfig
 from raytracer_tpu_torch.utils.stats import RenderStats
@@ -37,17 +42,36 @@ STEPS = 2
 # name -> RenderConfig keywords. "deep" compacts its bounces past the
 # roulette onset: a prefix of 1024 of its 2048 lanes at compact_decay 0.25
 # (no prefix is shorter than 1024 lanes, hence the larger image).
+# "glass" renders the glass box (below) on prefixes of 2048, 1024 and 1024
+# of its 8192 lanes at depths 2 to 4: more are alive at depth 2 than any
+# prefix holds, so it runs full size; depth 3's overflow its prefix and run
+# on depth 2's; depth 4's fit.
 CONFIGS = {
     "nee": dict(width=16, height=12, max_depth=3),
     "restir": dict(width=16, height=12, max_depth=3, use_restir=True),
     "deep": dict(width=64, height=32, max_depth=4, rr_start_depth=1,
                  compact_decay=0.25),
+    "glass": dict(width=128, height=64, max_depth=5, rr_start_depth=1,
+                  compact_decay=0.2),
 }
 
 
+def _glass_box():
+    """The Cornell box with its metal sphere turned into dense flint
+    glass (ior 1.7847, dispersion 20/25.8), so some paths inside it meet
+    total internal reflection."""
+    s = create_cornell_box()
+    i = next(k for k, m in enumerate(s.materials) if m.name == "metallic")
+    s.materials[i] = Material(name="flint", albedo=(0.97, 0.97, 0.97),
+                              transmission=1.0, ior=1.7847,
+                              dispersion=20.0 / 25.8)
+    return s
+
+
 def _render(name, tracer=None):
-    r = ProgressiveRenderer(create_cornell_box(), None,
-                            RenderConfig(**CONFIGS[name]), device="cpu")
+    scene = _glass_box() if name == "glass" else create_cornell_box()
+    r = ProgressiveRenderer(scene, None, RenderConfig(**CONFIGS[name]),
+                            device="cpu")
     r.timer = tracer
     stats = []
     for _ in range(STEPS):
@@ -151,14 +175,119 @@ def test_span_tree(traced, name):
     assert fetch_parents == ({"rt.shade", "rt.bounce"} if name == "restir"
                              else {"rt.shade"})
     assert ("rt.restir_direct" in names) == (name == "restir")
+    # The dielectric branch, where the scene has glass alone: one a shade.
+    dielectric = [p for n, p in zip(names, parent) if n == "rt.dielectric"]
+    if name == "glass":
+        assert dielectric == ["rt.shade"] * names.count("rt.shade")
+    else:
+        assert not dielectric
     syncs = [(s, p) for s, p in zip(spans, parent) if s["name"] == "rt.sync"]
-    if name == "deep":
-        # Bounces 2 and 3 run on a prefix: one read of the count each.
-        assert len(syncs) == 2 * STEPS
+    if "compact_decay" in CONFIGS[name]:
+        # Each bounce past the roulette onset (depth 1) may run on a
+        # prefix: one read of the count each.
         assert all(p == "rt.step" and s["attrs"]["site"] == "compact"
                    for s, p in syncs)
+        depths = list(range(2, CONFIGS[name]["max_depth"]))
+        assert [s["attrs"]["depth"] for s, _ in syncs] == depths * STEPS
     else:
         assert not syncs
+
+
+@pytest.mark.parametrize("name", ["deep", "glass"])
+def test_compact_full_size_counts_the_overflowing_bounces(traced, name):
+    """Each `rt.sync` span of the compaction gives the bounce's `prefix`,
+    its `live` lanes and the `lanes` it ran on: its prefix where that holds
+    them, else the prefix of the latest earlier bounce that does, else all
+    of them. `compact.full_size` counts, a frame, the bounces that ran on
+    all: in the glass box depth 2, while depth 3 runs on depth 2's prefix
+    and depth 4 on its own; in the plain box none."""
+    _, _, exported, _ = traced[name]
+    n = CONFIGS[name]["width"] * CONFIGS[name]["height"]
+    syncs = [s["attrs"] for s in exported["spans"] if s["name"] == "rt.sync"]
+    full = {f: sum(s["attrs"]["lanes"] == n for s in exported["spans"]
+                   if s["name"] == "rt.sync" and s["frame"] == f)
+            for f in range(STEPS)}
+    counted = exported["counters"].get("compact.full_size", {})
+    assert {f: counted.get(f, 0) for f in range(STEPS)} == full
+    prefixes = {a["depth"]: a["prefix"] for a in syncs}
+    ran = {(a["depth"], a["live"] > a["prefix"], a["lanes"]) for a in syncs}
+    assert all(a["live"] <= a["lanes"] for a in syncs)
+    if name == "glass":
+        assert prefixes == {2: 2048, 3: 1024, 4: 1024}
+        assert ran == {(2, True, n), (3, True, 2048), (4, False, 1024)}
+    else:
+        assert ran == {(2, False, 1024), (3, False, 1024)}
+        assert not counted
+
+
+def test_a_material_edit_to_glass_turns_the_dielectric_branch_on():
+    """`DeviceScene.transmissive` follows the materials through a material
+    edit: a box without glass shades no dielectric lane, and once an edit
+    turns its metal sphere to glass the next frame enters `rt.dielectric`
+    and renders as a renderer made on the glass box does."""
+    scene = create_cornell_box()
+    tracer = profiling.PhaseTimer(record=True)
+    r = ProgressiveRenderer(scene, None, RenderConfig(**CONFIGS["nee"]),
+                            device="cpu")
+    r.timer = tracer
+    r.step()
+    assert not r.device_scene.transmissive
+    glass = _glass_box()
+    i = next(k for k, m in enumerate(glass.materials) if m.name == "flint")
+    scene.update_material(i, glass.materials[i])
+    r.step()
+    assert r.last_replay == "materials" and r.device_scene.transmissive
+    frames = {s["frame"] for s in tracer.export()["spans"]
+              if s["name"] == "rt.dielectric"}
+    assert frames == {1}
+    # The edit restarts the accumulation: frame 0 of the glass box.
+    fresh = ProgressiveRenderer(glass, None, RenderConfig(**CONFIGS["nee"]),
+                                device="cpu")
+    fresh.step()
+    assert torch.equal(r.accum, fresh.accum)
+
+
+def test_dielectric_counters_are_the_lanes_counted_by_hand(monkeypatch):
+    """A frame of the glass box: each dielectric counter equals its lanes
+    counted from `_sample_dielectric`'s inputs and outputs: the lanes
+    given, those sent below the surface (refracted), those past the
+    critical angle at their ior (total internal reflection), and those
+    whose channel was unset and is set (locked)."""
+    own = wavefront._sample_dielectric
+    hand = dict.fromkeys(["dielectric.lanes", "dielectric.refracted",
+                          "dielectric.tir", "dielectric.locked"], 0)
+
+    def counted(ray_dir, normal, front_facing, albedo, ior, transmission,
+                dispersion, channel, seed, active):
+        out = own(ray_dir, normal, front_facing, albedo, ior, transmission,
+                  dispersion, channel, seed, active)
+        new_dir, new_channel = out[0], out[3]
+        locked = active & (channel < 0) & (new_channel >= 0)
+        spread = (ior - 1.0) * dispersion / 20.0
+        offset = (new_channel.to(torch.float32) - 1.0) * 0.5
+        lane_ior = torch.where((dispersion > 0.0) & (new_channel >= 0),
+                               ior + offset * spread, ior)
+        eta = torch.where(front_facing, 1.0 / lane_ior, lane_ior)
+        cos_i = torch.clamp(dot(-ray_dir, normal), 0.0, 1.0)
+        tir = eta * eta * (1.0 - cos_i * cos_i) > 1.0
+        hand["dielectric.lanes"] += int(active.sum())
+        hand["dielectric.refracted"] += int(
+            (active & (dot(new_dir, normal) < 0.0)).sum())
+        hand["dielectric.tir"] += int((active & tir).sum())
+        hand["dielectric.locked"] += int(locked.sum())
+        return out
+
+    monkeypatch.setattr(wavefront, "_sample_dielectric", counted)
+    tracer = profiling.PhaseTimer(record=True)
+    r = ProgressiveRenderer(_glass_box(), None,
+                            RenderConfig(**CONFIGS["glass"]), device="cpu")
+    r.timer = tracer
+    r.step()
+    counters = tracer.export()["counters"]
+    assert {k: counters[k][0] for k in hand} == hand
+    assert all(v > 0 for v in hand.values()), hand
+    assert hand["dielectric.refracted"] + hand["dielectric.tir"] \
+        < hand["dielectric.lanes"] <= counters["shade.lanes"][0]
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
